@@ -1,0 +1,146 @@
+"""JAX (rqvae_tpu) parameter trees -> the port's state_dicts, numpy only.
+
+Mirrors rqvae_tpu/checkpoint/torch_export.py (export_rqvae,
+export_rqtransformer) without importing it: the port never imports JAX or
+rqvae_tpu, so the mapping is restated here and tests/test_torch_*.py hold
+the two equal key for key and value for value. Inputs are the JAX trees
+with numpy leaves (jax.device_get of the params); outputs load into
+RQTransformer / RQVAE with strict=True once made torch tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def _np32(x) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _conv(sd, key: str, node: dict) -> None:
+    # flax kernel [kh, kw, in, out] -> torch weight [out, in, kh, kw]
+    sd[f"{key}.weight"] = _np32(node["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in node:
+        sd[f"{key}.bias"] = _np32(node["bias"])
+
+
+def _norm(sd, key: str, node: dict) -> None:
+    sd[f"{key}.weight"] = _np32(node["norm"]["scale"])
+    sd[f"{key}.bias"] = _np32(node["norm"]["bias"])
+
+
+def _resblock(sd, key: str, node: dict) -> None:
+    _norm(sd, f"{key}.norm1", node["norm1"])
+    _conv(sd, f"{key}.conv1", node["conv1"])
+    _norm(sd, f"{key}.norm2", node["norm2"])
+    _conv(sd, f"{key}.conv2", node["conv2"])
+    for shortcut in ("nin_shortcut", "conv_shortcut"):
+        if shortcut in node:
+            _conv(sd, f"{key}.{shortcut}", node[shortcut])
+
+
+def _attnblock(sd, key: str, node: dict) -> None:
+    _norm(sd, f"{key}.norm", node["norm"])
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(sd, f"{key}.{name}", node[name])
+
+
+def _coder(sd, params: dict, prefix: str, updown: str) -> None:
+    """flax names {up,down}_{i}_{block,attn}_{j} / _{up,down}sample ->
+    {prefix}{up,down}.{i}.{block,attn}.{j} / .{up,down}sample.conv"""
+    _conv(sd, f"{prefix}conv_in", params["conv_in"])
+    for name, node in params.items():
+        if not name.startswith(f"{updown}_"):
+            continue
+        parts = name.split("_")
+        level, kind = parts[1], parts[2]
+        if kind == "block":
+            _resblock(sd, f"{prefix}{updown}.{level}.block.{parts[3]}", node)
+        elif kind == "attn":
+            _attnblock(sd, f"{prefix}{updown}.{level}.attn.{parts[3]}", node)
+        elif kind in ("downsample", "upsample"):
+            _conv(sd, f"{prefix}{updown}.{level}.{kind}.conv", node["conv"])
+    _resblock(sd, f"{prefix}mid.block_1", params["mid_block_1"])
+    _attnblock(sd, f"{prefix}mid.attn_1", params["mid_attn_1"])
+    _resblock(sd, f"{prefix}mid.block_2", params["mid_block_2"])
+    _norm(sd, f"{prefix}norm_out", params["norm_out"])
+    _conv(sd, f"{prefix}conv_out", params["conv_out"])
+
+
+def rqvae_state_dict_from_jax(params_np: dict, codebook_np, qcfg) -> Dict[str, np.ndarray]:
+    """(flax RQVAE params, codebook state with embed / cluster_size /
+    embed_ema, quantizer config) -> RQVAE state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _coder(sd, params_np["encoder"], "encoder.", "down")
+    _coder(sd, params_np["decoder"], "decoder.", "up")
+    _conv(sd, "quant_conv", params_np["quant_conv"])
+    _conv(sd, "post_quant_conv", params_np["post_quant_conv"])
+    embed = _field(codebook_np, "embed")
+    cluster_size = _field(codebook_np, "cluster_size")
+    embed_ema = _field(codebook_np, "embed_ema")
+    # one entry per depth, even for a shared codebook (reference layout)
+    for d in range(qcfg.depth):
+        b = qcfg.codebook_index(d)
+        n = qcfg.n_embed[b]
+        w = _np32(embed[b][:n])
+        sd[f"quantizer.codebooks.{d}.weight"] = np.concatenate([w, np.zeros((1, w.shape[1]), np.float32)])
+        sd[f"quantizer.codebooks.{d}.cluster_size_ema"] = _np32(cluster_size[b][:n])
+        sd[f"quantizer.codebooks.{d}.embed_ema"] = _np32(embed_ema[b][:n])
+    return sd
+
+
+def _stack(sd, prefix: str, stack: dict) -> None:
+    attn, mlp = stack["attn"], stack["mlp"]
+    for i in range(np.shape(stack["ln1"]["scale"])[0]):
+        b = f"{prefix}.blocks.{i}"
+        sd[f"{b}.ln1.weight"] = _np32(stack["ln1"]["scale"][i])
+        sd[f"{b}.ln1.bias"] = _np32(stack["ln1"]["bias"][i])
+        sd[f"{b}.ln2.weight"] = _np32(stack["ln2"]["scale"][i])
+        sd[f"{b}.ln2.bias"] = _np32(stack["ln2"]["bias"][i])
+        for name, w, bias in (("query", "wq", "bq"), ("key", "wk", "bk"), ("value", "wv", "bv"), ("proj", "wo", "bo")):
+            sd[f"{b}.attn.{name}.weight"] = _np32(attn[w][i]).T
+            sd[f"{b}.attn.{name}.bias"] = _np32(attn[bias][i])
+        sd[f"{b}.mlp.0.weight"] = _np32(mlp["w1"][i]).T
+        sd[f"{b}.mlp.0.bias"] = _np32(mlp["b1"][i])
+        sd[f"{b}.mlp.2.weight"] = _np32(mlp["w2"][i]).T
+        sd[f"{b}.mlp.2.bias"] = _np32(mlp["b2"][i])
+
+
+def rqtransformer_state_dict_from_jax(params_np: dict, config) -> Dict[str, np.ndarray]:
+    """Functional RQ-Transformer param tree -> RQTransformer state_dict."""
+    sd: Dict[str, np.ndarray] = {
+        "cond_emb.weight": _np32(params_np["cond_emb"]),
+        "pos_emb_cond": _np32(params_np["pos_emb_cond"]),
+        "pos_emb_hw": _np32(params_np["pos_emb_hw"]),
+        "pos_emb_d": _np32(params_np["pos_emb_d"]),
+    }
+    _stack(sd, "body_transformer", params_np["body"])
+    _stack(sd, "head_transformer", params_np["head"])
+    for name in ("input_mlp", "head_mlp"):
+        if name in params_np:
+            sd[f"{name}.weight"] = _np32(params_np[name]["kernel"]).T
+            sd[f"{name}.bias"] = _np32(params_np[name]["bias"])
+    if "tok_emb" in params_np:
+        sd["tok_emb.weight"] = _np32(params_np["tok_emb"])
+        if not config.shared_tok_emb:
+            sd["tok_emb.offsets"] = np.cumsum([0] + list(config.vocab_size[:-1])).astype(np.int64)
+    cls = params_np["classifier"]
+    sd["classifier.layer_norm.weight"] = _np32(cls["ln_scale"])
+    sd["classifier.layer_norm.bias"] = _np32(cls["ln_bias"])
+    k = _np32(cls["kernel"])
+    # per-depth weights stay [D, in, out]; nn.Linear wants [out, in]
+    sd["classifier.linear.weight"] = k if k.ndim == 3 else k.T
+    sd["classifier.linear.bias"] = _np32(cls["bias"])
+    if "cond_classifier" in params_np:
+        cc = params_np["cond_classifier"]
+        sd["cond_classifier.layer_norm.weight"] = _np32(cc["ln_scale"])
+        sd["cond_classifier.layer_norm.bias"] = _np32(cc["ln_bias"])
+        sd["cond_classifier.linear.weight"] = _np32(cc["kernel"]).T
+        sd["cond_classifier.linear.bias"] = _np32(cc["bias"])
+    return sd

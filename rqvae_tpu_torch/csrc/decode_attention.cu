@@ -1,0 +1,161 @@
+// Single-token (decode) multi-head attention with the in-place KV-cache
+// row write, for the RQ-Transformer body on Hopper (sm_90a).
+//
+// Replaces the TPU kernel rqvae_tpu/ops/attention_kernel.py::
+// decode_attention_update (math in _attn_math, cache write in
+// _decode_attn_kernel_update).
+//
+// What it computes, for every batch row b and head h (head size 64):
+//   s_t    = <q, k_cache[b, t]> / 8           for t < n_valid = min(cur_len, W)
+//   s_self = <q, k_new[b]> / 8
+//   p      = softmax over (s_0 .. s_{n_valid-1}, s_self), fp32
+//   y[b]   = sum_t p_t v_cache[b, t] + p_self v_new[b]     (fp32 sums)
+// and then writes k_new / v_new into row cur_len of both caches.
+//
+// Bound on the H100: cache bytes. Each call streams 2 * B * n_valid * C * 2
+// bytes of bf16 cache (about 39 MB at B=100, W=64, C=1536) against a few
+// kFLOP of arithmetic per head, so the kernel is a pure memory stream.
+// Design: one block per (head, batch row), 2400 blocks at bs100; each warp
+// reads whole 128-byte head slices of cache rows (two bf16 per lane,
+// neighbouring lanes on neighbouring addresses), so every cache byte is
+// read once, coalesced, and nothing but the [B, C] output and one cache row
+// is written. The TPU kernel's 0/1 "segment" matmuls, sublane-aligned
+// windows and input_output_aliases are Mosaic workarounds and have no
+// counterpart here: the cache is updated in place through its pointer.
+//
+// Races: a block reads only rows < cur_len and writes only its own head's
+// slice of row cur_len, so no two blocks touch the same bytes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kHeadSize = 64;  // 2 bf16 per lane of one warp
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__global__ void __launch_bounds__(kThreads) decode_attention_update_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* k_cache,
+    __nv_bfloat16* v_cache, __nv_bfloat16* __restrict__ y, int T, int C,
+    int n_valid, int cur_len, float scale) {
+  extern __shared__ float scores[];  // n_valid + 1 entries; the last is the self term
+  __shared__ float red[kWarps];
+  __shared__ float ypart[kWarps][kHeadSize];
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this lane's two columns, in a [B, C] row and in row 0 of the [B, T, C] cache
+  const size_t row = (size_t)b * C + h * kHeadSize + 2 * lane;
+  const size_t cache0 = (size_t)b * T * C + h * kHeadSize + 2 * lane;
+
+  const float2 qf = load_bf16x2(q + row);
+  for (int t = warp; t < n_valid; t += kWarps) {
+    const float2 kf = load_bf16x2(k_cache + cache0 + (size_t)t * C);
+    const float d = warp_sum(qf.x * kf.x + qf.y * kf.y);
+    if (lane == 0) scores[t] = d * scale;
+  }
+  if (warp == kWarps - 1) {
+    const float2 kf = load_bf16x2(k_new + row);
+    const float d = warp_sum(qf.x * kf.x + qf.y * kf.y);
+    if (lane == 0) scores[n_valid] = d * scale;
+  }
+  __syncthreads();
+
+  const int n = n_valid + 1;
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < n; i += kThreads) m = fmaxf(m, scores[i]);
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();  // every thread has read red before it is reused
+
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float e = expf(scores[i] - m);
+    scores[i] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  float denom = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) denom += red[w];
+  const float inv = 1.f / denom;
+
+  float2 acc = make_float2(0.f, 0.f);
+  for (int t = warp; t < n_valid; t += kWarps) {
+    const float p = scores[t] * inv;
+    const float2 vf = load_bf16x2(v_cache + cache0 + (size_t)t * C);
+    acc.x += p * vf.x;
+    acc.y += p * vf.y;
+  }
+  ypart[warp][2 * lane] = acc.x;
+  ypart[warp][2 * lane + 1] = acc.y;
+  __syncthreads();
+
+  if (warp == 0) {
+    const float p_self = scores[n_valid] * inv;
+    const float2 vn = load_bf16x2(v_new + row);
+    float y0 = p_self * vn.x;
+    float y1 = p_self * vn.y;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      y0 += ypart[w][2 * lane];
+      y1 += ypart[w][2 * lane + 1];
+    }
+    *reinterpret_cast<__nv_bfloat162*>(y + row) = __floats2bfloat162_rn(y0, y1);
+  } else if (warp == 1) {
+    const size_t dst = cache0 + (size_t)cur_len * C;
+    *reinterpret_cast<__nv_bfloat162*>(k_cache + dst) =
+        *reinterpret_cast<const __nv_bfloat162*>(k_new + row);
+    *reinterpret_cast<__nv_bfloat162*>(v_cache + dst) =
+        *reinterpret_cast<const __nv_bfloat162*>(v_new + row);
+  }
+}
+
+}  // namespace
+
+// q, k_new, v_new, y: [B, C]; k_cache, v_cache: [B, T, C]; all bf16,
+// contiguous. C == n_head * 64. Attends rows < min(cur_len, window) and
+// writes row cur_len (< T). Returns cudaGetLastError() after the launch.
+extern "C" int rq_decode_attention_update(const void* q, const void* k_new,
+                                          const void* v_new, void* k_cache,
+                                          void* v_cache, void* y, int B, int T,
+                                          int C, int n_head, int window,
+                                          int cur_len, void* stream) {
+  const int n_valid = cur_len < window ? cur_len : window;
+  const float scale = 1.0f / sqrtf((float)kHeadSize);
+  const dim3 grid(n_head, B);
+  const size_t smem = (size_t)(n_valid + 1) * sizeof(float);
+  decode_attention_update_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<__nv_bfloat16*>(k_cache),
+      static_cast<__nv_bfloat16*>(v_cache), static_cast<__nv_bfloat16*>(y), T, C,
+      n_valid, cur_len, scale);
+  return (int)cudaGetLastError();
+}

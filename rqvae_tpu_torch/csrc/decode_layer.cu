@@ -1,0 +1,288 @@
+// The dense half of a decode transformer layer on Hopper (sm_90a):
+//
+//   rq_fused_ln_qkv:   qkv = LN1(x) @ wqkv^T + bqkv
+//   rq_fused_proj_mlp: x2  = x + (y @ wo^T + bo)
+//                      out = x2 + (gelu(LN2(x2) @ w1^T + b1) @ w2^T + b2)
+//
+// Replace the TPU kernels rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv
+// and ::fused_proj_mlp. Weights are read in the nn.Linear [out, in] layout
+// directly (no transposed copy).
+//
+// Bound on the H100: weight bytes. At C=1536 one layer-step streams
+// 14 MB (wqkv) + 42 MB (wo, w1, w2) of bf16 weights for a batch of ~100
+// rows: about 2 * B = 200 FLOP per weight element, far below the card's
+// ~295 FLOP/B ridge, so the tensor cores idle and DRAM sets the time.
+// Design: every weight element is read from device memory exactly once per
+// call. A block owns 64 output columns (one 16-column tensor-core fragment
+// per warp) for up to 128 activation rows, and a slice of the reduction
+// dimension (split-K, so that even the 1536-column products launch ~200
+// blocks and keep enough loads in flight); the activation tile is staged
+// in shared memory, where the LN1/LN2 prologue normalises it on the fly
+// from one-pass fp32 row statistics. Products run on the tensor cores
+// (wmma bf16 16x16x16, fp32 accumulation). Split-K partial sums go to an
+// fp32 workspace; a second small kernel adds the splits and applies the
+// epilogue (bias, gelu, residual) with the JAX kernel's rounding points.
+// The fused_proj_mlp wrapper is therefore a sequence of six launches
+// (proj, proj epilogue, LN2+w1, gelu epilogue, w2, residual epilogue): LN2
+// needs the whole of x2, a grid-wide dependency that the TPU kernel's
+// sequential grid hid.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int kBM = 128;  // activation rows per block (8 row fragments)
+constexpr int kBN = 64;   // output columns per block (16 per warp)
+constexpr int kBK = 64;   // reduction chunk staged through shared memory
+constexpr int kLDA = kBK + 8;  // padded row stride of the staged tile (elements)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMFrag = kBM / 16;
+constexpr int kKFrag = kBK / 16;
+
+enum Epilogue : int {
+  kBias = 0,          // out = bf16(acc + b)
+  kBiasGeluErf = 1,   // out = bf16(gelu_erf(acc + b))
+  kBiasGeluSig = 2,   // out = bf16(t * sigmoid(1.702 t)), t = acc + b
+  kProjResidual = 3,  // out = bf16(res + bf16(bf16(acc) + b))
+  kBiasResidual = 4,  // out = bf16(res + bf16(acc + b))
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// part[split, m, n] = sum over this split's k of A[m, k] * w[n, k], where A
+// is a (LN = false) or LayerNorm(a) with weight ln_w, bias ln_b (LN = true,
+// then K is the full row length). a: [M, K], w: [N, K], part: [S, M, N].
+template <bool LN>
+__global__ void __launch_bounds__(kThreads) gemm_partial_kernel(
+    const bf16* __restrict__ a, const bf16* __restrict__ ln_w,
+    const bf16* __restrict__ ln_b, const bf16* __restrict__ w,
+    float* __restrict__ part, int M, int N, int K, int k_per_split, float eps) {
+  __shared__ __align__(32) bf16 a_s[kBM * kLDA];
+  __shared__ __align__(32) float c_s[kWarps][16 * 16];
+  __shared__ float mean_s[kBM];
+  __shared__ float rstd_s[kBM];
+
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int split = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = min(kBM, M - m0);
+  const int mfrags = (rows + 15) / 16;
+  const int rows_pad = mfrags * 16;
+  const int col = n0 + warp * 16;  // this warp's first output column
+  const bool col_ok = col < N;     // N % 16 == 0 (checked by the wrapper)
+
+  if (LN) {
+    // one-pass fp32 statistics of the whole row, as model.layer_norm
+    for (int r = warp; r < rows; r += kWarps) {
+      const bf16* xr = a + (size_t)(m0 + r) * K;
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 2 * lane; k < K; k += 64) {
+        const float2 v = load_bf16x2(xr + k);
+        s1 += v.x + v.y;
+        s2 += v.x * v.x + v.y * v.y;
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        const float mean = s1 / (float)K;
+        const float var = fmaxf(s2 / (float)K - mean * mean, 0.f);
+        mean_s[r] = mean;
+        rstd_s[r] = rsqrtf(var + eps);
+      }
+    }
+    __syncthreads();
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMFrag];
+#pragma unroll
+  for (int i = 0; i < kMFrag; ++i) wmma::fill_fragment(acc[i], 0.f);
+
+  const int k_begin = split * k_per_split;
+  const int k_end = k_begin + k_per_split;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+    // stage A[m0 : m0 + rows_pad, k0 : k0 + kBK] as bf16, zero past row M
+    for (int i = threadIdx.x; i < rows_pad * (kBK / 2); i += kThreads) {
+      const int r = i / (kBK / 2);
+      const int c = (i % (kBK / 2)) * 2;
+      float2 v = make_float2(0.f, 0.f);
+      if (r < rows) {
+        v = load_bf16x2(a + (size_t)(m0 + r) * K + k0 + c);
+        if (LN) {
+          const float2 g = load_bf16x2(ln_w + k0 + c);
+          const float2 bb = load_bf16x2(ln_b + k0 + c);
+          v.x = (v.x - mean_s[r]) * rstd_s[r] * g.x + bb.x;
+          v.y = (v.y - mean_s[r]) * rstd_s[r] * g.y + bb.y;
+        }
+      }
+      *reinterpret_cast<__nv_bfloat162*>(a_s + r * kLDA + c) = __floats2bfloat162_rn(v.x, v.y);
+    }
+    __syncthreads();
+    if (col_ok) {
+      // B(k, n) = w[col + n, k0 + k]: a column-major 16x16 tile, ldm = K
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[kKFrag];
+#pragma unroll
+      for (int kk = 0; kk < kKFrag; ++kk)
+        wmma::load_matrix_sync(bfr[kk], w + (size_t)col * K + k0 + kk * 16, K);
+#pragma unroll
+      for (int kk = 0; kk < kKFrag; ++kk) {
+#pragma unroll
+        for (int i = 0; i < kMFrag; ++i) {
+          if (i < mfrags) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
+            wmma::load_matrix_sync(afr, a_s + i * 16 * kLDA + kk * 16, kLDA);
+            wmma::mma_sync(acc[i], afr, bfr[kk], acc[i]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (col_ok) {
+    float* out = part + (size_t)split * M * N;
+#pragma unroll
+    for (int i = 0; i < kMFrag; ++i) {
+      if (i < mfrags) {
+        wmma::store_matrix_sync(c_s[warp], acc[i], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int r = i * 16 + e / 16;
+          if (r < rows) out[(size_t)(m0 + r) * N + col + (e % 16)] = c_s[warp][e];
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// out[m, n] = epilogue(sum over splits of part[s, m, n]); see Epilogue.
+__global__ void epilogue_kernel(const float* __restrict__ part, int splits,
+                                const bf16* __restrict__ bias,
+                                const bf16* __restrict__ res, bf16* __restrict__ out,
+                                int M, int N, int mode) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t total = (size_t)M * N;
+  if (idx >= total) return;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
+  const float b = __bfloat162float(bias[idx % N]);
+  float r;
+  switch (mode) {
+    case kBiasGeluErf: {
+      const float t = acc + b;
+      r = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
+      break;
+    }
+    case kBiasGeluSig: {
+      const float t = acc + b;
+      r = t / (1.f + expf(-1.702f * t));
+      break;
+    }
+    case kProjResidual:
+      r = __bfloat162float(res[idx]) + round_bf16(round_bf16(acc) + b);
+      break;
+    case kBiasResidual:
+      r = __bfloat162float(res[idx]) + round_bf16(acc + b);
+      break;
+    default:
+      r = acc + b;
+  }
+  out[idx] = __float2bfloat16_rn(r);
+}
+
+int gemm(const bf16* a, const bf16* ln_w, const bf16* ln_b, const bf16* w,
+         float* part, int M, int N, int K, int splits, float eps,
+         cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  const int k_per_split = K / splits;
+  if (ln_w != nullptr)
+    gemm_partial_kernel<true><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M, N,
+                                                              K, k_per_split, eps);
+  else
+    gemm_partial_kernel<false><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M, N,
+                                                               K, k_per_split, eps);
+  return (int)cudaGetLastError();
+}
+
+int epilogue(const float* part, int splits, const bf16* bias, const bf16* res, bf16* out,
+             int M, int N, int mode, cudaStream_t stream) {
+  const int threads = 256;
+  const size_t total = (size_t)M * N;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  epilogue_kernel<<<blocks, threads, 0, stream>>>(part, splits, bias, res, out, M, N, mode);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: [M, C]; ln_w, ln_b: [C]; wqkv: [N, C]; bqkv: [N]; out: [M, N]; all
+// bf16 and contiguous. work: fp32 [splits, M, N]. C % (64 * splits) == 0,
+// N % 16 == 0. Returns the first non-zero cudaGetLastError().
+extern "C" int rq_fused_ln_qkv(const void* x, const void* ln_w, const void* ln_b,
+                               const void* wqkv, const void* bqkv, void* out, void* work,
+                               int M, int N, int C, int splits, float eps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* part = static_cast<float*>(work);
+  int err = gemm(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_w),
+                 static_cast<const bf16*>(ln_b), static_cast<const bf16*>(wqkv), part, M, N,
+                 C, splits, eps, s);
+  if (err) return err;
+  return epilogue(part, splits, static_cast<const bf16*>(bqkv), nullptr,
+                  static_cast<bf16*>(out), M, N, kBias, s);
+}
+
+// x, y, out, x2: [M, C]; wo: [C, C]; w1: [H, C]; w2: [C, H]; biases and
+// LN2 parameters [C] or [H]; hidden: [M, H]; all bf16 and contiguous. x2
+// and hidden are scratch. work: fp32 of at least max(splits_o * M * C,
+// splits_1 * M * H, splits_2 * M * C) elements. gelu_sigmoid selects the
+// "v2" gelu (t * sigmoid(1.702 t)) over the exact-erf one.
+extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* wo,
+                                 const void* bo, const void* ln_w, const void* ln_b,
+                                 const void* w1, const void* b1, const void* w2,
+                                 const void* b2, void* out, void* x2, void* hidden,
+                                 void* work, int M, int C, int H, int splits_o,
+                                 int splits_1, int splits_2, int gelu_sigmoid, float eps,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* part = static_cast<float*>(work);
+  bf16* x2b = static_cast<bf16*>(x2);
+  bf16* hid = static_cast<bf16*>(hidden);
+  int err = gemm(static_cast<const bf16*>(y), nullptr, nullptr, static_cast<const bf16*>(wo),
+                 part, M, C, C, splits_o, eps, s);
+  if (err) return err;
+  err = epilogue(part, splits_o, static_cast<const bf16*>(bo), static_cast<const bf16*>(x),
+                 x2b, M, C, kProjResidual, s);
+  if (err) return err;
+  err = gemm(x2b, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+             static_cast<const bf16*>(w1), part, M, H, C, splits_1, eps, s);
+  if (err) return err;
+  err = epilogue(part, splits_1, static_cast<const bf16*>(b1), nullptr, hid, M, H,
+                 gelu_sigmoid ? kBiasGeluSig : kBiasGeluErf, s);
+  if (err) return err;
+  err = gemm(hid, nullptr, nullptr, static_cast<const bf16*>(w2), part, M, C, H, splits_2,
+             eps, s);
+  if (err) return err;
+  return epilogue(part, splits_2, static_cast<const bf16*>(b2), x2b,
+                  static_cast<bf16*>(out), M, C, kBiasResidual, s);
+}

@@ -1,0 +1,284 @@
+"""RQ-Transformer in PyTorch: the spatial "body" transformer over H*W
+positions and the depth "head" transformer over D residual levels.
+
+Port of the cached-decode slice of rqvae_tpu/models/rqtransformer/model.py:
+the N(0, 0.02) init, one-pass LayerNorm, exact-erf gelu, the transformer
+blocks, tok_emb_offsets, classifier_apply, init_unrolled_kv_cache and the
+bf16/fp32-cache branch of stack_step_unrolled (S == 1 decode and S > 1
+prefill). Module names follow the reference state_dict
+({body,head}_transformer.blocks.{i}.{ln1,ln2,attn.{query,key,value,proj},
+mlp.{0,2}}, ...), so reference checkpoints and the JAX export load with
+strict=True.
+
+Kernel dispatch is one fixed rule, with no environment knobs (the JAX
+package's DecodePolicy / resolve_* tables were tuned for the TPU v5e):
+  - a body S == 1 step runs its attention through the decode attention
+    kernel (ops/attention_kernel.py), and its dense half as torch.matmul;
+  - a head S == 1 step runs its dense half through the two dense kernels
+    (ops/decode_layer_kernel.py); its attention over <= D cache rows stays
+    plain;
+  - everything else (the S > 1 prefill) is plain PyTorch.
+`kernels=False` swaps every kernel for its plain version (the same path on
+the same device), which is how the card compares the two paths.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rqvae_tpu_torch.models.rqtransformer.config import StackConfig, TransformerConfig
+from rqvae_tpu_torch.ops import attention_kernel as AK
+from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+
+LN_EPS = 1e-5  # torch nn.LayerNorm default
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with one-pass fp32 statistics (mean and E[x^2]), cast back
+    to x's dtype, as rqvae_tpu's model.layer_norm."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (x32 - mean) * torch.rsqrt(var + LN_EPS)
+    return (y * weight + bias).to(x.dtype)
+
+
+def gelu(x: torch.Tensor, version: str) -> torch.Tensor:
+    if version == "v1":
+        return F.gelu(x)  # exact erf
+    return x * torch.sigmoid(1.702 * x)
+
+
+def tok_emb_offsets(config: TransformerConfig) -> np.ndarray:
+    return np.cumsum([0] + list(config.vocab_size[:-1])).astype(np.int64)
+
+
+class Attention(nn.Module):
+    def __init__(self, C: int, fk):
+        super().__init__()
+        self.query = nn.Linear(C, C, **fk)
+        self.key = nn.Linear(C, C, **fk)
+        self.value = nn.Linear(C, C, **fk)
+        self.proj = nn.Linear(C, C, **fk)
+
+
+class Block(nn.Module):
+    """One transformer layer's weights. `wqkv` / `bqkv` are the fused
+    [3C, C] / [3C] query-key-value projection: derived, non-persistent
+    buffers (the state_dict keeps the reference layout), rebuilt by
+    `fuse_qkv`."""
+
+    def __init__(self, cfg: StackConfig, fk):
+        super().__init__()
+        C = cfg.embed_dim
+        self.ln1 = nn.LayerNorm(C, eps=LN_EPS, **fk)
+        self.ln2 = nn.LayerNorm(C, eps=LN_EPS, **fk)
+        self.attn = Attention(C, fk)
+        self.mlp = nn.Sequential(nn.Linear(C, 4 * C, **fk), nn.GELU(), nn.Linear(4 * C, C, **fk))
+        self.register_buffer("wqkv", None, persistent=False)
+        self.register_buffer("bqkv", None, persistent=False)
+
+    @torch.no_grad()
+    def fuse_qkv(self) -> None:
+        a = self.attn
+        self.wqkv = torch.cat([a.query.weight, a.key.weight, a.value.weight]).contiguous()
+        self.bqkv = torch.cat([a.query.bias, a.key.bias, a.value.bias]).contiguous()
+
+
+class Stack(nn.Module):
+    """The body or the head stack; `role` selects its kernels (module doc)."""
+
+    def __init__(self, cfg: StackConfig, role: str, fk):
+        super().__init__()
+        if role not in ("body", "head"):
+            raise ValueError(f"unknown stack role {role!r}")
+        self.cfg = cfg
+        self.role = role
+        self.blocks = nn.ModuleList(Block(cfg, fk) for _ in range(cfg.n_layer))
+
+
+class Classifier(nn.Module):
+    """LayerNorm + a shared nn.Linear, or per-depth weights [D, C, V]."""
+
+    def __init__(self, config: TransformerConfig, fk):
+        super().__init__()
+        C = config.embed_dim
+        self.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
+        if config.shared_cls_emb:
+            self.linear = nn.Linear(C, config.vocab_size[0], **fk)
+        else:
+            self.linear = nn.Module()
+            D, V = config.depth, config.vocab_size_max
+            self.linear.weight = nn.Parameter(torch.empty(D, C, V, **fk))
+            self.linear.bias = nn.Parameter(torch.empty(D, V, **fk))
+
+
+class RQTransformer(nn.Module):
+    def __init__(self, config: TransformerConfig, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        C, D = config.embed_dim, config.depth
+        self.config = config
+        self.cond_emb = nn.Embedding(config.vocab_size_cond, C, **fk)
+        self.pos_emb_cond = nn.Parameter(torch.empty(1, config.block_size_cond, C, **fk))
+        self.pos_emb_hw = nn.Parameter(torch.empty(1, config.hw, C, **fk))
+        self.pos_emb_d = nn.Parameter(torch.empty(1, D, C, **fk))
+        self.body_transformer = Stack(config.body, "body", fk)
+        self.head_transformer = Stack(config.head, "head", fk)
+        if config.input_emb_vqvae:
+            self.input_mlp = nn.Linear(config.input_embed_dim, C, **fk)
+        if config.head_emb_vqvae:
+            self.head_mlp = nn.Linear(config.input_embed_dim, C, **fk)
+        if not (config.input_emb_vqvae and config.head_emb_vqvae):
+            if config.shared_tok_emb:
+                self.tok_emb = nn.Embedding(config.vocab_size[0], C, **fk)
+            else:
+                # one table for all depths, indexed with per-depth offsets
+                self.tok_emb = nn.Embedding(sum(config.vocab_size), C, **fk)
+                self.tok_emb.register_buffer(
+                    "offsets", torch.as_tensor(tok_emb_offsets(config), device=device)
+                )
+        self.classifier = Classifier(config, fk)
+        if config.block_size_cond > 1:
+            self.cond_classifier = nn.Module()
+            self.cond_classifier.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
+            self.cond_classifier.linear = nn.Linear(C, config.vocab_size_cond, **fk)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """GPT-style init from `generator`: N(0, 0.02) for every weight matrix,
+        embedding and position table; zero biases; unit LayerNorm scales."""
+        ln_scales = {id(m.weight) for m in self.modules() if isinstance(m, nn.LayerNorm)}
+        for name, p in self.named_parameters():
+            if id(p) in ln_scales:
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
+        self.fuse_qkv()
+
+    def fuse_qkv(self) -> None:
+        """Rebuild every block's fused QKV buffers from the current weights
+        (after loading a state_dict or changing dtype/device)."""
+        for stack in (self.body_transformer, self.head_transformer):
+            for blk in stack.blocks:
+                blk.fuse_qkv()
+
+
+def init_unrolled_kv_cache(cfg: StackConfig, batch: int, t_max: int, dtype, device):
+    """Per-layer (k, v) caches, each [batch, t_max, C], zeroed."""
+    shape = (batch, t_max, cfg.embed_dim)
+    return [
+        (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+        for _ in range(cfg.n_layer)
+    ]
+
+
+def _attention_prefill(q, k, v, k_past, v_past, n_head):
+    """S > 1 rows: causal attention over the past rows plus the new chunk,
+    fp32 scores and softmax (stack_step_unrolled's S > 1 branch)."""
+    B, S, C = q.shape
+    hs = C // n_head
+    n_past = k_past.shape[1]
+    q4, k4, v4 = (t.reshape(B, S, n_head, hs) for t in (q, k, v))
+    kc = k_past.reshape(B, n_past, n_head, hs)
+    vc = v_past.reshape(B, n_past, n_head, hs)
+    scale = 1.0 / math.sqrt(hs)
+    att_past = torch.einsum("bshd,bthd->bhst", q4.float(), kc.float()) * scale
+    att_new = torch.einsum("bshd,bthd->bhst", q4.float(), k4.float()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    att_new = att_new.masked_fill(~causal, float("-inf"))
+    att = torch.softmax(torch.cat([att_past, att_new], dim=-1), dim=-1).to(v.dtype)
+    y = torch.einsum("bhst,bthd->bshd", att[..., :n_past], vc) + torch.einsum(
+        "bhst,bthd->bshd", att[..., n_past:], v4
+    )
+    return y.reshape(B, S, C)
+
+
+@torch.no_grad()
+def stack_step_unrolled(
+    stack: Stack,
+    x: torch.Tensor,  # [B, S, C]
+    caches,  # per-layer (k [B, T, C], v [B, T, C])
+    cur_len: int,  # rows already in the caches
+    window: int | None = None,  # attention reads cache rows < window only
+    kernels: bool = True,
+):
+    """One cached step of a stack: S == 1 decode or S > 1 prefill.
+
+    Writes the new k/v rows at cur_len IN PLACE into `caches` and returns
+    (out [B, S, C], caches). The kernel rule is in the module docstring."""
+    if len(stack.blocks) == 0:
+        return x, caches
+    B, S, C = x.shape
+    n_head = stack.cfg.n_head
+    T = caches[0][0].shape[1]
+    t_max = T if window is None else min(window, T)
+    body_attn = stack.role == "body" and S == 1
+    head_dense = stack.role == "head" and S == 1
+    attn_fn = AK.decode_attention_update if kernels and body_attn else AK.decode_attention_update_plain
+    ln_qkv = DK.fused_ln_qkv if kernels else DK.fused_ln_qkv_plain
+    proj_mlp = DK.fused_proj_mlp if kernels else DK.fused_proj_mlp_plain
+
+    for blk, (k_l, v_l) in zip(stack.blocks, caches):
+        if head_dense:
+            qkv = ln_qkv(x[:, 0], blk.ln1.weight, blk.ln1.bias, blk.wqkv, blk.bqkv)[:, None]
+        else:
+            qkv = F.linear(layer_norm(x, blk.ln1.weight, blk.ln1.bias), blk.wqkv, blk.bqkv)
+        q, k, v = qkv.split(C, dim=-1)
+        if S == 1:
+            y = attn_fn(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+                k_l, v_l, cur_len, n_head, t_window=t_max,
+            )[:, None]
+        else:
+            n_past = min(cur_len, t_max)
+            y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
+            k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
+            v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
+        mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
+        if head_dense:
+            x = proj_mlp(
+                x[:, 0], y[:, 0], blk.attn.proj.weight, blk.attn.proj.bias,
+                blk.ln2.weight, blk.ln2.bias, mlp0.weight, mlp0.bias, mlp2.weight, mlp2.bias,
+                gelu_version=stack.cfg.gelu,
+            )[:, None]
+        else:
+            x2 = x + F.linear(y, blk.attn.proj.weight, blk.attn.proj.bias)
+            h2 = layer_norm(x2, blk.ln2.weight, blk.ln2.bias)
+            x = x2 + F.linear(gelu(F.linear(h2, mlp0.weight, mlp0.bias), stack.cfg.gelu), mlp2.weight, mlp2.bias)
+    return x, caches
+
+
+def apply_logit_mask(logits: torch.Tensor, config: TransformerConfig) -> torch.Tensor:
+    """-inf past each depth's codebook size when the sizes differ. [..., D, V]."""
+    if not config.heterogeneous_vocab:
+        return logits
+    col = torch.arange(config.vocab_size_max, device=logits.device)
+    valid = col[None, :] < torch.as_tensor(config.vocab_size, device=logits.device)[:, None]
+    return logits.masked_fill(~valid, float("-inf"))
+
+
+def classifier_apply(model: RQTransformer, h: torch.Tensor, depth_idx: int | None = None) -> torch.Tensor:
+    """h [..., D, C] (all depths) or [..., C] with depth_idx (a decode step):
+    LayerNorm, then the shared or per-depth projection, then the logit mask."""
+    config = model.config
+    cls = model.classifier
+    h = layer_norm(h, cls.layer_norm.weight, cls.layer_norm.bias)
+    if config.shared_cls_emb:
+        logits = F.linear(h, cls.linear.weight, cls.linear.bias)
+        return logits if depth_idx is not None else apply_logit_mask(logits, config)
+    w, b = cls.linear.weight, cls.linear.bias
+    if depth_idx is None:
+        return apply_logit_mask(torch.einsum("...dc,dcv->...dv", h, w) + b, config)
+    logits = h @ w[depth_idx] + b[depth_idx]
+    if config.heterogeneous_vocab:
+        col = torch.arange(config.vocab_size_max, device=logits.device)
+        logits = logits.masked_fill(col >= config.vocab_size[depth_idx], float("-inf"))
+    return logits

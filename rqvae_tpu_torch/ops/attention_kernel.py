@@ -1,0 +1,118 @@
+"""Decode attention with the in-place KV-cache row write.
+
+Counterpart of rqvae_tpu/ops/attention_kernel.py::decode_attention_update.
+The CUDA kernel is csrc/decode_attention.cu (its source note says what
+bounds it on the H100 and how the design answers that); this module holds
+its wrapper and the plain PyTorch version of the same function.
+
+Contract (both versions): for q, k_new, v_new [B, C] and one layer's caches
+k_cache, v_cache [B, T, C], the token attends cache rows
+t < min(cur_len, W) (W = t_window, or T) plus its own k_new/v_new, with fp32
+scores and softmax, and returns y [B, C]. Row cur_len of both caches is then
+set to k_new / v_new IN PLACE: the caller's tensors are the updated caches.
+This replaces the JAX kernel's `input_output_aliases` (a functional array
+needs aliasing to update in place; a torch tensor simply is updated). The
+TPU kernel's 0/1 segment matmuls and sublane-aligned windows were Mosaic
+workarounds and are not carried over: W is taken as given.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from rqvae_tpu_torch.ops import _build
+
+HEAD_SIZE = 64  # the only head size the CUDA kernel serves
+
+
+def decode_attention_update_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version. Rounding points follow the JAX kernel's
+    _attn_math: elementwise q*k products in the cache dtype with fp32 sums,
+    fp32 softmax, weights cast to the cache dtype, fp32 weighted sum of the
+    cache rows, fp32 self term, one cast of y."""
+    B, C = q.shape
+    T = k_cache.shape[1]
+    hs = C // n_head
+    n_valid = min(cur_len, T if t_window is None else min(t_window, T))
+    scale = 1.0 / math.sqrt(hs)
+    cd = k_cache.dtype
+    kc = k_cache[:, :n_valid].reshape(B, n_valid, n_head, hs)
+    vc = v_cache[:, :n_valid].reshape(B, n_valid, n_head, hs)
+    qh = q.to(cd).reshape(B, 1, n_head, hs)
+    s_past = torch.sum(kc * qh, dim=-1, dtype=torch.float32) * scale  # [B, n, nh]
+    s_self = torch.sum(
+        (k_new * q).to(cd).reshape(B, 1, n_head, hs), dim=-1, dtype=torch.float32
+    ) * scale  # [B, 1, nh]
+    p = torch.softmax(torch.cat([s_past, s_self], dim=1), dim=1)
+    w_past = p[:, :n_valid].to(cd)
+    y = torch.sum(vc * w_past[..., None], dim=1, dtype=torch.float32)  # [B, nh, hs]
+    y = y + v_new.float().reshape(B, n_head, hs) * p[:, n_valid, :, None]
+    k_cache[:, cur_len] = k_new.to(cd)
+    v_cache[:, cur_len] = v_new.to(cd)
+    return y.reshape(B, C).to(q.dtype)
+
+
+def _check(q, k_new, v_new, k_cache, v_cache, cur_len, n_head):
+    B, C = q.shape
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(
+                f"decode_attention_update: {name} must be a contiguous bf16 tensor on "
+                f"{q.device}, got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+    if k_new.shape != (B, C) or v_new.shape != (B, C):
+        raise ValueError("decode_attention_update: q, k_new, v_new must share shape [B, C]")
+    if k_cache.dim() != 3 or k_cache.shape != v_cache.shape or k_cache.shape[::2] != (B, C):
+        raise ValueError("decode_attention_update: caches must be [B, T, C] like q")
+    if C != n_head * HEAD_SIZE:
+        raise ValueError(f"decode_attention_update: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}")
+    if not 0 <= cur_len < k_cache.shape[1]:
+        raise ValueError(f"decode_attention_update: cur_len={cur_len} outside the cache (T={k_cache.shape[1]})")
+
+
+def decode_attention_update(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
+    launches csrc/decode_attention.cu (bf16, head size 64, contiguous) or
+    raises. One launch adds one to `decode_attention_update.launches`."""
+    if q.device.type == "cpu":
+        return decode_attention_update_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_update: no kernel for device {q.device}")
+    _check(q, k_new, v_new, k_cache, v_cache, cur_len, n_head)
+    B, C = q.shape
+    T = k_cache.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rq_decode_attention_update(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
+        )
+    _build.check(err, "rq_decode_attention_update")
+    decode_attention_update.launches += 1
+    return y
+
+
+decode_attention_update.launches = 0
