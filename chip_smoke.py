@@ -3,15 +3,22 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the port's CUDA kernels from csrc/ with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the 1.4B main path (bf16, B=100, C=1536, 24 heads, T=64);
-  4. the main path: 1.4B class-conditional sampling at bs100 (bench.py's
-     geometry, random weights from a seed, bf16 KV cache, temperature 1,
-     no top-k/top-p) and the RQ-VAE decode to 256x256 pixels, with launch
-     counts, output checks and ms/sample;
+  2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
+     process per source, all at once;
+  3. each of the six kernels against its plain PyTorch version on the card,
+     at the shapes of the 1.4B main path (bf16 activations, B=100, C=1536,
+     24 heads, T=64; int8 caches and weights for the q8 kernels, whose
+     cache writes must be bit-equal), timed against the plain version, a
+     library call where one exists, and the card's bound;
+  4. the main path at bench.py's three operating points (bf16 cache; int8
+     KV cache "kv_q8"; int8 weights + kv_q8): 1.4B class-conditional
+     sampling at bs100 (bench.py's geometry, random weights from a seed,
+     temperature 1, no top-k/top-p) and the RQ-VAE decode to 256x256
+     pixels, each point with its launch counts (all counts set to 0 just
+     before each of its ROUNDS timed sample calls and checked after it),
+     output checks, ms/sample (the median of those calls) and peak memory;
   5. forced_logits at B=8 through the kernels and through the plain
-     versions, compared.
+     versions, compared, at each operating point.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -24,13 +31,20 @@ from __future__ import annotations
 import copy
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # bf16 keeps 8 significant bits (relative step 2**-8 ~ 3.9e-3). A kernel and
 # its plain version round at the same points but sum in another order, so a
@@ -50,6 +64,9 @@ LOGIT_MEAN_TOL = 2e-2
 PIXEL_TOL = 1e-1
 
 BATCH = 100
+# timed sample calls per operating point: host-clock times vary by up to
+# 50% between calls, so phase 4 reports their median
+ROUNDS = 3
 ARCH_1P4B = dict(  # bench.py:83-98
     type="rq-transformer", vocab_size=16384, block_size=[8, 8, 4], embed_dim=1536,
     input_embed_dim=256, shared_tok_emb=True, shared_cls_emb=True, input_emb_vqvae=True,
@@ -91,6 +108,15 @@ def cuda_ms(fns, n: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over HBM
+    bandwidth (each input read once, each output written once) and the
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": by}
 
 
 def wall_s(fn):
@@ -157,8 +183,71 @@ def check_attention(AK, dev, gen):
     sets = [(rnd(B, T, C), rnd(B, T, C)) for _ in range(4)]
     ms = cuda_ms([lambda s=s: AK.decode_attention_update(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
     plain = cuda_ms([lambda s=s: AK.decode_attention_update_plain(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
-    log(f"  decode_attention_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms (B={B}, W=64)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    lib = cuda_ms([lambda s=s: sdpa_rows(q, *s, nh, 64) for s in sets], 50)
+    n = 63
+    b = bound(2 * B * n * C * 2 + 3 * B * C * 2 + B * C * 2 + 2 * B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
+    log(f"  decode_attention_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"(scaled_dot_product_attention over the 64 rows, no cache write) {lib:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+
+
+def sdpa_rows(q, k_cache, v_cache, nh, rows):
+    """torch's scaled_dot_product_attention of q [B, C] over the first `rows`
+    cache rows: the library's one call for the decode attention's math."""
+    B, C = q.shape
+    hs = C // nh
+    k = k_cache[:, :rows].view(B, rows, nh, hs).transpose(1, 2)
+    v = v_cache[:, :rows].view(B, rows, nh, hs).transpose(1, 2)
+    return F.scaled_dot_product_attention(q.view(B, nh, 1, hs), k, v)
+
+
+def q8_cache(AK, rnd, B, T, C, nh):
+    """An int8 cache (kq, ks, vq, vs) made as the sampler makes it."""
+    out = []
+    for _ in range(2):
+        q, s = AK.quantize_kv(rnd(B * T, C), nh)
+        out += [q.view(B, T, C), s.view(B, T, nh).to(torch.bfloat16)]
+    return out
+
+
+def check_attention_q8(AK, dev, gen):
+    B, C, nh, T = BATCH, 1536, 24, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    cache = q8_cache(AK, rnd, B, T, C, nh)
+    worst = 0.0
+    for window in (32, 64):
+        for cur in (0, 15, 16, 63):
+            got, ref = [c.clone() for c in cache], [c.clone() for c in cache]
+            y1 = AK.decode_attention_q8_update(q, kn, vn, *got, cur, nh, t_window=window)
+            y0 = AK.decode_attention_q8_update_plain(q, kn, vn, *ref, cur, nh, t_window=window)
+            torch.cuda.synchronize()
+            err, _ = compare(f"decode_attention_q8_update cur_len={cur} window={window}", y1, y0)
+            worst = max(worst, err)
+            for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
+                if not torch.equal(a, b0):
+                    raise AssertionError(f"{name} after the kernel's write differs from the plain version's")
+            kq_new, ks_new = AK.quantize_kv(kn, nh)
+            if not (torch.equal(got[0][:, cur], kq_new) and torch.equal(got[1][:, cur], ks_new.to(torch.bfloat16))):
+                raise AssertionError(f"cache row {cur} is not quantize_kv(k_new)")
+    log("  decode_attention_q8_update: all four caches bit-equal to the plain version's "
+        "(row cur_len = quantize_kv(k_new/v_new), every other row unchanged)")
+    sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
+    ms = cuda_ms([lambda s=s: AK.decode_attention_q8_update(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
+    plain = cuda_ms([lambda s=s: AK.decode_attention_q8_update_plain(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
+    n = 63
+    b = bound(
+        2 * B * n * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2 + 2 * B * (C + 2 * nh),
+        4 * B * (n + 1) * C, FP32_FLOPS,
+    )
+    log(f"  decode_attention_q8_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library: none "
+        f"(no torch call attends an int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"(B={B}, W=64, cur_len=63)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
 def check_dense(DK, dev, gen):
@@ -182,7 +271,12 @@ def check_dense(DK, dev, gen):
     qkv_err, _ = compare("fused_ln_qkv x[100,1536] wqkv[4608,1536]", got, want)
     qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
     qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_plain(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
-    log(f"  fused_ln_qkv time: kernel {qkv_ms:.4f} ms, plain {qkv_plain:.4f} ms")
+    qkv_lib = cuda_ms([lambda s=s: F.linear(x, s[0]) for s in qkv_sets], 50)
+    qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C * 2 + 3 * C * 2 + B * 3 * C * 2, 2 * B * 3 * C * C,
+                  BF16_TENSOR_FLOPS)
+    log(f"  fused_ln_qkv time: kernel {qkv_ms:.4f} ms, plain {qkv_plain:.4f} ms, library (F.linear, the "
+        f"GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
+        f"{qkv_b['bound_by']}")
 
     def proj_mlp(fn, s):
         wo, bo, w1, b1, w2, b2 = s
@@ -199,11 +293,105 @@ def check_dense(DK, dev, gen):
     compare("fused_proj_mlp gelu v2 (sigmoid form)", got, want)
     mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, s) for s in mlp_sets], 30)
     mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_plain, s) for s in mlp_sets], 30)
-    log(f"  fused_proj_mlp time: kernel {mlp_ms:.4f} ms, plain {mlp_plain:.4f} ms")
+    mlp_lib = cuda_ms([lambda s=s: gemms_alone(x, y, s[0], s[2], s[4]) for s in mlp_sets], 30)
+    mlp_b = proj_mlp_bound(B, C, H, 2)
+    log(f"  fused_proj_mlp time: kernel {mlp_ms:.4f} ms, plain {mlp_plain:.4f} ms, library (three "
+        f"F.linear, the GEMMs alone without LN, gelu or epilogues) {mlp_lib:.4f} ms, bound "
+        f"{mlp_b['bound_ms']:.4f} ms by {mlp_b['bound_by']}")
     return (
-        {"max_abs_err": qkv_err, "ms": qkv_ms, "plain_ms": qkv_plain},
-        {"max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain},
+        {"max_abs_err": qkv_err, "ms": qkv_ms, "plain_ms": qkv_plain, "library_ms": qkv_lib, **qkv_b},
+        {"max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain, "library_ms": mlp_lib, **mlp_b},
     )
+
+
+def gemms_alone(x, y, wo, w1, w2):
+    """The proj/MLP's three bf16 products through F.linear (the library's
+    GEMMs, without LN, gelu, biases or residuals)."""
+    return F.linear(F.linear(F.linear(y, wo) + x, w1), w2)
+
+
+def proj_mlp_bound(B, C, H, weight_bytes):
+    """bound() of fused_proj_mlp(_q8): x, y, LN2, biases and weights in (plus
+    bf16 column scales for int8 weights), out out; the three products."""
+    n_bytes = 2 * B * C * 2 + 2 * C * 2 + (2 * C + H) * 2 + (C * C + 2 * C * H) * weight_bytes + B * C * 2
+    if weight_bytes == 1:
+        n_bytes += (2 * C + H) * 2
+    return bound(n_bytes, 2 * B * (C * C + 2 * C * H), BF16_TENSOR_FLOPS)
+
+
+def check_dense_q8(DK, quantize_weight, dev, gen):
+    B, C = BATCH, 1536
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    def qw(*shape):
+        return quantize_weight(rnd(*shape, std=0.02))
+
+    x, y = rnd(B, C), rnd(B, C)
+    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
+    qkv_sets = [(*qw(3 * C, C), rnd(3 * C, std=0.02)) for _ in range(16)]  # 16 x 7.1 MB
+    mlp_sets = [
+        (*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
+        for _ in range(6)  # 6 x 21.2 MB
+    ]
+    got = DK.fused_ln_qkv_q8(x, ln_s, ln_b, *qkv_sets[0])
+    want = DK.fused_ln_qkv_q8_plain(x, ln_s, ln_b, *qkv_sets[0])
+    torch.cuda.synchronize()
+    qkv_err, _ = compare("fused_ln_qkv_q8 x[100,1536] wq int8[4608,1536]", got, want)
+    qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv_q8(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
+    qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_q8_plain(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
+    w_bf16 = [(s[0].to(torch.bfloat16) * s[1][:, None]) for s in qkv_sets[:8]]
+    qkv_lib = cuda_ms([lambda w=w: F.linear(x, w) for w in w_bf16], 50)
+    del w_bf16
+    qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C + 2 * 3 * C * 2 + B * 3 * C * 2, 2 * B * 3 * C * C,
+                  BF16_TENSOR_FLOPS)
+    log(f"  fused_ln_qkv_q8 time: kernel {qkv_ms:.4f} ms, plain {qkv_plain:.4f} ms, library (F.linear on the "
+        f"bf16 weight of the same shape, the GEMM alone) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms "
+        f"by {qkv_b['bound_by']}")
+
+    def proj_mlp(fn, s, gelu="v1"):
+        return fn(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:], gelu_version=gelu)
+
+    got = proj_mlp(DK.fused_proj_mlp_q8, mlp_sets[0])
+    want = proj_mlp(DK.fused_proj_mlp_q8_plain, mlp_sets[0])
+    torch.cuda.synchronize()
+    mlp_err, _ = compare("fused_proj_mlp_q8 wo int8[1536,1536] w1 int8[6144,1536] w2 int8[1536,6144]", got, want)
+    got = proj_mlp(DK.fused_proj_mlp_q8, mlp_sets[1], "v2")
+    want = proj_mlp(DK.fused_proj_mlp_q8_plain, mlp_sets[1], "v2")
+    torch.cuda.synchronize()
+    compare("fused_proj_mlp_q8 gelu v2 (sigmoid form)", got, want)
+    mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_q8, s) for s in mlp_sets], 30)
+    mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_q8_plain, s) for s in mlp_sets], 30)
+    deq = [[(q.to(torch.bfloat16) * sc[:, None]) for q, sc in ((s[0], s[1]), (s[3], s[4]), (s[6], s[7]))]
+           for s in mlp_sets[:3]]
+    mlp_lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq], 30)
+    del deq
+    mlp_b = proj_mlp_bound(B, C, H, 1)
+    log(f"  fused_proj_mlp_q8 time: kernel {mlp_ms:.4f} ms, plain {mlp_plain:.4f} ms, library (three F.linear "
+        f"on bf16 weights of the same shapes, the GEMMs alone) {mlp_lib:.4f} ms, bound {mlp_b['bound_ms']:.4f} "
+        f"ms by {mlp_b['bound_by']}")
+    return (
+        {"max_abs_err": qkv_err, "ms": qkv_ms, "plain_ms": qkv_plain, "library_ms": qkv_lib, **qkv_b},
+        {"max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain, "library_ms": mlp_lib, **mlp_b},
+    )
+
+
+def build_main_path(dev):
+    """(model, vqvae, cond) of the main path: the bf16 1.4B RQ-Transformer
+    and RQ-VAE with random weights from seed 0, and bs100 class labels."""
+    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.models.rqvae.model import RQVAE, RQVAEHParams
+    from rqvae_tpu_torch.models.rqvae.modules import DDConfig
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = RQTransformer(TransformerConfig.create(ARCH_1P4B), device=dev, dtype=torch.bfloat16)
+    model.init_weights(gen)
+    vqvae = RQVAE(RQVAEHParams.create(HPARAMS), DDConfig.create(DDCONFIG), device=dev, dtype=torch.bfloat16)
+    vqvae.init_weights(gen)
+    return model, vqvae, torch.arange(BATCH, device=dev) % model.config.vocab_size_cond
 
 
 def main() -> None:
@@ -217,91 +405,108 @@ def main() -> None:
 
     sys.path.insert(0, ROOT)
     from rqvae_tpu_torch.models.rqtransformer import sampling as S
-    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
-    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
-    from rqvae_tpu_torch.models.rqvae.model import RQVAE, RQVAEHParams
-    from rqvae_tpu_torch.models.rqvae.modules import DDConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import quantize_weight
     from rqvae_tpu_torch.ops import _build
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 
     # phase 2: build
     log("# phase 2: build")
-    lib_path, build_s = _build.build()
-    log(f"  built {os.path.relpath(lib_path, ROOT)} in {build_s:.1f} s (0.0: it was already built)")
-    for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
+    build_dir, build_s, per_source = _build.build()
+    log(f"  built {os.path.relpath(build_dir, ROOT)} in {build_s:.1f} s (0.0: it was already built); "
+        f"one nvcc per source, all at once: " + ", ".join(f"{k} {v:.1f} s" for k, v in per_source.items())
+        + f" (sum {sum(per_source.values()):.1f} s)")
+    for line in (build_dir / "ptxas.log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     _build.library()
 
     # phase 3: kernels against their plain versions at main-path shapes
-    log("# phase 3: kernels vs plain versions (bf16, B=100, C=1536, nh=24, T=64)")
+    log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
     gen = torch.Generator(device=dev).manual_seed(0)
     attn = check_attention(AK, dev, gen)
     qkv, mlp = check_dense(DK, dev, gen)
+    attn_q8 = check_attention_q8(AK, dev, gen)
+    qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
 
-    # phase 4: the main path at full width
-    log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, bf16, on {card}")
+    # phase 4: the main path at full width, at each operating point
+    log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tconf = TransformerConfig.create(ARCH_1P4B)
-    model = RQTransformer(tconf, device=dev, dtype=torch.bfloat16)
-    model.init_weights(gen)
-    vqvae = RQVAE(RQVAEHParams.create(HPARAMS), DDConfig.create(DDCONFIG), device=dev, dtype=torch.bfloat16)
-    vqvae.init_weights(gen)
+    model, vqvae, cond = build_main_path(dev)
     torch.cuda.synchronize()
     n_ar = sum(p.numel() for p in model.parameters())
     n_vq = sum(p.numel() for p in vqvae.parameters())
     log(f"  rq-transformer {n_ar / 1e6:.0f}M params, rq-vae {n_vq / 1e6:.0f}M params, "
         f"built and initialised in {time.perf_counter() - t0:.1f} s")
-    cond = torch.arange(BATCH, device=dev) % tconf.vocab_size_cond
 
-    def sample(seed, kernels=True):
+    def sample(seed, kernels=True, kv_q8=False):
         return S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
-                        quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels)
+                        quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels, kv_q8=kv_q8)
 
-    _, warm_s = wall_s(lambda: sample(99))
-    log(f"  warm-up sample: {warm_s:.2f} s")
-    counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp)
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    codes, sample_s = wall_s(lambda: sample(1))
-    launches = {fn.__name__: fn.launches for fn in counters}
-    want = {"decode_attention_update": 42 * 64, "fused_ln_qkv": 6 * 4 * 64, "fused_proj_mlp": 6 * 4 * 64}
-    log(f"  launches in one sample(bs{BATCH}): {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError("the main path did not launch each kernel the expected number of times")
-    if codes.shape != (BATCH, 8, 8, 4) or int(codes.min()) < 0 or int(codes.max()) >= 16384:
-        raise AssertionError(f"codes out of shape or range: {tuple(codes.shape)} [{int(codes.min())}, {int(codes.max())}]")
-    log(f"  codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
-        f"{len(torch.unique(codes))} distinct")
-
-    decode(vqvae, codes[:10])  # warm-up (cuDNN algorithm selection)
-    pixels, decode_s = wall_s(lambda: decode(vqvae, codes))
-    if pixels.shape != (BATCH, 256, 256, 3) or not bool(torch.isfinite(pixels).all()):
-        raise AssertionError(f"pixels not finite or of shape {tuple(pixels.shape)}")
-    pixels = (0.5 * pixels.float() + 0.5).clamp(0.0, 1.0)
-    log(f"  pixels {tuple(pixels.shape)} finite, mean {float(pixels.mean()):.4f}")
+    counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
+                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8)
+    attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
+    points = [  # (name, int8 weights, kv_q8, launches each counter must show)
+        ("bf16", False, False, (attn_steps, head_steps, head_steps, 0, 0, 0)),
+        ("kv_q8", False, True, (0, head_steps, head_steps, attn_steps, 0, 0)),
+        ("int8+kv_q8", True, True, (0, 0, 0, attn_steps, head_steps, head_steps)),
+    ]
+    launches, results = {}, {}
+    for name, int8, kv_q8, expect in points:
+        if int8:
+            model.quantize_int8()
+        _, warm_s = wall_s(lambda: sample(99, kv_q8=kv_q8))
+        torch.cuda.reset_peak_memory_stats()
+        want = {fn.__name__: n for fn, n in zip(counters, expect)}
+        times = []
+        for _ in range(ROUNDS):
+            for fn in counters:
+                fn.launches = 0
+            codes, sample_s = wall_s(lambda: sample(1, kv_q8=kv_q8))
+            counts = {fn.__name__: fn.launches for fn in counters}
+            if counts != want:
+                raise AssertionError(f"[{name}] the main path launched {counts}, not {want}")
+            times.append(sample_s * 1e3 / BATCH)
+        log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): {counts}")
+        launches.update({k: v for k, v in counts.items() if v})
+        if codes.shape != (BATCH, 8, 8, 4) or int(codes.min()) < 0 or int(codes.max()) >= 16384:
+            raise AssertionError(f"codes out of shape or range: {tuple(codes.shape)} [{int(codes.min())}, {int(codes.max())}]")
+        decode(vqvae, codes[:10])  # warm-up (cuDNN algorithm selection)
+        pixels, decode_s = wall_s(lambda: decode(vqvae, codes))
+        if pixels.shape != (BATCH, 256, 256, 3) or not bool(torch.isfinite(pixels).all()):
+            raise AssertionError(f"pixels not finite or of shape {tuple(pixels.shape)}")
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        results[name] = codes
+        agree = f", codes equal to bf16's at {float((codes == results['bf16']).float().mean()):.3f}" if name != "bf16" else ""
+        log(f"  [{name}] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+            f"{len(torch.unique(codes))} distinct{agree}; pixels finite")
+        sample_ms = statistics.median(times)
+        log(f"  [{name}] sampling (kernels): {sample_ms:.3f} ms/sample (median of "
+            f"{', '.join(f'{t:.3f}' for t in times)}); decode: {decode_s * 1e3 / BATCH:.3f} ms/sample; total "
+            f"{sample_ms + decode_s * 1e3 / BATCH:.3f} ms/sample; peak memory {peak_gb:.1f} GiB; bs{BATCH}, {card}")
+    # the decode against an fp32 copy of itself, and the bf16 point's plain path
+    pixels = (0.5 * decode(vqvae, results["bf16"][:4]).float() + 0.5).clamp(0.0, 1.0)
+    log(f"  pixels mean {float(pixels.mean()):.4f}")
     vq32 = copy.deepcopy(vqvae).float()
-    compare("decode_code bf16 vs fp32 copy (4 images, [0,1] pixels)", pixels[:4],
-            (0.5 * decode(vq32, codes[:4]).float() + 0.5).clamp(0.0, 1.0), PIXEL_TOL)
+    compare("decode_code bf16 vs fp32 copy (4 images, [0,1] pixels)", pixels,
+            (0.5 * decode(vq32, results["bf16"][:4]).float() + 0.5).clamp(0.0, 1.0), PIXEL_TOL)
     del vq32
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model.clear_int8()
     _, plain_s = wall_s(lambda: sample(1, kernels=False))
-    log(f"  sampling (kernels): {sample_s * 1e3 / BATCH:.3f} ms/sample; sampling (plain versions): "
-        f"{plain_s * 1e3 / BATCH:.3f} ms/sample; decode: {decode_s * 1e3 / BATCH:.3f} ms/sample; "
-        f"total {(sample_s + decode_s) * 1e3 / BATCH:.3f} ms/sample; peak memory {peak_gb:.1f} GiB; "
-        f"bs{BATCH}, bf16 cache, {card}")
+    log(f"  [bf16] sampling (plain versions): {plain_s * 1e3 / BATCH:.3f} ms/sample; {card}")
 
     # phase 5: the same path through the kernels and through the plain versions
     log("# phase 5: forced_logits at B=8, kernels vs plain versions")
-    forced, fcond = codes[:8], cond[:8]
-    got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True)
-    ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False)
-    torch.cuda.synchronize()
-    log(f"  logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
-    compare("forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
+    for name, int8, kv_q8, _ in points:
+        if int8:
+            model.quantize_int8()
+        forced, fcond = results[name][:8], cond[:8]
+        got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True, kv_q8=kv_q8)
+        ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False, kv_q8=kv_q8)
+        torch.cuda.synchronize()
+        log(f"  [{name}] logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
+        compare(f"[{name}] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
+    model.clear_int8()
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
@@ -310,6 +515,12 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:109", **qkv),
         dict(name="fused_proj_mlp", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:329", **mlp),
+        dict(name="decode_attention_q8_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:577", **attn_q8),
+        dict(name="fused_ln_qkv_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+             replaces="rqvae_tpu/ops/decode_layer_kernel.py:246 (ring) and :161 (grid)", **qkv_q8),
+        dict(name="fused_proj_mlp_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+             replaces="rqvae_tpu/ops/decode_layer_kernel.py:451 (ring) and :559 (grid)", **mlp_q8),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

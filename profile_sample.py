@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the device time of one 1.4B bs100 sample call of the PyTorch/CUDA
+port goes, at each of bench.py's operating points, on one CUDA device.
+
+The model is chip_smoke.py's main path (`build_main_path`): bench.py's 1.4B
+geometry with random weights from a seed, bs100, temperature 1, no
+top-k/top-p. The operating points are the bf16 KV cache, the int8 KV cache
+(kv_q8) and int8 weights + kv_q8. Per point, after one warm-up call, one
+sample call runs under torch.profiler. Reported: device operations (kernel
+launches and copies), their summed device time per sample, the top device
+operations, and the device time per call of each of the port's kernel
+wrappers (their launches are wrapped in record_function ranges for this run
+only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
+busy share is this script's device ms/sample over that.
+
+Prints one JSON line per point, then the card's name and power limit; the
+profiler tables go to --out.
+
+    python3 profile_sample.py --out build/profile
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from chip_smoke import BATCH, build_main_path, card_line
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+POINTS = (("bf16", False, False), ("kv_q8", False, True), ("int8+kv_q8", True, True))
+
+
+def _annotated(fn):
+    @functools.wraps(fn)  # carries the `launches` counter the wrapper increments
+    def call(*args, **kwargs):
+        with record_function(f"wrapper::{fn.__name__}"):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_sample: torch.cuda.is_available() is False; this needs a CUDA device")
+    os.makedirs(args.out, exist_ok=True)
+    card = card_line()
+    dev = torch.device("cuda", 0)
+
+    sys.path.insert(0, ROOT)
+    from rqvae_tpu_torch.models.rqtransformer import sampling as S
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+
+    model, vqvae, cond = build_main_path(dev)
+
+    def run(kv_q8, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
+                 quantizer=vqvae.quantizer, kv_q8=kv_q8)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wrappers = {
+        (AK, "decode_attention_update"), (AK, "decode_attention_q8_update"), (DK, "fused_ln_qkv"),
+        (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"),
+    }
+    originals = {(m, n): getattr(m, n) for m, n in wrappers}
+    for (m, n), fn in originals.items():
+        setattr(m, n, _annotated(fn))
+    try:
+        for name, int8, kv_q8 in POINTS:
+            if int8:
+                model.quantize_int8()
+            run(kv_q8, seed=99)  # warm-up
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_s = run(kv_q8, seed=1)
+            events = prof.key_averages()
+            # a record_function range also shows as a device-side annotation
+            # spanning its kernels: it gives the wrapper's device time (the
+            # CPU op does not, for kernels launched through ctypes) and is
+            # left out of the device sums, which would count those kernels twice
+            cuda = torch.autograd.DeviceType.CUDA
+            device = [e for e in events if e.device_type == cuda and not e.key.startswith("wrapper::")]
+            device_us = sum(e.self_device_time_total for e in device)
+            top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+            per_wrapper = {
+                e.key.split("::", 1)[1]: {"calls": e.count, "device_us_per_call": e.self_device_time_total / e.count}
+                for e in events if e.device_type == cuda and e.key.startswith("wrapper::")
+            }
+            with open(os.path.join(args.out, f"{name.replace('+', '_')}.txt"), "w") as f:
+                f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+            print(json.dumps({
+                "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH,
+                "device_ops": sum(e.count for e in device), "device_ms_per_sample": device_us / 1e3 / BATCH,
+                "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3}
+                                   for e in top],
+                "wrappers": per_wrapper,
+            }), flush=True)
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+        model.clear_int8()
+    print(card, flush=True)
+
+
+if __name__ == "__main__":
+    main()

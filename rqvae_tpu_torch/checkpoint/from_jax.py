@@ -6,6 +6,12 @@ rqvae_tpu, so the mapping is restated here and tests/test_torch_*.py hold
 the two equal key for key and value for value. Inputs are the JAX trees
 with numpy leaves (jax.device_get of the params); outputs load into
 RQTransformer / RQVAE with strict=True once made torch tensors.
+
+A quantized JAX tree (the output of quantize_transformer_params, with
+QuantizedWeight(q, scale) leaves) maps in two parts: its state_dict holds
+each quantized weight dequantized (q * scale in fp32), and
+rqtransformer_int8_from_jax gives the int8 buffers exactly, for
+RQTransformer.load_int8.
 """
 
 from __future__ import annotations
@@ -15,8 +21,29 @@ from typing import Dict
 import numpy as np
 
 
+def _is_quantized(x) -> bool:
+    """A JAX QuantizedWeight(q, scale) leaf (a NamedTuple, matched by fields)."""
+    return hasattr(x, "_fields") and tuple(x._fields) == ("q", "scale")
+
+
 def _np32(x) -> np.ndarray:
+    if _is_quantized(x):
+        return np.asarray(x.q, np.float32) * np.asarray(x.scale, np.float32)
     return np.asarray(x, np.float32)
+
+
+def _layer(x, i) -> np.ndarray:
+    """Layer i of a stacked [L, ...] leaf, a QuantizedWeight too, as fp32."""
+    return _np32(type(x)(x.q[i], x.scale[i]) if _is_quantized(x) else x[i])
+
+
+def _q8(w, i=None, transpose: bool = True):
+    """(int8 q, fp32 scale) of QuantizedWeight w, layer i of a stacked tree:
+    q [in, out] -> [out, in] when `transpose`, scale [..., 1, out] -> [out]."""
+    q, scale = np.asarray(w.q), np.asarray(w.scale, np.float32)
+    if i is not None:
+        q, scale = q[i], scale[i]
+    return (q.T if transpose else q).astype(np.int8), scale[..., 0, :]
 
 
 def _field(obj, name):
@@ -104,11 +131,11 @@ def _stack(sd, prefix: str, stack: dict) -> None:
         sd[f"{b}.ln2.weight"] = _np32(stack["ln2"]["scale"][i])
         sd[f"{b}.ln2.bias"] = _np32(stack["ln2"]["bias"][i])
         for name, w, bias in (("query", "wq", "bq"), ("key", "wk", "bk"), ("value", "wv", "bv"), ("proj", "wo", "bo")):
-            sd[f"{b}.attn.{name}.weight"] = _np32(attn[w][i]).T
+            sd[f"{b}.attn.{name}.weight"] = _layer(attn[w], i).T
             sd[f"{b}.attn.{name}.bias"] = _np32(attn[bias][i])
-        sd[f"{b}.mlp.0.weight"] = _np32(mlp["w1"][i]).T
+        sd[f"{b}.mlp.0.weight"] = _layer(mlp["w1"], i).T
         sd[f"{b}.mlp.0.bias"] = _np32(mlp["b1"][i])
-        sd[f"{b}.mlp.2.weight"] = _np32(mlp["w2"][i]).T
+        sd[f"{b}.mlp.2.weight"] = _layer(mlp["w2"], i).T
         sd[f"{b}.mlp.2.bias"] = _np32(mlp["b2"][i])
 
 
@@ -144,3 +171,25 @@ def rqtransformer_state_dict_from_jax(params_np: dict, config) -> Dict[str, np.n
         sd["cond_classifier.linear.weight"] = _np32(cc["kernel"]).T
         sd["cond_classifier.linear.bias"] = _np32(cc["bias"])
     return sd
+
+
+def rqtransformer_int8_from_jax(qparams_np: dict) -> Dict[str, np.ndarray]:
+    """Quantized JAX tree (quantize_transformer_params) -> the port's int8
+    buffers {name: array} for RQTransformer.load_int8: per block the fused
+    wqkv (wq, wk, wv concatenated along the output, as split_layer_params
+    does), wo, w1, w2 as int8 [out, in] with fp32 scales [out] holding the
+    bf16 values; the classifier's weight_q in the weight's own layout
+    ([V, C] shared, [D, C, V] per depth) with scales [V] / [D, V]."""
+    out: Dict[str, np.ndarray] = {}
+    for prefix, name in (("body_transformer", "body"), ("head_transformer", "head")):
+        attn, mlp = qparams_np[name]["attn"], qparams_np[name]["mlp"]
+        for i in range(np.shape(attn["wq"].q)[0]):
+            b = f"{prefix}.blocks.{i}"
+            parts = [_q8(attn[w], i) for w in ("wq", "wk", "wv")]
+            out[f"{b}.wqkv_q"] = np.concatenate([q for q, _ in parts])
+            out[f"{b}.wqkv_s"] = np.concatenate([s for _, s in parts])
+            for key, w in (("wo", attn["wo"]), ("w1", mlp["w1"]), ("w2", mlp["w2"])):
+                out[f"{b}.{key}_q"], out[f"{b}.{key}_s"] = _q8(w, i)
+    k = qparams_np["classifier"]["kernel"]
+    out["classifier.weight_q"], out["classifier.weight_s"] = _q8(k, transpose=np.ndim(k.q) == 2)
+    return out

@@ -4,9 +4,18 @@
 //   rq_fused_proj_mlp: x2  = x + (y @ wo^T + bo)
 //                      out = x2 + (gelu(LN2(x2) @ w1^T + b1) @ w2^T + b2)
 //
+// and their int8-weight forms, with one bf16 scale s per output column:
+//
+//   rq_fused_ln_qkv_q8:   qkv = bf16(acc * s + bqkv),      acc = LN1(x) @ q^T
+//   rq_fused_proj_mlp_q8: x2  = x + bf16(acc_o * s_o + bo)
+//                         t   = bf16(gelu(acc_1 * s_1 + b1))
+//                         out = x2 + bf16(acc_2 * s_2 + b2)
+//
 // Replace the TPU kernels rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv
-// and ::fused_proj_mlp. Weights are read in the nn.Linear [out, in] layout
-// directly (no transposed copy).
+// and ::fused_proj_mlp, and ::fused_ln_qkv_q8 / ::fused_ln_qkv_q8_ring and
+// ::fused_proj_mlp_q8 / ::fused_proj_mlp_q8_ring (each grid/ring pair
+// differs only in TPU DMA depth; one Hopper kernel serves both). Weights
+// are read in the nn.Linear [out, in] layout directly (no transposed copy).
 //
 // Bound on the H100: weight bytes. At C=1536 one layer-step streams
 // 14 MB (wqkv) + 42 MB (wo, w1, w2) of bf16 weights for a batch of ~100
@@ -26,11 +35,25 @@
 // (proj, proj epilogue, LN2+w1, gelu epilogue, w2, residual epilogue): LN2
 // needs the whole of x2, a grid-wide dependency that the TPU kernel's
 // sequential grid hid.
+//
+// int8 weights halve the bytes that bound the kernel: 7.1 MB for wqkv and
+// 21.2 MB for wo + w1 + w2 at C=1536, about 2.1 us and 6.3 us at 3.35 TB/s.
+// Each warp loads its 16 columns x 64 rows of int8 weight per chunk into
+// shared memory as bf16 (int8 values are exact in bf16), so the tensor-core
+// products stay wmma bf16 with fp32 accumulation and give the same sums as
+// for the dequantized weight; the per-column scales are applied to the
+// split-summed fp32 accumulator in the epilogue, before the bias, so w2's
+// scale multiplies the whole hidden sum once, as in the JAX kernel. The q8
+// forms share the bf16 forms' structure, and its limit (one fragment of
+// columns per warp, no pipelining: about 5% of HBM bandwidth for bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +69,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMFrag = kBM / 16;
 constexpr int kKFrag = kBK / 16;
 
+// acc is the split-summed fp32 product, times the column scale when the
+// weights are int8
 enum Epilogue : int {
   kBias = 0,          // out = bf16(acc + b)
   kBiasGeluErf = 1,   // out = bf16(gelu_erf(acc + b))
@@ -70,14 +95,18 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // part[split, m, n] = sum over this split's k of A[m, k] * w[n, k], where A
 // is a (LN = false) or LayerNorm(a) with weight ln_w, bias ln_b (LN = true,
-// then K is the full row length). a: [M, K], w: [N, K], part: [S, M, N].
-template <bool LN>
+// then K is the full row length). a: [M, K], w: [N, K] bf16 or int8 (WT),
+// part: [S, M, N].
+template <bool LN, typename WT>
 __global__ void __launch_bounds__(kThreads) gemm_partial_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ ln_w,
-    const bf16* __restrict__ ln_b, const bf16* __restrict__ w,
+    const bf16* __restrict__ ln_b, const WT* __restrict__ w,
     float* __restrict__ part, int M, int N, int K, int k_per_split, float eps) {
+  constexpr bool kInt8 = std::is_same<WT, int8_t>::value;
   __shared__ __align__(32) bf16 a_s[kBM * kLDA];
   __shared__ __align__(32) float c_s[kWarps][16 * 16];
+  // int8 weights: each warp's 16 columns x kBK rows, widened to bf16
+  __shared__ __align__(32) bf16 w_s[kInt8 ? kWarps * 16 * kLDA : 16];
   __shared__ float mean_s[kBM];
   __shared__ float rstd_s[kBM];
 
@@ -140,10 +169,27 @@ __global__ void __launch_bounds__(kThreads) gemm_partial_kernel(
     __syncthreads();
     if (col_ok) {
       // B(k, n) = w[col + n, k0 + k]: a column-major 16x16 tile, ldm = K
+      // (ldm = kLDA for the widened int8 tile)
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[kKFrag];
+      if constexpr (kInt8) {
+        bf16* ws = w_s + warp * 16 * kLDA;
+        for (int e = lane; e < 16 * (kBK / 4); e += 32) {
+          const int n = e / (kBK / 4);
+          const int k = (e % (kBK / 4)) * 4;
+          const char4 v = *reinterpret_cast<const char4*>(w + (size_t)(col + n) * K + k0 + k);
+          *reinterpret_cast<__nv_bfloat162*>(ws + n * kLDA + k) =
+              __floats2bfloat162_rn((float)v.x, (float)v.y);
+          *reinterpret_cast<__nv_bfloat162*>(ws + n * kLDA + k + 2) =
+              __floats2bfloat162_rn((float)v.z, (float)v.w);
+        }
+        __syncwarp();
 #pragma unroll
-      for (int kk = 0; kk < kKFrag; ++kk)
-        wmma::load_matrix_sync(bfr[kk], w + (size_t)col * K + k0 + kk * 16, K);
+        for (int kk = 0; kk < kKFrag; ++kk) wmma::load_matrix_sync(bfr[kk], ws + kk * 16, kLDA);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kKFrag; ++kk)
+          wmma::load_matrix_sync(bfr[kk], w + (size_t)col * K + k0 + kk * 16, K);
+      }
 #pragma unroll
       for (int kk = 0; kk < kKFrag; ++kk) {
 #pragma unroll
@@ -176,8 +222,10 @@ __global__ void __launch_bounds__(kThreads) gemm_partial_kernel(
   }
 }
 
-// out[m, n] = epilogue(sum over splits of part[s, m, n]); see Epilogue.
+// out[m, n] = epilogue(sum over splits of part[s, m, n], times scale[n]
+// when scale is not null); see Epilogue.
 __global__ void epilogue_kernel(const float* __restrict__ part, int splits,
+                                const bf16* __restrict__ scale,
                                 const bf16* __restrict__ bias,
                                 const bf16* __restrict__ res, bf16* __restrict__ out,
                                 int M, int N, int mode) {
@@ -186,6 +234,7 @@ __global__ void epilogue_kernel(const float* __restrict__ part, int splits,
   if (idx >= total) return;
   float acc = 0.f;
   for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
+  if (scale != nullptr) acc *= __bfloat162float(scale[idx % N]);
   const float b = __bfloat162float(bias[idx % N]);
   float r;
   switch (mode) {
@@ -211,27 +260,68 @@ __global__ void epilogue_kernel(const float* __restrict__ part, int splits,
   out[idx] = __float2bfloat16_rn(r);
 }
 
-int gemm(const bf16* a, const bf16* ln_w, const bf16* ln_b, const bf16* w,
+template <typename WT>
+int gemm(const bf16* a, const bf16* ln_w, const bf16* ln_b, const WT* w,
          float* part, int M, int N, int K, int splits, float eps,
          cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
   const int k_per_split = K / splits;
   if (ln_w != nullptr)
-    gemm_partial_kernel<true><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M, N,
-                                                              K, k_per_split, eps);
+    gemm_partial_kernel<true, WT><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M,
+                                                                  N, K, k_per_split, eps);
   else
-    gemm_partial_kernel<false><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M, N,
-                                                               K, k_per_split, eps);
+    gemm_partial_kernel<false, WT><<<grid, kThreads, 0, stream>>>(a, ln_w, ln_b, w, part, M,
+                                                                   N, K, k_per_split, eps);
   return (int)cudaGetLastError();
 }
 
-int epilogue(const float* part, int splits, const bf16* bias, const bf16* res, bf16* out,
-             int M, int N, int mode, cudaStream_t stream) {
+int epilogue(const float* part, int splits, const bf16* scale, const bf16* bias,
+             const bf16* res, bf16* out, int M, int N, int mode, cudaStream_t stream) {
   const int threads = 256;
   const size_t total = (size_t)M * N;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  epilogue_kernel<<<blocks, threads, 0, stream>>>(part, splits, bias, res, out, M, N, mode);
+  epilogue_kernel<<<blocks, threads, 0, stream>>>(part, splits, scale, bias, res, out, M, N,
+                                                  mode);
   return (int)cudaGetLastError();
+}
+
+// LN1 + QKV; scale is null for bf16 weights.
+template <typename WT>
+int ln_qkv(const bf16* x, const bf16* ln_w, const bf16* ln_b, const WT* w, const bf16* scale,
+           const bf16* bias, bf16* out, float* part, int M, int N, int C, int splits, float eps,
+           cudaStream_t s) {
+  int err = gemm(x, ln_w, ln_b, w, part, M, N, C, splits, eps, s);
+  if (err) return err;
+  return epilogue(part, splits, scale, bias, nullptr, out, M, N, kBias, s);
+}
+
+// proj + residual + LN2 + MLP + residual: six launches. Scales are null for
+// bf16 weights, whose projection is cast before + bo (kProjResidual); the
+// int8 form adds bo to the scaled fp32 sum first (kBiasResidual).
+template <typename WT>
+int proj_mlp(const bf16* x, const bf16* y, const WT* wo, const bf16* wo_s, const bf16* bo,
+             const bf16* ln_w, const bf16* ln_b, const WT* w1, const bf16* w1_s,
+             const bf16* b1, const WT* w2, const bf16* w2_s, const bf16* b2, bf16* out,
+             bf16* x2, bf16* hidden, float* part, int M, int C, int H, int splits_o,
+             int splits_1, int splits_2, int gelu_sigmoid, float eps, cudaStream_t s) {
+  int err = gemm(y, nullptr, nullptr, wo, part, M, C, C, splits_o, eps, s);
+  if (err) return err;
+  err = epilogue(part, splits_o, wo_s, bo, x, x2, M, C,
+                 wo_s == nullptr ? kProjResidual : kBiasResidual, s);
+  if (err) return err;
+  err = gemm(x2, ln_w, ln_b, w1, part, M, H, C, splits_1, eps, s);
+  if (err) return err;
+  err = epilogue(part, splits_1, w1_s, b1, nullptr, hidden, M, H,
+                 gelu_sigmoid ? kBiasGeluSig : kBiasGeluErf, s);
+  if (err) return err;
+  err = gemm(hidden, nullptr, nullptr, w2, part, M, C, H, splits_2, eps, s);
+  if (err) return err;
+  return epilogue(part, splits_2, w2_s, b2, x2, out, M, C, kBiasResidual, s);
+}
+
+template <typename T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
 }
 
 }  // namespace
@@ -242,14 +332,19 @@ int epilogue(const float* part, int splits, const bf16* bias, const bf16* res, b
 extern "C" int rq_fused_ln_qkv(const void* x, const void* ln_w, const void* ln_b,
                                const void* wqkv, const void* bqkv, void* out, void* work,
                                int M, int N, int C, int splits, float eps, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  float* part = static_cast<float*>(work);
-  int err = gemm(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_w),
-                 static_cast<const bf16*>(ln_b), static_cast<const bf16*>(wqkv), part, M, N,
-                 C, splits, eps, s);
-  if (err) return err;
-  return epilogue(part, splits, static_cast<const bf16*>(bqkv), nullptr,
-                  static_cast<bf16*>(out), M, N, kBias, s);
+  return ln_qkv(in<bf16>(x), in<bf16>(ln_w), in<bf16>(ln_b), in<bf16>(wqkv), nullptr,
+                in<bf16>(bqkv), static_cast<bf16*>(out), static_cast<float*>(work), M, N, C,
+                splits, eps, (cudaStream_t)stream);
+}
+
+// rq_fused_ln_qkv with int8 wq [N, C] and bf16 column scales ws [N].
+extern "C" int rq_fused_ln_qkv_q8(const void* x, const void* ln_w, const void* ln_b,
+                                  const void* wq, const void* ws, const void* bqkv, void* out,
+                                  void* work, int M, int N, int C, int splits, float eps,
+                                  void* stream) {
+  return ln_qkv(in<bf16>(x), in<bf16>(ln_w), in<bf16>(ln_b), in<int8_t>(wq), in<bf16>(ws),
+                in<bf16>(bqkv), static_cast<bf16*>(out), static_cast<float*>(work), M, N, C,
+                splits, eps, (cudaStream_t)stream);
 }
 
 // x, y, out, x2: [M, C]; wo: [C, C]; w1: [H, C]; w2: [C, H]; biases and
@@ -264,25 +359,27 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* wo,
                                  void* work, int M, int C, int H, int splits_o,
                                  int splits_1, int splits_2, int gelu_sigmoid, float eps,
                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  float* part = static_cast<float*>(work);
-  bf16* x2b = static_cast<bf16*>(x2);
-  bf16* hid = static_cast<bf16*>(hidden);
-  int err = gemm(static_cast<const bf16*>(y), nullptr, nullptr, static_cast<const bf16*>(wo),
-                 part, M, C, C, splits_o, eps, s);
-  if (err) return err;
-  err = epilogue(part, splits_o, static_cast<const bf16*>(bo), static_cast<const bf16*>(x),
-                 x2b, M, C, kProjResidual, s);
-  if (err) return err;
-  err = gemm(x2b, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
-             static_cast<const bf16*>(w1), part, M, H, C, splits_1, eps, s);
-  if (err) return err;
-  err = epilogue(part, splits_1, static_cast<const bf16*>(b1), nullptr, hid, M, H,
-                 gelu_sigmoid ? kBiasGeluSig : kBiasGeluErf, s);
-  if (err) return err;
-  err = gemm(hid, nullptr, nullptr, static_cast<const bf16*>(w2), part, M, C, H, splits_2,
-             eps, s);
-  if (err) return err;
-  return epilogue(part, splits_2, static_cast<const bf16*>(b2), x2b,
-                  static_cast<bf16*>(out), M, C, kBiasResidual, s);
+  return proj_mlp(in<bf16>(x), in<bf16>(y), in<bf16>(wo), nullptr, in<bf16>(bo),
+                  in<bf16>(ln_w), in<bf16>(ln_b), in<bf16>(w1), nullptr, in<bf16>(b1),
+                  in<bf16>(w2), nullptr, in<bf16>(b2), static_cast<bf16*>(out),
+                  static_cast<bf16*>(x2), static_cast<bf16*>(hidden), static_cast<float*>(work),
+                  M, C, H, splits_o, splits_1, splits_2, gelu_sigmoid, eps, (cudaStream_t)stream);
+}
+
+// rq_fused_proj_mlp with int8 wo_q / w1_q / w2_q (same shapes) and bf16
+// column scales wo_s [C], w1_s [H], w2_s [C].
+extern "C" int rq_fused_proj_mlp_q8(const void* x, const void* y, const void* wo_q,
+                                    const void* wo_s, const void* bo, const void* ln_w,
+                                    const void* ln_b, const void* w1_q, const void* w1_s,
+                                    const void* b1, const void* w2_q, const void* w2_s,
+                                    const void* b2, void* out, void* x2, void* hidden,
+                                    void* work, int M, int C, int H, int splits_o,
+                                    int splits_1, int splits_2, int gelu_sigmoid, float eps,
+                                    void* stream) {
+  return proj_mlp(in<bf16>(x), in<bf16>(y), in<int8_t>(wo_q), in<bf16>(wo_s), in<bf16>(bo),
+                  in<bf16>(ln_w), in<bf16>(ln_b), in<int8_t>(w1_q), in<bf16>(w1_s),
+                  in<bf16>(b1), in<int8_t>(w2_q), in<bf16>(w2_s), in<bf16>(b2),
+                  static_cast<bf16*>(out), static_cast<bf16*>(x2), static_cast<bf16*>(hidden),
+                  static_cast<float*>(work), M, C, H, splits_o, splits_1, splits_2,
+                  gelu_sigmoid, eps, (cudaStream_t)stream);
 }

@@ -3,21 +3,30 @@ positions and the depth "head" transformer over D residual levels.
 
 Port of the cached-decode slice of rqvae_tpu/models/rqtransformer/model.py:
 the N(0, 0.02) init, one-pass LayerNorm, exact-erf gelu, the transformer
-blocks, tok_emb_offsets, classifier_apply, init_unrolled_kv_cache and the
-bf16/fp32-cache branch of stack_step_unrolled (S == 1 decode and S > 1
-prefill). Module names follow the reference state_dict
+blocks, tok_emb_offsets, classifier_apply, int8 weight-only quantization
+(quantize_transformer_params, _mm), init_unrolled_kv_cache / _q8 and
+stack_step_unrolled for the bf16/fp32 cache and the int8 cache (S == 1
+decode and S > 1 prefill). Module names follow the reference state_dict
 ({body,head}_transformer.blocks.{i}.{ln1,ln2,attn.{query,key,value,proj},
 mlp.{0,2}}, ...), so reference checkpoints and the JAX export load with
 strict=True.
 
+int8 weights live in non-persistent buffers beside the float weights
+(RQTransformer.quantize_int8 / load_int8): per block wqkv_q / wo_q / w1_q /
+w2_q int8 [out, in] with bf16 scales *_s [out], and the classifier's
+weight_q / weight_s. The state_dict keeps the reference layout either way.
+
 Kernel dispatch is one fixed rule, with no environment knobs (the JAX
 package's DecodePolicy / resolve_* tables were tuned for the TPU v5e):
   - a body S == 1 step runs its attention through the decode attention
-    kernel (ops/attention_kernel.py), and its dense half as torch.matmul;
+    kernel (ops/attention_kernel.py: decode_attention_update for (k, v)
+    caches, decode_attention_q8_update for int8 caches), and its dense
+    half as torch.matmul (for int8 weights, the plain _mm);
   - a head S == 1 step runs its dense half through the two dense kernels
-    (ops/decode_layer_kernel.py); its attention over <= D cache rows stays
-    plain;
-  - everything else (the S > 1 prefill) is plain PyTorch.
+    (ops/decode_layer_kernel.py; the _q8 pair when the block's weights are
+    int8); its attention over <= D cache rows stays plain;
+  - everything else (the S > 1 prefill) is plain PyTorch; with an int8
+    cache it dequantizes the past rows and quantizes the new ones.
 `kernels=False` swaps every kernel for its plain version (the same path on
 the same device), which is how the card compares the two paths.
 """
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.models.rqtransformer.config import StackConfig, TransformerConfig
 from rqvae_tpu_torch.ops import attention_kernel as AK
 from rqvae_tpu_torch.ops import decode_layer_kernel as DK
@@ -58,6 +68,25 @@ def tok_emb_offsets(config: TransformerConfig) -> np.ndarray:
     return np.cumsum([0] + list(config.vocab_size[:-1])).astype(np.int64)
 
 
+def quantize_weight(w: torch.Tensor, in_dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 weight-only quantization with one scale per output channel, as
+    the JAX _quantize_weight: scale = max(amax over the input dim, 1e-8) /
+    127 in fp32, q = clip(round(w / scale), -127, 127) with the fp32 scale
+    (half to even). Returns (q int8 of w's shape, scale bf16 without the
+    input dim). `in_dim` is -1 for nn.Linear [out, in], -2 for [.., in, out]."""
+    w32 = w.detach().float()
+    amax = w32.abs().amax(dim=in_dim, keepdim=True).clamp_min(1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale.squeeze(in_dim).to(torch.bfloat16)
+
+
+def _mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """h @ w for an int8 weight q [out, in] with scales [out]: the JAX
+    _mm, (h @ q.astype(h.dtype)) * scale.astype(h.dtype)."""
+    return F.linear(h, q.to(h.dtype)) * scale.to(h.dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, C: int, fk):
         super().__init__()
@@ -67,11 +96,15 @@ class Attention(nn.Module):
         self.proj = nn.Linear(C, C, **fk)
 
 
+INT8_WEIGHTS = ("wqkv", "wo", "w1", "w2")  # a block's int8 buffers: {name}_q, {name}_s
+
+
 class Block(nn.Module):
     """One transformer layer's weights. `wqkv` / `bqkv` are the fused
     [3C, C] / [3C] query-key-value projection: derived, non-persistent
     buffers (the state_dict keeps the reference layout), rebuilt by
-    `fuse_qkv`."""
+    `fuse_qkv`. The int8 buffers {wqkv,wo,w1,w2}_{q,s} are None until
+    RQTransformer.quantize_int8 or load_int8 sets them."""
 
     def __init__(self, cfg: StackConfig, fk):
         super().__init__()
@@ -82,6 +115,18 @@ class Block(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(C, 4 * C, **fk), nn.GELU(), nn.Linear(4 * C, C, **fk))
         self.register_buffer("wqkv", None, persistent=False)
         self.register_buffer("bqkv", None, persistent=False)
+        for name in INT8_WEIGHTS:
+            self.register_buffer(f"{name}_q", None, persistent=False)
+            self.register_buffer(f"{name}_s", None, persistent=False)
+
+    @property
+    def int8(self) -> bool:
+        return self.wqkv_q is not None
+
+    def float_weights(self) -> dict:
+        """The [out, in] float weights that the int8 buffers quantize."""
+        return {"wqkv": self.wqkv, "wo": self.attn.proj.weight, "w1": self.mlp[0].weight,
+                "w2": self.mlp[2].weight}
 
     @torch.no_grad()
     def fuse_qkv(self) -> None:
@@ -103,11 +148,15 @@ class Stack(nn.Module):
 
 
 class Classifier(nn.Module):
-    """LayerNorm + a shared nn.Linear, or per-depth weights [D, C, V]."""
+    """LayerNorm + a shared nn.Linear, or per-depth weights [D, C, V]. With
+    int8 weights, weight_q has the weight's layout and weight_s [V] or
+    [D, V] holds the per-output scales."""
 
     def __init__(self, config: TransformerConfig, fk):
         super().__init__()
         C = config.embed_dim
+        self.register_buffer("weight_q", None, persistent=False)
+        self.register_buffer("weight_s", None, persistent=False)
         self.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
         if config.shared_cls_emb:
             self.linear = nn.Linear(C, config.vocab_size[0], **fk)
@@ -119,8 +168,11 @@ class Classifier(nn.Module):
 
 
 class RQTransformer(nn.Module):
+    """Built on `device`, or on CUDA when it is None (resolve_device)."""
+
     def __init__(self, config: TransformerConfig, device=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         fk = dict(device=device, dtype=dtype)
         C, D = config.embed_dim, config.depth
         self.config = config
@@ -148,6 +200,8 @@ class RQTransformer(nn.Module):
             self.cond_classifier = nn.Module()
             self.cond_classifier.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
             self.cond_classifier.linear = nn.Linear(C, config.vocab_size_cond, **fk)
+        # new float weights make the int8 buffers stale: drop them
+        self.register_load_state_dict_post_hook(lambda module, _: module.clear_int8())
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -162,6 +216,7 @@ class RQTransformer(nn.Module):
             else:
                 p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         self.fuse_qkv()
+        self.clear_int8()
 
     def fuse_qkv(self) -> None:
         """Rebuild every block's fused QKV buffers from the current weights
@@ -170,12 +225,76 @@ class RQTransformer(nn.Module):
             for blk in stack.blocks:
                 blk.fuse_qkv()
 
+    @torch.no_grad()
+    def quantize_int8(self) -> None:
+        """int8 weight-only quantization of the decode-heavy weights, as the
+        JAX quantize_transformer_params: every block's wqkv, wo, w1 and w2
+        and the classifier projection (quantize_weight). Embeddings, norms,
+        biases and the embedding MLPs stay as they are. Quantizing the
+        fused [3C, C] wqkv equals quantizing wq, wk, wv apart: the scales
+        are per output channel. The buffers are a snapshot of the float
+        weights, which stay beside them: load_state_dict and init_weights
+        drop them; after changing weights in place, quantize again."""
+        self.fuse_qkv()
+        buffers = {}
+        for sname in ("body_transformer", "head_transformer"):
+            for i, blk in enumerate(getattr(self, sname).blocks):
+                for name, w in blk.float_weights().items():
+                    q, scale = quantize_weight(w)
+                    buffers[f"{sname}.blocks.{i}.{name}_q"] = q
+                    buffers[f"{sname}.blocks.{i}.{name}_s"] = scale
+        q, scale = quantize_weight(self.classifier.linear.weight, -1 if self.config.shared_cls_emb else -2)
+        buffers["classifier.weight_q"], buffers["classifier.weight_s"] = q, scale
+        self.load_int8(buffers)
+
+    def _int8_slots(self) -> dict:
+        """{buffer name: (module, attribute)} of every int8 buffer slot."""
+        return {
+            f"{prefix}.{b}" if prefix else b: (mod, b)
+            for prefix, mod in self.named_modules()
+            for b in mod._buffers
+            if b.endswith(("_q", "_s"))
+        }
+
+    def load_int8(self, buffers: dict) -> None:
+        """Set the int8 buffers from {buffer name: tensor or array}, under the
+        names quantize_int8 uses (checkpoint/from_jax.rqtransformer_int8_from_jax
+        maps a quantized JAX tree to them). Every buffer must be given."""
+        slots = self._int8_slots()
+        if set(buffers) != set(slots):
+            raise ValueError(f"load_int8: expected buffers {sorted(slots)}, got {sorted(buffers)}")
+        device = self.pos_emb_hw.device
+        for name, value in buffers.items():
+            mod, attr = slots[name]
+            dtype = torch.int8 if attr.endswith("_q") else torch.bfloat16
+            setattr(mod, attr, torch.as_tensor(value).to(device=device, dtype=dtype).contiguous())
+
+    def clear_int8(self) -> None:
+        """Drop the int8 buffers: the model runs on its float weights again."""
+        for mod, attr in self._int8_slots().values():
+            setattr(mod, attr, None)
+
 
 def init_unrolled_kv_cache(cfg: StackConfig, batch: int, t_max: int, dtype, device):
     """Per-layer (k, v) caches, each [batch, t_max, C], zeroed."""
     shape = (batch, t_max, cfg.embed_dim)
     return [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+        for _ in range(cfg.n_layer)
+    ]
+
+
+def init_unrolled_kv_cache_q8(cfg: StackConfig, batch: int, t_max: int, device):
+    """Per-layer int8 caches (kq, ks, vq, vs), zeroed: values int8
+    [batch, t_max, C], per-(row, head) scales bf16 [batch, t_max, n_head]."""
+    shape = (batch, t_max, cfg.embed_dim)
+    sshape = (batch, t_max, cfg.n_head)
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return [
+        (z(shape, torch.int8), z(sshape, torch.bfloat16), z(shape, torch.int8), z(sshape, torch.bfloat16))
         for _ in range(cfg.n_layer)
     ]
 
@@ -205,53 +324,82 @@ def _attention_prefill(q, k, v, k_past, v_past, n_head):
 def stack_step_unrolled(
     stack: Stack,
     x: torch.Tensor,  # [B, S, C]
-    caches,  # per-layer (k [B, T, C], v [B, T, C])
+    caches,  # per-layer (k [B, T, C], v [B, T, C]) or int8 (kq, ks, vq, vs)
     cur_len: int,  # rows already in the caches
     window: int | None = None,  # attention reads cache rows < window only
     kernels: bool = True,
 ):
     """One cached step of a stack: S == 1 decode or S > 1 prefill.
 
-    Writes the new k/v rows at cur_len IN PLACE into `caches` and returns
-    (out [B, S, C], caches). The kernel rule is in the module docstring."""
+    Writes the new k/v rows at cur_len IN PLACE into `caches` (quantized
+    per (row, head) for int8 caches) and returns (out [B, S, C], caches).
+    A block with int8 buffers uses them for its four dense products. The
+    kernel rule is in the module docstring."""
     if len(stack.blocks) == 0:
         return x, caches
     B, S, C = x.shape
     n_head = stack.cfg.n_head
+    q8_cache = len(caches[0]) == 4
     T = caches[0][0].shape[1]
     t_max = T if window is None else min(window, T)
-    body_attn = stack.role == "body" and S == 1
+    body_attn = kernels and stack.role == "body" and S == 1
     head_dense = stack.role == "head" and S == 1
-    attn_fn = AK.decode_attention_update if kernels and body_attn else AK.decode_attention_update_plain
-    ln_qkv = DK.fused_ln_qkv if kernels else DK.fused_ln_qkv_plain
-    proj_mlp = DK.fused_proj_mlp if kernels else DK.fused_proj_mlp_plain
+    if q8_cache:
+        attn_fn = AK.decode_attention_q8_update if body_attn else AK.decode_attention_q8_update_plain
+    else:
+        attn_fn = AK.decode_attention_update if body_attn else AK.decode_attention_update_plain
+    ln_qkv, proj_mlp = (DK.fused_ln_qkv, DK.fused_proj_mlp) if kernels else (
+        DK.fused_ln_qkv_plain, DK.fused_proj_mlp_plain)
+    ln_qkv_q8, proj_mlp_q8 = (DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8) if kernels else (
+        DK.fused_ln_qkv_q8_plain, DK.fused_proj_mlp_q8_plain)
 
-    for blk, (k_l, v_l) in zip(stack.blocks, caches):
-        if head_dense:
-            qkv = ln_qkv(x[:, 0], blk.ln1.weight, blk.ln1.bias, blk.wqkv, blk.bqkv)[:, None]
+    for blk, cache_l in zip(stack.blocks, caches):
+        mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
+        ln1, ln2, bo = (blk.ln1.weight, blk.ln1.bias), (blk.ln2.weight, blk.ln2.bias), blk.attn.proj.bias
+        if head_dense and blk.int8:
+            qkv = ln_qkv_q8(x[:, 0], *ln1, blk.wqkv_q, blk.wqkv_s, blk.bqkv)[:, None]
+        elif head_dense:
+            qkv = ln_qkv(x[:, 0], *ln1, blk.wqkv, blk.bqkv)[:, None]
+        elif blk.int8:
+            qkv = _mm(layer_norm(x, *ln1), blk.wqkv_q, blk.wqkv_s) + blk.bqkv
         else:
-            qkv = F.linear(layer_norm(x, blk.ln1.weight, blk.ln1.bias), blk.wqkv, blk.bqkv)
+            qkv = F.linear(layer_norm(x, *ln1), blk.wqkv, blk.bqkv)
         q, k, v = qkv.split(C, dim=-1)
         if S == 1:
             y = attn_fn(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-                k_l, v_l, cur_len, n_head, t_window=t_max,
+                *cache_l, cur_len, n_head, t_window=t_max,
             )[:, None]
         else:
             n_past = min(cur_len, t_max)
-            y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
-            k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
-            v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
-        mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
-        if head_dense:
-            x = proj_mlp(
-                x[:, 0], y[:, 0], blk.attn.proj.weight, blk.attn.proj.bias,
-                blk.ln2.weight, blk.ln2.bias, mlp0.weight, mlp0.bias, mlp2.weight, mlp2.bias,
-                gelu_version=stack.cfg.gelu,
+            if q8_cache:
+                kq, ks, vq, vs = cache_l
+                k_past = AK.dequantize_cache(kq[:, :n_past], ks[:, :n_past], n_head).to(x.dtype)
+                v_past = AK.dequantize_cache(vq[:, :n_past], vs[:, :n_past], n_head).to(x.dtype)
+                y = _attention_prefill(q, k, v, k_past, v_past, n_head)
+                AK.write_q8_rows(k, v, *cache_l, cur_len, n_head)
+            else:
+                k_l, v_l = cache_l
+                y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
+                k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
+                v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
+        if head_dense and blk.int8:
+            x = proj_mlp_q8(
+                x[:, 0], y[:, 0], blk.wo_q, blk.wo_s, bo, *ln2, blk.w1_q, blk.w1_s, mlp0.bias,
+                blk.w2_q, blk.w2_s, mlp2.bias, gelu_version=stack.cfg.gelu,
             )[:, None]
+        elif head_dense:
+            x = proj_mlp(
+                x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,
+                mlp2.weight, mlp2.bias, gelu_version=stack.cfg.gelu,
+            )[:, None]
+        elif blk.int8:
+            x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo)
+            t = gelu(_mm(layer_norm(x2, *ln2), blk.w1_q, blk.w1_s) + mlp0.bias, stack.cfg.gelu)
+            x = x2 + (_mm(t, blk.w2_q, blk.w2_s) + mlp2.bias)
         else:
-            x2 = x + F.linear(y, blk.attn.proj.weight, blk.attn.proj.bias)
-            h2 = layer_norm(x2, blk.ln2.weight, blk.ln2.bias)
+            x2 = x + F.linear(y, blk.attn.proj.weight, bo)
+            h2 = layer_norm(x2, *ln2)
             x = x2 + F.linear(gelu(F.linear(h2, mlp0.weight, mlp0.bias), stack.cfg.gelu), mlp2.weight, mlp2.bias)
     return x, caches
 
@@ -267,17 +415,30 @@ def apply_logit_mask(logits: torch.Tensor, config: TransformerConfig) -> torch.T
 
 def classifier_apply(model: RQTransformer, h: torch.Tensor, depth_idx: int | None = None) -> torch.Tensor:
     """h [..., D, C] (all depths) or [..., C] with depth_idx (a decode step):
-    LayerNorm, then the shared or per-depth projection, then the logit mask."""
+    LayerNorm, then the shared or per-depth projection (int8 through the
+    JAX _mm rounding when the classifier holds int8 buffers), then the
+    logit mask."""
     config = model.config
     cls = model.classifier
     h = layer_norm(h, cls.layer_norm.weight, cls.layer_norm.bias)
     if config.shared_cls_emb:
-        logits = F.linear(h, cls.linear.weight, cls.linear.bias)
+        if cls.weight_q is not None:
+            logits = _mm(h, cls.weight_q, cls.weight_s) + cls.linear.bias
+        else:
+            logits = F.linear(h, cls.linear.weight, cls.linear.bias)
         return logits if depth_idx is not None else apply_logit_mask(logits, config)
     w, b = cls.linear.weight, cls.linear.bias
+    if cls.weight_q is not None:  # int8 [D, C, V] with scales [D, V]
+        w = cls.weight_q.to(h.dtype)
     if depth_idx is None:
-        return apply_logit_mask(torch.einsum("...dc,dcv->...dv", h, w) + b, config)
-    logits = h @ w[depth_idx] + b[depth_idx]
+        logits = torch.einsum("...dc,dcv->...dv", h, w)
+        if cls.weight_q is not None:
+            logits = logits * cls.weight_s.to(h.dtype)
+        return apply_logit_mask(logits + b, config)
+    logits = h @ w[depth_idx]
+    if cls.weight_q is not None:
+        logits = logits * cls.weight_s[depth_idx].to(h.dtype)
+    logits = logits + b[depth_idx]
     if config.heterogeneous_vocab:
         col = torch.arange(config.vocab_size_max, device=logits.device)
         logits = logits.masked_fill(col >= config.vocab_size[depth_idx], float("-inf"))

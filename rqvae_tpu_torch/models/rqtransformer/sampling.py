@@ -7,7 +7,10 @@ loop is a Python loop over the same cached steps (model.stack_step_unrolled
 with one (k, v) cache pair per layer, updated in place): the class token is
 prefilled through the body, then each of the H*W positions runs the depth
 head D times (each followed by the classifier and a draw) and, except at
-the last position, one body step. Random draws come from an explicit
+the last position, one body step. With `kv_q8` the body cache is int8
+(per-layer (kq, ks, vq, vs), rows allocated rounded up to 32 as in JAX);
+the head's D-row caches stay in the model dtype. int8 weights come from
+the model (RQTransformer.quantize_int8). Random draws come from an explicit
 torch.Generator (Gumbel-max on the filtered log-probabilities, the same
 categorical distribution as jax.random.categorical, not the same numbers).
 
@@ -28,6 +31,7 @@ from rqvae_tpu_torch.models.rqtransformer.model import (
     RQTransformer,
     classifier_apply,
     init_unrolled_kv_cache,
+    init_unrolled_kv_cache_q8,
     stack_step_unrolled,
 )
 from rqvae_tpu_torch.ops.quantize import RQCodebooks, embed_lookup
@@ -148,6 +152,7 @@ def _decode(
     cond: Optional[torch.Tensor],
     quantizer: Optional[RQCodebooks],
     kernels: bool,
+    kv_q8: bool,
 ) -> torch.Tensor:
     """The cached decode loop shared by `sample` and `forced_logits`.
     Returns codes [B, H, W, D] (int64)."""
@@ -189,7 +194,11 @@ def _decode(
     conds_emb = (model.cond_emb.weight[cond] + model.pos_emb_cond[:, :cond_len]).to(dtype)
 
     t_max = cond_len + HW - 1  # the last position's k/v are never read
-    body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
+    if kv_q8:
+        t_alloc = -(-t_max // 32) * 32  # the JAX sampler's int8 row tile; rows >= cur_len are never read
+        body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device)
+    else:
+        body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
     h, _ = stack_step_unrolled(model.body_transformer, conds_emb, body_caches, 0, kernels=kernels)
     spatial_ctx = h[:, -1]
 
@@ -247,18 +256,19 @@ def sample(
     top_p=None,  # float or per-depth list
     exact_sample: bool = False,
     kernels: bool = True,
+    kv_q8: bool = False,
 ) -> torch.Tensor:
     """Sample codes [B, H, W, D] (int64). `exact_sample` selects the
     reference-exact top-k tie semantics over the fast path;
     `kernels=False` runs the plain versions of the kernels (model module
-    docstring)."""
+    docstring); `kv_q8` keeps the body's KV cache in int8."""
     top_k_list, top_p_list = broadcast_topk_topp(model.config, top_k, top_p)
     draw = sample_from_logits if exact_sample else sample_from_logits_fast
 
     def pick(t, d, logits):
         return draw(logits, generator, temperature, top_k_list[d], top_p_list[d])
 
-    return _decode(model, batch_size, pick, cond, quantizer, kernels)
+    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8)
 
 
 def forced_logits(
@@ -267,6 +277,7 @@ def forced_logits(
     cond: Optional[torch.Tensor] = None,
     quantizer: Optional[RQCodebooks] = None,
     kernels: bool = True,
+    kv_q8: bool = False,
 ) -> torch.Tensor:
     """Per-position decode logits [B, H, W, D, Vmax] (fp32) with the codes
     forced to `forced`: the sampler's cached path with the draw replaced by
@@ -279,5 +290,5 @@ def forced_logits(
         out[:, t, d] = logits.float()
         return forced_flat[:, t, d]
 
-    _decode(model, B, pick, cond, quantizer, kernels)
+    _decode(model, B, pick, cond, quantizer, kernels, kv_q8)
     return out.reshape(B, H, W, D, -1)

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.models.rqvae.modules import DDConfig, Decoder, Encoder, init_conv_stack
 from rqvae_tpu_torch.ops.quantize import QuantizerConfig, RQCodebooks, embed_code
 
@@ -62,9 +63,11 @@ class RQVAEHParams:
 
 
 class RQVAE(nn.Module):
+    """Built on `device`, or on CUDA when it is None (resolve_device)."""
+
     def __init__(self, hparams: RQVAEHParams, ddconfig: DDConfig, device=None, dtype=None):
         super().__init__()
-        fk = dict(device=device, dtype=dtype)
+        fk = dict(device=resolve_device(device), dtype=dtype)
         self.hparams = hparams
         self.ddconfig = ddconfig
         self.encoder = Encoder(ddconfig, **fk)

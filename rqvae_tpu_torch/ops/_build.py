@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 The sources in `rqvae_tpu_torch/csrc/*.cu` expose a plain C interface. At
-first use they are compiled for Hopper (`sm_90a`) into one shared library
-under `build/torch_kernels/<hash>/` at the repository root, keyed by a hash
-of the sources and the flags, so a changed source rebuilds and an unchanged
-one loads at once. Nothing here runs at import time. A missing `nvcc` or a
+first use each is compiled for Hopper (`sm_90a`) into a shared library of
+its own, all nvcc processes started together, under
+`build/torch_kernels/<hash>/` at the repository root, keyed by a hash of the
+sources and the flags, so a changed source rebuilds and an unchanged one
+loads at once. Nothing here runs at import time. A missing `nvcc` or a
 failed build raises: there is no fallback.
 """
 
@@ -17,7 +18,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -26,7 +29,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-LIB_NAME = "librqvae_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,12 +36,15 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns cudaGetLastError()
 _SIGNATURES = {
     "rq_decode_attention_update": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "rq_decode_attention_q8_update": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_fused_ln_qkv": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    "rq_fused_ln_qkv_q8": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "rq_fused_proj_mlp": (_P,) * 14 + (_I,) * 7 + (_F, _P),
+    "rq_fused_proj_mlp_q8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
 }
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, SimpleNamespace] = {}
 
 
 def nvcc() -> str:
@@ -60,49 +65,70 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def build_dir() -> Path:
+    """Where the libraries for the current sources live (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float]:
-    """Compile the sources if their library is missing. Returns the library
-    path and the seconds spent compiling (0.0 when it was already built)."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+def _lib_path(src: Path) -> Path:
+    return build_dir() / f"lib{src.stem}.so"
+
+
+def _compile(src: Path) -> tuple[str, str, float]:
+    """nvcc one source into its library: (source name, compiler output, seconds)."""
+    tmp = _lib_path(src).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
+            f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
         )
+    os.replace(tmp, _lib_path(src))  # atomic: a concurrent process never loads a partial file
+    return src.name, res.stdout + res.stderr, seconds
+
+
+def build() -> tuple[Path, float, dict[str, float]]:
+    """Compile every source whose library is missing, one nvcc process per
+    source, all started together. Returns the build directory, the wall
+    seconds of the build and each source's own nvcc seconds (0.0 and {}
+    when everything was already built); the -Xptxas -v reports go to
+    <build dir>/ptxas.log."""
+    out = build_dir()
+    todo = [src for src in sorted(CSRC.glob("*.cu")) if not _lib_path(src).exists()]
+    if not todo:
+        return out, 0.0, {}
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(todo)) as pool:
+        done = list(pool.map(_compile, todo))
+    seconds = time.perf_counter() - t0
     # -Xptxas -v reports registers, shared memory and spills per kernel
-    (lib.parent / "ptxas.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
-    return lib, seconds
+    (out / "ptxas.log").write_text("\n".join(f"== {name}\n{text}" for name, text, _ in done))
+    return out, seconds, {name: s for name, _, s in done}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library with argtypes/restype set (built on first use)."""
+def library() -> SimpleNamespace:
+    """The C entry points of every kernel library, argtypes/restype set,
+    as attributes (built on first use)."""
     with _lock:
         if "lib" not in _loaded:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _loaded["lib"] = lib
+            build()
+            fns = {}
+            for src in sorted(CSRC.glob("*.cu")):
+                lib = ctypes.CDLL(str(_lib_path(src)))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name, None)
+                    if fn is not None:
+                        fn.argtypes = list(argtypes)
+                        fn.restype = ctypes.c_int
+                        fns[name] = fn
+            _loaded["lib"] = SimpleNamespace(**fns)
         return _loaded["lib"]
 
 

@@ -14,6 +14,13 @@ This replaces the JAX kernel's `input_output_aliases` (a functional array
 needs aliasing to update in place; a torch tensor simply is updated). The
 TPU kernel's 0/1 segment matmuls and sublane-aligned windows were Mosaic
 workarounds and are not carried over: W is taken as given.
+
+The int8 cache (kv_q8) is the counterpart of ::quantize_kv,
+::dequantize_cache and ::decode_attention_q8_update (CUDA kernel
+csrc/decode_attention_q8.cu). One layer's cache is (kq int8 [B, T, C],
+ks bf16 [B, T, n_head], vq, vs): one scale per (row, head). quantize_kv
+returns the fp32 scale; the cache stores it as bf16, but the int8 values
+were rounded with the fp32 one.
 """
 
 from __future__ import annotations
@@ -116,3 +123,142 @@ def decode_attention_update(
 
 
 decode_attention_update.launches = 0
+
+
+def quantize_kv(x: torch.Tensor, n_head: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, head) symmetric int8 quantization of x [N, C]: returns
+    (q int8 [N, C], scale fp32 [N, n_head]) with scale = max(absmax / 127,
+    1e-8) and q = round(x / scale), half to even. Both divisions are
+    elementwise tensor divisions (IEEE), as in the CUDA kernel."""
+    N, C = x.shape
+    xh = x.float().reshape(N, n_head, C // n_head)
+    amax = xh.abs().amax(dim=-1)
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    q = torch.round(xh / scale[..., None]).to(torch.int8)
+    return q.reshape(N, C), scale
+
+
+def dequantize_cache(q: torch.Tensor, scale: torch.Tensor, n_head: int) -> torch.Tensor:
+    """int8 [B, T, C] with scales [B, T, n_head] -> the bf16 cache [B, T, C]."""
+    B, T, C = q.shape
+    x = q.float().reshape(B, T, n_head, C // n_head) * scale.float()[..., None]
+    return x.reshape(B, T, C).to(torch.bfloat16)
+
+
+def write_q8_rows(
+    k: torch.Tensor, v: torch.Tensor, kq, ks, vq, vs, cur_len: int, n_head: int
+) -> None:
+    """Quantize k, v [B, S, C] and write them into rows cur_len .. cur_len +
+    S of the four int8-cache tensors, in place."""
+    B, S, C = k.shape
+    for x, xq, xs in ((k, kq, ks), (v, vq, vs)):
+        q, s = quantize_kv(x.reshape(B * S, C), n_head)
+        xq[:, cur_len : cur_len + S] = q.reshape(B, S, C)
+        xs[:, cur_len : cur_len + S] = s.reshape(B, S, n_head).to(xs.dtype)
+
+
+def decode_attention_q8_update_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of decode_attention_q8_update. It rounds where
+    the JAX kernel's _attn_math_q8_val does, in bf16 whatever the input
+    dtype: products bf16(kq * q) summed per head in fp32, times ks, times
+    1/sqrt(hs); an explicit softmax (m, e, denom); weights
+    bf16((e / denom) * vs); y = sum of bf16(vq * w) in fp32, plus the fp32
+    self term v_new * e_self / denom, whose score sums bf16(k_new * q).
+    Then k_new / v_new are quantized (quantize_kv) into row cur_len of the
+    four caches IN PLACE. Returns y [B, C] in q's dtype."""
+    B, C = q.shape
+    T = kq.shape[1]
+    hs = C // n_head
+    n = min(cur_len, T if t_window is None else min(t_window, T))
+    scale = 1.0 / math.sqrt(hs)
+    cd = torch.bfloat16
+    f32 = torch.float32
+    qh = q.to(cd).reshape(B, 1, n_head, hs)
+    prod = kq[:, :n].to(cd).reshape(B, n, n_head, hs) * qh
+    s_past = torch.sum(prod, dim=-1, dtype=f32) * ks[:, :n].float() * scale  # [B, n, nh]
+    s_self = torch.sum((k_new * q).to(cd).reshape(B, 1, n_head, hs), dim=-1, dtype=f32) * scale
+    m = s_self if n == 0 else torch.maximum(s_past.amax(dim=1, keepdim=True), s_self)
+    e_past = torch.exp(s_past - m)
+    e_self = torch.exp(s_self - m)
+    denom = e_past.sum(dim=1, keepdim=True) + e_self
+    w_past = ((e_past / denom) * vs[:, :n].float()).to(cd)
+    y = torch.sum(vq[:, :n].to(cd).reshape(B, n, n_head, hs) * w_past[..., None], dim=1, dtype=f32)
+    y = y + v_new.float().reshape(B, n_head, hs) * (e_self / denom)[:, 0, :, None]
+    write_q8_rows(k_new[:, None], v_new[:, None], kq, ks, vq, vs, cur_len, n_head)
+    return y.reshape(B, C).to(q.dtype)
+
+
+def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head):
+    B, C = q.shape
+    dev = q.device
+    for name, t, dtype in (
+        ("q", q, torch.bfloat16), ("k_new", k_new, torch.bfloat16), ("v_new", v_new, torch.bfloat16),
+        ("kq", kq, torch.int8), ("ks", ks, torch.bfloat16), ("vq", vq, torch.int8), ("vs", vs, torch.bfloat16),
+    ):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"decode_attention_q8_update: {name} must be a contiguous {dtype} tensor on {dev}, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+    if k_new.shape != (B, C) or v_new.shape != (B, C):
+        raise ValueError("decode_attention_q8_update: q, k_new, v_new must share shape [B, C]")
+    T = kq.shape[1] if kq.dim() == 3 else -1
+    if kq.shape != (B, T, C) or vq.shape != kq.shape or ks.shape != (B, T, n_head) or vs.shape != ks.shape:
+        raise ValueError("decode_attention_q8_update: caches must be int8 [B, T, C] and bf16 scales [B, T, n_head]")
+    if C != n_head * HEAD_SIZE:
+        raise ValueError(
+            f"decode_attention_q8_update: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}"
+        )
+    if not 0 <= cur_len < T:
+        raise ValueError(f"decode_attention_q8_update: cur_len={cur_len} outside the cache (T={T})")
+
+
+def decode_attention_q8_update(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
+    launches csrc/decode_attention_q8.cu (bf16 activations, int8 cache,
+    head size 64, contiguous) or raises. One launch adds one to
+    `decode_attention_q8_update.launches`."""
+    if q.device.type == "cpu":
+        return decode_attention_q8_update_plain(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_q8_update: no kernel for device {q.device}")
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head)
+    B, C = q.shape
+    T = kq.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rq_decode_attention_q8_update(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
+        )
+    _build.check(err, "rq_decode_attention_q8_update")
+    decode_attention_q8_update.launches += 1
+    return y
+
+
+decode_attention_q8_update.launches = 0

@@ -19,6 +19,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from rqvae_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantizerConfig:
@@ -85,11 +87,13 @@ class VQEmbedding(nn.Module):
 
 
 class RQCodebooks(nn.Module):
-    """The quantizer's codebooks (reference key prefix `quantizer.`)."""
+    """The quantizer's codebooks (reference key prefix `quantizer.`), built
+    on `device`, or on CUDA when it is None (resolve_device)."""
 
     def __init__(self, config: QuantizerConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
+        device = resolve_device(device)
         books = [
             VQEmbedding(config.n_embed[b], config.embed_dim, device, dtype)
             for b in range(config.n_codebooks)

@@ -42,3 +42,33 @@ def test_chip_smoke_fails_without_a_cuda_device():
     )
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_modules_build_on_cuda_by_default_and_never_fall_back(monkeypatch):
+    """Without a `device`, RQTransformer, RQVAE and RQCodebooks build on CUDA;
+    where CUDA is absent they raise instead of building on the CPU."""
+    import pytest
+    import torch
+
+    from rqvae_tpu_torch import resolve_device
+    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.models.rqvae.model import RQVAE, RQVAEHParams
+    from rqvae_tpu_torch.models.rqvae.modules import DDConfig
+    from rqvae_tpu_torch.ops.quantize import QuantizerConfig, RQCodebooks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = dict(type="rq-transformer", vocab_size=16, block_size=[2, 2, 2], embed_dim=64,
+                body={"n_layer": 1, "block": {"n_head": 1}}, head={"n_layer": 1, "block": {"n_head": 1}})
+    dd = DDConfig.create(dict(double_z=False, z_channels=4, resolution=8, in_channels=3, out_ch=3, ch=8,
+                              ch_mult=[1], num_res_blocks=1, attn_resolutions=[], dropout=0.0))
+    hp = RQVAEHParams.create(dict(embed_dim=4, n_embed=8, latent_shape=[8, 8, 4], code_shape=[8, 8, 2]))
+    qcfg = QuantizerConfig.create(latent_shape=(8, 8, 4), code_shape=(8, 8, 2), n_embed=8)
+    for build in (lambda: RQTransformer(TransformerConfig.create(arch)), lambda: RQVAE(hp, dd),
+                  lambda: RQCodebooks(qcfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda", 0)

@@ -86,11 +86,11 @@ def build_pair(arch=SMALL_ARCH, seed=0):
     jq = jrq.QuantizerConfig.create(**QCFG)
     state = jax.device_get(jrq.init_codebook_state(jax.random.PRNGKey(seed + 1), jq))
 
-    model = TM.RQTransformer(TransformerConfig.create(arch))
+    model = TM.RQTransformer(TransformerConfig.create(arch), device="cpu")
     sd = to_torch(from_jax.rqtransformer_state_dict_from_jax(params, jcfg))
     model.load_state_dict(sd, strict=True)
     model.fuse_qkv()
-    books = RQCodebooks(QuantizerConfig.create(**QCFG))
+    books = RQCodebooks(QuantizerConfig.create(**QCFG), device="cpu")
     with torch.no_grad():
         books.codebooks[0].weight[:-1] = torch.tensor(np.asarray(state.embed[0]))
     return params, jcfg, state, jq, model, books
@@ -106,13 +106,13 @@ def test_from_jax_state_dict_equals_export_and_loads_strict():
         for k in want:
             assert got[k].dtype == want[k].dtype, k
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        model = TM.RQTransformer(TransformerConfig.create(arch))
+        model = TM.RQTransformer(TransformerConfig.create(arch), device="cpu")
         model.load_state_dict(to_torch(got), strict=True)
 
 
 def test_full_size_1p4b_keys_match_reference_manifest():
     with torch.device("meta"):
-        model = TM.RQTransformer(TransformerConfig.create(BENCH_1P4B_ARCH))
+        model = TM.RQTransformer(TransformerConfig.create(BENCH_1P4B_ARCH), device="meta")
     want = load_manifest(
         os.path.join(GOLDENS, "key_manifests", "imagenet256__stage2__in256-rqtransformer-8x8x4-1400M.txt")
     )
@@ -125,7 +125,7 @@ def _synth_stage2_arch():
 
 
 def test_synth_stage2_checkpoint_loads_strict():
-    model = TM.RQTransformer(TransformerConfig.create(_synth_stage2_arch()))
+    model = TM.RQTransformer(TransformerConfig.create(_synth_stage2_arch()), device="cpu")
     ckpt = torch.load(os.path.join(GOLDENS, "synth_ckpt", "stage2", "model.pt"), map_location="cpu")
     model.load_state_dict(ckpt["state_dict"], strict=True)
 
@@ -159,7 +159,7 @@ def test_classifier_apply_matches_jax(arch):
 
 def test_init_weights_is_seeded_gpt_init():
     config = TransformerConfig.create(SMALL_ARCH)
-    a, b = TM.RQTransformer(config), TM.RQTransformer(config)
+    a, b = TM.RQTransformer(config, device="cpu"), TM.RQTransformer(config, device="cpu")
     a.init_weights(torch.Generator().manual_seed(3))
     b.init_weights(torch.Generator().manual_seed(3))
     for (name, p), q in zip(a.named_parameters(), b.parameters()):

@@ -46,7 +46,7 @@ def _jax_model():
 
 
 def _port_model(params, state, qcfg):
-    model = RQVAE(RQVAEHParams.create(HP), DDConfig.create(DD))
+    model = RQVAE(RQVAEHParams.create(HP), DDConfig.create(DD), device="cpu")
     sd = from_jax.rqvae_state_dict_from_jax(params, state, qcfg)
     model.load_state_dict(to_torch(sd), strict=True)
     return model
@@ -96,7 +96,7 @@ def test_full_size_rqvae_keys_match_reference_manifest():
 def test_synth_stage1_checkpoint_loads_strict():
     with open(os.path.join(GOLDENS, "synth_ckpt", "stage1", "config.yaml")) as f:
         arch = yaml.safe_load(f)["arch"]
-    model = RQVAE(RQVAEHParams.create(arch["hparams"]), DDConfig.create(arch["ddconfig"]))
+    model = RQVAE(RQVAEHParams.create(arch["hparams"]), DDConfig.create(arch["ddconfig"]), device="cpu")
     ckpt = torch.load(os.path.join(GOLDENS, "synth_ckpt", "stage1", "model.pt"), map_location="cpu")
     model.load_state_dict(ckpt["state_dict"], strict=True)
     with torch.no_grad():
