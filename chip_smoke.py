@@ -2,14 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (rqvae_tpu_torch) on one NVIDIA GPU.
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. device: require CUDA, print the card's name and power limit;
+  1. device: require CUDA, print the card's name and power limit; turn
+     TF32 off for cuDNN and for fp32 matmuls, so that every fp32 reference
+     below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the six kernels against its plain PyTorch version on the card,
-     at the shapes of the 1.4B main path (bf16 activations, B=100, C=1536,
-     24 heads, T=64; int8 caches and weights for the q8 kernels, whose
-     cache writes must be bit-equal), timed against the plain version, a
-     library call where one exists, and the card's bound;
+  3. each of the seven kernels against its plain PyTorch version on the
+     card, at the shapes of its main path (the sampling kernels: bf16
+     activations, B=100, C=1536, 24 heads, T=64; int8 caches and weights
+     for the q8 kernels, whose cache writes must be bit-equal;
+     nearest_code: fp32, 6400 rows of 256 against 16384 codes, with
+     planted ties), timed against the plain version, a library call where
+     one exists, and the card's bound;
   4. the main path at bench.py's three operating points (bf16 cache; int8
      KV cache "kv_q8"; int8 weights + kv_q8): 1.4B class-conditional
      sampling at bs100 (bench.py's geometry, random weights from a seed,
@@ -18,7 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      before each of its ROUNDS timed sample calls and checked after it),
      output checks, ms/sample (the median of those calls) and peak memory;
   5. forced_logits at B=8 through the kernels and through the plain
-     versions, compared, at each operating point.
+     versions, compared, at each operating point;
+  6. the RQ-VAE encode side at full width, bf16, bs100: the forward
+     (encode, residual quantization through nearest_code, decode) of the
+     bf16 point's decoded images, with its launch counts (4 nearest_code
+     per forward), output checks, ms/image for the forward and for
+     get_codes, peak memory, and code agreement with use_kernel=False.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -62,6 +71,13 @@ LOGIT_TOL = 2.5e-1
 LOGIT_MEAN_TOL = 2e-2
 # the bf16 decoder against an fp32 copy of itself, on [0, 1] pixels
 PIXEL_TOL = 1e-1
+# nearest_code: a row's fp32 distances carry a few ulps of ||x||^2 + ||c||^2
+# (the terms summed), so the kernel and the plain version may pick different
+# codes only where two distances lie that close; the kernel's pick may
+# exceed the fp64 minimum by at most this times ||x||^2 + ||c_pick||^2
+NEAREST_TIE_TOL = 1e-5
+NEAREST_AGREE = 0.999  # least share of rows on which kernel and plain codes are equal
+ENCODE_AGREE = 0.99  # least depth-0 agreement of use_kernel=True and False codes
 
 BATCH = 100
 # timed sample calls per operating point: host-clock times vary by up to
@@ -378,6 +394,68 @@ def check_dense_q8(DK, quantize_weight, dev, gen):
     )
 
 
+def nearest_vs_fp64(x, cb, got, want) -> tuple[float, float, float]:
+    """(share of rows where the codes got and want are equal, the largest
+    fp64 distance of got's pick over the fp64 minimum, the largest ratio of
+    that excess to NEAREST_TIE_TOL (||x||^2 + ||c_pick||^2)): a ratio above
+    1 is a pick that no fp32 rounding explains."""
+    x64, cb64 = x.double(), cb.double()
+    x_sq, cb_sq = x64.square().sum(1), cb64.square().sum(1)
+    d64 = (x_sq[:, None] + cb_sq) - 2.0 * (x64 @ cb64.T)
+    excess = d64.gather(1, got[:, None])[:, 0] - d64.min(dim=1).values
+    share = excess / (NEAREST_TIE_TOL * (x_sq + cb_sq[got]))
+    return float((got == want).double().mean()), float(excess.max()), float(share.max())
+
+
+def check_nearest_code(RK, dev, gen):
+    N, dim, E = BATCH * 64, 256, 16384  # one depth of the bs100 encode: 100 images x 8 x 8 codes
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, cb = rnd(N, dim), rnd(E, dim)  # N(0, 1) codebook, as init_weights makes it
+    # planted ties: (lo, hi) with row hi a copy of row lo, in one thread's
+    # codes, in two threads of one tile, in two tiles of one split, across
+    # splits; x rows 2i and 2i+1 are row hi and row hi + noise: both must get lo
+    pairs = ((100, 101), (3, 40), (130, 500), (5, 16000))
+    for i, (lo, hi) in enumerate(pairs):
+        cb[hi] = cb[lo]
+        x[2 * i] = cb[hi]
+        x[2 * i + 1] = cb[hi] + 0.01 * rnd(dim)
+    got = RK.nearest_code(x, cb)
+    want = RK.nearest_code_plain(x, cb)
+    torch.cuda.synchronize()
+    tie_rows = 2 * len(pairs)
+    expect = torch.tensor([lo for lo, _ in pairs for _ in range(2)], device=dev)
+    if not torch.equal(got[:tie_rows], expect):
+        raise AssertionError(f"nearest_code planted ties: got {got[:tie_rows].tolist()}, want {expect.tolist()}")
+    log(f"  nearest_code planted ties {pairs}: the lower index, exactly (plain version: "
+        f"{'the same' if torch.equal(want[:tie_rows], expect) else want[:tie_rows].tolist()})")
+    agree, excess, share = nearest_vs_fp64(x, cb, got, want)
+    ok = agree >= NEAREST_AGREE and share <= 1.0
+    log(f"  nearest_code x[{N},{dim}] codebook[{E},{dim}]: codes equal to the plain version's on "
+        f"{agree:.6f} of rows ({int(((got != want).sum()))} differ; bound >= {NEAREST_AGREE}); kernel pick "
+        f"over the fp64 minimum: max {excess:.3e}, max share of the bound {share:.3e} (bound "
+        f"{NEAREST_TIE_TOL} (||x||^2 + ||c||^2)) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("nearest_code: disagreement beyond the bound")
+    for n, d, e in ((300, 48, 200), (77, 20, 1000), (1, 256, 16384)):  # ragged edges on every axis
+        xr, cr = rnd(n, d), rnd(e, d)
+        a, _, sh = nearest_vs_fp64(xr, cr, RK.nearest_code(xr, cr), RK.nearest_code_plain(xr, cr))
+        log(f"  nearest_code x[{n},{d}] codebook[{e},{d}]: equal on {a:.4f} of rows, max share of the bound {sh:.3e}")
+        if sh > 1.0:
+            raise AssertionError(f"nearest_code at [{n},{d}] x [{e},{d}]: a pick beyond the fp64 bound")
+    # 5 distinct (x, codebook) sets of 23.4 MB: 117 MB, so L2 is cold
+    sets = [(rnd(N, dim), rnd(E, dim)) for _ in range(5)]
+    ms = cuda_ms([lambda s=s: RK.nearest_code(*s) for s in sets], 20)
+    plain = cuda_ms([lambda s=s: RK.nearest_code_plain(*s) for s in sets], 20)
+    lib = cuda_ms([lambda s=s: s[0] @ s[1].T for s in sets], 20)
+    b = bound(N * dim * 4 + E * dim * 4 + N * 8, 2 * N * E * dim, FP32_FLOPS)
+    log(f"  nearest_code time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library (the fp32 GEMM x @ cb.T "
+        f"alone, TF32 off) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (N={N}, dim={dim}, E={E})")
+    return {"max_abs_err": excess, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+
+
 def build_main_path(dev):
     """(model, vqvae, cond) of the main path: the bf16 1.4B RQ-Transformer
     and RQ-VAE with random weights from seed 0, and bs100 class labels."""
@@ -394,6 +472,67 @@ def build_main_path(dev):
     return model, vqvae, torch.arange(BATCH, device=dev) % model.config.vocab_size_cond
 
 
+def encode_phase(vqvae, xs, counters, card) -> int:
+    """Phase 6: ROUNDS forwards of the bs100 images xs [B, 256, 256, 3] in
+    [-1, 1], each with all counts set to 0 just before it and 4 nearest_code
+    launches (one per depth) and no other required just after; output
+    checks; ms/image; get_codes against use_kernel=False. Returns the
+    nearest_code launches of one forward."""
+    depth, n_embed = HPARAMS["code_shape"][2], HPARAMS["n_embed"]
+    want = {fn.__name__: 0 for fn in counters} | {"nearest_code": depth}
+    counts = {}
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out, s = wall_s(fn)
+        counts.update({c.__name__: c.launches for c in counters})
+        if counts != want:
+            raise AssertionError(f"[encode] launched {counts}, not {want}")
+        return out, s
+
+    with torch.no_grad():
+        counted(lambda: vqvae(xs))  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        fwd_s, code_s = [], []
+        for _ in range(ROUNDS):
+            (out, quant_loss, codes), s = counted(lambda: vqvae(xs))
+            fwd_s.append(s)
+        fwd_launches = counts["nearest_code"]
+        for _ in range(ROUNDS):
+            got, s = counted(lambda: vqvae.get_codes(xs))
+            code_s.append(s)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        if codes.shape != (BATCH, 8, 8, depth) or int(codes.min()) < 0 or int(codes.max()) >= n_embed:
+            raise AssertionError(f"codes out of shape or range: {tuple(codes.shape)} [{int(codes.min())}, {int(codes.max())}]")
+        if out.shape != xs.shape or not bool(torch.isfinite(out).all()) or not bool(torch.isfinite(quant_loss)):
+            raise AssertionError(f"reconstruction {tuple(out.shape)} or quant_loss {float(quant_loss)} not finite")
+        if not torch.equal(got, codes):
+            raise AssertionError("get_codes and the forward gave different codes for the same images")
+        log(f"  launches in each forward and get_codes (bs{BATCH}): nearest_code {depth}, every other kernel 0")
+        log(f"  codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+            f"{len(torch.unique(codes))} distinct; reconstruction {tuple(out.shape)} finite, "
+            f"quant_loss {float(quant_loss):.4f}")
+        # the forward's straight-through reconstruction against decode_code of its own codes
+        compare("forward reconstruction vs decode_code(codes) ([0,1] pixels)",
+                *(vqvae.get_recon_imgs(xs, r)[1] for r in (out, vqvae.decode_code(codes))), PIXEL_TOL)
+        fwd_ms, code_ms = (statistics.median(t) * 1e3 / BATCH for t in (fwd_s, code_s))
+        log(f"  [encode] forward: {fwd_ms:.3f} ms/image (median of {', '.join(f'{t * 1e3 / BATCH:.3f}' for t in fwd_s)}); "
+            f"get_codes: {code_ms:.3f} ms/image (median of {', '.join(f'{t * 1e3 / BATCH:.3f}' for t in code_s)}); "
+            f"peak memory {peak_gb:.1f} GiB; bs{BATCH}, {card}")
+        vqvae.use_kernel = False
+        try:
+            ref = vqvae.get_codes(xs)
+        finally:
+            vqvae.use_kernel = True
+    per_depth = [float((codes[..., d] == ref[..., d]).double().mean()) for d in range(depth)]
+    log(f"  codes equal to use_kernel=False's, per depth: {', '.join(f'{a:.4f}' for a in per_depth)} "
+        f"(bound >= {ENCODE_AGREE} at depth 0)")
+    if per_depth[0] < ENCODE_AGREE:
+        raise AssertionError("nearest_code and the plain argmin disagree at depth 0")
+    return fwd_launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -402,6 +541,10 @@ def main() -> None:
     log(card)
     dev = torch.device("cuda", 0)
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  TF32: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     sys.path.insert(0, ROOT)
     from rqvae_tpu_torch.models.rqtransformer import sampling as S
@@ -409,6 +552,7 @@ def main() -> None:
     from rqvae_tpu_torch.ops import _build
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.ops import rq_kernel as RK
 
     # phase 2: build
     log("# phase 2: build")
@@ -428,6 +572,7 @@ def main() -> None:
     qkv, mlp = check_dense(DK, dev, gen)
     attn_q8 = check_attention_q8(AK, dev, gen)
     qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
+    nearest = check_nearest_code(RK, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
     log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
@@ -444,12 +589,12 @@ def main() -> None:
                         quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels, kv_q8=kv_q8)
 
     counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
-                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8)
+                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     points = [  # (name, int8 weights, kv_q8, launches each counter must show)
-        ("bf16", False, False, (attn_steps, head_steps, head_steps, 0, 0, 0)),
-        ("kv_q8", False, True, (0, head_steps, head_steps, attn_steps, 0, 0)),
-        ("int8+kv_q8", True, True, (0, 0, 0, attn_steps, head_steps, head_steps)),
+        ("bf16", False, False, (attn_steps, head_steps, head_steps, 0, 0, 0, 0)),
+        ("kv_q8", False, True, (0, head_steps, head_steps, attn_steps, 0, 0, 0)),
+        ("int8+kv_q8", True, True, (0, 0, 0, attn_steps, head_steps, head_steps, 0)),
     ]
     launches, results = {}, {}
     for name, int8, kv_q8, expect in points:
@@ -477,6 +622,8 @@ def main() -> None:
             raise AssertionError(f"pixels not finite or of shape {tuple(pixels.shape)}")
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         results[name] = codes
+        if name == "bf16":
+            images = pixels  # phase 6 encodes them
         agree = f", codes equal to bf16's at {float((codes == results['bf16']).float().mean()):.3f}" if name != "bf16" else ""
         log(f"  [{name}] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
             f"{len(torch.unique(codes))} distinct{agree}; pixels finite")
@@ -508,6 +655,10 @@ def main() -> None:
         compare(f"[{name}] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
     model.clear_int8()
 
+    # phase 6: the encode side at full width
+    log(f"# phase 6: RQ-VAE encode + residual quantization + decode, bf16, bs{BATCH}, on {card}")
+    launches["nearest_code"] = encode_phase(vqvae, images.clamp(-1.0, 1.0), counters, card)
+
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
@@ -521,6 +672,8 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:246 (ring) and :161 (grid)", **qkv_q8),
         dict(name="fused_proj_mlp_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:451 (ring) and :559 (grid)", **mlp_q8),
+        dict(name="nearest_code", route="cuda", source="rqvae_tpu_torch/csrc/nearest_code.cu",
+             replaces="rqvae_tpu/ops/rq_kernel.py:69", **nearest),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one 1.4B bs100 sample call of the PyTorch/CUDA
-port goes, at each of bench.py's operating points, on one CUDA device.
+port goes, at each of bench.py's operating points, and of one bs100 RQ-VAE
+forward (encode, residual quantization, decode), on one CUDA device.
 
 The model is chip_smoke.py's main path (`build_main_path`): bench.py's 1.4B
 geometry with random weights from a seed, bs100, temperature 1, no
@@ -11,7 +12,9 @@ launches and copies), their summed device time per sample, the top device
 operations, and the device time per call of each of the port's kernel
 wrappers (their launches are wrapped in record_function ranges for this run
 only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
-busy share is this script's device ms/sample over that.
+busy share is this script's device ms/sample over that. The RQ-VAE forward
+(point "encode") runs on 100 images decoded from random codes, after one
+warm-up forward; its wall ms/image is chip_smoke.py's (phase 6).
 
 Prints one JSON line per point, then the card's name and power limit; the
 profiler tables go to --out.
@@ -46,6 +49,33 @@ def _annotated(fn):
     return call
 
 
+def report(name: str, prof, prof_s: float, out_dir: str) -> None:
+    """One JSON line for a profiled call: device operations and ms per
+    sample (or image), the top device operations, per-wrapper device time."""
+    events = prof.key_averages()
+    # a record_function range also shows as a device-side annotation
+    # spanning its kernels: it gives the wrapper's device time (the
+    # CPU op does not, for kernels launched through ctypes) and is
+    # left out of the device sums, which would count those kernels twice
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in events if e.device_type == cuda and not e.key.startswith("wrapper::")]
+    device_us = sum(e.self_device_time_total for e in device)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    per_wrapper = {
+        e.key.split("::", 1)[1]: {"calls": e.count, "device_us_per_call": e.self_device_time_total / e.count}
+        for e in events if e.device_type == cuda and e.key.startswith("wrapper::")
+    }
+    with open(os.path.join(out_dir, f"{name.replace('+', '_')}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    print(json.dumps({
+        "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH,
+        "device_ops": sum(e.count for e in device), "device_ms_per_sample": device_us / 1e3 / BATCH,
+        "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3}
+                           for e in top],
+        "wrappers": per_wrapper,
+    }), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
@@ -60,6 +90,7 @@ def main() -> None:
     from rqvae_tpu_torch.models.rqtransformer import sampling as S
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.ops import rq_kernel as RK
 
     model, vqvae, cond = build_main_path(dev)
 
@@ -73,7 +104,7 @@ def main() -> None:
 
     wrappers = {
         (AK, "decode_attention_update"), (AK, "decode_attention_q8_update"), (DK, "fused_ln_qkv"),
-        (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"),
+        (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"), (RK, "nearest_code"),
     }
     originals = {(m, n): getattr(m, n) for m, n in wrappers}
     for (m, n), fn in originals.items():
@@ -85,28 +116,20 @@ def main() -> None:
             run(kv_q8, seed=99)  # warm-up
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 prof_s = run(kv_q8, seed=1)
-            events = prof.key_averages()
-            # a record_function range also shows as a device-side annotation
-            # spanning its kernels: it gives the wrapper's device time (the
-            # CPU op does not, for kernels launched through ctypes) and is
-            # left out of the device sums, which would count those kernels twice
-            cuda = torch.autograd.DeviceType.CUDA
-            device = [e for e in events if e.device_type == cuda and not e.key.startswith("wrapper::")]
-            device_us = sum(e.self_device_time_total for e in device)
-            top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-            per_wrapper = {
-                e.key.split("::", 1)[1]: {"calls": e.count, "device_us_per_call": e.self_device_time_total / e.count}
-                for e in events if e.device_type == cuda and e.key.startswith("wrapper::")
-            }
-            with open(os.path.join(args.out, f"{name.replace('+', '_')}.txt"), "w") as f:
-                f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-            print(json.dumps({
-                "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH,
-                "device_ops": sum(e.count for e in device), "device_ms_per_sample": device_us / 1e3 / BATCH,
-                "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3}
-                                   for e in top],
-                "wrappers": per_wrapper,
-            }), flush=True)
+            report(name, prof, prof_s, args.out)
+        model.clear_int8()
+        gen = torch.Generator(device=dev).manual_seed(2)
+        codes = torch.randint(0, 16384, (BATCH, 8, 8, 4), generator=gen, device=dev)
+        with torch.no_grad():
+            xs = vqvae.decode_code(codes).clamp(-1.0, 1.0)
+            vqvae(xs)  # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                vqvae(xs)
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t0
+        report("encode", prof, prof_s, args.out)
     finally:
         for (m, n), fn in originals.items():
             setattr(m, n, fn)

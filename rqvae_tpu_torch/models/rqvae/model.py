@@ -1,7 +1,13 @@
-"""RQ-VAE: the decode side in PyTorch.
+"""RQ-VAE in PyTorch: conv encoder -> residual quantization -> conv decoder.
 
-Port of rqvae_tpu/models/rqvae/model.py: RQVAEHParams and an RQVAE module
-with `decode` and `decode_code`. The state_dict has the reference layout
+Port of rqvae_tpu/models/rqvae/model.py at inference: RQVAEHParams and an
+RQVAE module with `encode`, `forward` (JAX's __call__ with training=False),
+`get_codes`, `get_soft_codes`, `decode`, `decode_code`,
+`get_code_emb_with_depth`, `decode_partial_code`, `forward_partial_code`,
+`get_recon_imgs` and `compute_loss`. Residual quantization finds codes with
+the nearest_code kernel (use_kernel=True, as in JAX) or the argmin of the
+full distance matrix. Training (EMA codebook updates, code restarts,
+forward_pre) is not ported yet. The state_dict has the reference layout
 (encoder.*, decoder.*, quant_conv, post_quant_conv, quantizer.codebooks.*),
 so a stage-1 checkpoint loads with strict=True. The public boundary keeps
 the JAX package's layout: latents and pixels are NHWC, codes [B, h, w, D].
@@ -16,7 +22,8 @@ from torch import nn
 
 from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.models.rqvae.modules import DDConfig, Decoder, Encoder, init_conv_stack
-from rqvae_tpu_torch.ops.quantize import QuantizerConfig, RQCodebooks, embed_code
+from rqvae_tpu_torch.ops import quantize as rq
+from rqvae_tpu_torch.ops.quantize import QuantizerConfig, RQCodebooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,19 +70,50 @@ class RQVAEHParams:
 
 
 class RQVAE(nn.Module):
-    """Built on `device`, or on CUDA when it is None (resolve_device)."""
+    """Built on `device`, or on CUDA when it is None (resolve_device).
+    `use_kernel` picks how codes are found (rq.find_nearest)."""
 
-    def __init__(self, hparams: RQVAEHParams, ddconfig: DDConfig, device=None, dtype=None):
+    def __init__(
+        self, hparams: RQVAEHParams, ddconfig: DDConfig, device=None, dtype=None, use_kernel: bool = True
+    ):
         super().__init__()
         fk = dict(device=resolve_device(device), dtype=dtype)
         self.hparams = hparams
         self.ddconfig = ddconfig
+        self.use_kernel = use_kernel
         self.encoder = Encoder(ddconfig, **fk)
         self.decoder = Decoder(ddconfig, **fk)
         z_out = 2 * ddconfig.z_channels if ddconfig.double_z else ddconfig.z_channels
         self.quant_conv = nn.Conv2d(z_out, hparams.embed_dim, 1, **fk)
         self.post_quant_conv = nn.Conv2d(hparams.embed_dim, ddconfig.z_channels, 1, **fk)
         self.quantizer = RQCodebooks(hparams.quantizer_config, **fk)
+
+    def encode(self, xs: torch.Tensor) -> torch.Tensor:
+        """pixels xs [B, res, res, in_channels] (NHWC, about [-1, 1]) -> z_e
+        [B, H, W, embed_dim] in the model's dtype."""
+        x = xs.to(self.quant_conv.weight.dtype).permute(0, 3, 1, 2)
+        return self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)
+
+    def forward(self, xs: torch.Tensor, training: bool = False):
+        """pixels -> (reconstruction [B, res, res, out_ch], commitment loss,
+        codes [B, h, w, depth]); training=True is not ported yet."""
+        z_e = self.encode(xs)
+        z_q, quant_loss, codes = rq.rq_bottleneck_forward(
+            z_e, self.quantizer, training=training, use_kernel=self.use_kernel
+        )
+        return self.decode(z_q), quant_loss, codes
+
+    def get_codes(self, xs: torch.Tensor) -> torch.Tensor:
+        """pixels -> codes [B, h, w, depth] (torch.long)."""
+        z = rq.to_code_shape(self.encode(xs), self.quantizer.config)
+        return rq.quantize(z, self.quantizer, use_kernel=self.use_kernel)[1]
+
+    def get_soft_codes(
+        self, xs: torch.Tensor, temp: float = 1.0, stochastic: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        """pixels -> (soft targets [B, h, w, depth, n_embed], codes)."""
+        return rq.get_soft_codes(self.encode(xs), self.quantizer, temp, stochastic, generator)
 
     def decode(self, z_q: torch.Tensor) -> torch.Tensor:
         """z_q [B, H, W, embed_dim] -> pixels [B, res, res, out_ch] in about [-1, 1]."""
@@ -84,8 +122,41 @@ class RQVAE(nn.Module):
 
     def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, h, w, depth] -> pixels [B, res, res, out_ch] (NHWC)."""
-        z_q = embed_code(codes, self.quantizer).to(self.post_quant_conv.weight.dtype)
+        z_q = rq.embed_code(codes, self.quantizer).to(self.post_quant_conv.weight.dtype)
         return self.decode(z_q)
+
+    def get_code_emb_with_depth(self, codes: torch.Tensor) -> torch.Tensor:
+        return rq.embed_code_with_depth(codes, self.quantizer)
+
+    def decode_partial_code(self, codes: torch.Tensor, code_idx: int, decode_type: str = "select"):
+        """Pixels from depth code_idx alone ("select") or depths 0..code_idx
+        ("add")."""
+        z_q = rq.embed_partial_code(codes, code_idx, self.quantizer, decode_type)
+        return self.decode(z_q.to(self.post_quant_conv.weight.dtype))
+
+    def forward_partial_code(self, xs: torch.Tensor, code_idx: int, decode_type: str = "select"):
+        return self.decode_partial_code(self.get_codes(xs), code_idx, decode_type)
+
+    @staticmethod
+    def get_recon_imgs(xs_real: torch.Tensor, xs_recon: torch.Tensor):
+        """[-1, 1] pixels -> [0, 1]; the reconstruction clipped."""
+        return xs_real * 0.5 + 0.5, (xs_recon * 0.5 + 0.5).clamp(0.0, 1.0)
+
+    def compute_loss(self, out, quant_loss, codes, xs, valid: bool = False) -> dict:
+        """Reconstruction (mse or l1) and latent losses; with `valid`, the
+        batch- and channel-scaled sums of the reference's evaluation."""
+        if self.hparams.loss_type == "mse":
+            loss_recon = (out - xs).square().mean()
+        elif self.hparams.loss_type == "l1":
+            loss_recon = (out - xs).abs().mean()
+        else:
+            raise ValueError("incompatible loss type")
+        loss_latent = quant_loss
+        if valid:
+            loss_recon = loss_recon * xs.shape[0] * xs.shape[-1]
+            loss_latent = loss_latent * xs.shape[0]
+        loss_total = loss_recon + self.hparams.latent_loss_weight * loss_latent
+        return {"loss_total": loss_total, "loss_recon": loss_recon, "loss_latent": loss_latent, "codes": [codes]}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

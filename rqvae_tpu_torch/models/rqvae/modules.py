@@ -7,8 +7,8 @@ encoder), so reference checkpoints and the JAX export load with
 strict=True. Convolution weights are OIHW: the JAX HWIO kernels transpose
 as in rqvae_tpu/checkpoint/torch_export.py:27-29.
 
-The Encoder holds its weights so that a stage-1 state_dict loads; it has no
-forward yet (the encode side waits for the nearest_code kernel).
+The Encoder and Decoder both run at inference (dropout is skipped): the
+Encoder maps pixels [B, in_channels, res, res] to [B, z, res / 2^(L-1), ...].
 """
 
 from __future__ import annotations
@@ -169,7 +169,8 @@ class _Mid(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Downsampling conv stack: weights only (see the module docstring)."""
+    """Downsampling conv stack. x [B, in_channels, H, W] -> [B, z_out, h, w]
+    (z_out = 2 * z_channels with double_z)."""
 
     def __init__(self, cfg: DDConfig, device=None, dtype=None):
         super().__init__()
@@ -195,6 +196,18 @@ class Encoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, **fk)
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = _conv(block_in, out_ch, 3, fk)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for j, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn) > 0:
+                    h = level.attn[j](h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(swish(self.norm_out(h)))
 
 
 class Decoder(nn.Module):

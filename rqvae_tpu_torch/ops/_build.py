@@ -41,6 +41,7 @@ _SIGNATURES = {
     "rq_fused_ln_qkv_q8": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "rq_fused_proj_mlp": (_P,) * 14 + (_I,) * 7 + (_F, _P),
     "rq_fused_proj_mlp_q8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
+    "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()
