@@ -7,20 +7,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the seven kernels against its plain PyTorch version on the
+  3. each of the nine kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
-     activations, B=100, C=1536, 24 heads, T=64; int8 caches and weights
-     for the q8 kernels, whose cache writes must be bit-equal;
-     nearest_code: fp32, 6400 rows of 256 against 16384 codes, with
-     planted ties), timed against the plain version, a library call where
-     one exists, and the card's bound;
-  4. the main path at bench.py's three operating points (bf16 cache; int8
-     KV cache "kv_q8"; int8 weights + kv_q8): 1.4B class-conditional
-     sampling at bs100 (bench.py's geometry, random weights from a seed,
-     temperature 1, no top-k/top-p) and the RQ-VAE decode to 256x256
-     pixels, each point with its launch counts (all counts set to 0 just
-     before each of its ROUNDS timed sample calls and checked after it),
-     output checks, ms/sample (the median of those calls) and peak memory;
+     activations, B=100, C=1536, 24 heads, T=64, H=6144; int8 caches and
+     weights for the q8 kernels, whose cache writes must be bit-equal;
+     decode_layer_step and decode_attention_q8_update_wo also at a ragged
+     batch of 37 rows; nearest_code: fp32, 6400 rows of 256 against 16384
+     codes, with planted ties), timed against the plain version, a library
+     call where one exists, and the card's bound; the two fused kernels
+     print where their time went, phase by phase;
+  4. the main path at six operating points: bench.py's three (bf16 cache;
+     int8 KV cache "kv_q8"; int8 weights + kv_q8), each also with its
+     fused body-layer path (bf16+mega: decode_layer_step; kv_q8+attn_wo and
+     int8+kv_q8+attn_wo: decode_attention_q8_update_wo): 1.4B
+     class-conditional sampling at bs100 (bench.py's geometry, random
+     weights from a seed, temperature 1, no top-k/top-p) and the RQ-VAE
+     decode to 256x256 pixels, each point with its launch counts (all
+     counts set to 0 just before each of its ROUNDS timed sample calls and
+     checked after it), output checks, ms/sample (the median of those
+     calls) and peak memory;
   5. forced_logits at B=8 through the kernels and through the plain
      versions, compared, at each operating point;
   6. the RQ-VAE encode side at full width, bf16, bs100: the forward
@@ -126,11 +131,12 @@ def cuda_ms(fns, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(n_bytes: float, flops: float, peak_flops: float) -> dict:
+def bound(n_bytes: float, flops: float, peak_flops: float, fp32_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over HBM
     bandwidth (each input read once, each output written once) and the
-    operations over the peak rate of their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
+    operations over the peak rate of their type (`flops` at `peak_flops`,
+    plus `fp32_flops` at the fp32 peak for a kernel that does both)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops + fp32_flops / FP32_FLOPS
     by = "bytes" if t_bytes >= t_ops else "operations"
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": by}
 
@@ -394,6 +400,150 @@ def check_dense_q8(DK, quantize_weight, dev, gen):
     )
 
 
+MEGA_PHASES = ("LN1", "QKV", "attention", "wo", "residual+LN2", "w1", "gelu", "w2", "residual")
+WO_PHASES = ("attention", "wo", "residual+LN2")
+
+
+def _build_phases(entry, names):
+    """{phase: us} of a fused kernel's last launch (its globaltimer stamps)."""
+    from rqvae_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    return {n: round(us, 1) for n, us in zip(names, _build.phase_us(entry, len(names) + 1))}
+
+
+def layer_weights(rnd, C, H):
+    """One body layer's bf16 parameters for decode_layer_step, as a dict of
+    its keyword arguments ([out, in] weights, std 0.02)."""
+    return dict(
+        ln1_scale=rnd(C, std=0.1, mean=1.0), ln1_bias=rnd(C, std=0.1), wqkv=rnd(3 * C, C, std=0.02),
+        bqkv=rnd(3 * C, std=0.02), wo=rnd(C, C, std=0.02), bo=rnd(C, std=0.02), ln2_scale=rnd(C, std=0.1, mean=1.0),
+        ln2_bias=rnd(C, std=0.1), w1=rnd(H, C, std=0.02), b1=rnd(H, std=0.02), w2=rnd(C, H, std=0.02),
+        b2=rnd(C, std=0.02),
+    )
+
+
+def check_rows(name, got, want, old, cur):
+    """Row cur of the caches `got` (kernel) within TOL of `want` (plain
+    version), every other row bit-equal to `old`."""
+    keep = torch.ones(old.shape[1], dtype=torch.bool, device=old.device)
+    keep[cur] = False
+    compare(f"{name} cache row {cur}", got[:, cur], want[:, cur])
+    if not torch.equal(got[:, keep], old[:, keep]):
+        raise AssertionError(f"{name}: cache rows other than {cur} changed")
+
+
+def check_decode_layer_step(MK, dev, gen):
+    """decode_layer_step (the whole body layer) against its plain version at
+    the main-path shapes, a ragged batch, both gelu forms; timed."""
+    C, nh, T = 1536, 24, 64
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    worst = 0.0
+    # (B, cur_len, window, gelu): the main path's batch at both sampler
+    # windows, the ragged batch of 37 rows, both gelu forms
+    cases = [(BATCH, 0, 64, "v1"), (BATCH, 15, 32, "v1"), (BATCH, 16, 32, "v2"), (BATCH, 63, 64, "v1"),
+             (BATCH, 63, 64, "v2"), (37, 0, 24, "v1"), (37, 30, 24, "v2")]
+    for B, cur, window, gelu in cases:
+        x, kc, vc, w = rnd(B, C), rnd(B, T, C), rnd(B, T, C), layer_weights(rnd, C, H)
+        k1, v1, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = MK.decode_layer_step(x, k1, v1, cur, **w, n_head=nh, t_window=window, gelu_version=gelu)
+        want = MK.decode_layer_step_plain(x, k0, v0, cur, **w, n_head=nh, t_window=window, gelu_version=gelu)
+        torch.cuda.synchronize()
+        tag = f"decode_layer_step B={B} cur_len={cur} window={window} gelu {gelu}"
+        err, _ = compare(tag, got, want)
+        worst = max(worst, err)
+        check_rows(tag + " k", k1, k0, kc, cur)
+        check_rows(tag + " v", v1, v0, vc, cur)
+    log("  decode_layer_step: out and the written k/v rows within the bound, every other cache row bit-unchanged")
+    # time the heaviest main-path call (window 64, cur_len 63) on 2 distinct
+    # layers of weights and caches (2 x 96 MB), so L2 carries nothing over
+    B = BATCH
+    x = rnd(B, C)
+    sets = [(layer_weights(rnd, C, H), rnd(B, T, C), rnd(B, T, C)) for _ in range(2)]
+    ms = cuda_ms([lambda s=s: MK.decode_layer_step(x, s[1], s[2], 63, **s[0], n_head=nh, t_window=64)
+                  for s in sets], 30)
+    plain = cuda_ms([lambda s=s: MK.decode_layer_step_plain(x, s[1], s[2], 63, **s[0], n_head=nh, t_window=64)
+                     for s in sets], 30)
+
+    def library(w, kc, vc):
+        q, k, v = F.linear(x, w["wqkv"]).split(C, dim=-1)
+        y = sdpa_rows(q, kc, vc, nh, 64).reshape(B, C)
+        return F.linear(F.linear(F.linear(y, w["wo"]), w["w1"]), w["w2"])
+
+    lib = cuda_ms([lambda s=s: library(*s) for s in sets], 30)
+    n = 63
+    weights = (3 * C * C + C * C + 2 * C * H) * 2
+    vectors = (3 * C + C + H + C + 4 * C) * 2  # biases and LN parameters
+    b = bound(weights + vectors + 2 * B * n * C * 2 + B * C * 2 + 2 * B * C * 2 + B * C * 2,
+              2 * B * (3 * C * C + C * C + 2 * C * H), BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
+    log(f"  decode_layer_step time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library (four F.linear bf16 "
+        f"GEMMs + scaled_dot_product_attention over the 64 rows, no LN, bias, gelu or cache write) {lib:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
+    phases = _build_phases("rq_decode_layer_step_phase_ns", MEGA_PHASES)
+    log(f"  decode_layer_step phases of its last timed launch, us: {phases}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+
+
+def check_attention_q8_wo(AK, quantize_weight, dev, gen):
+    """decode_attention_q8_update_wo against its plain version with int8 and
+    bf16 wo at the main-path shapes and a ragged batch; timed."""
+    C, nh, T = 1536, 24, 64
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    def wo_pair(int8):
+        w = rnd(C, C, std=0.02)
+        return quantize_weight(w) if int8 else (w, None)
+
+    vec = (rnd(C, std=0.02), rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1))  # bo, ln2 scale and bias
+    worst = 0.0
+    for int8 in (True, False):
+        wo, wo_s = wo_pair(int8)
+        for B, cur, window in ((BATCH, 0, 64), (BATCH, 15, 32), (BATCH, 16, 32), (BATCH, 63, 64), (37, 0, 24)):
+            q, kn, vn, x = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, C)
+            cache = q8_cache(AK, rnd, B, T, C, nh)
+            got, ref = [c.clone() for c in cache], [c.clone() for c in cache]
+            x2, h2 = AK.decode_attention_q8_update_wo(q, kn, vn, *got, cur, x, wo, wo_s, *vec, nh, t_window=window)
+            x2_0, h2_0 = AK.decode_attention_q8_update_wo_plain(q, kn, vn, *ref, cur, x, wo, wo_s, *vec, nh,
+                                                                t_window=window)
+            torch.cuda.synchronize()
+            tag = f"decode_attention_q8_update_wo {'int8' if int8 else 'bf16'} wo B={B} cur_len={cur} window={window}"
+            worst = max(worst, compare(tag + " x2", x2, x2_0)[0], compare(tag + " h2", h2, h2_0)[0])
+            for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
+                if not torch.equal(a, b0):
+                    raise AssertionError(f"{tag}: {name} after the kernel's write differs from the plain version's")
+    log("  decode_attention_q8_update_wo: all four caches bit-equal to the plain version's")
+    B, n = BATCH, 63
+    q, kn, vn, x = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, C)
+    sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
+    for int8 in (True, False):
+        wos = [wo_pair(int8) for _ in range(6)]
+
+        def call(fn, i):
+            return fn(q, kn, vn, *sets[i], n, x, *wos[i], *vec, nh, t_window=64)
+
+        ms = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)], 50)
+        plain = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_plain, i) for i in range(6)], 50)
+        deq = [w.to(torch.bfloat16) * s[:, None] if int8 else w for w, s in wos]
+        lib = cuda_ms([lambda i=i: F.linear(x, deq[i]) for i in range(6)], 50)
+        wo_bytes = C * C + C * 2 if int8 else C * C * 2
+        b = bound(2 * B * n * (C + 2 * nh) + 4 * B * C * 2 + wo_bytes + 3 * C * 2 + 2 * B * C * 2
+                  + 2 * B * (C + 2 * nh), 2 * B * C * C, BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
+        log(f"  decode_attention_q8_update_wo time, {'int8' if int8 else 'bf16'} wo: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library (F.linear, the wo GEMM alone: no torch call attends an int8 cache) "
+            f"{lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
+        phases = _build_phases("rq_decode_attention_q8_update_wo_phase_ns", WO_PHASES)
+        log(f"  decode_attention_q8_update_wo phases of its last timed launch, us: {phases}")
+        if int8:  # the kernels table lists the int8-wo point's numbers
+            row = {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    return row
+
+
 def nearest_vs_fp64(x, cb, got, want) -> tuple[float, float, float]:
     """(share of rows where the codes got and want are equal, the largest
     fp64 distance of got's pick over the fp64 minimum, the largest ratio of
@@ -552,6 +702,7 @@ def main() -> None:
     from rqvae_tpu_torch.ops import _build
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.ops import decode_megakernel as MK
     from rqvae_tpu_torch.ops import rq_kernel as RK
 
     # phase 2: build
@@ -573,6 +724,8 @@ def main() -> None:
     attn_q8 = check_attention_q8(AK, dev, gen)
     qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
     nearest = check_nearest_code(RK, dev, gen)
+    mega = check_decode_layer_step(MK, dev, gen)
+    attn_wo = check_attention_q8_wo(AK, quantize_weight, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
     log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
@@ -584,30 +737,38 @@ def main() -> None:
     log(f"  rq-transformer {n_ar / 1e6:.0f}M params, rq-vae {n_vq / 1e6:.0f}M params, "
         f"built and initialised in {time.perf_counter() - t0:.1f} s")
 
-    def sample(seed, kernels=True, kv_q8=False):
+    def sample(seed, kernels=True, **options):
         return S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
-                        quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels, kv_q8=kv_q8)
+                        quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels, **options)
+
+    def set_int8(int8):
+        if int8 != model.body_transformer.blocks[0].int8:
+            model.quantize_int8() if int8 else model.clear_int8()
 
     counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
-                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code)
+                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
+                MK.decode_layer_step, AK.decode_attention_q8_update_wo)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
-    points = [  # (name, int8 weights, kv_q8, launches each counter must show)
-        ("bf16", False, False, (attn_steps, head_steps, head_steps, 0, 0, 0, 0)),
-        ("kv_q8", False, True, (0, head_steps, head_steps, attn_steps, 0, 0, 0)),
-        ("int8+kv_q8", True, True, (0, 0, 0, attn_steps, head_steps, head_steps, 0)),
+    A, D = attn_steps, head_steps
+    points = [  # (name, int8 weights, sample options, launches each counter must show)
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0)),
+        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A)),
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0)),
+        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A)),
     ]
     launches, results = {}, {}
-    for name, int8, kv_q8, expect in points:
-        if int8:
-            model.quantize_int8()
-        _, warm_s = wall_s(lambda: sample(99, kv_q8=kv_q8))
+    for name, int8, options, expect in points:
+        set_int8(int8)
+        _, warm_s = wall_s(lambda: sample(99, **options))
         torch.cuda.reset_peak_memory_stats()
         want = {fn.__name__: n for fn, n in zip(counters, expect)}
         times = []
         for _ in range(ROUNDS):
             for fn in counters:
                 fn.launches = 0
-            codes, sample_s = wall_s(lambda: sample(1, kv_q8=kv_q8))
+            codes, sample_s = wall_s(lambda: sample(1, **options))
             counts = {fn.__name__: fn.launches for fn in counters}
             if counts != want:
                 raise AssertionError(f"[{name}] the main path launched {counts}, not {want}")
@@ -638,22 +799,21 @@ def main() -> None:
     compare("decode_code bf16 vs fp32 copy (4 images, [0,1] pixels)", pixels,
             (0.5 * decode(vq32, results["bf16"][:4]).float() + 0.5).clamp(0.0, 1.0), PIXEL_TOL)
     del vq32
-    model.clear_int8()
+    set_int8(False)
     _, plain_s = wall_s(lambda: sample(1, kernels=False))
     log(f"  [bf16] sampling (plain versions): {plain_s * 1e3 / BATCH:.3f} ms/sample; {card}")
 
     # phase 5: the same path through the kernels and through the plain versions
     log("# phase 5: forced_logits at B=8, kernels vs plain versions")
-    for name, int8, kv_q8, _ in points:
-        if int8:
-            model.quantize_int8()
+    for name, int8, options, _ in points:
+        set_int8(int8)
         forced, fcond = results[name][:8], cond[:8]
-        got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True, kv_q8=kv_q8)
-        ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False, kv_q8=kv_q8)
+        got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True, **options)
+        ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False, **options)
         torch.cuda.synchronize()
         log(f"  [{name}] logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
         compare(f"[{name}] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
-    model.clear_int8()
+    set_int8(False)
 
     # phase 6: the encode side at full width
     log(f"# phase 6: RQ-VAE encode + residual quantization + decode, bf16, bs{BATCH}, on {card}")
@@ -674,6 +834,10 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:451 (ring) and :559 (grid)", **mlp_q8),
         dict(name="nearest_code", route="cuda", source="rqvae_tpu_torch/csrc/nearest_code.cu",
              replaces="rqvae_tpu/ops/rq_kernel.py:69", **nearest),
+        dict(name="decode_layer_step", route="cuda", source="rqvae_tpu_torch/csrc/decode_megakernel.cu",
+             replaces="rqvae_tpu/ops/decode_megakernel.py:215", **mega),
+        dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:728", **attn_wo),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -6,12 +6,15 @@ forward (encode, residual quantization, decode), on one CUDA device.
 The model is chip_smoke.py's main path (`build_main_path`): bench.py's 1.4B
 geometry with random weights from a seed, bs100, temperature 1, no
 top-k/top-p. The operating points are the bf16 KV cache, the int8 KV cache
-(kv_q8) and int8 weights + kv_q8. Per point, after one warm-up call, one
-sample call runs under torch.profiler. Reported: device operations (kernel
-launches and copies), their summed device time per sample, the top device
-operations, and the device time per call of each of the port's kernel
-wrappers (their launches are wrapped in record_function ranges for this run
-only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
+(kv_q8) and int8 weights + kv_q8, each also with its fused body-layer path
+(dense="mega" at bf16, attn_wo at the two kv_q8 points). Per point, after
+one warm-up call, one sample call runs under torch.profiler. Reported: host
+operations (the top-level aten operators the Python code dispatched, plus
+the kernel wrappers' calls, whose ctypes launches are no aten operators),
+device operations (kernel launches and copies), their summed device time
+per sample, the top device operations, and the device time per call of
+each of the port's kernel wrappers (their launches are wrapped in
+record_function ranges for this run only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
 busy share is this script's device ms/sample over that. The RQ-VAE forward
 (point "encode") runs on 100 images decoded from random codes, after one
 warm-up forward; its wall ms/image is chip_smoke.py's (phase 6).
@@ -37,7 +40,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from chip_smoke import BATCH, build_main_path, card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-POINTS = (("bf16", False, False), ("kv_q8", False, True), ("int8+kv_q8", True, True))
+POINTS = (  # (name, int8 weights, sample options), as chip_smoke.py phase 4
+    ("bf16", False, {}),
+    ("bf16+mega", False, dict(dense="mega")),
+    ("kv_q8", False, dict(kv_q8=True)),
+    ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True)),
+    ("int8+kv_q8", True, dict(kv_q8=True)),
+    ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True)),
+)
 
 
 def _annotated(fn):
@@ -49,9 +59,19 @@ def _annotated(fn):
     return call
 
 
+def host_ops(prof) -> int:
+    """Host operations of a profiled call: top-level aten operators and
+    kernel-wrapper calls (module docstring)."""
+    cpu = torch.autograd.DeviceType.CPU
+    return sum(
+        1 for e in prof.events()
+        if e.device_type == cpu and (e.name.startswith("wrapper::") or (e.name.startswith("aten::") and e.cpu_parent is None))
+    )
+
+
 def report(name: str, prof, prof_s: float, out_dir: str) -> None:
-    """One JSON line for a profiled call: device operations and ms per
-    sample (or image), the top device operations, per-wrapper device time."""
+    """One JSON line for a profiled call: host and device operations and ms
+    per sample (or image), the top device operations, per-wrapper device time."""
     events = prof.key_averages()
     # a record_function range also shows as a device-side annotation
     # spanning its kernels: it gives the wrapper's device time (the
@@ -68,7 +88,7 @@ def report(name: str, prof, prof_s: float, out_dir: str) -> None:
     with open(os.path.join(out_dir, f"{name.replace('+', '_')}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
     print(json.dumps({
-        "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH,
+        "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH, "host_ops": host_ops(prof),
         "device_ops": sum(e.count for e in device), "device_ms_per_sample": device_us / 1e3 / BATCH,
         "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3}
                            for e in top],
@@ -90,32 +110,34 @@ def main() -> None:
     from rqvae_tpu_torch.models.rqtransformer import sampling as S
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.ops import decode_megakernel as MK
     from rqvae_tpu_torch.ops import rq_kernel as RK
 
     model, vqvae, cond = build_main_path(dev)
 
-    def run(kv_q8, seed):
+    def run(options, seed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
-                 quantizer=vqvae.quantizer, kv_q8=kv_q8)
+                 quantizer=vqvae.quantizer, **options)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     wrappers = {
         (AK, "decode_attention_update"), (AK, "decode_attention_q8_update"), (DK, "fused_ln_qkv"),
         (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"), (RK, "nearest_code"),
+        (MK, "decode_layer_step"), (AK, "decode_attention_q8_update_wo"),
     }
     originals = {(m, n): getattr(m, n) for m, n in wrappers}
     for (m, n), fn in originals.items():
         setattr(m, n, _annotated(fn))
     try:
-        for name, int8, kv_q8 in POINTS:
-            if int8:
+        for name, int8, options in POINTS:
+            if int8 and not model.body_transformer.blocks[0].int8:
                 model.quantize_int8()
-            run(kv_q8, seed=99)  # warm-up
+            run(options, seed=99)  # warm-up
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                prof_s = run(kv_q8, seed=1)
+                prof_s = run(options, seed=1)
             report(name, prof, prof_s, args.out)
         model.clear_int8()
         gen = torch.Generator(device=dev).manual_seed(2)

@@ -26,9 +26,12 @@
 // 3.35 TB/s. Design: one block per (head, batch row), as
 // csrc/decode_attention.cu; each warp reads whole 64-byte int8 head slices
 // of cache rows (two values per lane, neighbouring lanes on neighbouring
-// addresses), so every cache byte is read once, coalesced. The K scale
-// folds into the score and the V scale into the softmax weight, so the
-// [B, T, C] tile is never dequantized.
+// addresses), so every cache byte is read once, coalesced; a warp issues
+// the loads of all its rows (up to 16) before it reduces the first, and
+// prefetches the same V rows into L2 meanwhile, so the weighted sum after
+// the softmax reads from L2. The K scale folds into the score and the V
+// scale into the softmax weight, so the [B, T, C] tile is never
+// dequantized.
 //
 // Races: a block reads only rows < cur_len and writes only its own head's
 // slice of row cur_len (and its one scale), so no two blocks touch the
@@ -39,38 +42,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fused_layer.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using fused::bf16;
+using fused::kHeadSize;
+using fused::kThreads;
+using fused::kWarps;
+using fused::load_bf16x2;
+using fused::prefetch_l2;
+using fused::round_bf16;
+using fused::warp_max;
+using fused::warp_sum;
 
-constexpr int kHeadSize = 64;  // 2 values per lane of one warp
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float2 load_i8x2(const int8_t* p) {
-  const char2 v = *reinterpret_cast<const char2*>(p);
-  return make_float2((float)v.x, (float)v.y);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int kRowBatch = 16;  // rows of one warp whose loads are in flight together
 
 // sum over the warp's head slice of bf16(a * b), two values per lane
 __device__ __forceinline__ float dot_bf16(float2 a, float2 b) {
@@ -89,16 +75,15 @@ __device__ __forceinline__ void quantize_head(float2 x, int8_t* dst_q, bf16* dst
   if (lane == 0) *dst_s = __float2bfloat16_rn(scale);
 }
 
-__global__ void __launch_bounds__(kThreads) decode_attention_q8_update_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
-    int8_t* kq, bf16* ks, int8_t* vq, bf16* vs, bf16* __restrict__ y, int T, int C,
-    int n_head, int n_valid, int cur_len, float scale) {
-  extern __shared__ float scores[];  // n_valid + 1 entries; the last is the self term
-  __shared__ float red[kWarps];
-  __shared__ float ypart[kWarps][kHeadSize];
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+// head h of batch row b: y and the quantized cache row cur_len. scores:
+// n_valid + 1 floats of shared memory (the last is the self term); red,
+// ypart: shared scratch
+__device__ __forceinline__ void attend_q8(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
+                                          const bf16* __restrict__ v_new, int8_t* kq, bf16* ks,
+                                          int8_t* vq, bf16* vs, bf16* __restrict__ y, int T, int C,
+                                          int n_head, int n_valid, int cur_len, float scale, int h,
+                                          int b, float* scores, float* red,
+                                          float (*ypart)[kHeadSize]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // this lane's two columns in a [B, C] row and in row 0 of the [B, T, C]
@@ -107,10 +92,26 @@ __global__ void __launch_bounds__(kThreads) decode_attention_q8_update_kernel(
   const size_t cache0 = (size_t)b * T * C + h * kHeadSize + 2 * lane;
   const size_t scale0 = (size_t)b * T * n_head + h;
 
+  // this warp's rows t0 + kWarps j: their loads (and lane j's load of row j's
+  // scale) in flight before the first sum; the V rows prefetched meanwhile
   const float2 qf = load_bf16x2(q + row);
-  for (int t = warp; t < n_valid; t += kWarps) {
-    const float d = dot_bf16(load_i8x2(kq + cache0 + (size_t)t * C), qf);
-    if (lane == 0) scores[t] = d * __bfloat162float(ks[scale0 + (size_t)t * n_head]) * scale;
+  for (int t0 = warp; t0 < n_valid; t0 += kWarps * kRowBatch) {
+    char2 kv[kRowBatch];
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const size_t t = min(t0 + kWarps * j, n_valid - 1);
+      kv[j] = *reinterpret_cast<const char2*>(kq + cache0 + t * C);
+      prefetch_l2(vq + cache0 + t * C);
+    }
+    const size_t tl = min(t0 + kWarps * (lane % kRowBatch), n_valid - 1);
+    const float ks_lane = __bfloat162float(ks[scale0 + tl * n_head]);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      if (t0 + kWarps * j >= n_valid) break;
+      const float d = dot_bf16(make_float2((float)kv[j].x, (float)kv[j].y), qf);
+      const float ks_j = __shfl_sync(0xffffffffu, ks_lane, j);
+      if (lane == 0) scores[t0 + kWarps * j] = d * ks_j * scale;
+    }
   }
   if (warp == kWarps - 1) {
     const float d = dot_bf16(load_bf16x2(k_new + row), qf);
@@ -143,11 +144,20 @@ __global__ void __launch_bounds__(kThreads) decode_attention_q8_update_kernel(
   for (int w = 1; w < kWarps; ++w) denom += red[w];
 
   float2 acc = make_float2(0.f, 0.f);
-  for (int t = warp; t < n_valid; t += kWarps) {
-    const float w = round_bf16((scores[t] / denom) * __bfloat162float(vs[scale0 + (size_t)t * n_head]));
-    const float2 vf = load_i8x2(vq + cache0 + (size_t)t * C);
-    acc.x += round_bf16(vf.x * w);
-    acc.y += round_bf16(vf.y * w);
+  for (int t0 = warp; t0 < n_valid; t0 += kWarps * kRowBatch) {
+    char2 vv[kRowBatch];
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j)
+      vv[j] = *reinterpret_cast<const char2*>(vq + cache0 + (size_t)min(t0 + kWarps * j, n_valid - 1) * C);
+    const size_t tl = min(t0 + kWarps * (lane % kRowBatch), n_valid - 1);
+    const float vs_lane = __bfloat162float(vs[scale0 + tl * n_head]);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      if (t0 + kWarps * j >= n_valid) break;
+      const float w = round_bf16((scores[t0 + kWarps * j] / denom) * __shfl_sync(0xffffffffu, vs_lane, j));
+      acc.x += round_bf16((float)vv[j].x * w);
+      acc.y += round_bf16((float)vv[j].y * w);
+    }
   }
   ypart[warp][2 * lane] = acc.x;
   ypart[warp][2 * lane + 1] = acc.y;
@@ -173,6 +183,83 @@ __global__ void __launch_bounds__(kThreads) decode_attention_q8_update_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) decode_attention_q8_update_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
+    int8_t* kq, bf16* ks, int8_t* vq, bf16* vs, bf16* __restrict__ y, int T, int C,
+    int n_head, int n_valid, int cur_len, float scale) {
+  extern __shared__ float scores[];  // n_valid + 1 entries; the last is the self term
+  __shared__ float red[kWarps];
+  __shared__ float ypart[kWarps][kHeadSize];
+  attend_q8(q, k_new, v_new, kq, ks, vq, vs, y, T, C, n_head, n_valid, cur_len, scale, blockIdx.x,
+            blockIdx.y, scores, red, ypart);
+}
+
+// rq_decode_attention_q8_update_wo: the attention above, then the output
+// projection, residual and LN2, in one cooperative launch of three phases
+// (fused_layer.cuh) separated by grid barriers:
+//   0 attend_q8, block per (row, head)  -> y (bf16 [B, C]) and the cache rows
+//   1 y @ wo^T, split-K wmma GEMM        -> fp32 partial sums
+//   2 block per row: x2 = bf16(x + bf16(proj * wo_s + bo)), h2 = LN2(x2)
+// which replaces rqvae_tpu/ops/attention_kernel.py::
+// decode_attention_q8_update_wo (kernel body _decode_attn_kernel_q8_update_wo):
+// y = bf16(the fp32 attention), wo cast to bf16 (int8 is exact in bf16),
+// the product summed in fp32 and times the per-output scale in fp32 (ones
+// for a float wo: no scale pointer), bo added before the one cast. The
+// projection needs every head of a row and LN2 every column, hence the
+// barriers. Bound: bytes, about 23.4 MB (int8 wo) or 25.8 MB (bf16 wo) at
+// B=100, C=1536, W=64: 7.0 / 7.7 us at 3.35 TB/s. Block 0 stamps the
+// globaltimer at the start and after each barrier, the last block to finish
+// at the end (wo_phase_ns, read by rq_decode_attention_q8_update_wo_phase_ns).
+__device__ unsigned long long wo_phase_ns[4];
+
+struct WoParams {
+  const bf16 *q, *k_new, *v_new;
+  int8_t* kq;
+  bf16* ks;
+  int8_t* vq;
+  bf16* vs;
+  const bf16* x;
+  const void* wo;
+  const bf16 *wo_s, *bo, *ln2_w, *ln2_b;
+  bf16 *x2, *h2;
+  float* part;  // [kMaxSplits, B, C] fp32 partial sums
+  bf16* y;      // [B, C]
+  int B, T, C, n_head, n_valid, cur_len, splits;
+  float eps, scale;
+};
+
+template <typename WT>
+__global__ void __launch_bounds__(fused::kThreads) decode_attention_q8_update_wo_kernel(WoParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float red[kWarps];
+  __shared__ float ypart[kWarps][kHeadSize];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
+  if (stamp) {
+    wo_phase_ns[0] = fused::global_ns();
+    wo_phase_ns[3] = 0;  // the last block to finish sets it (atomicMax below)
+  }
+  for (int u = blockIdx.x; u < p.B * p.n_head; u += gridDim.x) {
+    attend_q8(p.q, p.k_new, p.v_new, p.kq, p.ks, p.vq, p.vs, p.y, p.T, p.C, p.n_head, p.n_valid,
+              p.cur_len, p.scale, u % p.n_head, u / p.n_head, reinterpret_cast<float*>(smem_raw), red,
+              ypart);
+    __syncthreads();  // scores, red and ypart are free for the next unit
+  }
+  grid.sync();
+  if (stamp) wo_phase_ns[1] = fused::global_ns();
+  fused::gemm_phase<WT>(*reinterpret_cast<fused::Smem*>(smem_raw), p.y, static_cast<const WT*>(p.wo),
+                        p.part, p.B, p.C, p.C, p.splits);
+  grid.sync();
+  if (stamp) wo_phase_ns[2] = fused::global_ns();
+  for (int r = blockIdx.x; r < p.B; r += gridDim.x)
+    fused::residual_ln_row(p.part, p.splits, p.wo_s, p.bo, p.x, p.x2, p.ln2_w, p.ln2_b, p.h2, r, p.B,
+                           p.C, p.eps, red);
+  if (threadIdx.x == 0) atomicMax(&wo_phase_ns[3], fused::global_ns());
+}
+
+int grid_cache_i8[16];
+int grid_cache_bf16[16];
+
 }  // namespace
 
 // q, k_new, v_new, y: [B, C] bf16; kq, vq: [B, T, C] int8; ks, vs:
@@ -194,4 +281,65 @@ extern "C" int rq_decode_attention_q8_update(const void* q, const void* k_new,
       static_cast<int8_t*>(vq), static_cast<bf16*>(vs), static_cast<bf16*>(y), T, C, n_head,
       n_valid, cur_len, scale);
   return (int)cudaGetLastError();
+}
+
+// q, k_new, v_new, x, x2, h2: [B, C] bf16; kq, vq: [B, T, C] int8; ks, vs:
+// [B, T, n_head] bf16; wo: [C, C] int8 (wo_int8) or bf16; wo_s: [C] bf16 or
+// null (a scale of ones); bo, ln2_w, ln2_b: [C] bf16; all contiguous. C ==
+// n_head * 64, window <= fused::kMaxWindow. work: kMaxSplits * B * C fp32,
+// then B * C bf16. Attends rows < min(cur_len, window), writes row cur_len
+// (< T) of all four caches, and x2, h2. Returns the launch's cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge if the grid cannot be co-resident), or
+// cudaGetLastError() after it.
+extern "C" int rq_decode_attention_q8_update_wo(const void* q, const void* k_new, const void* v_new,
+                                                void* kq, void* ks, void* vq, void* vs,
+                                                const void* x, const void* wo, const void* wo_s,
+                                                const void* bo, const void* ln2_w,
+                                                const void* ln2_b, void* x2, void* h2, void* work,
+                                                int B, int T, int C, int n_head, int window,
+                                                int cur_len, int wo_int8, float eps,
+                                                void* stream) {
+  const void* kernel = wo_int8 ? (const void*)decode_attention_q8_update_wo_kernel<int8_t>
+                               : (const void*)decode_attention_q8_update_wo_kernel<bf16>;
+  int grid = 0;
+  int err = fused::coop_grid(kernel, wo_int8 ? grid_cache_i8 : grid_cache_bf16, &grid);
+  if (err) return err;
+  WoParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.k_new = static_cast<const bf16*>(k_new);
+  p.v_new = static_cast<const bf16*>(v_new);
+  p.kq = static_cast<int8_t*>(kq);
+  p.ks = static_cast<bf16*>(ks);
+  p.vq = static_cast<int8_t*>(vq);
+  p.vs = static_cast<bf16*>(vs);
+  p.x = static_cast<const bf16*>(x);
+  p.wo = wo;
+  p.wo_s = static_cast<const bf16*>(wo_s);
+  p.bo = static_cast<const bf16*>(bo);
+  p.ln2_w = static_cast<const bf16*>(ln2_w);
+  p.ln2_b = static_cast<const bf16*>(ln2_b);
+  p.x2 = static_cast<bf16*>(x2);
+  p.h2 = static_cast<bf16*>(h2);
+  p.part = static_cast<float*>(work);
+  p.y = reinterpret_cast<bf16*>(p.part + (size_t)fused::kMaxSplits * B * C);
+  p.B = B;
+  p.T = T;
+  p.C = C;
+  p.n_head = n_head;
+  p.n_valid = cur_len < window ? cur_len : window;
+  p.cur_len = cur_len;
+  p.splits = fused::pick_splits(((B + fused::kBM - 1) / fused::kBM) * (C / fused::kBN), C, grid);
+  p.eps = eps;
+  p.scale = 1.0f / sqrtf((float)kHeadSize);
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(fused::kThreads), args,
+                                                    fused::kSmemBytes, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The globaltimer (ns) at the start of the last rq_decode_attention_q8_update_wo
+// launch and after each of its three phases, into host memory out[4]. Synchronous.
+extern "C" int rq_decode_attention_q8_update_wo_phase_ns(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, wo_phase_ns, sizeof(wo_phase_ns));
 }

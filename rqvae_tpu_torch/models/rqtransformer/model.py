@@ -22,13 +22,23 @@ package's DecodePolicy / resolve_* tables were tuned for the TPU v5e):
     kernel (ops/attention_kernel.py: decode_attention_update for (k, v)
     caches, decode_attention_q8_update for int8 caches), and its dense
     half as torch.matmul (for int8 weights, the plain _mm);
+  - with dense="mega" (DecodePolicy.dense; (k, v) caches and float weights
+    only) a body S == 1 step is one decode_layer_step per layer
+    (ops/decode_megakernel.py): the whole layer in one kernel;
+  - with attn_wo=True (DecodePolicy.attn_wo; int8 caches only) a body
+    S == 1 step runs decode_attention_q8_update_wo per layer (the q8
+    attention with wo, the residual and LN2 folded in), then the MLP as
+    torch.matmul (_mm for int8 weights);
   - a head S == 1 step runs its dense half through the two dense kernels
     (ops/decode_layer_kernel.py; the _q8 pair when the block's weights are
     int8); its attention over <= D cache rows stays plain;
   - everything else (the S > 1 prefill) is plain PyTorch; with an int8
     cache it dequantizes the past rows and quantizes the new ones.
-`kernels=False` swaps every kernel for its plain version (the same path on
-the same device), which is how the card compares the two paths.
+Where the JAX package quietly runs its unfused path (dense="mega" with an
+int8 cache or int8 weights, attn_wo without an int8 cache), the port
+raises ValueError. `kernels=False` swaps every kernel for its plain version
+(the same path on the same device), which is how the card compares the
+two paths.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.models.rqtransformer.config import StackConfig, TransformerConfig
 from rqvae_tpu_torch.ops import attention_kernel as AK
 from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+from rqvae_tpu_torch.ops import decode_megakernel as MK
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -328,21 +339,38 @@ def stack_step_unrolled(
     cur_len: int,  # rows already in the caches
     window: int | None = None,  # attention reads cache rows < window only
     kernels: bool = True,
+    dense: str = "auto",  # "mega": a body S == 1 step is one decode_layer_step per layer
+    attn_wo: bool = False,  # fold wo + residual + LN2 into the body's q8 attention
 ):
     """One cached step of a stack: S == 1 decode or S > 1 prefill.
 
     Writes the new k/v rows at cur_len IN PLACE into `caches` (quantized
     per (row, head) for int8 caches) and returns (out [B, S, C], caches).
     A block with int8 buffers uses them for its four dense products. The
-    kernel rule is in the module docstring."""
+    kernel rule, and what `dense` and `attn_wo` select, is in the module
+    docstring."""
     if len(stack.blocks) == 0:
         return x, caches
     B, S, C = x.shape
     n_head = stack.cfg.n_head
     q8_cache = len(caches[0]) == 4
+    check_fused_path(dense, attn_wo, q8_cache, stack.blocks[0].int8)
     T = caches[0][0].shape[1]
     t_max = T if window is None else min(window, T)
-    body_attn = kernels and stack.role == "body" and S == 1
+    body_step = stack.role == "body" and S == 1
+    if body_step and dense == "mega":
+        step = MK.decode_layer_step if kernels else MK.decode_layer_step_plain
+        xt = x[:, 0]
+        for blk, (k_l, v_l) in zip(stack.blocks, caches):
+            xt = step(
+                xt, k_l, v_l, cur_len, blk.ln1.weight, blk.ln1.bias, blk.wqkv, blk.bqkv,
+                blk.attn.proj.weight, blk.attn.proj.bias, blk.ln2.weight, blk.ln2.bias, blk.mlp[0].weight,
+                blk.mlp[0].bias, blk.mlp[2].weight, blk.mlp[2].bias, n_head, t_window=t_max,
+                gelu_version=stack.cfg.gelu,
+            )
+        return xt[:, None], caches
+    attn_wo_fn = AK.decode_attention_q8_update_wo if kernels else AK.decode_attention_q8_update_wo_plain
+    body_attn = kernels and body_step
     head_dense = stack.role == "head" and S == 1
     if q8_cache:
         attn_fn = AK.decode_attention_q8_update if body_attn else AK.decode_attention_q8_update_plain
@@ -365,6 +393,14 @@ def stack_step_unrolled(
         else:
             qkv = F.linear(layer_norm(x, *ln1), blk.wqkv, blk.bqkv)
         q, k, v = qkv.split(C, dim=-1)
+        if body_step and attn_wo:
+            wo, wo_s = (blk.wo_q, blk.wo_s) if blk.int8 else (blk.attn.proj.weight, None)
+            x2, h2 = attn_wo_fn(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(), *cache_l, cur_len,
+                x[:, 0], wo, wo_s, bo, *ln2, n_head, t_window=t_max,
+            )
+            x = (x2 + _mlp(blk, h2, stack.cfg.gelu))[:, None]
+            continue
         if S == 1:
             y = attn_fn(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
@@ -393,15 +429,32 @@ def stack_step_unrolled(
                 x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,
                 mlp2.weight, mlp2.bias, gelu_version=stack.cfg.gelu,
             )[:, None]
-        elif blk.int8:
-            x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo)
-            t = gelu(_mm(layer_norm(x2, *ln2), blk.w1_q, blk.w1_s) + mlp0.bias, stack.cfg.gelu)
-            x = x2 + (_mm(t, blk.w2_q, blk.w2_s) + mlp2.bias)
         else:
-            x2 = x + F.linear(y, blk.attn.proj.weight, bo)
-            h2 = layer_norm(x2, *ln2)
-            x = x2 + F.linear(gelu(F.linear(h2, mlp0.weight, mlp0.bias), stack.cfg.gelu), mlp2.weight, mlp2.bias)
+            x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo if blk.int8 else F.linear(y, blk.attn.proj.weight, bo))
+            x = x2 + _mlp(blk, layer_norm(x2, *ln2), stack.cfg.gelu)
     return x, caches
+
+
+def _mlp(blk, h: torch.Tensor, gelu_version: str) -> torch.Tensor:
+    """The block's MLP on h (LN2's output): int8 weights through _mm."""
+    mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
+    if blk.int8:
+        return _mm(gelu(_mm(h, blk.w1_q, blk.w1_s) + mlp0.bias, gelu_version), blk.w2_q, blk.w2_s) + mlp2.bias
+    return F.linear(gelu(F.linear(h, mlp0.weight, mlp0.bias), gelu_version), mlp2.weight, mlp2.bias)
+
+
+def check_fused_path(dense: str, attn_wo: bool, q8_cache: bool, int8_weights: bool) -> None:
+    """Raise ValueError for a fused body path that cannot run: dense not in
+    ("auto", "mega"); dense="mega" with an int8 cache or int8 weights;
+    attn_wo without an int8 cache. (The JAX package runs its unfused path
+    there without a word.)"""
+    if dense not in ("auto", "mega"):
+        raise ValueError(f"dense={dense!r}: the port serves 'auto' and 'mega'")
+    if dense == "mega" and (q8_cache or int8_weights):
+        raise ValueError("dense='mega' runs bf16 or fp32 (k, v) caches and float weights: "
+                         "not with an int8 KV cache (kv_q8) or int8 weights")
+    if attn_wo and not q8_cache:
+        raise ValueError("attn_wo folds wo into the int8-cache attention: it needs kv_q8")
 
 
 def apply_logit_mask(logits: torch.Tensor, config: TransformerConfig) -> torch.Tensor:

@@ -10,7 +10,11 @@ head D times (each followed by the classifier and a draw) and, except at
 the last position, one body step. With `kv_q8` the body cache is int8
 (per-layer (kq, ks, vq, vs), rows allocated rounded up to 32 as in JAX);
 the head's D-row caches stay in the model dtype. int8 weights come from
-the model (RQTransformer.quantize_int8). Random draws come from an explicit
+the model (RQTransformer.quantize_int8). `dense="mega"` and `attn_wo` select
+the fused body-layer paths (model module docstring); they are checked once
+per call, and the caches stay as they are: the (k, v) body cache keeps its
+exact cond_len + HW - 1 rows, since no kernel here needs aligned rows.
+Random draws come from an explicit
 torch.Generator (Gumbel-max on the filtered log-probabilities, the same
 categorical distribution as jax.random.categorical, not the same numbers).
 
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
 from rqvae_tpu_torch.models.rqtransformer.model import (
     RQTransformer,
+    check_fused_path,
     classifier_apply,
     init_unrolled_kv_cache,
     init_unrolled_kv_cache_q8,
@@ -153,10 +158,15 @@ def _decode(
     quantizer: Optional[RQCodebooks],
     kernels: bool,
     kv_q8: bool,
+    dense: str,
+    attn_wo: bool,
 ) -> torch.Tensor:
     """The cached decode loop shared by `sample` and `forced_logits`.
     Returns codes [B, H, W, D] (int64)."""
     config = model.config
+    body_blocks = model.body_transformer.blocks
+    check_fused_path(dense, attn_wo, kv_q8, len(body_blocks) > 0 and body_blocks[0].int8)
+    fused = dict(dense=dense, attn_wo=attn_wo)
     H, W, D = config.block_size
     HW = H * W
     C = config.embed_dim
@@ -199,7 +209,7 @@ def _decode(
         body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device)
     else:
         body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
-    h, _ = stack_step_unrolled(model.body_transformer, conds_emb, body_caches, 0, kernels=kernels)
+    h, _ = stack_step_unrolled(model.body_transformer, conds_emb, body_caches, 0, kernels=kernels, **fused)
     spatial_ctx = h[:, -1]
 
     pos_hw = model.pos_emb_hw[0].to(dtype)
@@ -236,7 +246,7 @@ def _decode(
             codes.append(codes_t)
             u = (body_sum + pos_hw[t])[:, None]
             h, _ = stack_step_unrolled(
-                model.body_transformer, u, body_caches, cond_len + t, window=window, kernels=kernels
+                model.body_transformer, u, body_caches, cond_len + t, window=window, kernels=kernels, **fused
             )
             spatial_ctx = h[:, 0]
     # the last position needs only its depth codes: the body step is skipped
@@ -257,18 +267,23 @@ def sample(
     exact_sample: bool = False,
     kernels: bool = True,
     kv_q8: bool = False,
+    dense: str = "auto",
+    attn_wo: bool = False,
 ) -> torch.Tensor:
     """Sample codes [B, H, W, D] (int64). `exact_sample` selects the
     reference-exact top-k tie semantics over the fast path;
     `kernels=False` runs the plain versions of the kernels (model module
-    docstring); `kv_q8` keeps the body's KV cache in int8."""
+    docstring); `kv_q8` keeps the body's KV cache in int8; `dense="mega"`
+    runs each body layer step as one decode_layer_step, `attn_wo` folds
+    the body's wo, residual and LN2 into its int8-cache attention (both
+    ValueError where they cannot run: model.check_fused_path)."""
     top_k_list, top_p_list = broadcast_topk_topp(model.config, top_k, top_p)
     draw = sample_from_logits if exact_sample else sample_from_logits_fast
 
     def pick(t, d, logits):
         return draw(logits, generator, temperature, top_k_list[d], top_p_list[d])
 
-    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8)
+    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo)
 
 
 def forced_logits(
@@ -278,10 +293,12 @@ def forced_logits(
     quantizer: Optional[RQCodebooks] = None,
     kernels: bool = True,
     kv_q8: bool = False,
+    dense: str = "auto",
+    attn_wo: bool = False,
 ) -> torch.Tensor:
     """Per-position decode logits [B, H, W, D, Vmax] (fp32) with the codes
-    forced to `forced`: the sampler's cached path with the draw replaced by
-    the given codes."""
+    forced to `forced`: the sampler's cached path (`sample`'s options) with
+    the draw replaced by the given codes."""
     B, H, W, D = forced.shape
     forced_flat = forced.reshape(B, H * W, D).to(model.pos_emb_hw.device)
     out = torch.empty(B, H * W, D, model.config.vocab_size_max, dtype=torch.float32, device=forced_flat.device)
@@ -290,5 +307,5 @@ def forced_logits(
         out[:, t, d] = logits.float()
         return forced_flat[:, t, d]
 
-    _decode(model, B, pick, cond, quantizer, kernels, kv_q8)
+    _decode(model, B, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo)
     return out.reshape(B, H, W, D, -1)

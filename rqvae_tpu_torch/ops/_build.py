@@ -30,6 +30,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# csrc/fused_layer.cuh: kMaxSplits (the partial-sum workspace holds this
+# many splits) and kMaxWindow (the most cache rows whose scores each warp
+# of a fused kernel keeps in shared memory)
+MAX_SPLITS = 8
+MAX_WINDOW = 4223
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -42,6 +48,10 @@ _SIGNATURES = {
     "rq_fused_proj_mlp": (_P,) * 14 + (_I,) * 7 + (_F, _P),
     "rq_fused_proj_mlp_q8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "rq_decode_layer_step": (_P,) * 17 + (_I,) * 8 + (_F, _P),
+    "rq_decode_attention_q8_update_wo": (_P,) * 16 + (_I,) * 7 + (_F, _P),
+    "rq_decode_layer_step_phase_ns": (_P,),
+    "rq_decode_attention_q8_update_wo_phase_ns": (_P,),
 }
 
 _lock = threading.Lock()
@@ -131,6 +141,16 @@ def library() -> SimpleNamespace:
                         fns[name] = fn
             _loaded["lib"] = SimpleNamespace(**fns)
         return _loaded["lib"]
+
+
+def phase_us(name: str, n: int) -> list[float]:
+    """The microseconds between the n globaltimer stamps that a fused
+    kernel's last launch left (its phases), read through its C entry point
+    `name` (rq_decode_layer_step_phase_ns, ..._q8_update_wo_phase_ns).
+    Synchronous: call it after the launch has finished."""
+    buf = (ctypes.c_ulonglong * n)()
+    check(getattr(library(), name)(ctypes.cast(buf, ctypes.c_void_p)), name)
+    return [(buf[i + 1] - buf[i]) / 1e3 for i in range(n - 1)]
 
 
 def check(err: int, name: str) -> None:

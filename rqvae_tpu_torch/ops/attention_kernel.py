@@ -21,6 +21,13 @@ csrc/decode_attention_q8.cu). One layer's cache is (kq int8 [B, T, C],
 ks bf16 [B, T, n_head], vq, vs): one scale per (row, head). quantize_kv
 returns the fp32 scale; the cache stores it as bf16, but the int8 values
 were rounded with the fp32 one.
+
+decode_attention_q8_update_wo is the counterpart of
+::decode_attention_q8_update_wo: the q8 attention, then the output
+projection (int8 wo with its per-output scale, or a float wo), the residual
+and LN2, returning (x2, h2) for the MLP. Its CUDA kernel is
+rq_decode_attention_q8_update_wo in csrc/decode_attention_q8.cu: one
+cooperative launch whose phases are separated by grid barriers.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import math
 import torch
 
 from rqvae_tpu_torch.ops import _build
+from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _layer_norm
 
 HEAD_SIZE = 64  # the only head size the CUDA kernel serves
 
@@ -169,14 +177,22 @@ def decode_attention_q8_update_plain(
     n_head: int,
     t_window: int | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of decode_attention_q8_update. It rounds where
-    the JAX kernel's _attn_math_q8_val does, in bf16 whatever the input
-    dtype: products bf16(kq * q) summed per head in fp32, times ks, times
-    1/sqrt(hs); an explicit softmax (m, e, denom); weights
-    bf16((e / denom) * vs); y = sum of bf16(vq * w) in fp32, plus the fp32
-    self term v_new * e_self / denom, whose score sums bf16(k_new * q).
-    Then k_new / v_new are quantized (quantize_kv) into row cur_len of the
-    four caches IN PLACE. Returns y [B, C] in q's dtype."""
+    """Plain PyTorch version of decode_attention_q8_update: y as
+    _attention_q8 computes it, then k_new / v_new are quantized
+    (quantize_kv) into row cur_len of the four caches IN PLACE. Returns y
+    [B, C] in q's dtype."""
+    y = _attention_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    write_q8_rows(k_new[:, None], v_new[:, None], kq, ks, vq, vs, cur_len, n_head)
+    return y.to(q.dtype)
+
+
+def _attention_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window):
+    """The q8 attention's fp32 y [B, C]. It rounds where the JAX kernel's
+    _attn_math_q8_val does, in bf16 whatever the input dtype: products
+    bf16(kq * q) summed per head in fp32, times ks, times 1/sqrt(hs); an
+    explicit softmax (m, e, denom); weights bf16((e / denom) * vs); y = sum
+    of bf16(vq * w) in fp32, plus the fp32 self term v_new * e_self /
+    denom, whose score sums bf16(k_new * q)."""
     B, C = q.shape
     T = kq.shape[1]
     hs = C // n_head
@@ -195,33 +211,32 @@ def decode_attention_q8_update_plain(
     w_past = ((e_past / denom) * vs[:, :n].float()).to(cd)
     y = torch.sum(vq[:, :n].to(cd).reshape(B, n, n_head, hs) * w_past[..., None], dim=1, dtype=f32)
     y = y + v_new.float().reshape(B, n_head, hs) * (e_self / denom)[:, 0, :, None]
-    write_q8_rows(k_new[:, None], v_new[:, None], kq, ks, vq, vs, cur_len, n_head)
-    return y.reshape(B, C).to(q.dtype)
+    return y.reshape(B, C)
 
 
-def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head):
+def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name="decode_attention_q8_update"):
     B, C = q.shape
     dev = q.device
-    for name, t, dtype in (
+    for arg, t, dtype in (
         ("q", q, torch.bfloat16), ("k_new", k_new, torch.bfloat16), ("v_new", v_new, torch.bfloat16),
         ("kq", kq, torch.int8), ("ks", ks, torch.bfloat16), ("vq", vq, torch.int8), ("vs", vs, torch.bfloat16),
     ):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"decode_attention_q8_update: {name} must be a contiguous {dtype} tensor on {dev}, "
+                f"{name}: {arg} must be a contiguous {dtype} tensor on {dev}, "
                 f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
     if k_new.shape != (B, C) or v_new.shape != (B, C):
-        raise ValueError("decode_attention_q8_update: q, k_new, v_new must share shape [B, C]")
+        raise ValueError(f"{name}: q, k_new, v_new must share shape [B, C]")
     T = kq.shape[1] if kq.dim() == 3 else -1
     if kq.shape != (B, T, C) or vq.shape != kq.shape or ks.shape != (B, T, n_head) or vs.shape != ks.shape:
-        raise ValueError("decode_attention_q8_update: caches must be int8 [B, T, C] and bf16 scales [B, T, n_head]")
+        raise ValueError(f"{name}: caches must be int8 [B, T, C] and bf16 scales [B, T, n_head]")
     if C != n_head * HEAD_SIZE:
         raise ValueError(
-            f"decode_attention_q8_update: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}"
+            f"{name}: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}"
         )
     if not 0 <= cur_len < T:
-        raise ValueError(f"decode_attention_q8_update: cur_len={cur_len} outside the cache (T={T})")
+        raise ValueError(f"{name}: cur_len={cur_len} outside the cache (T={T})")
 
 
 def decode_attention_q8_update(
@@ -262,3 +277,106 @@ def decode_attention_q8_update(
 
 
 decode_attention_q8_update.launches = 0
+
+
+def decode_attention_q8_update_wo_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    x: torch.Tensor,
+    wo: torch.Tensor,
+    wo_scale: torch.Tensor | None,
+    bo: torch.Tensor,
+    ln2_scale: torch.Tensor,
+    ln2_bias: torch.Tensor,
+    n_head: int,
+    t_window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of decode_attention_q8_update_wo. At the JAX
+    kernel's rounding points (attention_kernel.py:680-699), bf16 whatever
+    x's dtype: y = bf16(_attention_q8(...)), wo cast to bf16, their product
+    summed in fp32 and times wo_scale [C] in fp32 (None: a float wo, a scale
+    of ones); x2 = x + (proj + bo) cast to x's dtype; h2 = LN2(x2) in x's
+    dtype. k_new / v_new are quantized into row cur_len of the four caches
+    IN PLACE, as decode_attention_q8_update_plain does. wo is [C, C] int8
+    or float, nn.Linear [out, in]. Returns (x2, h2) [B, C]."""
+    y = _attention_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    write_q8_rows(k_new[:, None], v_new[:, None], kq, ks, vq, vs, cur_len, n_head)
+    cd = torch.bfloat16
+    proj = y.to(cd).float() @ wo.to(cd).float().t()
+    if wo_scale is not None:
+        proj = proj * wo_scale.float()
+    x2 = x + (proj + bo.float()).to(x.dtype)
+    return x2, _layer_norm(x2, ln2_scale, ln2_bias)
+
+
+def decode_attention_q8_update_wo(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    x: torch.Tensor,
+    wo: torch.Tensor,
+    wo_scale: torch.Tensor | None,
+    bo: torch.Tensor,
+    ln2_scale: torch.Tensor,
+    ln2_bias: torch.Tensor,
+    n_head: int,
+    t_window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
+    launches csrc/decode_attention_q8.cu::rq_decode_attention_q8_update_wo
+    (bf16 activations, int8 cache, int8 or bf16 wo, head size 64,
+    contiguous) or raises. One launch adds one to
+    `decode_attention_q8_update_wo.launches`."""
+    args = (q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head, t_window)
+    if q.device.type == "cpu":
+        return decode_attention_q8_update_wo_plain(*args)
+    name = "decode_attention_q8_update_wo"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name)
+    B, C = q.shape
+    T = kq.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    if wo.dtype not in (torch.int8, torch.bfloat16) or wo.shape != (C, C):
+        raise ValueError(f"{name}: wo must be int8 or bf16 [{C}, {C}], got {wo.dtype} {tuple(wo.shape)}")
+    if wo.dtype == torch.int8 and wo_scale is None:
+        raise ValueError(f"{name}: an int8 wo needs its per-output scale")
+    vectors = [("x", x, (B, C)), ("wo", wo, (C, C)), ("bo", bo, (C,)), ("ln2_scale", ln2_scale, (C,)),
+               ("ln2_bias", ln2_bias, (C,))] + ([("wo_scale", wo_scale, (C,))] if wo_scale is not None else [])
+    for arg, t, shape in vectors:
+        if t.device != q.device or (t.dtype != torch.bfloat16 and arg != "wo") or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous bf16 tensor on {q.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dim() == 2 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+    if W > _build.MAX_WINDOW:
+        raise ValueError(f"{name}: the window holds at most {_build.MAX_WINDOW} rows, got {W}")
+    x2, h2 = torch.empty_like(x), torch.empty_like(x)
+    work = torch.empty(_build.MAX_SPLITS * B * C * 4 + B * C * 2, dtype=torch.uint8, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.rq_decode_attention_q8_update_wo(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+            vs.data_ptr(), x.data_ptr(), wo.data_ptr(), None if wo_scale is None else wo_scale.data_ptr(),
+            bo.data_ptr(), ln2_scale.data_ptr(), ln2_bias.data_ptr(), x2.data_ptr(), h2.data_ptr(),
+            work.data_ptr(), B, T, C, n_head, W, cur_len, int(wo.dtype == torch.int8), LN_EPS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "rq_decode_attention_q8_update_wo")
+    decode_attention_q8_update_wo.launches += 1
+    return x2, h2
+
+
+decode_attention_q8_update_wo.launches = 0
