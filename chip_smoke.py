@@ -7,9 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the nine kernels against its plain PyTorch version on the
+  3. each of the ten kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
-     activations, B=100, C=1536, 24 heads, T=64, H=6144; int8 caches and
+     activations, B=100, C=1536, 24 heads, T=64, H=6144; the read-only
+     decode attention also on a [4, 100, 257, 1536] stack at cur_len 256,
+     its caches bit-unchanged; int8 caches and
      weights for the q8 kernels, whose cache writes must be bit-equal;
      decode_layer_step and decode_attention_q8_update_wo also at a ragged
      batch of 37 rows; nearest_code: fp32, 6400 rows of 256 against 16384
@@ -32,7 +34,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (encode, residual quantization through nearest_code, decode) of the
      bf16 point's decoded images, with its launch counts (4 nearest_code
      per forward), output checks, ms/image for the forward and for
-     get_codes, peak memory, and code agreement with use_kernel=False.
+     get_codes, peak memory, and code agreement with use_kernel=False;
+  7. the stacked-cache sampler (more than 128 positions) at the zoo's
+     vqgan_huge (measure_throughput.build(16, "vqgan_huge", 1, 16384): embed
+     1536, 48 body layers, no head layers, 24 heads, 16x16x1 codes, codebook
+     16384, the f16 RQ-VAE), bs100, after phase 6 has freed the 1.4B model:
+     launch counts of each of ROUNDS timed sample calls (48 x 257
+     decode_attention_stacked, each also a decode_attention launch, no other
+     kernel), output checks, ms/sample (median), decode ms/sample, peak
+     memory, and forced_logits at B=8 through the kernels against the plain
+     versions.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -155,6 +166,47 @@ def decode(vqvae, codes):
         return vqvae.decode_code(codes)
 
 
+def timed_samples(name, sample, counters, want):
+    """A warm-up call sample(99), then ROUNDS timed calls sample(1), each with
+    every count set to 0 just before it and the counts `want` required just
+    after; peak memory is reset after the warm-up. Returns (codes, ms/sample
+    of each timed call, warm-up seconds)."""
+    _, warm_s = wall_s(lambda: sample(99))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(ROUNDS):
+        for fn in counters:
+            fn.launches = 0
+        codes, sample_s = wall_s(lambda: sample(1))
+        counts = {fn.__name__: fn.launches for fn in counters}
+        if counts != want:
+            raise AssertionError(f"[{name}] the sampler launched {counts}, not {want}")
+        times.append(sample_s * 1e3 / BATCH)
+    return codes, times, warm_s
+
+
+def decode_checked(vqvae, codes, shape, vocab):
+    """Check codes (their shape, values in [0, vocab)), decode them after a
+    10-image warm-up (cuDNN's algorithm selection) and check the pixels
+    (finite, [BATCH, 256, 256, 3]). Returns (pixels, decode seconds)."""
+    if codes.shape != shape or int(codes.min()) < 0 or int(codes.max()) >= vocab:
+        raise AssertionError(f"codes out of shape or range: {tuple(codes.shape)} [{int(codes.min())}, {int(codes.max())}]")
+    decode(vqvae, codes[:10])
+    pixels, decode_s = wall_s(lambda: decode(vqvae, codes))
+    if pixels.shape != (BATCH, 256, 256, 3) or not bool(torch.isfinite(pixels).all()):
+        raise AssertionError(f"pixels not finite or of shape {tuple(pixels.shape)}")
+    return pixels, decode_s
+
+
+def log_times(name, times, decode_s, card):
+    """The sampling ms/sample (median of `times`), decode and peak memory line."""
+    sample_ms = statistics.median(times)
+    log(f"  [{name}] sampling (kernels): {sample_ms:.3f} ms/sample (median of "
+        f"{', '.join(f'{t:.3f}' for t in times)}); decode: {decode_s * 1e3 / BATCH:.3f} ms/sample; total "
+        f"{sample_ms + decode_s * 1e3 / BATCH:.3f} ms/sample; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; bs{BATCH}, {card}")
+
+
 def compare(name: str, got, want, tol: float = TOL, mean_tol: float | None = None) -> tuple[float, float]:
     """Elementwise |got - want| <= tol * (1 + |want|), and mean |got - want|
     <= mean_tol when given; prints the max and mean abs error and the max
@@ -222,6 +274,60 @@ def sdpa_rows(q, k_cache, v_cache, nh, rows):
     k = k_cache[:, :rows].view(B, rows, nh, hs).transpose(1, 2)
     v = v_cache[:, :rows].view(B, rows, nh, hs).transpose(1, 2)
     return F.scaled_dot_product_attention(q.view(B, nh, 1, hs), k, v)
+
+
+def check_attention_read_only(AK, dev, gen):
+    """decode_attention (read-only) and decode_attention_stacked against
+    their plain versions: the unrolled main-path shape, a 4-layer stack of
+    the stacked sampler's rows at its last step (cur_len 256), a ragged
+    batch, cur_len 0; the caches bit-unchanged; timed at the stacked shape."""
+    B, C, nh, L, T = BATCH, 1536, 24, 4, 257
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    worst = 0.0
+
+    def held(tag, got, want, *caches):
+        nonlocal worst
+        torch.cuda.synchronize()
+        worst = max(worst, compare(tag, got, want)[0])
+        for c, before in caches:
+            if not torch.equal(c, before):
+                raise AssertionError(f"{tag}: the kernel changed a cache it may only read")
+
+    for b, t, window, cur in ((B, 64, 64, 63), (B, 64, 32, 16), (B, 64, 64, 0), (37, 64, 24, 30)):
+        q, kn, vn, kc, vc = rnd(b, C), rnd(b, C), rnd(b, C), rnd(b, t, C), rnd(b, t, C)
+        k0, v0 = kc.clone(), vc.clone()
+        got = AK.decode_attention(q, kn, vn, kc, vc, cur, nh, t_window=window)
+        held(f"decode_attention B={b} T={t} window={window} cur_len={cur}", got,
+             AK.decode_attention_plain(q, kn, vn, k0, v0, cur, nh, t_window=window), (kc, k0), (vc, v0))
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    ks, vs = rnd(L, B, T, C), rnd(L, B, T, C)  # 2 x 316 MB
+    k0, v0 = ks.clone(), vs.clone()
+    for layer in range(L):
+        for cur in (256, 0, 100 + layer):
+            got = AK.decode_attention_stacked(q, kn, vn, ks, vs, layer, cur, nh)
+            held(f"decode_attention_stacked [{L},{B},{T},{C}] layer={layer} cur_len={cur}", got,
+                 AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, layer, cur, nh), (ks, k0), (vs, v0))
+    del k0, v0
+    qr, knr, vnr = rnd(37, C), rnd(37, C), rnd(37, C)
+    kr, vr = rnd(2, 37, T, C), rnd(2, 37, T, C)
+    held("decode_attention_stacked ragged B=37 layer=1 cur_len=200",
+         AK.decode_attention_stacked(qr, knr, vnr, kr, vr, 1, 200, nh),
+         AK.decode_attention_stacked_plain(qr, knr, vnr, kr, vr, 1, 200, nh))
+    log("  decode_attention / decode_attention_stacked: y within the bound, every cache bit-unchanged")
+    # time the stacked sampler's heaviest call (cur_len 256) on the 4 layers
+    # in turn (4 x 157 MB), so L2 does not carry one call's rows over
+    n = 256
+    ms = cuda_ms([lambda l=l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], 40)
+    plain = cuda_ms([lambda l=l: AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], 20)
+    lib = cuda_ms([lambda l=l: sdpa_rows(q, ks[l], vs[l], nh, n) for l in range(L)], 40)
+    b = bound(2 * B * n * C * 2 + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
+    log(f"  decode_attention_stacked time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"(scaled_dot_product_attention over the {n} rows) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} (B={B}, T={T}, cur_len={n}); {2 * B * n * C * 2 / ms / 1e9:.3f} TB/s of cache")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
 
 
 def q8_cache(AK, rnd, B, T, C, nh):
@@ -683,6 +789,50 @@ def encode_phase(vqvae, xs, counters, card) -> int:
     return fwd_launches
 
 
+def vqgan_phase(S, counters, dev, card) -> int:
+    """Phase 7: vqgan_huge bs100 through the stacked-cache sampler. ROUNDS
+    timed sample calls, each with all counts set to 0 just before it and 48
+    x 257 decode_attention_stacked (and decode_attention) launches and no
+    other required just after; output checks; ms/sample; forced_logits at
+    B=8, kernels vs plain. Returns the stacked launches of one call."""
+    from rqvae_tpu_torch.cli import measure_throughput as MT
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+
+    t0 = time.perf_counter()
+    vqvae, tconf = MT.build(16, "vqgan_huge", 1, 16384, device=dev, dtype=torch.bfloat16)
+    model = RQTransformer(tconf, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vqvae.init_weights(gen)
+    model.init_weights(gen)
+    torch.cuda.synchronize()
+    H, W, D = tconf.block_size
+    steps = tconf.body.n_layer * (tconf.block_size_cond + H * W)  # the prefill and every position
+    log(f"  rq-transformer {sum(p.numel() for p in model.parameters()) / 1e6:.0f}M params ({tconf.body.n_layer} "
+        f"body, {tconf.head.n_layer} head layers), rq-vae {sum(p.numel() for p in vqvae.parameters()) / 1e6:.0f}M "
+        f"params, codes {H}x{W}x{D}, built and initialised in {time.perf_counter() - t0:.1f} s")
+    cond = torch.arange(BATCH, device=dev) % tconf.vocab_size_cond
+
+    def sample(seed, kernels=True):
+        return S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
+                        quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels)
+
+    want = {fn.__name__: 0 for fn in counters} | {"decode_attention_stacked": steps, "decode_attention": steps}
+    codes, times, warm_s = timed_samples("vqgan_huge", sample, counters, want)
+    log(f"  [vqgan_huge] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): "
+        f"decode_attention_stacked {steps}, decode_attention {steps} (the same launches), every other kernel 0")
+    pixels, decode_s = decode_checked(vqvae, codes, (BATCH, H, W, D), tconf.vocab_size[0])
+    log(f"  [vqgan_huge] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+        f"{len(torch.unique(codes))} distinct; pixels finite, mean {float((0.5 * pixels.float() + 0.5).clamp(0, 1).mean()):.4f}")
+    log_times("vqgan_huge", times, decode_s, card)
+    forced, fcond = codes[:8], cond[:8]
+    got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True)
+    ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False)
+    torch.cuda.synchronize()
+    log(f"  [vqgan_huge] logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
+    compare("[vqgan_huge] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
+    return steps
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -720,6 +870,7 @@ def main() -> None:
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
     gen = torch.Generator(device=dev).manual_seed(0)
     attn = check_attention(AK, dev, gen)
+    attn_read = check_attention_read_only(AK, dev, gen)
     qkv, mlp = check_dense(DK, dev, gen)
     attn_q8 = check_attention_q8(AK, dev, gen)
     qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
@@ -747,51 +898,33 @@ def main() -> None:
 
     counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
                 AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
-                MK.decode_layer_step, AK.decode_attention_q8_update_wo)
+                MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
+                AK.decode_attention_stacked)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0)),
-        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A)),
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0)),
-        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0)),
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0)),
     ]
     launches, results = {}, {}
     for name, int8, options, expect in points:
         set_int8(int8)
-        _, warm_s = wall_s(lambda: sample(99, **options))
-        torch.cuda.reset_peak_memory_stats()
         want = {fn.__name__: n for fn, n in zip(counters, expect)}
-        times = []
-        for _ in range(ROUNDS):
-            for fn in counters:
-                fn.launches = 0
-            codes, sample_s = wall_s(lambda: sample(1, **options))
-            counts = {fn.__name__: fn.launches for fn in counters}
-            if counts != want:
-                raise AssertionError(f"[{name}] the main path launched {counts}, not {want}")
-            times.append(sample_s * 1e3 / BATCH)
-        log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): {counts}")
-        launches.update({k: v for k, v in counts.items() if v})
-        if codes.shape != (BATCH, 8, 8, 4) or int(codes.min()) < 0 or int(codes.max()) >= 16384:
-            raise AssertionError(f"codes out of shape or range: {tuple(codes.shape)} [{int(codes.min())}, {int(codes.max())}]")
-        decode(vqvae, codes[:10])  # warm-up (cuDNN algorithm selection)
-        pixels, decode_s = wall_s(lambda: decode(vqvae, codes))
-        if pixels.shape != (BATCH, 256, 256, 3) or not bool(torch.isfinite(pixels).all()):
-            raise AssertionError(f"pixels not finite or of shape {tuple(pixels.shape)}")
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        codes, times, warm_s = timed_samples(name, lambda seed: sample(seed, **options), counters, want)
+        log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): {want}")
+        launches.update({k: v for k, v in want.items() if v})
+        pixels, decode_s = decode_checked(vqvae, codes, (BATCH, 8, 8, 4), 16384)
         results[name] = codes
         if name == "bf16":
             images = pixels  # phase 6 encodes them
         agree = f", codes equal to bf16's at {float((codes == results['bf16']).float().mean()):.3f}" if name != "bf16" else ""
         log(f"  [{name}] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
             f"{len(torch.unique(codes))} distinct{agree}; pixels finite")
-        sample_ms = statistics.median(times)
-        log(f"  [{name}] sampling (kernels): {sample_ms:.3f} ms/sample (median of "
-            f"{', '.join(f'{t:.3f}' for t in times)}); decode: {decode_s * 1e3 / BATCH:.3f} ms/sample; total "
-            f"{sample_ms + decode_s * 1e3 / BATCH:.3f} ms/sample; peak memory {peak_gb:.1f} GiB; bs{BATCH}, {card}")
+        log_times(name, times, decode_s, card)
     # the decode against an fp32 copy of itself, and the bf16 point's plain path
     pixels = (0.5 * decode(vqvae, results["bf16"][:4]).float() + 0.5).clamp(0.0, 1.0)
     log(f"  pixels mean {float(pixels.mean()):.4f}")
@@ -819,6 +952,13 @@ def main() -> None:
     log(f"# phase 6: RQ-VAE encode + residual quantization + decode, bf16, bs{BATCH}, on {card}")
     launches["nearest_code"] = encode_phase(vqvae, images.clamp(-1.0, 1.0), counters, card)
 
+    # phase 7: the stacked-cache sampler at vqgan_huge, once the 1.4B model is freed
+    del model, vqvae, images, results, pixels
+    torch.cuda.empty_cache()
+    log(f"# phase 7: vqgan_huge (f16-d1-c16384) class-conditional sampling through the stacked-cache "
+        f"sampler + RQ-VAE decode, bs{BATCH}, on {card}")
+    launches["decode_attention_stacked"] = vqgan_phase(S, counters, dev, card)
+
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
@@ -838,6 +978,8 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_megakernel.py:215", **mega),
         dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:728", **attn_wo),
+        dict(name="decode_attention_stacked", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:149 and :209", **attn_read),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the device time of one 1.4B bs100 sample call of the PyTorch/CUDA
-port goes, at each of bench.py's operating points, and of one bs100 RQ-VAE
-forward (encode, residual quantization, decode), on one CUDA device.
+port goes, at each of bench.py's operating points, of one bs100 RQ-VAE
+forward (encode, residual quantization, decode), and of one bs100 sample
+call of the zoo's vqgan_huge through the stacked-cache sampler, on one CUDA
+device.
 
 The model is chip_smoke.py's main path (`build_main_path`): bench.py's 1.4B
 geometry with random weights from a seed, bs100, temperature 1, no
@@ -17,12 +19,18 @@ each of the port's kernel wrappers (their launches are wrapped in
 record_function ranges for this run only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
 busy share is this script's device ms/sample over that. The RQ-VAE forward
 (point "encode") runs on 100 images decoded from random codes, after one
-warm-up forward; its wall ms/image is chip_smoke.py's (phase 6).
+warm-up forward; its wall ms/image is chip_smoke.py's (phase 6). Point
+"vqgan_huge" is chip_smoke.py's phase 7 model (measure_throughput.build(16,
+"vqgan_huge", 1, 16384), random bf16 weights from a seed, 16x16x1 codes,
+the stacked-cache sampler), built once the 1.4B model is freed; its wall
+ms/sample is chip_smoke.py's (phase 7).
 
 Prints one JSON line per point, then the card's name and power limit; the
-profiler tables go to --out.
+profiler tables go to --out. The points to run are named on the command
+line (all of them when none is named); each takes one to three minutes
+under the profiler.
 
-    python3 profile_sample.py --out build/profile
+    python3 profile_sample.py --out build/profile bf16 vqgan_huge
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ POINTS = (  # (name, int8 weights, sample options), as chip_smoke.py phase 4
     ("int8+kv_q8", True, dict(kv_q8=True)),
     ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True)),
 )
+POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", "vqgan_huge"]
 
 
 def _annotated(fn):
@@ -61,12 +70,16 @@ def _annotated(fn):
 
 def host_ops(prof) -> int:
     """Host operations of a profiled call: top-level aten operators and
-    kernel-wrapper calls (module docstring)."""
+    kernel-wrapper calls (module docstring); a wrapper called by another
+    (decode_attention under decode_attention_stacked) is one operation."""
     cpu = torch.autograd.DeviceType.CPU
-    return sum(
-        1 for e in prof.events()
-        if e.device_type == cpu and (e.name.startswith("wrapper::") or (e.name.startswith("aten::") and e.cpu_parent is None))
-    )
+
+    def counts(e):
+        if e.name.startswith("wrapper::"):
+            return e.cpu_parent is None or not e.cpu_parent.name.startswith("wrapper::")
+        return e.name.startswith("aten::") and e.cpu_parent is None
+
+    return sum(1 for e in prof.events() if e.device_type == cpu and counts(e))
 
 
 def report(name: str, prof, prof_s: float, out_dir: str) -> None:
@@ -96,10 +109,27 @@ def report(name: str, prof, prof_s: float, out_dir: str) -> None:
     }), flush=True)
 
 
+def profiled(name: str, fn, out_dir: str) -> None:
+    """One warm-up call of fn, then one call under the profiler, reported."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    report(name, prof, prof_s, out_dir)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("points", nargs="*", help=f"points to run, of {POINT_NAMES} (default: all)")
     args = ap.parse_args()
+    names = args.points or POINT_NAMES
+    unknown = sorted(set(names) - set(POINT_NAMES))
+    if unknown:
+        ap.error(f"unknown points {unknown}; the points are {POINT_NAMES}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_sample: torch.cuda.is_available() is False; this needs a CUDA device")
     os.makedirs(args.out, exist_ok=True)
@@ -107,55 +137,54 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     sys.path.insert(0, ROOT)
+    from rqvae_tpu_torch.cli import measure_throughput as MT
     from rqvae_tpu_torch.models.rqtransformer import sampling as S
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
     from rqvae_tpu_torch.ops import decode_megakernel as MK
     from rqvae_tpu_torch.ops import rq_kernel as RK
 
-    model, vqvae, cond = build_main_path(dev)
-
-    def run(options, seed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(seed), cond=cond,
-                 quantizer=vqvae.quantizer, **options)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+    def sampler(model, vqvae, cond, options):
+        return lambda: S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(1), cond=cond,
+                                quantizer=vqvae.quantizer, **options)
 
     wrappers = {
         (AK, "decode_attention_update"), (AK, "decode_attention_q8_update"), (DK, "fused_ln_qkv"),
         (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"), (RK, "nearest_code"),
-        (MK, "decode_layer_step"), (AK, "decode_attention_q8_update_wo"),
+        (MK, "decode_layer_step"), (AK, "decode_attention_q8_update_wo"), (AK, "decode_attention"),
+        (AK, "decode_attention_stacked"),
     }
     originals = {(m, n): getattr(m, n) for m, n in wrappers}
     for (m, n), fn in originals.items():
         setattr(m, n, _annotated(fn))
     try:
-        for name, int8, options in POINTS:
-            if int8 and not model.body_transformer.blocks[0].int8:
-                model.quantize_int8()
-            run(options, seed=99)  # warm-up
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                prof_s = run(options, seed=1)
-            report(name, prof, prof_s, args.out)
-        model.clear_int8()
-        gen = torch.Generator(device=dev).manual_seed(2)
-        codes = torch.randint(0, 16384, (BATCH, 8, 8, 4), generator=gen, device=dev)
-        with torch.no_grad():
-            xs = vqvae.decode_code(codes).clamp(-1.0, 1.0)
-            vqvae(xs)  # warm-up
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                vqvae(xs)
-                torch.cuda.synchronize()
-                prof_s = time.perf_counter() - t0
-        report("encode", prof, prof_s, args.out)
+        if set(names) - {"vqgan_huge"}:
+            model, vqvae, cond = build_main_path(dev)
+            for name, int8, options in POINTS:
+                if name in names:
+                    if int8 != model.body_transformer.blocks[0].int8:
+                        model.quantize_int8() if int8 else model.clear_int8()
+                    profiled(name, sampler(model, vqvae, cond, options), args.out)
+            if "encode" in names:
+                gen = torch.Generator(device=dev).manual_seed(2)
+                codes = torch.randint(0, 16384, (BATCH, 8, 8, 4), generator=gen, device=dev)
+                with torch.no_grad():
+                    xs = vqvae.decode_code(codes).clamp(-1.0, 1.0)
+                    profiled("encode", lambda: vqvae(xs), args.out)
+            del model, vqvae
+            torch.cuda.empty_cache()
+        if "vqgan_huge" in names:
+            vqvae, tconf = MT.build(16, "vqgan_huge", 1, 16384, device=dev, dtype=torch.bfloat16)
+            model = RQTransformer(tconf, device=dev, dtype=torch.bfloat16)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            vqvae.init_weights(gen)
+            model.init_weights(gen)
+            cond = torch.arange(BATCH, device=dev) % tconf.vocab_size_cond
+            profiled("vqgan_huge", sampler(model, vqvae, cond, {}), args.out)
     finally:
         for (m, n), fn in originals.items():
             setattr(m, n, fn)
-        model.clear_int8()
     print(card, flush=True)
 
 

@@ -1,30 +1,44 @@
-// Single-token (decode) multi-head attention with the in-place KV-cache
-// row write, for the RQ-Transformer body on Hopper (sm_90a).
+// Single-token (decode) multi-head attention over a KV cache, for the
+// RQ-Transformer body on Hopper (sm_90a), in two forms compiled from one
+// template: with the in-place cache row write, and read-only.
 //
-// Replaces the TPU kernel rqvae_tpu/ops/attention_kernel.py::
-// decode_attention_update (math in _attn_math, cache write in
-// _decode_attn_kernel_update).
+// Replaces the TPU kernels of rqvae_tpu/ops/attention_kernel.py (math in
+// _attn_math, :85):
+//   - decode_attention_update (:316; cache write in
+//     _decode_attn_kernel_update): rq_decode_attention_update, kWrite = true;
+//   - decode_attention (:209) and decode_attention_stacked (:149), the
+//     read-only forms: rq_decode_attention, kWrite = false. The stacked
+//     form reads layer l of an [L, B, T, C] cache: the wrapper passes the
+//     layer's own base pointer (k_cache[l].data_ptr()), which is what the
+//     TPU kernel's index_map did, so one kernel serves both; every offset
+//     inside is size_t, so a stack beyond 2^31 elements is safe.
 //
 // What it computes, for every batch row b and head h (head size 64):
 //   s_t    = <q, k_cache[b, t]> / 8           for t < n_valid = min(cur_len, W)
 //   s_self = <q, k_new[b]> / 8
 //   p      = softmax over (s_0 .. s_{n_valid-1}, s_self), fp32
 //   y[b]   = sum_t p_t v_cache[b, t] + p_self v_new[b]     (fp32 sums)
-// and then writes k_new / v_new into row cur_len of both caches.
+// and, with kWrite, then writes k_new / v_new into row cur_len of both
+// caches. n_valid may be 0 (a first step at cur_len 0): y is then v_new.
 //
 // Bound on the H100: cache bytes. Each call streams 2 * B * n_valid * C * 2
-// bytes of bf16 cache (about 39 MB at B=100, W=64, C=1536) against a few
-// kFLOP of arithmetic per head, so the kernel is a pure memory stream.
+// bytes of bf16 cache (about 39 MB at B=100, W=64, C=1536; 157 MB at
+// cur_len 256, the stacked sampler's last step at 16x16 codes) against a
+// few kFLOP of arithmetic per head, so the kernel is a pure memory stream.
 // Design: one block per (head, batch row), 2400 blocks at bs100; each warp
 // reads whole 128-byte head slices of cache rows (two bf16 per lane,
 // neighbouring lanes on neighbouring addresses), so every cache byte is
-// read once, coalesced, and nothing but the [B, C] output and one cache row
-// is written. The TPU kernel's 0/1 "segment" matmuls, sublane-aligned
-// windows and input_output_aliases are Mosaic workarounds and have no
-// counterpart here: the cache is updated in place through its pointer.
+// read once, coalesced, and nothing but the [B, C] output (and with kWrite
+// one cache row) is written. The TPU kernel's 0/1 "segment" matmuls,
+// sublane-aligned windows, b_tile batch blocks and input_output_aliases are
+// Mosaic workarounds and have no counterpart here: the cache is updated in
+// place through its pointer, and a ragged batch is simply B blocks.
 //
-// Races: a block reads only rows < cur_len and writes only its own head's
-// slice of row cur_len, so no two blocks touch the same bytes.
+// Races: a block reads only rows < min(cur_len, W) and writes only its own
+// head's slice of row cur_len, so no two blocks touch the same bytes. The
+// read-only form never reads row cur_len: the new token's term comes from
+// k_new / v_new, so a caller may write that row after the launch on the
+// same stream (stack_step writes all layers' rows after its layer loop).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +66,8 @@ __device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__global__ void __launch_bounds__(kThreads) decode_attention_update_kernel(
+template <bool kWrite>
+__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
     const __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* k_cache,
     __nv_bfloat16* v_cache, __nv_bfloat16* __restrict__ y, int T, int C,
@@ -129,13 +144,28 @@ __global__ void __launch_bounds__(kThreads) decode_attention_update_kernel(
       y1 += ypart[w][2 * lane + 1];
     }
     *reinterpret_cast<__nv_bfloat162*>(y + row) = __floats2bfloat162_rn(y0, y1);
-  } else if (warp == 1) {
+  } else if (kWrite && warp == 1) {
     const size_t dst = cache0 + (size_t)cur_len * C;
     *reinterpret_cast<__nv_bfloat162*>(k_cache + dst) =
         *reinterpret_cast<const __nv_bfloat162*>(k_new + row);
     *reinterpret_cast<__nv_bfloat162*>(v_cache + dst) =
         *reinterpret_cast<const __nv_bfloat162*>(v_new + row);
   }
+}
+
+template <bool kWrite>
+int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
+           void* y, int B, int T, int C, int n_head, int window, int cur_len, void* stream) {
+  const int n_valid = cur_len < window ? cur_len : window;
+  const float scale = 1.0f / sqrtf((float)kHeadSize);
+  const dim3 grid(n_head, B);
+  const size_t smem = (size_t)(n_valid + 1) * sizeof(float);
+  decode_attention_kernel<kWrite><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<__nv_bfloat16*>(k_cache),
+      static_cast<__nv_bfloat16*>(v_cache), static_cast<__nv_bfloat16*>(y), T, C,
+      n_valid, cur_len, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -148,14 +178,18 @@ extern "C" int rq_decode_attention_update(const void* q, const void* k_new,
                                           void* v_cache, void* y, int B, int T,
                                           int C, int n_head, int window,
                                           int cur_len, void* stream) {
-  const int n_valid = cur_len < window ? cur_len : window;
-  const float scale = 1.0f / sqrtf((float)kHeadSize);
-  const dim3 grid(n_head, B);
-  const size_t smem = (size_t)(n_valid + 1) * sizeof(float);
-  decode_attention_update_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<__nv_bfloat16*>(k_cache),
-      static_cast<__nv_bfloat16*>(v_cache), static_cast<__nv_bfloat16*>(y), T, C,
-      n_valid, cur_len, scale);
-  return (int)cudaGetLastError();
+  return launch<true>(q, k_new, v_new, k_cache, v_cache, y, B, T, C, n_head, window, cur_len,
+                      stream);
+}
+
+// The read-only form: the same arguments, the caches only read (rows
+// < min(cur_len, window); cur_len may reach T). For a stacked [L, B, T, C]
+// cache the caller passes layer l's base pointer. Returns
+// cudaGetLastError() after the launch.
+extern "C" int rq_decode_attention(const void* q, const void* k_new, const void* v_new,
+                                   const void* k_cache, const void* v_cache, void* y, int B,
+                                   int T, int C, int n_head, int window, int cur_len,
+                                   void* stream) {
+  return launch<false>(q, k_new, v_new, const_cast<void*>(k_cache), const_cast<void*>(v_cache),
+                       y, B, T, C, n_head, window, cur_len, stream);
 }

@@ -6,7 +6,9 @@ the N(0, 0.02) init, one-pass LayerNorm, exact-erf gelu, the transformer
 blocks, tok_emb_offsets, classifier_apply, int8 weight-only quantization
 (quantize_transformer_params, _mm), init_unrolled_kv_cache / _q8 and
 stack_step_unrolled for the bf16/fp32 cache and the int8 cache (S == 1
-decode and S > 1 prefill). Module names follow the reference state_dict
+decode and S > 1 prefill), and the stacked-cache form that the sampler runs
+beyond 128 positions: KVCache / init_kv_cache (k, v each [n_layer, B, T, C])
+and stack_step. Module names follow the reference state_dict
 ({body,head}_transformer.blocks.{i}.{ln1,ln2,attn.{query,key,value,proj},
 mlp.{0,2}}, ...), so reference checkpoints and the JAX export load with
 strict=True.
@@ -20,8 +22,9 @@ Kernel dispatch is one fixed rule, with no environment knobs (the JAX
 package's DecodePolicy / resolve_* tables were tuned for the TPU v5e):
   - a body S == 1 step runs its attention through the decode attention
     kernel (ops/attention_kernel.py: decode_attention_update for (k, v)
-    caches, decode_attention_q8_update for int8 caches), and its dense
-    half as torch.matmul (for int8 weights, the plain _mm);
+    caches, decode_attention_q8_update for int8 caches, the read-only
+    decode_attention_stacked on layer l of a stacked cache in stack_step),
+    and its dense half as torch.matmul (for int8 weights, the plain _mm);
   - with dense="mega" (DecodePolicy.dense; (k, v) caches and float weights
     only) a body S == 1 step is one decode_layer_step per layer
     (ops/decode_megakernel.py): the whole layer in one kernel;
@@ -44,6 +47,7 @@ two paths.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -376,28 +380,14 @@ def stack_step_unrolled(
         attn_fn = AK.decode_attention_q8_update if body_attn else AK.decode_attention_q8_update_plain
     else:
         attn_fn = AK.decode_attention_update if body_attn else AK.decode_attention_update_plain
-    ln_qkv, proj_mlp = (DK.fused_ln_qkv, DK.fused_proj_mlp) if kernels else (
-        DK.fused_ln_qkv_plain, DK.fused_proj_mlp_plain)
-    ln_qkv_q8, proj_mlp_q8 = (DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8) if kernels else (
-        DK.fused_ln_qkv_q8_plain, DK.fused_proj_mlp_q8_plain)
 
     for blk, cache_l in zip(stack.blocks, caches):
-        mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
-        ln1, ln2, bo = (blk.ln1.weight, blk.ln1.bias), (blk.ln2.weight, blk.ln2.bias), blk.attn.proj.bias
-        if head_dense and blk.int8:
-            qkv = ln_qkv_q8(x[:, 0], *ln1, blk.wqkv_q, blk.wqkv_s, blk.bqkv)[:, None]
-        elif head_dense:
-            qkv = ln_qkv(x[:, 0], *ln1, blk.wqkv, blk.bqkv)[:, None]
-        elif blk.int8:
-            qkv = _mm(layer_norm(x, *ln1), blk.wqkv_q, blk.wqkv_s) + blk.bqkv
-        else:
-            qkv = F.linear(layer_norm(x, *ln1), blk.wqkv, blk.bqkv)
-        q, k, v = qkv.split(C, dim=-1)
+        q, k, v = _block_qkv(blk, x, head_dense, kernels).split(C, dim=-1)
         if body_step and attn_wo:
             wo, wo_s = (blk.wo_q, blk.wo_s) if blk.int8 else (blk.attn.proj.weight, None)
             x2, h2 = attn_wo_fn(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(), *cache_l, cur_len,
-                x[:, 0], wo, wo_s, bo, *ln2, n_head, t_window=t_max,
+                x[:, 0], wo, wo_s, blk.attn.proj.bias, blk.ln2.weight, blk.ln2.bias, n_head, t_window=t_max,
             )
             x = (x2 + _mlp(blk, h2, stack.cfg.gelu))[:, None]
             continue
@@ -419,20 +409,105 @@ def stack_step_unrolled(
                 y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
                 k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
                 v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
-        if head_dense and blk.int8:
-            x = proj_mlp_q8(
-                x[:, 0], y[:, 0], blk.wo_q, blk.wo_s, bo, *ln2, blk.w1_q, blk.w1_s, mlp0.bias,
-                blk.w2_q, blk.w2_s, mlp2.bias, gelu_version=stack.cfg.gelu,
-            )[:, None]
-        elif head_dense:
-            x = proj_mlp(
-                x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,
-                mlp2.weight, mlp2.bias, gelu_version=stack.cfg.gelu,
+        x = _block_out(blk, x, y, head_dense, kernels, stack.cfg.gelu)
+    return x, caches
+
+
+def _block_qkv(blk: Block, x: torch.Tensor, head_dense: bool, kernels: bool) -> torch.Tensor:
+    """LN1 and the fused QKV projection of x [B, S, C] -> [B, S, 3C]. A
+    head S == 1 step (`head_dense`) runs fused_ln_qkv (fused_ln_qkv_q8 for
+    int8 weights), or its plain version when not `kernels`; anything else
+    runs F.linear (_mm for int8 weights)."""
+    ln1 = (blk.ln1.weight, blk.ln1.bias)
+    if head_dense and blk.int8:
+        fn = DK.fused_ln_qkv_q8 if kernels else DK.fused_ln_qkv_q8_plain
+        return fn(x[:, 0], *ln1, blk.wqkv_q, blk.wqkv_s, blk.bqkv)[:, None]
+    if head_dense:
+        fn = DK.fused_ln_qkv if kernels else DK.fused_ln_qkv_plain
+        return fn(x[:, 0], *ln1, blk.wqkv, blk.bqkv)[:, None]
+    if blk.int8:
+        return _mm(layer_norm(x, *ln1), blk.wqkv_q, blk.wqkv_s) + blk.bqkv
+    return F.linear(layer_norm(x, *ln1), blk.wqkv, blk.bqkv)
+
+
+def _block_out(blk: Block, x: torch.Tensor, y: torch.Tensor, head_dense: bool, kernels: bool,
+               gelu_version: str) -> torch.Tensor:
+    """The rest of the block after attention: x2 = x + y @ wo + bo, then
+    x2 + MLP(LN2(x2)). A head S == 1 step runs fused_proj_mlp
+    (fused_proj_mlp_q8 for int8 weights), or its plain version when not
+    `kernels`; anything else F.linear (_mm for int8 weights)."""
+    mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
+    ln2, bo = (blk.ln2.weight, blk.ln2.bias), blk.attn.proj.bias
+    if head_dense and blk.int8:
+        fn = DK.fused_proj_mlp_q8 if kernels else DK.fused_proj_mlp_q8_plain
+        return fn(
+            x[:, 0], y[:, 0], blk.wo_q, blk.wo_s, bo, *ln2, blk.w1_q, blk.w1_s, mlp0.bias,
+            blk.w2_q, blk.w2_s, mlp2.bias, gelu_version=gelu_version,
+        )[:, None]
+    if head_dense:
+        fn = DK.fused_proj_mlp if kernels else DK.fused_proj_mlp_plain
+        return fn(
+            x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,
+            mlp2.weight, mlp2.bias, gelu_version=gelu_version,
+        )[:, None]
+    x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo if blk.int8 else F.linear(y, blk.attn.proj.weight, bo))
+    return x2 + _mlp(blk, layer_norm(x2, *ln2), gelu_version)
+
+
+class KVCache(NamedTuple):
+    """The stacked KV cache of one stack: k, v [n_layer, B, T, C], updated
+    in place by stack_step."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(cfg: StackConfig, batch: int, t_max: int, dtype, device) -> KVCache:
+    """A stacked KVCache with k and v each [n_layer, batch, t_max, C], zeroed."""
+    shape = (cfg.n_layer, batch, t_max, cfg.embed_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def stack_step(stack: Stack, x: torch.Tensor, cache: KVCache, cur_len: int, kernels: bool = True):
+    """One cached step of a stack on its stacked cache (x [B, S, C]; S == 1
+    decode or S > 1 prefill), the counterpart of the JAX stack_step.
+
+    Each layer reads layer l of the cache only: a body S == 1 step through
+    the read-only decode_attention_stacked kernel (its plain version when
+    not `kernels`, and for the head, whose dense half runs the dense
+    kernels as in stack_step_unrolled); S > 1 through the plain
+    _attention_prefill over rows < cur_len. After the layer loop the new
+    k/v rows of all layers go into rows cur_len .. cur_len + S with one
+    indexed write per cache, as JAX's single dynamic_update_slice. Blocks
+    with int8 weights use them through _mm (and the head's _q8 kernels).
+    The JAX `window` argument, which its sampler never passes here, is left
+    out: every step reads all rows < cur_len. Returns (out [B, S, C], cache)."""
+    if len(stack.blocks) == 0:
+        return x, cache
+    B, S, C = x.shape
+    if cur_len + S > cache.k.shape[2]:
+        raise ValueError(f"stack_step: rows {cur_len} .. {cur_len + S} outside the cache (T={cache.k.shape[2]})")
+    n_head = stack.cfg.n_head
+    head_dense = stack.role == "head" and S == 1
+    kernel_attn = kernels and stack.role == "body"
+    attn_fn = AK.decode_attention_stacked if kernel_attn else AK.decode_attention_stacked_plain
+    k_rows, v_rows = [], []
+    for layer, blk in enumerate(stack.blocks):
+        q, k, v = _block_qkv(blk, x, head_dense, kernels).split(C, dim=-1)
+        if S == 1:
+            y = attn_fn(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(), cache.k, cache.v, layer,
+                cur_len, n_head,
             )[:, None]
         else:
-            x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo if blk.int8 else F.linear(y, blk.attn.proj.weight, bo))
-            x = x2 + _mlp(blk, layer_norm(x2, *ln2), stack.cfg.gelu)
-    return x, caches
+            y = _attention_prefill(q, k, v, cache.k[layer, :, :cur_len], cache.v[layer, :, :cur_len], n_head)
+        k_rows.append(k)
+        v_rows.append(v)
+        x = _block_out(blk, x, y, head_dense, kernels, stack.cfg.gelu)
+    cache.k[:, :, cur_len : cur_len + S] = torch.stack(k_rows)
+    cache.v[:, :, cur_len : cur_len + S] = torch.stack(v_rows)
+    return x, cache
 
 
 def _mlp(blk, h: torch.Tensor, gelu_version: str) -> torch.Tensor:

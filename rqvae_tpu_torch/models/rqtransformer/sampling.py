@@ -3,11 +3,23 @@
 Port of rqvae_tpu/models/rqtransformer/sampling.py: top-k / top-p filters,
 the exact and fast draws, per-depth top-k/top-p lists, `sample` and
 `forced_logits`. The JAX sampler is one jitted lax.scan; here the position
-loop is a Python loop over the same cached steps (model.stack_step_unrolled
-with one (k, v) cache pair per layer, updated in place): the class token is
-prefilled through the body, then each of the H*W positions runs the depth
-head D times (each followed by the classifier and a draw) and, except at
-the last position, one body step. With `kv_q8` the body cache is int8
+loop is a Python loop over the same cached steps. `unroll` picks the step,
+as the JAX DecodePolicy.unroll does, and None resolves to H*W <= 128:
+
+- unrolled (model.stack_step_unrolled, one (k, v) cache pair per layer,
+  updated in place): the class token is prefilled through the body, then
+  each of the H*W positions runs the depth head D times (each followed by
+  the classifier and a draw) and, except at the last position, one body
+  step, in 2 phases of growing cache window;
+- stacked (model.stack_step on one [L, B, T, C] KVCache per stack, the JAX
+  sampler's "r1 structure" for long code maps): a body cache of
+  cond_len + H*W rows and stacked head caches of D rows; every one of the
+  H*W positions runs the depth head and then a body step, the last one
+  included; no windows, no phases. It runs the bf16/fp32 cache and the
+  unfused body only: kv_q8, dense="mega" and attn_wo raise ValueError
+  there (JAX drops kv_q8 with a warning and ignores the other two).
+
+In the unrolled form, with `kv_q8` the body cache is int8
 (per-layer (kq, ks, vq, vs), rows allocated rounded up to 32 as in JAX);
 the head's D-row caches stay in the model dtype. int8 weights come from
 the model (RQTransformer.quantize_int8). `dense="mega"` and `attn_wo` select
@@ -35,8 +47,10 @@ from rqvae_tpu_torch.models.rqtransformer.model import (
     RQTransformer,
     check_fused_path,
     classifier_apply,
+    init_kv_cache,
     init_unrolled_kv_cache,
     init_unrolled_kv_cache_q8,
+    stack_step,
     stack_step_unrolled,
 )
 from rqvae_tpu_torch.ops.quantize import RQCodebooks, embed_lookup
@@ -149,6 +163,12 @@ def broadcast_topk_topp(config: TransformerConfig, top_k, top_p):
 Pick = Callable[[int, int, torch.Tensor], torch.Tensor]
 
 
+def resolve_unroll(config: TransformerConfig, unroll: Optional[bool]) -> bool:
+    """`unroll`, or when it is None the JAX sampler's rule H*W <= 128."""
+    H, W, _ = config.block_size
+    return H * W <= 128 if unroll is None else unroll
+
+
 @torch.no_grad()
 def _decode(
     model: RQTransformer,
@@ -160,10 +180,15 @@ def _decode(
     kv_q8: bool,
     dense: str,
     attn_wo: bool,
+    unroll: Optional[bool],
 ) -> torch.Tensor:
     """The cached decode loop shared by `sample` and `forced_logits`.
     Returns codes [B, H, W, D] (int64)."""
     config = model.config
+    unroll = resolve_unroll(config, unroll)
+    if not unroll and (kv_q8 or dense == "mega" or attn_wo):
+        raise ValueError("the stacked-cache path (unroll=False) runs the bf16/fp32 KV cache and the unfused "
+                         "body layer: not kv_q8, dense='mega' or attn_wo")
     body_blocks = model.body_transformer.blocks
     check_fused_path(dense, attn_wo, kv_q8, len(body_blocks) > 0 and body_blocks[0].int8)
     fused = dict(dense=dense, attn_wo=attn_wo)
@@ -203,15 +228,46 @@ def _decode(
     cond = cond.reshape(B, cond_len).to(device)
     conds_emb = (model.cond_emb.weight[cond] + model.pos_emb_cond[:, :cond_len]).to(dtype)
 
-    t_max = cond_len + HW - 1  # the last position's k/v are never read
-    if kv_q8:
-        t_alloc = -(-t_max // 32) * 32  # the JAX sampler's int8 row tile; rows >= cur_len are never read
-        body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device)
-    else:
-        body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
-    h, _ = stack_step_unrolled(model.body_transformer, conds_emb, body_caches, 0, kernels=kernels, **fused)
-    spatial_ctx = h[:, -1]
+    body, head = model.body_transformer, model.head_transformer
+    if unroll:
+        t_max = cond_len + HW - 1  # the last position's k/v are never read
+        if kv_q8:
+            t_alloc = -(-t_max // 32) * 32  # the JAX sampler's int8 row tile; rows >= cur_len are never read
+            body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device)
+        else:
+            body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
 
+        def body_step(x, cur_len, window=None):
+            return stack_step_unrolled(body, x, body_caches, cur_len, window=window, kernels=kernels, **fused)[0]
+
+        def head_step(row, caches, d):
+            return stack_step_unrolled(head, row, caches, d, kernels=kernels)[0]
+
+        def init_head_caches():
+            return init_unrolled_kv_cache(config.head, B, D, dtype, device)
+
+        # phased position loop over the first HW - 1 positions: a phase's
+        # steps attend only a prefix `window` of each cache (the rows any of
+        # its steps can see); the last position's body step is skipped
+        n_steps = HW - 1
+        n_phases = min(N_PHASES, max(1, n_steps // 8))
+        bounds = [round(n_steps * i / n_phases) for i in range(n_phases + 1)]
+        phases = [(s, e, min(t_max, cond_len + e)) for s, e in zip(bounds[:-1], bounds[1:])]
+    else:
+        body_cache = init_kv_cache(config.body, B, cond_len + HW, dtype, device)
+
+        def body_step(x, cur_len, window=None):
+            return stack_step(body, x, body_cache, cur_len, kernels=kernels)[0]
+
+        def head_step(row, cache, d):
+            return stack_step(head, row, cache, d, kernels=kernels)[0]
+
+        def init_head_caches():
+            return init_kv_cache(config.head, B, D, dtype, device)
+
+        phases = [(0, HW, None)]  # one pass over all HW positions, the last body step included
+
+    spatial_ctx = body_step(conds_emb, 0)[:, -1]
     pos_hw = model.pos_emb_hw[0].to(dtype)
     pos_d = model.pos_emb_d[0].to(dtype)
     raw_dim = quantizer.config.embed_dim if config.head_emb_vqvae else 1
@@ -220,11 +276,11 @@ def _decode(
         """The D codes of position t through the depth head (D-row caches)."""
         raw_cum = torch.zeros(B, raw_dim, dtype=torch.float32, device=device)
         body_sum = torch.zeros(B, C, dtype=dtype, device=device)
-        head_caches = init_unrolled_kv_cache(config.head, B, D, dtype, device)
+        head_caches = init_head_caches()
         row = (spatial_ctx + pos_d[0])[:, None]
         codes_t = []
         for d in range(D):
-            h, _ = stack_step_unrolled(model.head_transformer, row, head_caches, d, kernels=kernels)
+            h = head_step(row, head_caches, d)
             code_d = pick(t, d, classifier_apply(model, h[:, 0], depth_idx=d))
             codes_t.append(code_d)
             body_sum = body_sum + body_emb_of_code(d, code_d)
@@ -233,25 +289,16 @@ def _decode(
                 row = (r + pos_d[d + 1])[:, None]
         return torch.stack(codes_t, dim=-1), body_sum
 
-    # phased position loop: a phase's steps attend only a prefix `window` of
-    # each cache (the rows any of its steps can see)
-    n_steps = HW - 1
-    n_phases = min(N_PHASES, max(1, n_steps // 8))
-    bounds = [round(n_steps * i / n_phases) for i in range(n_phases + 1)]
     codes = []
-    for s, e in zip(bounds[:-1], bounds[1:]):
-        window = min(t_max, cond_len + e)
+    for s, e, window in phases:
         for t in range(s, e):
             codes_t, body_sum = depth_sample(t, spatial_ctx)
             codes.append(codes_t)
             u = (body_sum + pos_hw[t])[:, None]
-            h, _ = stack_step_unrolled(
-                model.body_transformer, u, body_caches, cond_len + t, window=window, kernels=kernels, **fused
-            )
-            spatial_ctx = h[:, 0]
-    # the last position needs only its depth codes: the body step is skipped
-    codes_last, _ = depth_sample(HW - 1, spatial_ctx)
-    codes.append(codes_last)
+            spatial_ctx = body_step(u, cond_len + t, window)[:, 0]
+    if unroll:  # the last position needs only its depth codes
+        codes_last, _ = depth_sample(HW - 1, spatial_ctx)
+        codes.append(codes_last)
     return torch.stack(codes, dim=1).reshape(B, H, W, D)
 
 
@@ -269,6 +316,7 @@ def sample(
     kv_q8: bool = False,
     dense: str = "auto",
     attn_wo: bool = False,
+    unroll: Optional[bool] = None,
 ) -> torch.Tensor:
     """Sample codes [B, H, W, D] (int64). `exact_sample` selects the
     reference-exact top-k tie semantics over the fast path;
@@ -276,14 +324,16 @@ def sample(
     docstring); `kv_q8` keeps the body's KV cache in int8; `dense="mega"`
     runs each body layer step as one decode_layer_step, `attn_wo` folds
     the body's wo, residual and LN2 into its int8-cache attention (both
-    ValueError where they cannot run: model.check_fused_path)."""
+    ValueError where they cannot run: model.check_fused_path); `unroll`
+    picks the unrolled or the stacked-cache loop (module docstring; None:
+    H*W <= 128)."""
     top_k_list, top_p_list = broadcast_topk_topp(model.config, top_k, top_p)
     draw = sample_from_logits if exact_sample else sample_from_logits_fast
 
     def pick(t, d, logits):
         return draw(logits, generator, temperature, top_k_list[d], top_p_list[d])
 
-    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo)
+    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
 
 
 def forced_logits(
@@ -295,6 +345,7 @@ def forced_logits(
     kv_q8: bool = False,
     dense: str = "auto",
     attn_wo: bool = False,
+    unroll: Optional[bool] = None,
 ) -> torch.Tensor:
     """Per-position decode logits [B, H, W, D, Vmax] (fp32) with the codes
     forced to `forced`: the sampler's cached path (`sample`'s options) with
@@ -307,5 +358,5 @@ def forced_logits(
         out[:, t, d] = logits.float()
         return forced_flat[:, t, d]
 
-    _decode(model, B, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo)
+    _decode(model, B, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
     return out.reshape(B, H, W, D, -1)

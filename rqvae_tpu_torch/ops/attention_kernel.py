@@ -1,9 +1,10 @@
-"""Decode attention with the in-place KV-cache row write.
+"""Decode attention over a KV cache: with the in-place row write, and read-only.
 
-Counterpart of rqvae_tpu/ops/attention_kernel.py::decode_attention_update.
-The CUDA kernel is csrc/decode_attention.cu (its source note says what
-bounds it on the H100 and how the design answers that); this module holds
-its wrapper and the plain PyTorch version of the same function.
+Counterpart of rqvae_tpu/ops/attention_kernel.py::decode_attention_update,
+::decode_attention and ::decode_attention_stacked. The CUDA kernel is
+csrc/decode_attention.cu, one template in two forms (its source note says
+what bounds it on the H100 and how the design answers that); this module
+holds the wrappers and the plain PyTorch versions of the same functions.
 
 Contract (both versions): for q, k_new, v_new [B, C] and one layer's caches
 k_cache, v_cache [B, T, C], the token attends cache rows
@@ -14,6 +15,15 @@ This replaces the JAX kernel's `input_output_aliases` (a functional array
 needs aliasing to update in place; a torch tensor simply is updated). The
 TPU kernel's 0/1 segment matmuls and sublane-aligned windows were Mosaic
 workarounds and are not carried over: W is taken as given.
+
+decode_attention is the same attention with no write (the caches are only
+read, and cur_len may reach T). decode_attention_stacked reads layer `layer`
+of stacked [L, B, T, C] caches, all T rows masked by cur_len, by calling
+decode_attention on the views k_cache[layer], v_cache[layer]: a view of a
+contiguous stack is a pointer offset, which is what the TPU kernel's
+index_map did. So each stacked launch is also a decode_attention launch,
+and both counters count it. The TPU kernel's b_tile (B % b_tile == 0) was
+a Mosaic constraint and is not carried over.
 
 The int8 cache (kv_q8) is the counterpart of ::quantize_kv,
 ::dequantize_cache and ::decode_attention_q8_update (CUDA kernel
@@ -42,7 +52,7 @@ from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _layer_norm
 HEAD_SIZE = 64  # the only head size the CUDA kernel serves
 
 
-def decode_attention_update_plain(
+def decode_attention_plain(
     q: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
@@ -52,10 +62,11 @@ def decode_attention_update_plain(
     n_head: int,
     t_window: int | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version. Rounding points follow the JAX kernel's
-    _attn_math: elementwise q*k products in the cache dtype with fp32 sums,
-    fp32 softmax, weights cast to the cache dtype, fp32 weighted sum of the
-    cache rows, fp32 self term, one cast of y."""
+    """Plain PyTorch version of decode_attention (the caches are only read).
+    Rounding points follow the JAX kernel's _attn_math: elementwise q*k
+    products in the cache dtype with fp32 sums, fp32 softmax, weights cast
+    to the cache dtype, fp32 weighted sum of the cache rows, fp32 self term,
+    one cast of y."""
     B, C = q.shape
     T = k_cache.shape[1]
     hs = C // n_head
@@ -73,27 +84,59 @@ def decode_attention_update_plain(
     w_past = p[:, :n_valid].to(cd)
     y = torch.sum(vc * w_past[..., None], dim=1, dtype=torch.float32)  # [B, nh, hs]
     y = y + v_new.float().reshape(B, n_head, hs) * p[:, n_valid, :, None]
-    k_cache[:, cur_len] = k_new.to(cd)
-    v_cache[:, cur_len] = v_new.to(cd)
     return y.reshape(B, C).to(q.dtype)
 
 
-def _check(q, k_new, v_new, k_cache, v_cache, cur_len, n_head):
+def decode_attention_update_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of decode_attention_update: decode_attention_plain,
+    then row cur_len of both caches set to k_new / v_new in place."""
+    y = decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    k_cache[:, cur_len] = k_new.to(k_cache.dtype)
+    v_cache[:, cur_len] = v_new.to(v_cache.dtype)
+    return y
+
+
+def _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write):
     B, C = q.shape
-    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache)):
+    for arg, t in (("q", q), ("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(
-                f"decode_attention_update: {name} must be a contiguous bf16 tensor on "
+                f"{name}: {arg} must be a contiguous bf16 tensor on "
                 f"{q.device}, got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
     if k_new.shape != (B, C) or v_new.shape != (B, C):
-        raise ValueError("decode_attention_update: q, k_new, v_new must share shape [B, C]")
+        raise ValueError(f"{name}: q, k_new, v_new must share shape [B, C]")
     if k_cache.dim() != 3 or k_cache.shape != v_cache.shape or k_cache.shape[::2] != (B, C):
-        raise ValueError("decode_attention_update: caches must be [B, T, C] like q")
+        raise ValueError(f"{name}: caches must be [B, T, C] like q")
     if C != n_head * HEAD_SIZE:
-        raise ValueError(f"decode_attention_update: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}")
-    if not 0 <= cur_len < k_cache.shape[1]:
-        raise ValueError(f"decode_attention_update: cur_len={cur_len} outside the cache (T={k_cache.shape[1]})")
+        raise ValueError(f"{name}: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}")
+    if cur_len < 0 or (write and cur_len >= k_cache.shape[1]):
+        raise ValueError(f"{name}: cur_len={cur_len} outside the cache (T={k_cache.shape[1]})")
+
+
+def _launch(entry, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window):
+    """Launch rq_decode_attention_update or rq_decode_attention; returns y."""
+    B, C = q.shape
+    T = k_cache.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_build.library(), entry)(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
+        )
+    _build.check(err, entry)
+    return y
 
 
 def decode_attention_update(
@@ -113,24 +156,91 @@ def decode_attention_update(
         return decode_attention_update_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_update: no kernel for device {q.device}")
-    _check(q, k_new, v_new, k_cache, v_cache, cur_len, n_head)
-    B, C = q.shape
-    T = k_cache.shape[1]
-    W = T if t_window is None else min(t_window, T)
-    y = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rq_decode_attention_update(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
-        )
-    _build.check(err, "rq_decode_attention_update")
+    _check("decode_attention_update", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=True)
+    y = _launch("rq_decode_attention_update", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
     decode_attention_update.launches += 1
     return y
 
 
 decode_attention_update.launches = 0
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Kernel wrapper of the read-only attention: the plain version for CPU
+    tensors; for CUDA tensors it launches rq_decode_attention in
+    csrc/decode_attention.cu (bf16, head size 64, contiguous) or raises. One
+    launch adds one to `decode_attention.launches`."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _check("decode_attention", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=False)
+    y = _launch("rq_decode_attention", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    decode_attention.launches += 1
+    return y
+
+
+decode_attention.launches = 0
+
+
+def _check_layer(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int) -> None:
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError("decode_attention_stacked: caches must be [L, B, T, C], both of one shape")
+    if not 0 <= layer < k_cache.shape[0]:
+        raise ValueError(f"decode_attention_stacked: layer={layer} outside the stack (L={k_cache.shape[0]})")
+
+
+def decode_attention_stacked_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    cur_len: int,
+    n_head: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of decode_attention_stacked: decode_attention_plain
+    on layer `layer` of the stacked [L, B, T, C] caches (no window)."""
+    _check_layer(k_cache, v_cache, layer)
+    return decode_attention_plain(q, k_new, v_new, k_cache[layer], v_cache[layer], cur_len, n_head)
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    cur_len: int,
+    n_head: int,
+) -> torch.Tensor:
+    """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
+    launches decode_attention on the views k_cache[layer], v_cache[layer]
+    (the layer's base pointer; nothing is copied) or raises. One launch adds
+    one to `decode_attention_stacked.launches` and to
+    `decode_attention.launches`."""
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(q, k_new, v_new, k_cache, v_cache, layer, cur_len, n_head)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_stacked: no kernel for device {q.device}")
+    _check_layer(k_cache, v_cache, layer)
+    y = decode_attention(q, k_new, v_new, k_cache[layer], v_cache[layer], cur_len, n_head)
+    decode_attention_stacked.launches += 1
+    return y
+
+
+decode_attention_stacked.launches = 0
 
 
 def quantize_kv(x: torch.Tensor, n_head: int) -> tuple[torch.Tensor, torch.Tensor]:

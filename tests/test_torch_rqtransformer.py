@@ -74,23 +74,24 @@ def to_torch(sd):
     return {k: torch.from_numpy(np.array(v, copy=True, order="C")) for k, v in sd.items()}
 
 
-def build_pair(arch=SMALL_ARCH, seed=0):
+def build_pair(arch=SMALL_ARCH, seed=0, qcfg=QCFG):
     """(JAX params, JAX config, codebook state, JAX quantizer config, port
-    model, port codebooks), all fp32 with equal values."""
+    model, port codebooks), all fp32 with equal values; `qcfg` is the
+    quantizer's config (its code_shape matches the arch's block_size)."""
     jcfg = jax_config(arch)
     rng = np.random.RandomState(seed)
     params = jax.device_get(JM.init_transformer_params(jax.random.PRNGKey(seed), jcfg))
     params = jax.tree.map(
         lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32), params
     )
-    jq = jrq.QuantizerConfig.create(**QCFG)
+    jq = jrq.QuantizerConfig.create(**qcfg)
     state = jax.device_get(jrq.init_codebook_state(jax.random.PRNGKey(seed + 1), jq))
 
     model = TM.RQTransformer(TransformerConfig.create(arch), device="cpu")
     sd = to_torch(from_jax.rqtransformer_state_dict_from_jax(params, jcfg))
     model.load_state_dict(sd, strict=True)
     model.fuse_qkv()
-    books = RQCodebooks(QuantizerConfig.create(**QCFG), device="cpu")
+    books = RQCodebooks(QuantizerConfig.create(**qcfg), device="cpu")
     with torch.no_grad():
         books.codebooks[0].weight[:-1] = torch.tensor(np.asarray(state.embed[0]))
     return params, jcfg, state, jq, model, books
