@@ -7,12 +7,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the ten kernels against its plain PyTorch version on the
+  3. each of the eleven kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; the read-only
-     decode attention also on a [4, 100, 257, 1536] stack at cur_len 256,
-     its caches bit-unchanged; int8 caches and
-     weights for the q8 kernels, whose cache writes must be bit-equal;
+     decode attention also at the experiment's B 500, on a [4, 100, 257,
+     1536] stack at cur_len 256 and, at head size 104, on a [2, 100, 257,
+     1664] stack of 16 heads, its caches bit-unchanged; the bf16 update
+     also once at head size 104, its written row bit-equal; int8 caches and
+     weights for the q8 kernels, whose cache writes must be bit-equal (the
+     q8 update also once at head size 104), and the read-only q8 attention
+     decode_attention_q8 at the experiment's shapes (B 100 and 500),
+     cur_len == T, cur_len 0, a ragged batch and head size 104, its caches
+     bit-unchanged;
      decode_layer_step and decode_attention_q8_update_wo also at a ragged
      batch of 37 rows; nearest_code: fp32, 6400 rows of 256 against 16384
      codes, with planted ties), timed against the plain version, a library
@@ -43,7 +49,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode_attention_stacked, each also a decode_attention launch, no other
      kernel), output checks, ms/sample (median), decode ms/sample, peak
      memory, and forced_logits at B=8 through the kernels against the plain
-     versions.
+     versions; then the same at the zoo's vqgan_large (embed 1664, 24 body
+     layers, 16 heads of 104, codebook 1024): 24 x 257 launches per call;
+  8. the port of tools/exp_attn_q8cache.py (rqvae_tpu_torch.tools.
+     exp_attn_q8cache) at B 100 and 500, T 64, 50 calls per chain:
+     decode_attention (#10) against decode_attention_q8 (#11), each chain
+     captured in a CUDA graph and replayed, with the exact launch counts it
+     issues (each replay counted) and every other counter 0.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -167,10 +179,10 @@ def decode(vqvae, codes):
 
 
 def timed_samples(name, sample, counters, want):
-    """A warm-up call sample(99), then ROUNDS timed calls sample(1), each with
-    every count set to 0 just before it and the counts `want` required just
-    after; peak memory is reset after the warm-up. Returns (codes, ms/sample
-    of each timed call, warm-up seconds)."""
+    """A warm-up call sample(99), then ROUNDS timed calls sample(1), each
+    with every count set to 0 just before it and the counts `want` required
+    just after; peak memory is reset after the warm-up. Returns (codes,
+    ms/sample of each timed call, warm-up seconds)."""
     _, warm_s = wall_s(lambda: sample(99))
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -251,7 +263,19 @@ def check_attention(AK, dev, gen):
                 raise AssertionError(f"cache row {cur} was not set to k_new/v_new")
             if not (torch.equal(k1[:, keep], kc[:, keep]) and torch.equal(v1[:, keep], vc[:, keep])):
                 raise AssertionError(f"cache rows other than {cur} changed")
-    log("  decode_attention_update: row cur_len written, every other cache row bit-unchanged")
+    # once at head size 104 (C 1664, 16 heads)
+    C1, nh1 = 1664, 16
+    q1, kn1, vn1, kc1, vc1 = rnd(B, C1), rnd(B, C1), rnd(B, C1), rnd(B, T, C1), rnd(B, T, C1)
+    k1, v1, k0, v0 = kc1.clone(), vc1.clone(), kc1.clone(), vc1.clone()
+    y1 = AK.decode_attention_update(q1, kn1, vn1, k1, v1, 63, nh1, t_window=64)
+    y0 = AK.decode_attention_update_plain(q1, kn1, vn1, k0, v0, 63, nh1, t_window=64)
+    torch.cuda.synchronize()
+    worst = max(worst, compare("decode_attention_update head size 104 cur_len=63 window=64", y1, y0)[0])
+    if not (torch.equal(k1, k0) and torch.equal(v1, v0) and torch.equal(k1[:, 63], kn1)):
+        raise AssertionError("head size 104: the caches after the kernel's write differ from the plain version's")
+    del q1, kn1, vn1, kc1, vc1, k1, v1, k0, v0
+    log("  decode_attention_update: row cur_len written, every other cache row bit-unchanged, at head sizes 64 "
+        "and 104")
     # time the heaviest main-path call (window 64, cur_len 63) on 4 distinct
     # cache pairs (4 x 39 MB), so L2 does not carry one call's cache over
     sets = [(rnd(B, T, C), rnd(B, T, C)) for _ in range(4)]
@@ -278,9 +302,12 @@ def sdpa_rows(q, k_cache, v_cache, nh, rows):
 
 def check_attention_read_only(AK, dev, gen):
     """decode_attention (read-only) and decode_attention_stacked against
-    their plain versions: the unrolled main-path shape, a 4-layer stack of
+    their plain versions: the unrolled main-path shape, the experiment's B
+    500, a 4-layer stack of
     the stacked sampler's rows at its last step (cur_len 256), a ragged
-    batch, cur_len 0; the caches bit-unchanged; timed at the stacked shape."""
+    batch, cur_len 0; the caches bit-unchanged; timed at the stacked shape.
+    Then the same at head size 104 (vqgan_large: C 1664, 16 heads) on a
+    2-layer stack. Returns (the head-size-64 row, the head-size-104 row)."""
     B, C, nh, L, T = BATCH, 1536, 24, 4, 257
 
     def rnd(*shape):
@@ -296,7 +323,8 @@ def check_attention_read_only(AK, dev, gen):
             if not torch.equal(c, before):
                 raise AssertionError(f"{tag}: the kernel changed a cache it may only read")
 
-    for b, t, window, cur in ((B, 64, 64, 63), (B, 64, 32, 16), (B, 64, 64, 0), (37, 64, 24, 30)):
+    for b, t, window, cur in ((B, 64, 64, 63), (500, 64, 64, 63), (B, 64, 32, 16), (B, 64, 64, 0),
+                              (37, 64, 24, 30)):
         q, kn, vn, kc, vc = rnd(b, C), rnd(b, C), rnd(b, C), rnd(b, t, C), rnd(b, t, C)
         k0, v0 = kc.clone(), vc.clone()
         got = AK.decode_attention(q, kn, vn, kc, vc, cur, nh, t_window=window)
@@ -316,18 +344,50 @@ def check_attention_read_only(AK, dev, gen):
     held("decode_attention_stacked ragged B=37 layer=1 cur_len=200",
          AK.decode_attention_stacked(qr, knr, vnr, kr, vr, 1, 200, nh),
          AK.decode_attention_stacked_plain(qr, knr, vnr, kr, vr, 1, 200, nh))
+    del qr, knr, vnr, kr, vr
     log("  decode_attention / decode_attention_stacked: y within the bound, every cache bit-unchanged")
-    # time the stacked sampler's heaviest call (cur_len 256) on the 4 layers
-    # in turn (4 x 157 MB), so L2 does not carry one call's rows over
-    n = 256
-    ms = cuda_ms([lambda l=l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], 40)
-    plain = cuda_ms([lambda l=l: AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], 20)
-    lib = cuda_ms([lambda l=l: sdpa_rows(q, ks[l], vs[l], nh, n) for l in range(L)], 40)
+    row64 = {"max_abs_err": worst, **time_stacked(AK, q, kn, vn, ks, vs, nh, 40)}
+    del ks, vs
+
+    # head size 104: a [2, 100, 257, 1664] stack (2 x 171 MB), 16 heads
+    worst, C, nh, L = 0.0, 1664, 16, 2
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    ks, vs = rnd(L, B, T, C), rnd(L, B, T, C)
+    k0, v0 = ks.clone(), vs.clone()
+    for layer in range(L):
+        for cur in (256, 0):
+            got = AK.decode_attention_stacked(q, kn, vn, ks, vs, layer, cur, nh)
+            held(f"decode_attention_stacked head size 104 [{L},{B},{T},{C}] layer={layer} cur_len={cur}", got,
+                 AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, layer, cur, nh), (ks, k0), (vs, v0))
+    del k0, v0
+    qr, knr, vnr = rnd(37, C), rnd(37, C), rnd(37, C)
+    kr, vr = rnd(L, 37, T, C), rnd(L, 37, T, C)
+    k0, v0 = kr.clone(), vr.clone()
+    for cur in (256, 0):
+        held(f"decode_attention_stacked head size 104 ragged B=37 layer=1 cur_len={cur}",
+             AK.decode_attention_stacked(qr, knr, vnr, kr, vr, 1, cur, nh),
+             AK.decode_attention_stacked_plain(qr, knr, vnr, kr, vr, 1, cur, nh), (kr, k0), (vr, v0))
+    del qr, knr, vnr, kr, vr, k0, v0
+    log("  decode_attention_stacked at head size 104: y within the bound, every cache bit-unchanged")
+    row104 = {"max_abs_err": worst, **time_stacked(AK, q, kn, vn, ks, vs, nh, 40)}
+    return row64, row104
+
+
+def time_stacked(AK, q, kn, vn, ks, vs, nh, n_calls):
+    """Time the stacked sampler's heaviest call (cur_len 256) on each layer
+    of the [L, B, 257, C] stack in turn (each layer's 256 rows exceed L2),
+    against the plain version, SDPA and the bound."""
+    (B, C), L, n = q.shape, ks.shape[0], 256
+    ms = cuda_ms([lambda l=l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], n_calls)
+    plain = cuda_ms([lambda l=l: AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, l, n, nh) for l in range(L)],
+                    n_calls // 2)
+    lib = cuda_ms([lambda l=l: sdpa_rows(q, ks[l], vs[l], nh, n) for l in range(L)], n_calls)
     b = bound(2 * B * n * C * 2 + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
-    log(f"  decode_attention_stacked time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+    log(f"  decode_attention_stacked time, head size {C // nh}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"(scaled_dot_product_attention over the {n} rows) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by "
-        f"{b['bound_by']} (B={B}, T={T}, cur_len={n}); {2 * B * n * C * 2 / ms / 1e9:.3f} TB/s of cache")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+        f"{b['bound_by']} (B={B}, C={C}, T={ks.shape[2]}, cur_len={n}); {2 * B * n * C * 2 / ms / 1e9:.3f} TB/s "
+        f"of cache")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, **b}
 
 
 def q8_cache(AK, rnd, B, T, C, nh):
@@ -362,8 +422,21 @@ def check_attention_q8(AK, dev, gen):
             kq_new, ks_new = AK.quantize_kv(kn, nh)
             if not (torch.equal(got[0][:, cur], kq_new) and torch.equal(got[1][:, cur], ks_new.to(torch.bfloat16))):
                 raise AssertionError(f"cache row {cur} is not quantize_kv(k_new)")
+    # once at head size 104 (C 1664, 16 heads)
+    C1, nh1 = 1664, 16
+    q1, kn1, vn1 = rnd(B, C1), rnd(B, C1), rnd(B, C1)
+    cache1 = q8_cache(AK, rnd, B, T, C1, nh1)
+    got, ref = [c.clone() for c in cache1], [c.clone() for c in cache1]
+    y1 = AK.decode_attention_q8_update(q1, kn1, vn1, *got, 63, nh1, t_window=64)
+    y0 = AK.decode_attention_q8_update_plain(q1, kn1, vn1, *ref, 63, nh1, t_window=64)
+    torch.cuda.synchronize()
+    worst = max(worst, compare("decode_attention_q8_update head size 104 cur_len=63 window=64", y1, y0)[0])
+    for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
+        if not torch.equal(a, b0):
+            raise AssertionError(f"head size 104: {name} after the kernel's write differs from the plain version's")
+    del q1, kn1, vn1, cache1, got, ref
     log("  decode_attention_q8_update: all four caches bit-equal to the plain version's "
-        "(row cur_len = quantize_kv(k_new/v_new), every other row unchanged)")
+        "(row cur_len = quantize_kv(k_new/v_new), every other row unchanged), at head sizes 64 and 104")
     sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
     ms = cuda_ms([lambda s=s: AK.decode_attention_q8_update(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
     plain = cuda_ms([lambda s=s: AK.decode_attention_q8_update_plain(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
@@ -375,6 +448,51 @@ def check_attention_q8(AK, dev, gen):
     log(f"  decode_attention_q8_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library: none "
         f"(no torch call attends an int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
         f"(B={B}, W=64, cur_len=63)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+
+
+def check_attention_q8_read_only(AK, dev, gen):
+    """decode_attention_q8 (#11, the read-only q8 attention) against its
+    plain version at the experiment's shapes (B 100 and 500, T 64, cur_len
+    63, window 64), at cur_len == T, cur_len 0, a ragged B = 37 and head size 104; the
+    four caches bit-unchanged; timed against the plain version, the bound
+    and decode_attention (#10) on the same rows in bf16."""
+    B, C, nh, T = BATCH, 1536, 24, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    worst = 0.0
+    for b, c, heads, cur, window in ((B, C, nh, 63, 64), (500, C, nh, 63, 64), (B, C, nh, 64, 64), (B, C, nh, 0, 64),
+                                     (B, C, nh, 15, 32), (37, C, nh, 30, 24), (B, 1664, 16, 63, 64),
+                                     (37, 1664, 16, 64, 64)):
+        q, kn, vn = rnd(b, c), rnd(b, c), rnd(b, c)
+        cache = q8_cache(AK, rnd, b, T, c, heads)
+        before = [t.clone() for t in cache]
+        got = AK.decode_attention_q8(q, kn, vn, *cache, cur, heads, t_window=window)
+        want = AK.decode_attention_q8_plain(q, kn, vn, *cache, cur, heads, t_window=window)
+        torch.cuda.synchronize()
+        tag = f"decode_attention_q8 B={b} C={c} head size {c // heads} cur_len={cur} window={window}"
+        worst = max(worst, compare(tag, got, want)[0])
+        for name, a, b0 in zip(("kq", "ks", "vq", "vs"), cache, before):
+            if not torch.equal(a, b0):
+                raise AssertionError(f"{tag}: the kernel changed {name}, which it may only read")
+    log("  decode_attention_q8: y within the bound, all four caches bit-unchanged, at head sizes 64 and 104")
+    # the main-path call on 6 distinct caches (6 x 19.7 MB int8, 6 x 39 MB
+    # bf16 for #10 on the same rows), so L2 does not carry one call's rows over
+    n = 63
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]
+    bf16_sets = [(AK.dequantize_cache(s[0], s[1], nh), AK.dequantize_cache(s[2], s[3], nh)) for s in sets]
+    ms = cuda_ms([lambda s=s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    plain = cuda_ms([lambda s=s: AK.decode_attention_q8_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    bf16_ms = cuda_ms([lambda s=s: AK.decode_attention(q, kn, vn, *s, n, nh, 64) for s in bf16_sets], 50)
+    ms2 = cuda_ms([lambda s=s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    b = bound(2 * B * n * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
+    log(f"  decode_attention_q8 time: kernel {ms:.4f} / {ms2:.4f} ms (before / after #10), plain {plain:.4f} ms, "
+        f"decode_attention (#10, bf16) on the same rows {bf16_ms:.4f} ms, library: none (no torch call attends an "
+        f"int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len={n}); "
+        f"{2 * B * n * (C + 2 * nh) / ms / 1e6:.1f} GB/s of int8 cache and scales")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
@@ -789,17 +907,19 @@ def encode_phase(vqvae, xs, counters, card) -> int:
     return fwd_launches
 
 
-def vqgan_phase(S, counters, dev, card) -> int:
-    """Phase 7: vqgan_huge bs100 through the stacked-cache sampler. ROUNDS
-    timed sample calls, each with all counts set to 0 just before it and 48
-    x 257 decode_attention_stacked (and decode_attention) launches and no
-    other required just after; output checks; ms/sample; forced_logits at
-    B=8, kernels vs plain. Returns the stacked launches of one call."""
+def vqgan_phase(S, counters, dev, card, name) -> int:
+    """Phase 7: the zoo's `name` (vqgan_huge, vqgan_large) bs100 through the
+    stacked-cache sampler. ROUNDS timed sample calls, each with all counts
+    set to 0 just before it and n_layer x 257 decode_attention_stacked (and
+    decode_attention) launches and no other required just after; output
+    checks; ms/sample; forced_logits at B=8, kernels vs plain. Returns the
+    stacked launches of one call."""
     from rqvae_tpu_torch.cli import measure_throughput as MT
     from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
 
     t0 = time.perf_counter()
-    vqvae, tconf = MT.build(16, "vqgan_huge", 1, 16384, device=dev, dtype=torch.bfloat16)
+    codebook = MT.VQGAN_TRANSFORMERS[name][4]
+    vqvae, tconf = MT.build(16, name, 1, codebook, device=dev, dtype=torch.bfloat16)
     model = RQTransformer(tconf, device=dev, dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(0)
     vqvae.init_weights(gen)
@@ -817,20 +937,47 @@ def vqgan_phase(S, counters, dev, card) -> int:
                         quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels)
 
     want = {fn.__name__: 0 for fn in counters} | {"decode_attention_stacked": steps, "decode_attention": steps}
-    codes, times, warm_s = timed_samples("vqgan_huge", sample, counters, want)
-    log(f"  [vqgan_huge] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): "
+    codes, times, warm_s = timed_samples(name, sample, counters, want)
+    log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each of {ROUNDS} timed sample(bs{BATCH}) calls: "
         f"decode_attention_stacked {steps}, decode_attention {steps} (the same launches), every other kernel 0")
     pixels, decode_s = decode_checked(vqvae, codes, (BATCH, H, W, D), tconf.vocab_size[0])
-    log(f"  [vqgan_huge] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+    log(f"  [{name}] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
         f"{len(torch.unique(codes))} distinct; pixels finite, mean {float((0.5 * pixels.float() + 0.5).clamp(0, 1).mean()):.4f}")
-    log_times("vqgan_huge", times, decode_s, card)
+    log_times(name, times, decode_s, card)
     forced, fcond = codes[:8], cond[:8]
     got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True)
     ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False)
     torch.cuda.synchronize()
-    log(f"  [vqgan_huge] logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
-    compare("[vqgan_huge] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
+    log(f"  [{name}] logits {tuple(ref.shape)}, std {float(ref.std()):.3f}")
+    compare(f"[{name}] forced_logits kernels vs plain", got, ref, LOGIT_TOL, LOGIT_MEAN_TOL)
     return steps
+
+
+def experiment_phase(AK, counters, dev, card) -> int:
+    """Phase 8: the port of tools/exp_attn_q8cache.py at B 100 and 500, T
+    64, 50 calls per chain: decode_attention (#10) against
+    decode_attention_q8 (#11) in CUDA-graph-replayed chains. All counts set
+    to 0 just before it; after it each of the two kernels must show the
+    launches the experiment issues (its eager chains, a warm-up call, the
+    chain once at capture and each of its replays, per batch) and every
+    other kernel 0. Returns #11's
+    launches."""
+    from rqvae_tpu_torch.tools import exp_attn_q8cache as E
+
+    batches, t, iters = [100, 500], 64, 50
+    os.environ.update(EXP_T=str(t), EXP_ITERS=str(iters))
+    for fn in counters:
+        fn.launches = 0
+    E.main([str(b) for b in batches], device=dev)
+    n = len(batches) * E.launches_per_batch(iters)
+    want = {fn.__name__: 0 for fn in counters} | {"decode_attention": n, "decode_attention_q8": n}
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if counts != want:
+        raise AssertionError(f"[exp_attn_q8cache] launched {counts}, not {want}")
+    log(f"  [exp_attn_q8cache] launches: decode_attention {n}, decode_attention_q8 {n} ({len(batches)} batches x "
+        f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of {iters})), "
+        f"every other kernel 0; {card}")
+    return n
 
 
 def main() -> None:
@@ -870,9 +1017,10 @@ def main() -> None:
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
     gen = torch.Generator(device=dev).manual_seed(0)
     attn = check_attention(AK, dev, gen)
-    attn_read = check_attention_read_only(AK, dev, gen)
+    attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
     qkv, mlp = check_dense(DK, dev, gen)
     attn_q8 = check_attention_q8(AK, dev, gen)
+    attn_q8_read = check_attention_q8_read_only(AK, dev, gen)
     qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
     nearest = check_nearest_code(RK, dev, gen)
     mega = check_decode_layer_step(MK, dev, gen)
@@ -899,17 +1047,18 @@ def main() -> None:
     counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
                 AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
                 MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
-                AK.decode_attention_stacked)
+                AK.decode_attention_stacked, AK.decode_attention_q8)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0)),
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0)),
-        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0)),
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0)),
     ]
+    assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
     for name, int8, options, expect in points:
         set_int8(int8)
@@ -952,12 +1101,19 @@ def main() -> None:
     log(f"# phase 6: RQ-VAE encode + residual quantization + decode, bf16, bs{BATCH}, on {card}")
     launches["nearest_code"] = encode_phase(vqvae, images.clamp(-1.0, 1.0), counters, card)
 
-    # phase 7: the stacked-cache sampler at vqgan_huge, once the 1.4B model is freed
+    # phase 7: the stacked-cache sampler at vqgan_huge and vqgan_large, once the 1.4B model is freed
     del model, vqvae, images, results, pixels
     torch.cuda.empty_cache()
-    log(f"# phase 7: vqgan_huge (f16-d1-c16384) class-conditional sampling through the stacked-cache "
-        f"sampler + RQ-VAE decode, bs{BATCH}, on {card}")
-    launches["decode_attention_stacked"] = vqgan_phase(S, counters, dev, card)
+    log(f"# phase 7: vqgan_huge (f16-d1-c16384), then vqgan_large (f16-d1-c1024, head size 104), "
+        f"class-conditional sampling through the stacked-cache sampler + RQ-VAE decode, bs{BATCH}, on {card}")
+    launches["decode_attention_stacked"] = vqgan_phase(S, counters, dev, card, "vqgan_huge")
+    torch.cuda.empty_cache()
+    attn_read104["launches"] = vqgan_phase(S, counters, dev, card, "vqgan_large")
+    torch.cuda.empty_cache()
+
+    # phase 8: the ported experiment, #10 against #11
+    log(f"# phase 8: rqvae_tpu_torch.tools.exp_attn_q8cache, B 100 and 500, T 64, 50 calls per chain, on {card}")
+    launches["decode_attention_q8"] = experiment_phase(AK, counters, dev, card)
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
@@ -979,7 +1135,10 @@ def main() -> None:
         dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:728", **attn_wo),
         dict(name="decode_attention_stacked", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
-             replaces="rqvae_tpu/ops/attention_kernel.py:149 and :209", **attn_read),
+             replaces="rqvae_tpu/ops/attention_kernel.py:149 and :209", **attn_read,
+             head_size_104=attn_read104),  # the same kernel on vqgan_large's path
+        dict(name="decode_attention_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:830", **attn_q8_read),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -2,8 +2,8 @@
 """Where the device time of one 1.4B bs100 sample call of the PyTorch/CUDA
 port goes, at each of bench.py's operating points, of one bs100 RQ-VAE
 forward (encode, residual quantization, decode), and of one bs100 sample
-call of the zoo's vqgan_huge through the stacked-cache sampler, on one CUDA
-device.
+call of the zoo's vqgan_huge and vqgan_large through the stacked-cache
+sampler, on one CUDA device.
 
 The model is chip_smoke.py's main path (`build_main_path`): bench.py's 1.4B
 geometry with random weights from a seed, bs100, temperature 1, no
@@ -19,18 +19,19 @@ each of the port's kernel wrappers (their launches are wrapped in
 record_function ranges for this run only). The unprofiled ms/sample is chip_smoke.py's (phase 4); the device
 busy share is this script's device ms/sample over that. The RQ-VAE forward
 (point "encode") runs on 100 images decoded from random codes, after one
-warm-up forward; its wall ms/image is chip_smoke.py's (phase 6). Point
-"vqgan_huge" is chip_smoke.py's phase 7 model (measure_throughput.build(16,
-"vqgan_huge", 1, 16384), random bf16 weights from a seed, 16x16x1 codes,
-the stacked-cache sampler), built once the 1.4B model is freed; its wall
-ms/sample is chip_smoke.py's (phase 7).
+warm-up forward; its wall ms/image is chip_smoke.py's (phase 6). Points
+"vqgan_huge" and "vqgan_large" are chip_smoke.py's phase 7 models
+(measure_throughput.build(16, name, 1, codebook), random bf16 weights from
+a seed, 16x16x1 codes, the stacked-cache sampler; vqgan_large at head size
+104), each built once the model before it is freed; their wall ms/sample
+is chip_smoke.py's (phase 7).
 
 Prints one JSON line per point, then the card's name and power limit; the
 profiler tables go to --out. The points to run are named on the command
 line (all of them when none is named); each takes one to three minutes
 under the profiler.
 
-    python3 profile_sample.py --out build/profile bf16 vqgan_huge
+    python3 profile_sample.py --out build/profile bf16 vqgan_huge vqgan_large
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ POINTS = (  # (name, int8 weights, sample options), as chip_smoke.py phase 4
     ("int8+kv_q8", True, dict(kv_q8=True)),
     ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True)),
 )
-POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", "vqgan_huge"]
+VQGAN_POINTS = ("vqgan_huge", "vqgan_large")  # measure_throughput's VQ-GAN rows
+POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", *VQGAN_POINTS]
 
 
 def _annotated(fn):
@@ -153,13 +155,13 @@ def main() -> None:
         (AK, "decode_attention_update"), (AK, "decode_attention_q8_update"), (DK, "fused_ln_qkv"),
         (DK, "fused_ln_qkv_q8"), (DK, "fused_proj_mlp"), (DK, "fused_proj_mlp_q8"), (RK, "nearest_code"),
         (MK, "decode_layer_step"), (AK, "decode_attention_q8_update_wo"), (AK, "decode_attention"),
-        (AK, "decode_attention_stacked"),
+        (AK, "decode_attention_stacked"), (AK, "decode_attention_q8"),
     }
     originals = {(m, n): getattr(m, n) for m, n in wrappers}
     for (m, n), fn in originals.items():
         setattr(m, n, _annotated(fn))
     try:
-        if set(names) - {"vqgan_huge"}:
+        if set(names) - set(VQGAN_POINTS):
             model, vqvae, cond = build_main_path(dev)
             for name, int8, options in POINTS:
                 if name in names:
@@ -174,14 +176,16 @@ def main() -> None:
                     profiled("encode", lambda: vqvae(xs), args.out)
             del model, vqvae
             torch.cuda.empty_cache()
-        if "vqgan_huge" in names:
-            vqvae, tconf = MT.build(16, "vqgan_huge", 1, 16384, device=dev, dtype=torch.bfloat16)
+        for name in [n for n in VQGAN_POINTS if n in names]:
+            vqvae, tconf = MT.build(16, name, 1, MT.VQGAN_TRANSFORMERS[name][4], device=dev, dtype=torch.bfloat16)
             model = RQTransformer(tconf, device=dev, dtype=torch.bfloat16)
             gen = torch.Generator(device=dev).manual_seed(0)
             vqvae.init_weights(gen)
             model.init_weights(gen)
             cond = torch.arange(BATCH, device=dev) % tconf.vocab_size_cond
-            profiled("vqgan_huge", sampler(model, vqvae, cond, {}), args.out)
+            profiled(name, sampler(model, vqvae, cond, {}), args.out)
+            del model, vqvae
+            torch.cuda.empty_cache()
     finally:
         for (m, n), fn in originals.items():
             setattr(m, n, fn)

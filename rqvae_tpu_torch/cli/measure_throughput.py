@@ -52,8 +52,8 @@ TRANSFORMERS = {  # model -> (embed_dim, body_d>1, head_d>1, body_d1, n_head)
 
 # the reference's VQGAN baselines: body-only stacks pinned to one f16-d1
 # geometry, (embed_dim, body_n_layer, n_head, f, codebook). vqgan_large has
-# head size 104, which the decode attention kernels do not serve: sampling
-# it on the card raises ValueError
+# head size 104, an instantiation of the decode attention kernels of its
+# path (the stacked-cache sampler) as 64 is
 VQGAN_TRANSFORMERS = {
     "vqgan_large": (1664, 24, 16, 16, 1024),   # 800M,  f16-d1-c1024
     "vqgan_huge": (1536, 48, 24, 16, 16384),   # 1400M, f16-d1-c16384

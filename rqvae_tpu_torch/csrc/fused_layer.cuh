@@ -1,7 +1,10 @@
 // Device code shared by the fused decode-layer kernels on Hopper (sm_90a):
 // csrc/decode_megakernel.cu (a whole body layer step in one launch) and
 // rq_decode_attention_q8_update_wo in csrc/decode_attention_q8.cu (the q8
-// attention with the output projection, residual and LN2 folded in).
+// attention with the output projection, residual and LN2 folded in). The
+// warp helpers and the head-slice lane mapping (HeadSlice) also serve the
+// decode attention kernels of csrc/decode_attention.cu and
+// csrc/decode_attention_q8.cu.
 //
 // Both are one cooperative persistent launch: the grid is as large as the
 // card can hold at once (occupancy x SMs, so cudaLaunchCooperativeKernel
@@ -105,6 +108,100 @@ __device__ __forceinline__ unsigned long long global_ns() {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One warp holds one attention head: lane i the kVec neighbouring columns
+// kVec i .. kVec i + kVec - 1, so a warp reads a head slice of a cache row
+// in one coalesced load (64: 32 lanes of 2 values; 104: 26 lanes of 4, 6
+// lanes idle). Idle lanes load nothing and hold zeros.
+template <int kHeadSize>
+struct HeadSlice {
+  static constexpr int kVec = kHeadSize <= 64 ? 2 : 4;  // values per lane
+  static constexpr int kLanes = kHeadSize / kVec;        // lanes that hold the head
+  static_assert(kHeadSize % kVec == 0 && kLanes <= 32, "a head must fit one warp");
+  static __device__ __forceinline__ bool active(int lane) { return kLanes == 32 || lane < kLanes; }
+};
+
+struct __align__(8) bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+
+// kVec bf16 values at p (4- or 8-byte aligned) as floats; zeros when !active
+template <int kVec>
+__device__ __forceinline__ void load_bf16v(const bf16* p, bool active, float (&out)[kVec]) {
+  static_assert(kVec == 2 || kVec == 4, "2 or 4 values per lane");
+  if (!active) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) out[i] = 0.f;
+  } else if constexpr (kVec == 2) {
+    const float2 f = load_bf16x2(p);
+    out[0] = f.x;
+    out[1] = f.y;
+  } else {
+    const bf16x4 v = *reinterpret_cast<const bf16x4*>(p);
+    const float2 lo = __bfloat1622float2(v.lo), hi = __bfloat1622float2(v.hi);
+    out[0] = lo.x;
+    out[1] = lo.y;
+    out[2] = hi.x;
+    out[3] = hi.y;
+  }
+}
+
+// kVec floats rounded to bf16 at p (4- or 8-byte aligned)
+template <int kVec>
+__device__ __forceinline__ void store_bf16v(bf16* p, const float (&v)[kVec]) {
+  static_assert(kVec == 2 || kVec == 4, "2 or 4 values per lane");
+  if constexpr (kVec == 2) {
+    store_bf16x2(p, v[0], v[1]);
+  } else {
+    bf16x4 o;
+    o.lo = __floats2bfloat162_rn(v[0], v[1]);
+    o.hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<bf16x4*>(p) = o;
+  }
+}
+
+// kVec bf16 values copied bit for bit from src to dst (4- or 8-byte aligned)
+template <int kVec>
+__device__ __forceinline__ void copy_bf16v(bf16* dst, const bf16* src) {
+  static_assert(kVec == 2 || kVec == 4, "2 or 4 values per lane");
+  if constexpr (kVec == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = *reinterpret_cast<const __nv_bfloat162*>(src);
+  } else {
+    *reinterpret_cast<bf16x4*>(dst) = *reinterpret_cast<const bf16x4*>(src);
+  }
+}
+
+// kVec int8 values of one lane, kept packed in a register until used
+template <int kVec>
+using I8v = typename std::conditional<kVec == 2, char2, char4>::type;
+
+template <int kVec>
+__device__ __forceinline__ I8v<kVec> load_i8v(const int8_t* p, bool active) {
+  I8v<kVec> v{};
+  if (active) v = *reinterpret_cast<const I8v<kVec>*>(p);
+  return v;
+}
+
+__device__ __forceinline__ void to_float(char2 v, float (&out)[2]) {
+  out[0] = (float)v.x;
+  out[1] = (float)v.y;
+}
+
+__device__ __forceinline__ void to_float(char4 v, float (&out)[4]) {
+  out[0] = (float)v.x;
+  out[1] = (float)v.y;
+  out[2] = (float)v.z;
+  out[3] = (float)v.w;
+}
+
+// this lane's part of <a, b>, in pairs: a0 b0 + a1 b1 (+ a2 b2 + a3 b3)
+template <int kVec>
+__device__ __forceinline__ float dot_lane(const float (&a)[kVec], const float (&b)[kVec]) {
+  float d = a[0] * b[0] + a[1] * b[1];
+#pragma unroll
+  for (int i = 2; i < kVec; i += 2) d += a[i] * b[i] + a[i + 1] * b[i + 1];
+  return d;
 }
 
 // sum of the whole block's v, in a fixed order; every thread gets it. red:

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "rq_decode_attention_update": (_P,) * 6 + (_I,) * 6 + (_P,),
     "rq_decode_attention": (_P,) * 6 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8_update": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "rq_decode_attention_q8": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_fused_ln_qkv": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "rq_fused_ln_qkv_q8": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "rq_fused_proj_mlp": (_P,) * 14 + (_I,) * 7 + (_F, _P),

@@ -32,12 +32,27 @@ ks bf16 [B, T, n_head], vq, vs): one scale per (row, head). quantize_kv
 returns the fp32 scale; the cache stores it as bf16, but the int8 values
 were rounded with the fp32 one.
 
+decode_attention_q8 is the counterpart of ::decode_attention_q8: the same
+q8 attention with no write (the four caches are only read, and cur_len may
+reach T); its CUDA kernel is rq_decode_attention_q8, the read-only form of
+the same device code. No sampling path calls it: the JAX sampler takes it
+only for an int8 cache whose row count is not a multiple of 32 (its update
+kernel's cache write reads 32-row tiles, a Mosaic constraint), and the
+port's update kernel serves any row count. Its caller is the experiment
+rqvae_tpu_torch/tools/exp_attn_q8cache.py.
+
 decode_attention_q8_update_wo is the counterpart of
 ::decode_attention_q8_update_wo: the q8 attention, then the output
 projection (int8 wo with its per-output scale, or a float wo), the residual
 and LN2, returning (x2, h2) for the MLP. Its CUDA kernel is
 rq_decode_attention_q8_update_wo in csrc/decode_attention_q8.cu: one
 cooperative launch whose phases are separated by grid barriers.
+
+Head sizes: the attention kernels serve C / n_head in HEAD_SIZES (the CUDA
+templates' instantiations: 64, and 104 for the zoo's vqgan_large); the
+fused decode_attention_q8_update_wo serves 64 only, since it runs only on
+the unrolled sampling path (H·W <= 128), where every configuration of the
+repository has head size 64.
 """
 
 from __future__ import annotations
@@ -49,7 +64,26 @@ import torch
 from rqvae_tpu_torch.ops import _build
 from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _layer_norm
 
-HEAD_SIZE = 64  # the only head size the CUDA kernel serves
+# head sizes of the CUDA attention kernels (the instantiations in
+# csrc/decode_attention.cu and csrc/decode_attention_q8.cu), each with the
+# bytes of one lane's bf16 load, to which every bf16 pointer is aligned
+HEAD_SIZES = {64: 4, 104: 8}
+WO_HEAD_SIZE = 64  # the only head size of decode_attention_q8_update_wo
+
+
+def _check_head(name, C, n_head, head_sizes, *bf16_tensors, int8_tensors=()):
+    """Raise ValueError unless C / n_head is a head size the kernel serves
+    and every bf16 tensor (int8 tensor) starts on the boundary of one lane's
+    bf16 (int8) load, HEAD_SIZES[hs] (half that) bytes."""
+    hs = C // n_head if n_head > 0 else 0
+    if hs * n_head != C or hs not in head_sizes:
+        raise ValueError(
+            f"{name}: the kernel serves head sizes {sorted(head_sizes)}, got C={C}, n_head={n_head}"
+        )
+    for tensors, align, kind in ((bf16_tensors, HEAD_SIZES[hs], "bf16"), (int8_tensors, HEAD_SIZES[hs] // 2, "int8")):
+        for t in tensors:
+            if t.data_ptr() % align:
+                raise ValueError(f"{name}: a {kind} tensor must start on a {align}-byte boundary at head size {hs}")
 
 
 def decode_attention_plain(
@@ -117,8 +151,7 @@ def _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write):
         raise ValueError(f"{name}: q, k_new, v_new must share shape [B, C]")
     if k_cache.dim() != 3 or k_cache.shape != v_cache.shape or k_cache.shape[::2] != (B, C):
         raise ValueError(f"{name}: caches must be [B, T, C] like q")
-    if C != n_head * HEAD_SIZE:
-        raise ValueError(f"{name}: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}")
+    _check_head(name, C, n_head, HEAD_SIZES, q, k_new, v_new, k_cache, v_cache)
     if cur_len < 0 or (write and cur_len >= k_cache.shape[1]):
         raise ValueError(f"{name}: cur_len={cur_len} outside the cache (T={k_cache.shape[1]})")
 
@@ -150,8 +183,9 @@ def decode_attention_update(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_attention.cu (bf16, head size 64, contiguous) or
-    raises. One launch adds one to `decode_attention_update.launches`."""
+    launches csrc/decode_attention.cu (bf16, a head size of HEAD_SIZES,
+    contiguous) or raises. One launch adds one to
+    `decode_attention_update.launches`."""
     if q.device.type == "cpu":
         return decode_attention_update_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
     if q.device.type != "cuda":
@@ -177,8 +211,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """Kernel wrapper of the read-only attention: the plain version for CPU
     tensors; for CUDA tensors it launches rq_decode_attention in
-    csrc/decode_attention.cu (bf16, head size 64, contiguous) or raises. One
-    launch adds one to `decode_attention.launches`."""
+    csrc/decode_attention.cu (bf16, a head size of HEAD_SIZES, contiguous)
+    or raises. One launch adds one to `decode_attention.launches`."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
     if q.device.type != "cuda":
@@ -324,7 +358,12 @@ def _attention_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window):
     return y.reshape(B, C)
 
 
-def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name="decode_attention_q8_update"):
+def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name="decode_attention_q8_update",
+              write=True, head_sizes=HEAD_SIZES):
+    """Raise ValueError unless the q8 kernels take these tensors: bf16 [B, C]
+    activations, int8 [B, T, C] caches with bf16 [B, T, n_head] scales, a
+    head size of `head_sizes`, and cur_len inside the cache (< T with the
+    row write, any row count read-only)."""
     B, C = q.shape
     dev = q.device
     for arg, t, dtype in (
@@ -341,12 +380,25 @@ def _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name="decode_att
     T = kq.shape[1] if kq.dim() == 3 else -1
     if kq.shape != (B, T, C) or vq.shape != kq.shape or ks.shape != (B, T, n_head) or vs.shape != ks.shape:
         raise ValueError(f"{name}: caches must be int8 [B, T, C] and bf16 scales [B, T, n_head]")
-    if C != n_head * HEAD_SIZE:
-        raise ValueError(
-            f"{name}: the kernel serves head size {HEAD_SIZE}, got C={C}, n_head={n_head}"
-        )
-    if not 0 <= cur_len < T:
+    _check_head(name, C, n_head, head_sizes, q, k_new, v_new, int8_tensors=(kq, vq))
+    if cur_len < 0 or (write and cur_len >= T):
         raise ValueError(f"{name}: cur_len={cur_len} outside the cache (T={T})")
+
+
+def _launch_q8(entry, q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window):
+    """Launch rq_decode_attention_q8_update or rq_decode_attention_q8; returns y."""
+    B, C = q.shape
+    T = kq.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_build.library(), entry)(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
+        )
+    _build.check(err, entry)
+    return y
 
 
 def decode_attention_q8_update(
@@ -362,31 +414,68 @@ def decode_attention_q8_update(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_attention_q8.cu (bf16 activations, int8 cache,
-    head size 64, contiguous) or raises. One launch adds one to
+    launches csrc/decode_attention_q8.cu (bf16 activations, int8 cache, a
+    head size of HEAD_SIZES, contiguous) or raises. One launch adds one to
     `decode_attention_q8_update.launches`."""
     if q.device.type == "cpu":
         return decode_attention_q8_update_plain(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_q8_update: no kernel for device {q.device}")
     _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head)
-    B, C = q.shape
-    T = kq.shape[1]
-    W = T if t_window is None else min(t_window, T)
-    y = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rq_decode_attention_q8_update(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), ks.data_ptr(),
-            vq.data_ptr(), vs.data_ptr(), y.data_ptr(), B, T, C, n_head, W, cur_len, stream,
-        )
-    _build.check(err, "rq_decode_attention_q8_update")
+    y = _launch_q8("rq_decode_attention_q8_update", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
     decode_attention_q8_update.launches += 1
     return y
 
 
 decode_attention_q8_update.launches = 0
+
+
+def decode_attention_q8_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of decode_attention_q8: y as _attention_q8
+    computes it, in q's dtype. The caches are only read."""
+    return _attention_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window).to(q.dtype)
+
+
+def decode_attention_q8(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """Kernel wrapper of the read-only q8 attention: the plain version for
+    CPU tensors; for CUDA tensors it launches rq_decode_attention_q8 in
+    csrc/decode_attention_q8.cu (bf16 activations, int8 cache, a head size
+    of HEAD_SIZES, contiguous; cur_len may reach T) or raises. One launch
+    adds one to `decode_attention_q8.launches`."""
+    if q.device.type == "cpu":
+        return decode_attention_q8_plain(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    name = "decode_attention_q8"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name, write=False)
+    y = _launch_q8("rq_decode_attention_q8", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    decode_attention_q8.launches += 1
+    return y
+
+
+decode_attention_q8.launches = 0
 
 
 def decode_attention_q8_update_wo_plain(
@@ -445,8 +534,8 @@ def decode_attention_q8_update_wo(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
     launches csrc/decode_attention_q8.cu::rq_decode_attention_q8_update_wo
-    (bf16 activations, int8 cache, int8 or bf16 wo, head size 64,
-    contiguous) or raises. One launch adds one to
+    (bf16 activations, int8 cache, int8 or bf16 wo, head size
+    WO_HEAD_SIZE = 64, contiguous) or raises. One launch adds one to
     `decode_attention_q8_update_wo.launches`."""
     args = (q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head, t_window)
     if q.device.type == "cpu":
@@ -454,7 +543,7 @@ def decode_attention_q8_update_wo(
     name = "decode_attention_q8_update_wo"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
-    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name)
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name, head_sizes=(WO_HEAD_SIZE,))
     B, C = q.shape
     T = kq.shape[1]
     W = T if t_window is None else min(t_window, T)

@@ -33,7 +33,10 @@ import torch
 from rqvae_tpu_torch.ops import _build
 from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _gelu32, _layer_norm
 
-HEAD_SIZE = 64  # the only head size the CUDA kernel serves
+# the only head size the CUDA kernel serves: it runs only on the unrolled
+# sampling path (H·W <= 128), where every configuration of the repository
+# has head size 64
+HEAD_SIZE = 64
 
 
 def decode_layer_step_plain(

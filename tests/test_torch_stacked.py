@@ -159,12 +159,14 @@ def test_stack_step_matches_jax_and_unrolled(role, int8):
         TM.stack_step(stack, torch.zeros(B, 2, C), cache, T - 1)
 
 
-# two tiny geometries whose 12 x 12 = 144 positions resolve to the stacked
-# path in both packages: the vqgan_* shape (D = 1, no head layers) and a
-# 2-depth one with a 1-layer head
+# three tiny geometries whose 12 x 12 = 144 positions resolve to the stacked
+# path in both packages: the vqgan_* shape (D = 1, no head layers), the same
+# at head size 104 (C 208, 2 heads: vqgan_large's head size), and a 2-depth
+# one with a 1-layer head
 ARCH_D1 = dict(SMALL_ARCH, block_size=[12, 12, 1], head={"n_layer": 0, "block": {"n_head": 2}})
+ARCH_D1_HS104 = dict(ARCH_D1, embed_dim=208)
 ARCH_D2 = dict(SMALL_ARCH, block_size=[12, 12, 2], head={"n_layer": 1, "block": {"n_head": 2}})
-GEOMETRIES = {"12x12x1_head0": ARCH_D1, "12x12x2_head1": ARCH_D2}
+GEOMETRIES = {"12x12x1_head0": ARCH_D1, "12x12x2_head1": ARCH_D2, "12x12x1_head0_hs104": ARCH_D1_HS104}
 
 
 def _stacked_pair(name):
