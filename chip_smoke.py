@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the eleven kernels against its plain PyTorch version on the
+  3. each of the fourteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; the read-only
      decode attention also at the experiment's B 500, on a [4, 100, 257,
@@ -21,9 +21,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-unchanged;
      decode_layer_step and decode_attention_q8_update_wo also at a ragged
      batch of 37 rows; nearest_code: fp32, 6400 rows of 256 against 16384
-     codes, with planted ties), timed against the plain version, a library
-     call where one exists, and the card's bound; the two fused kernels
-     print where their time went, phase by phase;
+     codes, with planted ties; the q8 pipeline kernels of
+     tools/exp_q8_pipeline.py at its shapes, B 100, C 1536, H 6144, int8
+     weights: #17 / #18 at several (chunk, n_buf), bit-equal to each other,
+     #19 in both modes, bit-equal, #20 in the four ablation cases), timed
+     against the plain version, a library call where one exists, and the
+     card's bound; the two fused kernels print where their time went, phase
+     by phase;
   4. the main path at six operating points: bench.py's three (bf16 cache;
      int8 KV cache "kv_q8"; int8 weights + kv_q8), each also with its
      fused body-layer path (bf16+mega: decode_layer_step; kv_q8+attn_wo and
@@ -55,7 +59,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      exp_attn_q8cache) at B 100 and 500, T 64, 50 calls per chain:
      decode_attention (#10) against decode_attention_q8 (#11), each chain
      captured in a CUDA graph and replayed, with the exact launch counts it
-     issues (each replay counted) and every other counter 0.
+     issues (each replay counted) and every other counter 0;
+  9. the port of tools/exp_q8_pipeline.py (rqvae_tpu_torch.tools.
+     exp_q8_pipeline) at B 100, C 1536, H 6144, 16 layers, the full sweeps
+     and probes, chains of PIPE_ITERS x 16 calls captured in CUDA graphs:
+     #6 against #17-#20, with the exact launch counts it issues, every other
+     counter 0, and only the FAILED points the shared-memory arithmetic
+     predicts.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -236,7 +246,11 @@ def compare(name: str, got, want, tol: float = TOL, mean_tol: float | None = Non
     log(f"  {name}: max_abs_err {max_abs:.3e} mean_abs_err {mean_abs:.3e} max_rel_err {max_rel:.3e} "
         f"bound {bound} {'ok' if ok else 'FAILED'}")
     if not ok:
-        raise AssertionError(f"{name}: disagreement beyond the bound")
+        excess = diff - tol * (1.0 + w.abs())
+        i = int(excess.argmax())
+        raise AssertionError(f"{name}: disagreement beyond the bound at {int((excess > 0).sum())} of {diff.numel()} "
+                             f"elements, worst at flat index {i}: got {float(g.flatten()[i])}, "
+                             f"want {float(w.flatten()[i])}")
     return max_abs, max_rel
 
 
@@ -624,6 +638,148 @@ def check_dense_q8(DK, quantize_weight, dev, gen):
     )
 
 
+def check_q8_pipeline(QP, quantize_weight, dev, gen):
+    """#17-#20 (ops/q8_pipeline_kernel.py) against their plain versions at
+    the experiment's shapes: B 100, C 1536, H 6144, bf16 activations, int8
+    weights from quantize_weight, nonzero biases. #17 at (chunk, n_buf)
+    (1536, 4) and (768, 6), #18 at (1536, 2), both gelu forms: TOL, and
+    every point bit-equal to the others (the result does not depend on
+    chunk or n_buf); #19 in both modes at (1536, 4) and (768, 4), bit-equal
+    to the plain version (integer sums, exact in fp32), the int32 view
+    within 1e-6 of |ref|; #20 in the four ablation cases: TOL. Timed as
+    check_dense_q8 times #6 (#18 bit-equal to #17, so its error is #17's;
+    the plain and library times are #17's, the same function). Returns the
+    JSON entries of #17, #18, #19 and #20 (no launches yet)."""
+    B, C = BATCH, 1536
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    def qw(*shape):
+        return quantize_weight(rnd(*shape, std=0.02))
+
+    x, y = rnd(B, C), rnd(B, C)
+    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
+    sets = [(*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
+            for _ in range(6)]  # 6 x 21.2 MB
+
+    def ring(s, chunk, n_buf, gelu="v1", fn=None):
+        args = (x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:])
+        if fn is not None:  # the plain version: no chunk or n_buf
+            return fn(*args, gelu_version=gelu)
+        return QP.fused_proj_mlp_q8_ring(*args, gelu_version=gelu, chunk=chunk, n_buf=n_buf)
+
+    def packed(s, chunk, n_buf, p):
+        return QP.fused_proj_mlp_q8_packed(x, y, s[0], s[1], s[2], ln_s, ln_b, p[0], s[4], s[5], p[1], s[7], s[8],
+                                           chunk=chunk, n_buf=n_buf)
+
+    def packs(s, chunk):
+        return QP.pack_w1(s[3], chunk), QP.pack_w2(s[6], chunk)
+
+    want = ring(sets[0], 1536, 4, fn=QP.fused_proj_mlp_q8_ring_plain)
+    got = ring(sets[0], 1536, 4)
+    torch.cuda.synchronize()
+    err, _ = compare("fused_proj_mlp_q8_ring (1536, 4) x[100,1536] int8 wo/w1/w2", got, want)
+    for tag, other in (("ring (768, 6)", ring(sets[0], 768, 6)),
+                       ("packed (1536, 2)", packed(sets[0], 1536, 2, packs(sets[0], 1536)))):
+        torch.cuda.synchronize()
+        if not torch.equal(other, got):
+            raise AssertionError(f"fused_proj_mlp_q8 {tag} differs from ring (1536, 4): "
+                                 f"max |d| {float((other.float() - got.float()).abs().max()):.3e}")
+        log(f"  fused_proj_mlp_q8 {tag}: bit-equal to ring (1536, 4)")
+    got = ring(sets[1], 1536, 4, "v2")
+    want = ring(sets[1], 1536, 4, "v2", fn=QP.fused_proj_mlp_q8_ring_plain)
+    torch.cuda.synchronize()
+    compare("fused_proj_mlp_q8_ring gelu v2 (sigmoid form)", got, want)
+    ms = cuda_ms([lambda s=s: ring(s, 1536, 4) for s in sets], 30)
+    plain = cuda_ms([lambda s=s: ring(s, 1536, 4, fn=QP.fused_proj_mlp_q8_ring_plain) for s in sets], 30)
+    pk = [packs(s, 1536) for s in sets[:3]]
+    ms_packed = cuda_ms([lambda s=s, p=p: packed(s, 1536, 2, p) for s, p in zip(sets, pk)], 30)
+    deq = [[(q.to(torch.bfloat16) * sc[:, None]) for q, sc in ((s[0], s[1]), (s[3], s[4]), (s[6], s[7]))]
+           for s in sets[:3]]
+    lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq], 30)
+    b = proj_mlp_bound(B, C, H, 1)
+    log(f"  fused_proj_mlp_q8_ring time (1536, 4): kernel {ms:.4f} ms (packed (1536, 2): {ms_packed:.4f} ms), "
+        f"plain {plain:.4f} ms, library (three F.linear on bf16 weights, the GEMMs alone) {lib:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    ring_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    packed_entry = {"max_abs_err": err, "ms": ms_packed, "plain_ms": plain, "library_ms": lib, **b}
+
+    # #19: the chunk stream alone
+    probe_ms = {}
+    for chunk, n_buf in ((1536, 4), (768, 4)):
+        w1p, w2p = packs(sets[2], chunk)
+        for mode in ("dma", "dequant"):
+            got = QP.stream_probe(w1p, w2p, chunk=chunk, n_buf=n_buf, mode=mode)
+            want = QP.stream_probe_plain(w1p, w2p, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"stream_probe {mode} ({chunk}, {n_buf}) not bit-equal to the plain version: "
+                                     f"max |d| {float((got - want).abs().max()):.3e}")
+            log(f"  stream_probe {mode} ({chunk}, {n_buf}): bit-equal to the plain version (lanes 0-2: "
+                f"{[float(v) for v in got[0, :3]]})")
+    w1p32, w2p32 = (w.view(torch.int32) for w in packs(sets[2], 1536))
+    got = QP.stream_probe(w1p32, w2p32, chunk=1536, n_buf=4, mode="dma")
+    want = QP.stream_probe_plain(w1p32, w2p32, "dma")
+    torch.cuda.synchronize()
+    d = float((got.double() - want.double()).abs().max())
+    if d > 1e-6 * float(want.abs().max()):
+        raise AssertionError(f"stream_probe dma-as-i32: |d| {d:.3e} beyond 1e-6 of |ref| {float(want.abs().max()):.3e}")
+    log(f"  stream_probe dma-as-i32 (1536, 4): |d| {d:.3e} <= 1e-6 |ref| ({float(want[0, 0]):.6e}) ok")
+    pks = [packs(s, 1536) for s in sets]
+    for mode in ("dma", "dequant"):
+        probe_ms[mode] = cuda_ms([lambda p=p: QP.stream_probe(*p, chunk=1536, n_buf=4, mode=mode) for p in pks], 30)
+    probe_plain = cuda_ms([lambda p=p: QP.stream_probe_plain(*p, "dequant") for p in pks], 30)
+    probe_lib = cuda_ms([lambda p=p: (torch.sum(p[0], 2, dtype=torch.float32), torch.sum(p[1], 2, dtype=torch.float32))
+                         for p in pks], 30)
+    pb = bound(2 * C * H + QP.PROBE_LANES * 4, 0, BF16_TENSOR_FLOPS)
+    log(f"  stream_probe time (1536, 4): dma {probe_ms['dma']:.4f} ms, dequant {probe_ms['dequant']:.4f} ms, plain "
+        f"(dequant) {probe_plain:.4f} ms, library (torch.sum(w, 2, dtype=float32) over w1p and w2p, the row sums "
+        f"of the dequant mode; none computes dma's one-value-per-row touch) {probe_lib:.4f} ms, bound "
+        f"{pb['bound_ms']:.4f} ms by {pb['bound_by']}")
+    probe_entry = {"max_abs_err": 0.0, "ms": probe_ms["dequant"],  # bit-equal, checked above "plain_ms": probe_plain,
+                   "library_ms": probe_lib, **pb, "dma_ms": probe_ms["dma"]}
+
+    # #20: the MLP alone, the four ablation cases
+    h = rnd(B, C)
+    ab_err, ab_ms = {}, {}
+    cases = (("q8 full", True, True, True, 4), ("q8 no-gelu", True, False, True, 4),
+             ("q8 no-gelu-noscale", True, False, False, 4), ("bf16 same-ring", False, True, True, 2))
+    bf_pks = [(QP.pack_w1(w[1], 1536), QP.pack_w2(w[2], 1536)) for w in deq]
+    for name, int8, g, sc, nb in cases:
+        ps = pks if int8 else bf_pks
+        sc1 = [s[4] for s in sets]
+
+        def call(i, fn=QP.ablate_ring, ps=ps, g=g, sc=sc, nb=nb):
+            p = ps[i % len(ps)]
+            kw = dict(chunk=1536, n_buf=nb) if fn is QP.ablate_ring else {}
+            return fn(h, p[0], sc1[i % len(ps)], p[1], None, use_gelu=g, use_scale=sc, **kw)
+
+        got, want = call(0), call(0, QP.ablate_ring_plain)
+        torch.cuda.synchronize()
+        # w2's scale is never applied (as in JAX), so the outputs reach ~1e3
+        # (1e7 without gelu and scale): a bf16 rounding of t or of the output
+        # moves an output by the output's scale times 2^-8, whatever its own
+        # size. TOL therefore holds at that scale: both sides divided by
+        # max |want|, |d| <= TOL * (max |want| + |want|)
+        scale = float(want.float().abs().max())
+        e, _ = compare(f"ablate_ring {name} (1536, {nb}), at the output's scale {scale:.4g}",
+                       got.float() / scale, want.float() / scale)
+        ab_err[name] = e * scale
+        ab_ms[name] = cuda_ms([lambda i=i: call(i) for i in range(len(ps))], 30)
+    ab_plain = cuda_ms([lambda i=i: QP.ablate_ring_plain(h, *pks[i][:1], sets[i][4], pks[i][1]) for i in range(3)], 30)
+    ab_lib = cuda_ms([lambda w=w: F.linear(F.linear(h, w[1]), w[2]) for w in deq], 30)
+    ab_b = bound(2 * C * H + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
+    ab_b16 = bound(2 * C * H * 2 + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
+    log(f"  ablate_ring time: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ab_ms.items()) + f"; plain (q8 full) "
+        f"{ab_plain:.4f} ms, library (two F.linear on bf16 weights) {ab_lib:.4f} ms, bound {ab_b['bound_ms']:.4f} "
+        f"ms by {ab_b['bound_by']} (bf16 weights {ab_b16['bound_ms']:.4f} ms)")
+    ab_entry = {"max_abs_err": ab_err["q8 full"], "ms": ab_ms["q8 full"], "cases_max_abs_err": ab_err, "plain_ms": ab_plain, "library_ms": ab_lib, **ab_b,
+                "cases_ms": ab_ms, "bf16_bound_ms": ab_b16["bound_ms"]}
+    return ring_entry, packed_entry, probe_entry, ab_entry
+
+
 MEGA_PHASES = ("LN1", "QKV", "attention", "wo", "residual+LN2", "w1", "gelu", "w2", "residual")
 WO_PHASES = ("attention", "wo", "residual+LN2")
 
@@ -980,6 +1136,59 @@ def experiment_phase(AK, counters, dev, card) -> int:
     return n
 
 
+PIPE_ITERS = 30  # phase 9's chain iterations, the JAX experiment's default: the phase takes ~20 s
+
+
+def q8_pipeline_phase(QP, counters, dev, card) -> dict:
+    """Phase 9: the port of tools/exp_q8_pipeline.py at B 100, C 1536, H
+    6144, 16 layers, the full sweeps and probes, PIPE_ITERS iterations per
+    chain. All counts set to 0 just before it; after it each kernel must
+    show the launches the experiment issues (per timed point: its eager
+    chains, a warm-up call, the chain at capture and each replay; one call
+    each of #6, #17 and #18 for the numeric checks), #6 the "shipped"
+    chain's, and every other kernel 0. The points that print FAILED must be
+    the ones the shared-memory arithmetic predicts (stages beyond what a
+    block may hold). Returns the launches of #17, #18, #19 and #20."""
+    from rqvae_tpu_torch.tools import exp_q8_pipeline as E
+
+    os.environ["EXP_ITERS"] = str(PIPE_ITERS)
+    for name in ("EXP_SKIP_SWEEPS", "EXP_SKIP_PROBES"):
+        os.environ.pop(name, None)
+    grid, optin = QP._card(dev)
+    C, H, L = 1536, 6144, 16
+    predicted = []
+    for kind, chunks, depths in (("q8 ring", E.RING_CHUNKS, E.RING_NBUF), ("q8 PACKED", E.PACKED_CHUNKS, E.PACKED_NBUF)):
+        for chunk in chunks:
+            for n_buf in depths:
+                if H // chunk >= n_buf and n_buf * QP.stage_bytes(C, chunk, 1, grid) + QP._STATIC_SMEM > optin:
+                    predicted.append(f"{kind} chunk={chunk:5d} n_buf={n_buf}")
+    log(f"  predicted FAILED points ({grid} blocks, {optin} B of shared memory a block): {predicted or 'none'}")
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = E.main([str(BATCH)], device=dev)
+    seconds = time.perf_counter() - t0
+    failed = [line.split(": FAILED")[0] for line in res["failed"]]
+    if failed != predicted:
+        raise AssertionError(f"[exp_q8_pipeline] FAILED points {failed}, predicted {predicted}")
+    per_point = E.launches_per_point(PIPE_ITERS, L)
+    ok = {}
+    for kind, _, passed in res["points"]:
+        ok[kind] = ok.get(kind, 0) + int(passed)
+    checks = {"fused_proj_mlp_q8": 1, "fused_proj_mlp_q8_ring": 1, "fused_proj_mlp_q8_packed": 1}
+    want = {fn.__name__: 0 for fn in counters} | {
+        k: n * per_point + checks.get(k, 0) for k, n in ok.items()}
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if counts != want:
+        raise AssertionError(f"[exp_q8_pipeline] launched {counts}, not {want}")
+    log(f"  [exp_q8_pipeline] launches: " + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+        + f" ({per_point} per timed point: {E.BEST_OF} eager chains + 1 warm-up + the chain at capture + "
+        f"{E.BEST_OF} replays, chains of {PIPE_ITERS} x {L} calls; + 1 each of #6, #17, #18 for the numeric "
+        f"checks), every other kernel 0; {len(res['points'])} points, FAILED: {failed or 'none'}; "
+        f"{seconds:.1f} s; {card}")
+    return {k: want[k] for k in ("fused_proj_mlp_q8_ring", "fused_proj_mlp_q8_packed", "stream_probe", "ablate_ring")}
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1000,6 +1209,7 @@ def main() -> None:
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
     from rqvae_tpu_torch.ops import decode_megakernel as MK
+    from rqvae_tpu_torch.ops import q8_pipeline_kernel as QP
     from rqvae_tpu_torch.ops import rq_kernel as RK
 
     # phase 2: build
@@ -1025,6 +1235,7 @@ def main() -> None:
     nearest = check_nearest_code(RK, dev, gen)
     mega = check_decode_layer_step(MK, dev, gen)
     attn_wo = check_attention_q8_wo(AK, quantize_weight, dev, gen)
+    pipe_ring, pipe_packed, pipe_probe, pipe_ablate = check_q8_pipeline(QP, quantize_weight, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
     log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
@@ -1047,16 +1258,17 @@ def main() -> None:
     counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
                 AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
                 MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
-                AK.decode_attention_stacked, AK.decode_attention_q8)
+                AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
+                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0)),
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0)),
-        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -1115,6 +1327,11 @@ def main() -> None:
     log(f"# phase 8: rqvae_tpu_torch.tools.exp_attn_q8cache, B 100 and 500, T 64, 50 calls per chain, on {card}")
     launches["decode_attention_q8"] = experiment_phase(AK, counters, dev, card)
 
+    # phase 9: the ported q8 pipeline experiment, #6 against #17-#20
+    log(f"# phase 9: rqvae_tpu_torch.tools.exp_q8_pipeline, B {BATCH}, the full sweeps and probes, "
+        f"{PIPE_ITERS} iterations of 16 layers per chain, on {card}")
+    launches.update(q8_pipeline_phase(QP, counters, dev, card))
+
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
@@ -1139,6 +1356,14 @@ def main() -> None:
              head_size_104=attn_read104),  # the same kernel on vqgan_large's path
         dict(name="decode_attention_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:830", **attn_q8_read),
+        dict(name="fused_proj_mlp_q8_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+             replaces="tools/exp_q8_pipeline.py:115", **pipe_ring),
+        dict(name="fused_proj_mlp_q8_packed", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+             replaces="tools/exp_q8_pipeline.py:216 (the same kernel as :115, packed chunk address)", **pipe_packed),
+        dict(name="stream_probe", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+             replaces="tools/exp_q8_pipeline.py:302", **pipe_probe),
+        dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+             replaces="tools/exp_q8_pipeline.py:379", **pipe_ablate),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

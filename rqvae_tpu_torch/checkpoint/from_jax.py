@@ -193,3 +193,35 @@ def rqtransformer_int8_from_jax(qparams_np: dict) -> Dict[str, np.ndarray]:
     k = qparams_np["classifier"]["kernel"]
     out["classifier.weight_q"], out["classifier.weight_s"] = _q8(k, transpose=np.ndim(k.q) == 2)
     return out
+
+
+def _packed_chunks_from_jax(packed) -> np.ndarray:
+    """A JAX packed chunk stack [nc, a, b] (tools/exp_q8_pipeline.py
+    pack_w1 / pack_w2) as the port's [nc, b, a]: each chunk transposed from
+    the JAX [in, out] layout to the nn.Linear [out, in] one. An int32 stack
+    (JAX's int8 bytes viewed as int32 along the last dim) is transposed as
+    its int8 bytes and viewed back as int32 along the port's last dim."""
+    p = np.asarray(packed)
+    if p.dtype == np.int32:
+        b = p.view(np.int8)
+        return np.ascontiguousarray(b.transpose(0, 2, 1)).view(np.int32)
+    return np.ascontiguousarray(p.transpose(0, 2, 1))
+
+
+def q8_pipeline_weights_from_jax(wo=None, w1=None, w2=None, w1_packed=None, w2_packed=None) -> Dict[str, np.ndarray]:
+    """The arrays of tools/exp_q8_pipeline.py as the port's
+    (rqvae_tpu_torch/ops/q8_pipeline_kernel.py), numpy only. wo, w1, w2:
+    QuantizedWeights of [C, C], [C, H], [H, C] ([in, out]) -> "wo_q" [C, C],
+    "w1_q" [H, C], "w2_q" [C, H] int8 and "wo_s", "w1_s", "w2_s" fp32 [out].
+    w1_packed [nc, C, chunk], w2_packed [nc, chunk, C] (int8, bf16 or fp32,
+    or int8 bytes viewed as int32) -> "w1_packed" [nc, chunk, C], "w2_packed"
+    [nc, C, chunk], the port's pack_w1 / pack_w2 layout. Absent arguments are
+    left out."""
+    out = {}
+    for name, w in (("wo", wo), ("w1", w1), ("w2", w2)):
+        if w is not None:
+            out[f"{name}_q"], out[f"{name}_s"] = _q8(w)
+    for name, p in (("w1_packed", w1_packed), ("w2_packed", w2_packed)):
+        if p is not None:
+            out[name] = _packed_chunks_from_jax(p)
+    return out

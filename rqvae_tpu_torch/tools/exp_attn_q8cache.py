@@ -29,18 +29,16 @@ Env: EXP_T (cache rows, default 64), EXP_ITERS (chain length, default 50).
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
 from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.ops import attention_kernel as AK
+from rqvae_tpu_torch.tools._timing import BEST_OF, card_line, time_chain
 
 C, NH = 1536, 24
-BEST_OF = 3
 
 
 def _chain(fn, q, iters):
@@ -50,62 +48,11 @@ def _chain(fn, q, iters):
     return x
 
 
-def _best_s(run, iters, dev) -> float:
-    """Best of BEST_OF runs of run() (ITERS calls), in seconds per call: CUDA
-    events on the card, the host clock on the CPU."""
-    best = float("inf")
-    for _ in range(BEST_OF):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize(dev)
-            s = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            run()
-            s = time.perf_counter() - t0
-        best = min(best, s / iters)
-    return best
-
-
-def time_chain(fn, q, iters, dev, wrapper) -> tuple[float, float]:
-    """(graph seconds per call, eager seconds per call) of the chain of
-    `iters` calls x -> fn(x) from q. On the card the graph time replays the
-    chain captured once, and each replay adds its `iters` launches to
-    `wrapper.launches`; on the CPU both are the eager loop's."""
-    eager = _best_s(lambda: _chain(fn, q, iters), iters, dev)
-    if dev.type != "cuda":
-        return eager, eager
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
-        fn(q)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _chain(fn, q, iters)
-    torch.cuda.synchronize(dev)
-
-    def replay():
-        graph.replay()
-        wrapper.launches += iters
-
-    return _best_s(replay, iters, dev), eager
-
-
 def launches_per_batch(iters: int) -> int:
     """Launches of each kernel that main counts per batch on the card: the
     eager chain BEST_OF times, one warm-up call, the chain once at capture
     and BEST_OF replays of it."""
     return BEST_OF * iters + 1 + iters + BEST_OF * iters
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 def main(argv=None, device=None) -> dict:
@@ -140,10 +87,17 @@ def main(argv=None, device=None) -> dict:
         del kc, vc
         cur = T - 1
 
-        t_bf, e_bf = time_chain(lambda x: AK.decode_attention(x, kn, vn, kc16, vc16, cur, NH), q, iters, dev,
-                                AK.decode_attention)
-        t_q8, e_q8 = time_chain(lambda x: AK.decode_attention_q8(x, kn, vn, *cache, cur, NH), q, iters, dev,
-                                AK.decode_attention_q8)
+        def bf(x):
+            return AK.decode_attention(x, kn, vn, kc16, vc16, cur, NH)
+
+        def q8(x):
+            return AK.decode_attention_q8(x, kn, vn, *cache, cur, NH)
+
+        # each chain warmed up by one call fn(q)
+        t_bf, e_bf = time_chain(lambda: _chain(bf, q, iters), iters, dev, {AK.decode_attention: iters},
+                                warm=lambda: bf(q))
+        t_q8, e_q8 = time_chain(lambda: _chain(q8, q, iters), iters, dev, {AK.decode_attention_q8: iters},
+                                warm=lambda: q8(q))
         bytes_bf = 2 * B * T * C * 2
         bytes_q8 = 2 * B * T * C + 2 * B * T * NH * 2
         print(f"B={B:4d} T={T}: bf16 {t_bf * 1e6:8.1f} us  {bytes_bf / t_bf / 1e9:6.0f} GB/s", flush=True)

@@ -32,6 +32,7 @@ import torch
 from rqvae_tpu.ops import attention_kernel as JAK
 from rqvae_tpu_torch.ops import attention_kernel as AK
 from rqvae_tpu_torch.ops import decode_megakernel as MK
+from rqvae_tpu_torch.tools import _timing
 from rqvae_tpu_torch.tools import exp_attn_q8cache as EXP
 
 NH = 2
@@ -223,6 +224,7 @@ def test_experiment_main_runs_on_cpu(monkeypatch, capsys):
     assert "speedup" in lines[1] and "(int8 bytes)" in lines[1]
     assert set(got) == {2} and all(v > 0 for v in got[2].values())
     assert EXP.launches_per_batch(50) == 3 * 50 + 1 + 50 + 3 * 50
+    assert EXP.BEST_OF == _timing.BEST_OF == 3 and EXP.card_line is _timing.card_line
 
 
 def test_experiment_raises_without_a_cuda_device(monkeypatch):
