@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once;
-  3. each of the fourteen kernels against its plain PyTorch version on the
+  3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; the read-only
      decode attention also at the experiment's B 500, on a [4, 100, 257,
@@ -24,10 +24,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      codes, with planted ties; the q8 pipeline kernels of
      tools/exp_q8_pipeline.py at its shapes, B 100, C 1536, H 6144, int8
      weights: #17 / #18 at several (chunk, n_buf), bit-equal to each other,
-     #19 in both modes, bit-equal, #20 in the four ablation cases), timed
-     against the plain version, a library call where one exists, and the
-     card's bound; the two fused kernels print where their time went, phase
-     by phase;
+     #19 in both modes, bit-equal, #20 in the four ablation cases; #16 of
+     tools/exp_w8a8.py at B 100, chunks 1536 and 768, both gelu forms, a
+     ragged B 37 and B 300 (three row groups), its output moving with the
+     chunk as the plain version's does; #15 of tools/exp_mlp_kernel.py at B
+     100 and 500, both gelu forms, a ragged B 37 and B 129), timed against
+     the plain version, a library call where one exists, and the card's
+     bound; the two fused kernels print where their time went, phase by
+     phase; #16's library must hold s8 tensor-core instructions (IMMA);
   4. the main path at six operating points: bench.py's three (bf16 cache;
      int8 KV cache "kv_q8"; int8 weights + kv_q8), each also with its
      fused body-layer path (bf16+mega: decode_layer_step; kv_q8+attn_wo and
@@ -65,7 +69,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      and probes, chains of PIPE_ITERS x 16 calls captured in CUDA graphs:
      #6 against #17-#20, with the exact launch counts it issues, every other
      counter 0, and only the FAILED points the shared-memory arithmetic
-     predicts.
+     predicts;
+ 10. the port of tools/exp_w8a8.py (rqvae_tpu_torch.tools.exp_w8a8) at B
+     100, 16 layers, chains of W8A8_ITERS x 16 calls captured in CUDA
+     graphs: #3 (bf16), #6 (q8) and #16 (q8a8), with the exact launch counts
+     it issues and every other counter 0;
+ 11. the port of tools/exp_mlp_kernel.py (rqvae_tpu_torch.tools.
+     exp_mlp_kernel) at B 100 and 500, 24 layers, chains of MLP_ITERS x 24
+     calls: the plain xla_mlp against #15, with #15's exact launch counts
+     and every other counter 0.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -78,6 +90,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +104,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 # bf16 keeps 8 significant bits (relative step 2**-8 ~ 3.9e-3). A kernel and
@@ -164,12 +178,14 @@ def cuda_ms(fns, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(n_bytes: float, flops: float, peak_flops: float, fp32_flops: float = 0.0) -> dict:
+def bound(n_bytes: float, flops: float, peak_flops: float, fp32_flops: float = 0.0, more=()) -> dict:
     """The least time the card could take: the larger of the bytes over HBM
     bandwidth (each input read once, each output written once) and the
     operations over the peak rate of their type (`flops` at `peak_flops`,
-    plus `fp32_flops` at the fp32 peak for a kernel that does both)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops + fp32_flops / FP32_FLOPS
+    plus `fp32_flops` at the fp32 peak for a kernel that does both, plus
+    each (operations, peak) of `more`)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / peak_flops + fp32_flops / FP32_FLOPS + sum(f / peak for f, peak in more)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": by}
 
@@ -780,6 +796,112 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
     return ring_entry, packed_entry, probe_entry, ab_entry
 
 
+def check_w8a8(W8, quantize_weight, dev, gen):
+    """#16 (ops/w8a8_kernel.py) against its plain version at the
+    experiment's shapes: B 100, C 1536, H 6144, bf16 activations, int8
+    weights from quantize_weight, nonzero biases; chunks 1536 and 768, both
+    gelu forms, a ragged B 37 and B 300 (three row groups of 128): TOL. The
+    chunk is part of the result (ts_j is taken per chunk): the kernel's
+    output at chunk 768 must differ from its output at 1536 by the plain
+    version's mean |d| within 10%. Timed at (B 100, chunk 1536) against the
+    plain version, the library (F.linear for wo on the dequantized bf16 wo,
+    then two torch._int_mm over the whole H on int8 activations of the same
+    shapes) and the bound (int8 products at the int8 peak, the wo product at
+    the bf16 peak). Returns the JSON entry (no launches yet)."""
+    B, C = BATCH, 1536
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    def qw(*shape):
+        return quantize_weight(rnd(*shape, std=0.02))
+
+    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
+    sets = [(*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
+            for _ in range(6)]  # 6 x 21.2 MB
+
+    def call(fn, x, y, s, chunk=1536, gelu="v1"):
+        return fn(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:], gelu_version=gelu, chunk=chunk)
+
+    x, y = rnd(B, C), rnd(B, C)
+    err, outs = 0.0, {}
+    for chunk, gelu in ((1536, "v1"), (768, "v1"), (1536, "v2")):
+        got, want = call(W8.fused_proj_mlp_q8a8, x, y, sets[0], chunk, gelu), call(
+            W8.fused_proj_mlp_q8a8_plain, x, y, sets[0], chunk, gelu)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"fused_proj_mlp_q8a8 B={B} chunk={chunk} gelu {gelu}", got, want)[0])
+        outs[chunk, gelu] = got, want
+    (k1, p1), (k2, p2) = outs[1536, "v1"], outs[768, "v1"]
+    dk, dp = float((k1.float() - k2.float()).abs().mean()), float((p1.float() - p2.float()).abs().mean())
+    if not (dp > 0 and abs(dk - dp) <= 0.1 * dp):
+        raise AssertionError(f"fused_proj_mlp_q8a8: chunk 1536 -> 768 moves the kernel's output by mean |d| "
+                             f"{dk:.4e}, the plain version's by {dp:.4e}")
+    log(f"  fused_proj_mlp_q8a8 chunk 1536 -> 768: mean |d| kernel {dk:.4e}, plain {dp:.4e} (within 10%)")
+    for b in (37, 300):
+        xb, yb = rnd(b, C), rnd(b, C)
+        got, want = call(W8.fused_proj_mlp_q8a8, xb, yb, sets[1]), call(W8.fused_proj_mlp_q8a8_plain, xb, yb, sets[1])
+        torch.cuda.synchronize()
+        err = max(err, compare(f"fused_proj_mlp_q8a8 B={b} chunk=1536", got, want)[0])
+    ms = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8, x, y, s) for s in sets], 30)
+    plain = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_plain, x, y, s) for s in sets], 6)
+    hq = torch.randint(-127, 128, (B, C), generator=gen, device=dev, dtype=torch.int8)
+    tq = torch.randint(-127, 128, (B, H), generator=gen, device=dev, dtype=torch.int8)
+    wo_bf = [s[0].to(torch.bfloat16) * s[1][:, None] for s in sets]
+    lib = cuda_ms([lambda s=s, w=w: (F.linear(y, w), torch._int_mm(hq, s[3].t()), torch._int_mm(tq, s[6].t()))
+                   for s, w in zip(sets, wo_bf)], 30)
+    n_bytes = 2 * B * C * 2 + (C * C + 2 * C * H) + 2 * (2 * C + H) * 2 + 2 * C * 2 + B * C * 2
+    b = bound(n_bytes, 2 * B * 2 * C * H, INT8_TENSOR_OPS, more=((2 * B * C * C, BF16_TENSOR_FLOPS),))
+    log(f"  fused_proj_mlp_q8a8 time (B {B}, chunk 1536): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"(F.linear for wo + two torch._int_mm over the whole H, no LN, quantization or epilogues) {lib:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+
+
+def check_mlp(MK, dev, gen):
+    """#15 (ops/mlp_kernel.py) against its plain version at the experiment's
+    shapes: B 100 and 500, C 1536, H 6144, bf16 x, weights and biases (std
+    0.02), fp32 LayerNorm parameters; both gelu forms, a ragged B 37 and B
+    129 (a row group of one row): TOL. Timed at B 100 and 500 against the
+    plain version, the library (two bf16 F.linear, the GEMMs alone) and the
+    bound. Returns the JSON entry at B 100 with the B 500 row under "b500"
+    (no launches yet)."""
+    C = 1536
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    sets = [(rnd(C, std=0.1, mean=1.0).float(), rnd(C, std=0.1).float(), rnd(H, C, std=0.02), rnd(H, std=0.02),
+             rnd(C, H, std=0.02), rnd(C, std=0.02)) for _ in range(3)]  # 3 x 37.7 MB
+    err, rows = 0.0, {}
+    for b, gelu in ((100, "v1"), (100, "v2"), (500, "v1"), (500, "v2"), (37, "v1"), (129, "v1")):
+        x = rnd(b, C)
+        got, want = MK.fused_mlp(x, *sets[0], gelu_version=gelu), MK.fused_mlp_plain(x, *sets[0], gelu_version=gelu)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"fused_mlp B={b} gelu {gelu}", got, want)[0])
+    for b in (100, 500):
+        x = rnd(b, C)
+        ms = cuda_ms([lambda s=s: MK.fused_mlp(x, *s) for s in sets], 30)
+        plain = cuda_ms([lambda s=s: MK.fused_mlp_plain(x, *s) for s in sets], 30)
+        lib = cuda_ms([lambda s=s: F.linear(F.linear(x, s[2]), s[4]) for s in sets], 30)
+        bb = bound(2 * b * C * 2 + 2 * C * 4 + 2 * C * H * 2 + (H + C) * 2, 2 * b * 2 * C * H, BF16_TENSOR_FLOPS)
+        log(f"  fused_mlp time (B {b}, chunk 1536): kernel {ms:.4f} ms, plain {plain:.4f} ms, library (two F.linear, "
+            f"the GEMMs alone) {lib:.4f} ms, bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}")
+        rows[b] = {"ms": ms, "plain_ms": plain, "library_ms": lib, **bb}
+    return {"max_abs_err": err, **rows[100], "b500": rows[500]}
+
+
+def count_sass(lib_path, op) -> int:
+    """Instructions of kind `op` (e.g. IMMA) in a built library's SASS
+    (cuobjdump beside nvcc)."""
+    from rqvae_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    return len(re.findall(rf"\b{op}\b", sass))
+
+
 MEGA_PHASES = ("LN1", "QKV", "attention", "wo", "residual+LN2", "w1", "gelu", "w2", "residual")
 WO_PHASES = ("attention", "wo", "residual+LN2")
 
@@ -1189,6 +1311,76 @@ def q8_pipeline_phase(QP, counters, dev, card) -> dict:
     return {k: want[k] for k in ("fused_proj_mlp_q8_ring", "fused_proj_mlp_q8_packed", "stream_probe", "ablate_ring")}
 
 
+W8A8_ITERS = 30  # phase 10's chain iterations, the JAX experiment's default
+MLP_ITERS = 20  # phase 11's (the JAX experiment's default is 50): the phase takes ~20 s
+MLP_MAXDIFF = 0.125  # phase 11: xla_mlp rounds each op to bf16: a few bf16 steps of an O(4) output
+
+
+def w8a8_phase(counters, dev, card) -> int:
+    """Phase 10: the port of tools/exp_w8a8.py at B 100, C 1536, H 6144, 16
+    layers, W8A8_ITERS iterations per chain: #3 (bf16 chain), #6 (q8) and
+    #16 (q8a8). All counts set to 0 just before it; after it each of the
+    three must show the launches the experiment issues (its eager chains, a
+    warm-up call, the chain at capture and each replay; one call each of #6
+    and #16 for the error line) and every other kernel 0. The error line's
+    mean |d| must lie between 0 and mean |q8|. Returns #16's launches."""
+    from rqvae_tpu_torch.tools import exp_w8a8 as E
+
+    os.environ["EXP_ITERS"] = str(W8A8_ITERS)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = E.main([str(BATCH)], device=dev)
+    seconds = time.perf_counter() - t0
+    n = E.launches_per_chain(W8A8_ITERS, 16)
+    want = {fn.__name__: 0 for fn in counters} | {
+        "fused_proj_mlp": n, "fused_proj_mlp_q8": n + 1, "fused_proj_mlp_q8a8": n + 1}
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if counts != want:
+        raise AssertionError(f"[exp_w8a8] launched {counts}, not {want}")
+    mean_d, max_d, mean_q8 = res["err"]
+    if not 0 < mean_d < mean_q8:
+        raise AssertionError(f"[exp_w8a8] q8a8 vs q8 mean |d| {mean_d} outside (0, mean |q8| {mean_q8})")
+    log(f"  [exp_w8a8] launches: fused_proj_mlp {n}, fused_proj_mlp_q8 {n + 1}, fused_proj_mlp_q8a8 {n + 1} "
+        f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of "
+        f"{W8A8_ITERS} x 16 calls; + 1 each of #6 and #16 for the error line), every other kernel 0; "
+        f"{seconds:.1f} s; {card}")
+    return n + 1
+
+
+def mlp_phase(counters, dev, card) -> int:
+    """Phase 11: the port of tools/exp_mlp_kernel.py at B 100 and 500, C
+    1536, H 6144, 24 layers, MLP_ITERS iterations per chain, chunk 1536:
+    the plain xla_mlp against #15. All counts set to 0 just before it;
+    after it #15 must show the launches the experiment issues (per batch:
+    its eager chains, a warm-up call, the chain at capture, each replay and
+    the numeric check) and every other kernel 0; no FAIL, and each batch's
+    maxdiff finite and within MLP_MAXDIFF. Returns #15's launches."""
+    from rqvae_tpu_torch.tools import exp_mlp_kernel as E
+
+    os.environ.update(EXP_ITERS=str(MLP_ITERS), EXP_CHUNK="1536")
+    batches = [100, 500]
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = E.main([str(b) for b in batches], device=dev)
+    seconds = time.perf_counter() - t0
+    for b, row in res["rows"].items():
+        if row["failed"] or not row["maxdiff"] <= MLP_MAXDIFF:
+            raise AssertionError(f"[exp_mlp_kernel] B {b}: {row}")
+    n = len(batches) * E.launches_per_batch(MLP_ITERS)
+    want = {fn.__name__: 0 for fn in counters} | {"fused_mlp": n}
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if counts != want:
+        raise AssertionError(f"[exp_mlp_kernel] launched {counts}, not {want}")
+    log(f"  [exp_mlp_kernel] launches: fused_mlp {n} ({len(batches)} batches x ({E.BEST_OF} eager chains + 1 "
+        f"warm-up + the chain at capture + {E.BEST_OF} replays, chains of {MLP_ITERS} x {E.L} calls, + 1 numeric "
+        f"check)), every other kernel 0; maxdiff " + ", ".join(f"B {b} {r['maxdiff']:.3e}" for b, r in
+                                                               res["rows"].items())
+        + f" (<= {MLP_MAXDIFF}); {seconds:.1f} s; {card}")
+    return n
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1209,8 +1401,10 @@ def main() -> None:
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
     from rqvae_tpu_torch.ops import decode_megakernel as MK
+    from rqvae_tpu_torch.ops import mlp_kernel as MLP
     from rqvae_tpu_torch.ops import q8_pipeline_kernel as QP
     from rqvae_tpu_torch.ops import rq_kernel as RK
+    from rqvae_tpu_torch.ops import w8a8_kernel as W8
 
     # phase 2: build
     log("# phase 2: build")
@@ -1222,6 +1416,11 @@ def main() -> None:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     _build.library()
+    imma = count_sass(build_dir / "libw8a8.so", "IMMA")
+    if imma == 0:
+        raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
+    log(f"  libw8a8.so: {imma} IMMA (s8 x s8 -> s32 tensor-core) instructions, "
+        f"{count_sass(build_dir / 'libw8a8.so', 'HMMA')} HMMA (the bf16 wo product)")
 
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
@@ -1236,6 +1435,8 @@ def main() -> None:
     mega = check_decode_layer_step(MK, dev, gen)
     attn_wo = check_attention_q8_wo(AK, quantize_weight, dev, gen)
     pipe_ring, pipe_packed, pipe_probe, pipe_ablate = check_q8_pipeline(QP, quantize_weight, dev, gen)
+    w8a8 = check_w8a8(W8, quantize_weight, dev, gen)
+    mlp15 = check_mlp(MLP, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
     log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
@@ -1259,16 +1460,18 @@ def main() -> None:
                 AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
                 MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
                 AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
-                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring)
+                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True), (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0)),
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True), (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
+         (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -1332,6 +1535,16 @@ def main() -> None:
         f"{PIPE_ITERS} iterations of 16 layers per chain, on {card}")
     launches.update(q8_pipeline_phase(QP, counters, dev, card))
 
+    # phase 10: the ported W8A8 experiment, #3 / #6 against #16
+    log(f"# phase 10: rqvae_tpu_torch.tools.exp_w8a8, B {BATCH}, {W8A8_ITERS} iterations of 16 layers per chain, "
+        f"on {card}")
+    launches["fused_proj_mlp_q8a8"] = w8a8_phase(counters, dev, card)
+
+    # phase 11: the ported MLP microbench, xla_mlp against #15
+    log(f"# phase 11: rqvae_tpu_torch.tools.exp_mlp_kernel, B 100 and 500, {MLP_ITERS} iterations of 24 layers per "
+        f"chain, on {card}")
+    launches["fused_mlp"] = mlp_phase(counters, dev, card)
+
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
@@ -1364,6 +1577,10 @@ def main() -> None:
              replaces="tools/exp_q8_pipeline.py:302", **pipe_probe),
         dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
              replaces="tools/exp_q8_pipeline.py:379", **pipe_ablate),
+        dict(name="fused_proj_mlp_q8a8", route="cuda", source="rqvae_tpu_torch/csrc/w8a8.cu",
+             replaces="tools/exp_w8a8.py:107", **w8a8),
+        dict(name="fused_mlp", route="cuda", source="rqvae_tpu_torch/csrc/mlp.cu",
+             replaces="tools/exp_mlp_kernel.py:75", **mlp15),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

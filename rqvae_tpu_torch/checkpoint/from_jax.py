@@ -225,3 +225,16 @@ def q8_pipeline_weights_from_jax(wo=None, w1=None, w2=None, w1_packed=None, w2_p
         if p is not None:
             out[name] = _packed_chunks_from_jax(p)
     return out
+
+
+def mlp_weights_from_jax(w1, b1, w2, b2) -> Dict[str, np.ndarray]:
+    """The arrays of tools/exp_mlp_kernel.py as the port's
+    (rqvae_tpu_torch/ops/mlp_kernel.py), numpy only: w1 [C, H] and w2 [H,
+    C] ([in, out], bf16 or fp32) -> "w1" [H, C] and "w2" [C, H]; b1 ([H] or
+    [1, H]) -> "b1" [H]; b2 -> "b2" [C]. Values as fp32 (exact for bf16)."""
+    return {
+        "w1": np.ascontiguousarray(_np32(w1).T),
+        "b1": _np32(b1).reshape(-1),
+        "w2": np.ascontiguousarray(_np32(w2).T),
+        "b2": _np32(b2).reshape(-1),
+    }

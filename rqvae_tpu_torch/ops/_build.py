@@ -56,6 +56,8 @@ _SIGNATURES = {
     "rq_decode_attention_q8_update_wo_phase_ns": (_P,),
     "rq_q8_ring_mlp": (_P,) * 18 + (_I,) * 11 + (_F, _P),
     "rq_q8_stream_probe": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "rq_w8a8_mlp": (_P,) * 20 + (_I,) * 7 + (_F, _P),
+    "rq_mlp": (_P,) * 10 + (_I,) * 7 + (_F, _P),
 }
 
 _lock = threading.Lock()

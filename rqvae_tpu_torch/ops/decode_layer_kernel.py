@@ -78,13 +78,19 @@ def fused_ln_qkv_q8_plain(x, ln_scale, ln_bias, wq, ws, bqkv):
     return (acc * ws.float() + bqkv.float()).to(x.dtype)
 
 
+def proj_q8_plain(x, y, wo_q, wo_s, bo):
+    """x2 = x + cast(acc_o * s_o + bo), acc_o = y @ wo_q^T in fp32: the
+    projection step of the q8 rounding points (module docstring)."""
+    return x + ((y.float() @ wo_q.float().t()) * wo_s.float() + bo.float()).to(x.dtype)
+
+
 def fused_proj_mlp_q8_plain(
     x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version="v1"
 ):
     """fused_proj_mlp_plain for int8 wo / w1 / w2 with per-output-channel
     scales, at the q8 rounding points (module docstring)."""
     dt = x.dtype
-    x2 = x + ((y.float() @ wo_q.float().t()) * wo_s.float() + bo.float()).to(dt)
+    x2 = proj_q8_plain(x, y, wo_q, wo_s, bo)
     h = _layer_norm(x2, ln_scale, ln_bias)
     t = _gelu32((h.float() @ w1_q.float().t()) * w1_s.float() + b1.float(), gelu_version).to(dt)
     return x2 + ((t.float() @ w2_q.float().t()) * w2_s.float() + b2.float()).to(dt)

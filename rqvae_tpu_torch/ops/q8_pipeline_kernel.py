@@ -41,7 +41,8 @@ from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 PROBE_LANES = 128
 _ROW_PAD = 16  # bytes after each staged row (csrc/q8_pipeline.cu kRowPad)
 _MAX_TILES = 4  # most 8-row tiles a block owns in one share (kNT)
-_MAX_ROWS = 128  # activation rows: 4 warps x 2 tiles of 16
+_MAX_ROWS = 128  # activation rows: 8 warps x 16
+RING_ROWS = 512  # the row-grouped kernels (csrc/ring.cuh kMaxGroups x kGroupRows)
 _STATIC_SMEM = 1056  # bytes of static shared memory of the probe (the larger)
 _SMEM_OPTIN = 232448  # a block's shared memory on the H100 when the device does not say
 
@@ -181,14 +182,14 @@ def _card(dev):
     return props.multi_processor_count, getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
 
 
-def _check_point(name, dev, M, C, chunk, n_buf, weight_bytes):
+def _check_point(name, dev, M, C, chunk, n_buf, weight_bytes, max_rows=_MAX_ROWS, k_align=32):
     """The grid of a launch at this point, or ValueError with the reason the
     card cannot hold it."""
     grid, optin = _card(dev)
-    if M > _MAX_ROWS:
-        raise ValueError(f"{name}: at most {_MAX_ROWS} activation rows, got {M}")
-    if C % 32 or chunk % 32:
-        raise ValueError(f"{name}: C and chunk must be multiples of 32, got C={C}, chunk={chunk}")
+    if M > max_rows:
+        raise ValueError(f"{name}: at most {max_rows} activation rows, got {M}")
+    if C % k_align or chunk % k_align:
+        raise ValueError(f"{name}: C and chunk must be multiples of {k_align}, got C={C}, chunk={chunk}")
     tiles = max(-(-(chunk // 8) // grid), -(-(C // 8) // grid))
     if tiles > _MAX_TILES:
         raise ValueError(f"{name}: a block's share of chunk {chunk} or C {C} over {grid} blocks is {tiles} "
@@ -199,6 +200,23 @@ def _check_point(name, dev, M, C, chunk, n_buf, weight_bytes):
                          f"{stage_bytes(C, chunk, weight_bytes, grid)} B = {need} B of shared memory per block "
                          f"({grid} blocks), more than the {optin} B a block may hold")
     return grid
+
+
+def ring_depth(name, dev, M, C, H, chunk, weight_bytes, k_align):
+    """(grid, n_buf) of a launch of a row-grouped ring kernel (csrc/w8a8.cu,
+    csrc/mlp.cu: up to RING_ROWS activation rows): n_buf the most stages, up
+    to 4 and to the chunk count, that a block can hold; ValueError with the
+    arithmetic when not even one stage fits."""
+    grid = _check_point(name, dev, M, C, chunk, 1, weight_bytes, RING_ROWS, k_align)
+    stage = stage_bytes(C, chunk, weight_bytes, grid)
+    return grid, min(H // chunk, 4, (_card(dev)[1] - _STATIC_SMEM) // stage)
+
+
+def _check_shapes(name, pairs):
+    """ValueError for the first (argument, got, want) whose got != want."""
+    for arg, got, want in pairs:
+        if got != want:
+            raise ValueError(f"{name}: {arg} has shape (or size) {got}, expected {want}")
 
 
 def _launched(err, name, point):
@@ -234,14 +252,12 @@ def _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w
          ("ln_bias", ln_bias), ("w1_q", w1), ("w1_s", w1_s), ("b1", b1), ("w2_q", w2), ("w2_s", w2_s), ("b2", b2)],
         (bf, bf, i8, bf, bf, bf, bf, i8, bf, bf, i8, bf, bf),
     )
-    for arg, got, want in (
+    _check_shapes(name, (
         ("y", tuple(y.shape), (M, C)), ("wo_q", tuple(wo_q.shape), (C, C)), ("wo_s", tuple(wo_s.shape), (C,)),
         ("bo", tuple(bo.shape), (C,)), ("ln_scale", tuple(ln_scale.shape), (C,)),
         ("ln_bias", tuple(ln_bias.shape), (C,)), ("w1_q", w1.numel(), H * C), ("b1", tuple(b1.shape), (H,)),
         ("w2_q", w2.numel(), C * H), ("w2_s", tuple(w2_s.shape), (C,)), ("b2", tuple(b2.shape), (C,)),
-    ):
-        if got != want:
-            raise ValueError(f"{name}: {arg} has shape (or size) {got}, expected {want}")
+    ))
     grid = _check_point(name, x.device, M, C, chunk, n_buf, 1)
     out = torch.empty_like(x)
     x2, h = torch.empty_like(x), torch.empty_like(x)
