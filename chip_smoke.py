@@ -6,10 +6,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      TF32 off for cuDNN and for fp32 matmuls, so that every fp32 reference
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
-     process per source, all at once;
+     process per source, all at once; libw8a8.so must hold IMMA (s8
+     tensor-core) and libdecode_dense.so HGMMA (wgmma) instructions;
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
-     activations, B=100, C=1536, 24 heads, T=64, H=6144; the read-only
+     activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
+     and #3 fused_proj_mlp (csrc/decode_dense.cu) also at B 37, 300 and
+     500, #3 with both gelu forms, and both at C 2560 (bench's 3800M
+     width), each call one device kernel (torch.profiler), timed also
+     against the split-K kernels they replaced; the read-only
      decode attention also at the experiment's B 500, on a [4, 100, 257,
      1536] stack at cur_len 256 and, at head size 104, on a [2, 100, 257,
      1664] stack of 16 heads, its caches bit-unchanged; the bf16 update
@@ -31,7 +36,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      100 and 500, both gelu forms, a ragged B 37 and B 129), timed against
      the plain version, a library call where one exists, and the card's
      bound; the two fused kernels print where their time went, phase by
-     phase; #16's library must hold s8 tensor-core instructions (IMMA);
+     phase;
   4. the main path at six operating points: bench.py's three (bf16 cache;
      int8 KV cache "kv_q8"; int8 weights + kv_q8), each also with its
      fused body-layer path (bf16+mega: decode_layer_step; kv_q8+attn_wo and
@@ -72,8 +77,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      predicts;
  10. the port of tools/exp_w8a8.py (rqvae_tpu_torch.tools.exp_w8a8) at B
      100, 16 layers, chains of W8A8_ITERS x 16 calls captured in CUDA
-     graphs: #3 (bf16), #6 (q8) and #16 (q8a8), with the exact launch counts
-     it issues and every other counter 0;
+     graphs: #3 (bf16, the single-launch kernel; its chain time beside the
+     split-K design's), #6 (q8) and #16 (q8a8), with the exact launch
+     counts it issues and every other counter 0;
  11. the port of tools/exp_mlp_kernel.py (rqvae_tpu_torch.tools.
      exp_mlp_kernel) at B 100 and 500, 24 layers, chains of MLP_ITERS x 24
      calls: the plain xla_mlp against #15, with #15's exact launch counts
@@ -176,6 +182,31 @@ def cuda_ms(fns, n: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fns, reps: int = 10) -> float:
+    """Mean device ms per call of fns (distinct input sets, called in turn),
+    captured once in a CUDA graph and replayed `reps` times: back to back on
+    the device without the host's dispatch between the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float, fp32_flops: float = 0.0, more=()) -> dict:
@@ -526,57 +557,133 @@ def check_attention_q8_read_only(AK, dev, gen):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
+def device_kernels(fn) -> list[str]:
+    """Names of the device kernels one call of fn issues (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+DENSE_BATCHES = (37, 100, 300, 500)  # phase 3's rows for #2 and #3 at C 1536 (C 2560: B 100)
+DENSE_QKV_PHASES = ("LN1 staged", "tiles")
+DENSE_MLP_PHASES = ("proj", "barrier 1", "LN2 + w1", "barrier 2", "w2")
+
+
 def check_dense(DK, dev, gen):
-    B, C = BATCH, 1536
+    """#2 and #3 (csrc/decode_dense.cu) against their plain versions at B 37,
+    100, 300 and 500 (#3 with both gelu forms) at C 1536, and at B 100 at C
+    2560 (bench's 3800M width); one device kernel per call, and where the
+    time of one call went (CTA 0's stamps); then, at B 100,
+    C 1536, back to back and L2-cold, the kernel, its split-K predecessor
+    (csrc/decode_layer.cu), the plain version and the library call, with
+    the bound."""
+    C = 1536
     H = 4 * C
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
 
+    def weights(C):
+        ln = (rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1))
+        qkv = (rnd(3 * C, C, std=0.02), rnd(3 * C, std=0.02))
+        mlp = (rnd(C, C, std=0.02), rnd(C, std=0.02), rnd(4 * C, C, std=0.02), rnd(4 * C, std=0.02),
+               rnd(C, 4 * C, std=0.02), rnd(C, std=0.02))
+        return ln, qkv, mlp
+
+    def proj_mlp(fn, x, y, ln, s, gelu="v1"):
+        wo, bo, w1, b1, w2, b2 = s
+        return fn(x, y, wo, bo, *ln, w1, b1, w2, b2, gelu_version=gelu)
+
+    qkv_err = mlp_err = 0.0
+    for width, batches in ((C, DENSE_BATCHES), (2560, (BATCH,))):
+        ln, qkv_w, mlp_w = weights(width)
+        for B in batches:
+            x, y = rnd(B, width), rnd(B, width)
+            plan = DK.dense_plan(B, width, 3 * width, False)
+            got = DK.fused_ln_qkv(x, *ln, *qkv_w)
+            torch.cuda.synchronize()
+            err, _ = compare(f"fused_ln_qkv x[{B},{width}] wqkv[{3 * width},{width}] (cluster {plan.cluster}, "
+                             f"row tile {plan.row_tile} x {plan.row_tiles})", got, DK.fused_ln_qkv_plain(x, *ln, *qkv_w))
+            qkv_err = max(qkv_err, err)
+            for gelu in ("v1", "v2"):
+                got = proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w, gelu)
+                torch.cuda.synchronize()
+                err, _ = compare(f"fused_proj_mlp x[{B},{width}] H {4 * width} gelu {gelu}", got,
+                                 proj_mlp(DK.fused_proj_mlp_plain, x, y, ln, mlp_w, gelu))
+                mlp_err = max(mlp_err, err)
+    B = BATCH
     x, y = rnd(B, C), rnd(B, C)
-    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
+    ln, qkv_w, mlp_w = weights(C)
+    for name, fn in (("fused_ln_qkv", lambda: DK.fused_ln_qkv(x, *ln, *qkv_w)),
+                     ("fused_proj_mlp", lambda: proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w))):
+        fn()  # the plan and tensor maps of these weights are made on the host before the profiled call
+        kernels = device_kernels(fn)
+        if len([k for k in kernels if "dense_kernel" in k]) != 1 or len(kernels) != 1:
+            raise AssertionError(f"{name}: one call issued device kernels {kernels}, not one dense_kernel")
+        log(f"  {name}: one call issues one device kernel ({kernels[0][:60]}...)")
+    from rqvae_tpu_torch.ops import _build
+
+    for name, fn, phases in (("fused_ln_qkv", lambda: DK.fused_ln_qkv(x, *ln, *qkv_w), DENSE_QKV_PHASES),
+                             ("fused_proj_mlp", lambda: proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w), DENSE_MLP_PHASES)):
+        fn()
+        torch.cuda.synchronize()
+        us = _build.phase_us("rq_dense_phase_ns", 6)  # csrc/decode_dense.cu g_stamps: CTA 0's timeline
+        log(f"  {name} phases of one call (CTA 0, us): " + ", ".join(f"{n} {u:.1f}" for n, u in zip(phases, us)))
+
     qkv_sets = [(rnd(3 * C, C, std=0.02), rnd(3 * C, std=0.02)) for _ in range(8)]  # 8 x 14 MB
-    mlp_sets = [
-        (rnd(C, C, std=0.02), rnd(C, std=0.02), rnd(H, C, std=0.02), rnd(H, std=0.02),
-         rnd(C, H, std=0.02), rnd(C, std=0.02))
-        for _ in range(3)  # 3 x 42 MB
-    ]
-    got = DK.fused_ln_qkv(x, ln_s, ln_b, *qkv_sets[0])
-    want = DK.fused_ln_qkv_plain(x, ln_s, ln_b, *qkv_sets[0])
-    torch.cuda.synchronize()
-    qkv_err, _ = compare("fused_ln_qkv x[100,1536] wqkv[4608,1536]", got, want)
-    qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
-    qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_plain(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
+    mlp_sets = [weights(C)[2] for _ in range(3)]  # 3 x 42 MB
+    qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_split = cuda_ms([lambda s=s: DK.fused_ln_qkv_splitk(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_plain(x, *ln, *s) for s in qkv_sets], 50)
     qkv_lib = cuda_ms([lambda s=s: F.linear(x, s[0]) for s in qkv_sets], 50)
+    qkv_ms2 = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, *ln, *s) for s in qkv_sets], 50)
     qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C * 2 + 3 * C * 2 + B * 3 * C * 2, 2 * B * 3 * C * C,
                   BF16_TENSOR_FLOPS)
-    log(f"  fused_ln_qkv time: kernel {qkv_ms:.4f} ms, plain {qkv_plain:.4f} ms, library (F.linear, the "
-        f"GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
+    log(f"  fused_ln_qkv time: kernel {qkv_ms:.4f} ms (again after the others: {qkv_ms2:.4f}), split-K kernel "
+        f"{qkv_split:.4f} ms ({qkv_split / qkv_ms:.2f}x the kernel), plain {qkv_plain:.4f} ms, library (F.linear, "
+        f"the GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
         f"{qkv_b['bound_by']}")
-
-    def proj_mlp(fn, s):
-        wo, bo, w1, b1, w2, b2 = s
-        return fn(x, y, wo, bo, ln_s, ln_b, w1, b1, w2, b2)
-
-    got = proj_mlp(DK.fused_proj_mlp, mlp_sets[0])
-    want = proj_mlp(DK.fused_proj_mlp_plain, mlp_sets[0])
-    torch.cuda.synchronize()
-    mlp_err, _ = compare("fused_proj_mlp wo[1536,1536] w1[6144,1536] w2[1536,6144]", got, want)
-    wo, bo, w1, b1, w2, b2 = mlp_sets[1]
-    got = DK.fused_proj_mlp(x, y, wo, bo, ln_s, ln_b, w1, b1, w2, b2, gelu_version="v2")
-    want = DK.fused_proj_mlp_plain(x, y, wo, bo, ln_s, ln_b, w1, b1, w2, b2, gelu_version="v2")
-    torch.cuda.synchronize()
-    compare("fused_proj_mlp gelu v2 (sigmoid form)", got, want)
-    mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, s) for s in mlp_sets], 30)
-    mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_plain, s) for s in mlp_sets], 30)
+    qkv_graph = {name: graph_ms([lambda s=s: fn(s) for s in qkv_sets]) for name, fn in (
+        ("kernel", lambda s: DK.fused_ln_qkv(x, *ln, *s)), ("split-K", lambda s: DK.fused_ln_qkv_splitk(x, *ln, *s)),
+        ("library", lambda s: F.linear(x, s[0])))}
+    log("  fused_ln_qkv device time (8 calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in qkv_graph.items()))
+    mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_split = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_splitk, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_plain, x, y, ln, s) for s in mlp_sets], 30)
     mlp_lib = cuda_ms([lambda s=s: gemms_alone(x, y, s[0], s[2], s[4]) for s in mlp_sets], 30)
+    mlp_ms2 = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s) for s in mlp_sets], 30)
     mlp_b = proj_mlp_bound(B, C, H, 2)
-    log(f"  fused_proj_mlp time: kernel {mlp_ms:.4f} ms, plain {mlp_plain:.4f} ms, library (three "
+    log(f"  fused_proj_mlp time: kernel {mlp_ms:.4f} ms (again after the others: {mlp_ms2:.4f}), split-K kernel "
+        f"{mlp_split:.4f} ms ({mlp_split / mlp_ms:.2f}x the kernel), plain {mlp_plain:.4f} ms, library (three "
         f"F.linear, the GEMMs alone without LN, gelu or epilogues) {mlp_lib:.4f} ms, bound "
         f"{mlp_b['bound_ms']:.4f} ms by {mlp_b['bound_by']}")
+    mlp_graph = {name: graph_ms([lambda s=s: fn(s) for s in mlp_sets]) for name, fn in (
+        ("kernel", lambda s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s)),
+        ("split-K", lambda s: proj_mlp(DK.fused_proj_mlp_splitk, x, y, ln, s)),
+        ("library", lambda s: gemms_alone(x, y, s[0], s[2], s[4])))}
+    log("  fused_proj_mlp device time (3 calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in mlp_graph.items()))
+    x1, y1 = rnd(1, C), rnd(1, C)  # one row: the kernels' latency floor, with the same weight bytes
+    log(f"  device time at B 1 (graph replay): fused_ln_qkv "
+        f"{graph_ms([lambda s=s: DK.fused_ln_qkv(x1, *ln, *s) for s in qkv_sets]):.4f} ms, fused_proj_mlp "
+        f"{graph_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x1, y1, ln, s) for s in mlp_sets]):.4f} ms")
+    for name, eager, split, graph in (("fused_ln_qkv", max(qkv_ms, qkv_ms2), qkv_split, qkv_graph),
+                                      ("fused_proj_mlp", max(mlp_ms, mlp_ms2), mlp_split, mlp_graph)):
+        log(f"  {name}: {graph['split-K'] / graph['kernel']:.2f}x faster than the split-K kernel on the device "
+            f"(graph replay), {split / eager:.2f}x back to back from the host (the slower of the kernel's two "
+            f"eager times: it includes the wrapper's host dispatch); the redesign's aim: >= 2x; {card_line()}")
     return (
-        {"max_abs_err": qkv_err, "ms": qkv_ms, "plain_ms": qkv_plain, "library_ms": qkv_lib, **qkv_b},
-        {"max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain, "library_ms": mlp_lib, **mlp_b},
+        {"max_abs_err": qkv_err, "ms": qkv_ms, "splitk_ms": qkv_split, "plain_ms": qkv_plain, "library_ms": qkv_lib,
+         "graph_ms": qkv_graph["kernel"], "splitk_graph_ms": qkv_graph["split-K"],
+         "library_graph_ms": qkv_graph["library"], **qkv_b},
+        {"max_abs_err": mlp_err, "ms": mlp_ms, "splitk_ms": mlp_split, "plain_ms": mlp_plain, "library_ms": mlp_lib,
+         "graph_ms": mlp_graph["kernel"], "splitk_graph_ms": mlp_graph["split-K"],
+         "library_graph_ms": mlp_graph["library"], **mlp_b},
     )
 
 
@@ -1341,6 +1448,8 @@ def w8a8_phase(counters, dev, card) -> int:
     mean_d, max_d, mean_q8 = res["err"]
     if not 0 < mean_d < mean_q8:
         raise AssertionError(f"[exp_w8a8] q8a8 vs q8 mean |d| {mean_d} outside (0, mean |q8| {mean_q8})")
+    log(f"  [exp_w8a8] bf16 chain through #3's single-launch kernel (csrc/decode_dense.cu): {res['ms']['bf16']:.2f} "
+        f"ms per 16 layers (the split-K design it replaced: 3.14 ms on an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6); {card}")
     log(f"  [exp_w8a8] launches: fused_proj_mlp {n}, fused_proj_mlp_q8 {n + 1}, fused_proj_mlp_q8a8 {n + 1} "
         f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of "
         f"{W8A8_ITERS} x 16 calls; + 1 each of #6 and #16 for the error line), every other kernel 0; "
@@ -1421,6 +1530,11 @@ def main() -> None:
         raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
     log(f"  libw8a8.so: {imma} IMMA (s8 x s8 -> s32 tensor-core) instructions, "
         f"{count_sass(build_dir / 'libw8a8.so', 'HMMA')} HMMA (the bf16 wo product)")
+    hgmma = count_sass(build_dir / "libdecode_dense.so", "HGMMA")
+    if hgmma == 0:
+        raise AssertionError("libdecode_dense.so holds no HGMMA instruction: #2 / #3 do not run on wgmma")
+    log(f"  libdecode_dense.so: {hgmma} HGMMA (wgmma) instructions, "
+        f"{count_sass(build_dir / 'libdecode_dense.so', 'UTMALDG')} UTMALDG (TMA tile loads)")
 
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
@@ -1548,9 +1662,9 @@ def main() -> None:
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
-        dict(name="fused_ln_qkv", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+        dict(name="fused_ln_qkv", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:109", **qkv),
-        dict(name="fused_proj_mlp", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+        dict(name="fused_proj_mlp", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:329", **mlp),
         dict(name="decode_attention_q8_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:577", **attn_q8),

@@ -1,10 +1,14 @@
-// The dense half of a decode transformer layer on Hopper (sm_90a):
+// The dense half of a decode transformer layer on Hopper (sm_90a), split-K:
 //
-//   rq_fused_ln_qkv:   qkv = LN1(x) @ wqkv^T + bqkv
-//   rq_fused_proj_mlp: x2  = x + (y @ wo^T + bo)
-//                      out = x2 + (gelu(LN2(x2) @ w1^T + b1) @ w2^T + b2)
+//   rq_fused_ln_qkv_splitk:   qkv = LN1(x) @ wqkv^T + bqkv
+//   rq_fused_proj_mlp_splitk: x2  = x + (y @ wo^T + bo)
+//                             out = x2 + (gelu(LN2(x2) @ w1^T + b1) @ w2^T + b2)
 //
-// and their int8-weight forms, with one bf16 scale s per output column:
+// The bf16 pair is the first design of #2 / #3, kept as the A/B baseline of
+// their single-launch kernels in csrc/decode_dense.cu (rq_fused_ln_qkv,
+// rq_fused_proj_mlp), which the sampler runs; only chip_smoke.py reaches
+// these. The int8-weight forms, with one bf16 scale s per output column,
+// are the sampler's kernels at the int8 points:
 //
 //   rq_fused_ln_qkv_q8:   qkv = bf16(acc * s + bqkv),      acc = LN1(x) @ q^T
 //   rq_fused_proj_mlp_q8: x2  = x + bf16(acc_o * s_o + bo)
@@ -329,7 +333,7 @@ const T* in(const void* p) {
 // x: [M, C]; ln_w, ln_b: [C]; wqkv: [N, C]; bqkv: [N]; out: [M, N]; all
 // bf16 and contiguous. work: fp32 [splits, M, N]. C % (64 * splits) == 0,
 // N % 16 == 0. Returns the first non-zero cudaGetLastError().
-extern "C" int rq_fused_ln_qkv(const void* x, const void* ln_w, const void* ln_b,
+extern "C" int rq_fused_ln_qkv_splitk(const void* x, const void* ln_w, const void* ln_b,
                                const void* wqkv, const void* bqkv, void* out, void* work,
                                int M, int N, int C, int splits, float eps, void* stream) {
   return ln_qkv(in<bf16>(x), in<bf16>(ln_w), in<bf16>(ln_b), in<bf16>(wqkv), nullptr,
@@ -337,7 +341,7 @@ extern "C" int rq_fused_ln_qkv(const void* x, const void* ln_w, const void* ln_b
                 splits, eps, (cudaStream_t)stream);
 }
 
-// rq_fused_ln_qkv with int8 wq [N, C] and bf16 column scales ws [N].
+// rq_fused_ln_qkv_splitk with int8 wq [N, C] and bf16 column scales ws [N].
 extern "C" int rq_fused_ln_qkv_q8(const void* x, const void* ln_w, const void* ln_b,
                                   const void* wq, const void* ws, const void* bqkv, void* out,
                                   void* work, int M, int N, int C, int splits, float eps,
@@ -352,7 +356,7 @@ extern "C" int rq_fused_ln_qkv_q8(const void* x, const void* ln_w, const void* l
 // and hidden are scratch. work: fp32 of at least max(splits_o * M * C,
 // splits_1 * M * H, splits_2 * M * C) elements. gelu_sigmoid selects the
 // "v2" gelu (t * sigmoid(1.702 t)) over the exact-erf one.
-extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* wo,
+extern "C" int rq_fused_proj_mlp_splitk(const void* x, const void* y, const void* wo,
                                  const void* bo, const void* ln_w, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* out, void* x2, void* hidden,
@@ -366,7 +370,7 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* wo,
                   M, C, H, splits_o, splits_1, splits_2, gelu_sigmoid, eps, (cudaStream_t)stream);
 }
 
-// rq_fused_proj_mlp with int8 wo_q / w1_q / w2_q (same shapes) and bf16
+// rq_fused_proj_mlp_splitk with int8 wo_q / w1_q / w2_q (same shapes) and bf16
 // column scales wo_s [C], w1_s [H], w2_s [C].
 extern "C" int rq_fused_proj_mlp_q8(const void* x, const void* y, const void* wo_q,
                                     const void* wo_s, const void* bo, const void* ln_w,

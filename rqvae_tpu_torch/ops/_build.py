@@ -45,9 +45,14 @@ _SIGNATURES = {
     "rq_decode_attention": (_P,) * 6 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8_update": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8": (_P,) * 8 + (_I,) * 6 + (_P,),
-    "rq_fused_ln_qkv": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    "rq_fused_ln_qkv": (_P,) * 7 + (_I,) * 9 + (_F, _P),
+    "rq_fused_ln_qkv_splitk": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "rq_fused_ln_qkv_q8": (_P,) * 8 + (_I,) * 4 + (_F, _P),
-    "rq_fused_proj_mlp": (_P,) * 14 + (_I,) * 7 + (_F, _P),
+    "rq_fused_proj_mlp": (_P,) * 16 + (_I,) * 10 + (_F, _P),
+    "rq_fused_proj_mlp_splitk": (_P,) * 14 + (_I,) * 7 + (_F, _P),
+    "rq_dense_tensor_map": (_P, _I, _I, _I, _P),
+    "rq_dense_max_clusters": (_I,) * 4 + (_P,),
+    "rq_dense_phase_ns": (_P,),
     "rq_fused_proj_mlp_q8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rq_decode_layer_step": (_P,) * 17 + (_I,) * 8 + (_F, _P),
@@ -152,7 +157,8 @@ def library() -> SimpleNamespace:
 def phase_us(name: str, n: int) -> list[float]:
     """The microseconds between the n globaltimer stamps that a fused
     kernel's last launch left (its phases), read through its C entry point
-    `name` (rq_decode_layer_step_phase_ns, ..._q8_update_wo_phase_ns).
+    `name` (rq_decode_layer_step_phase_ns, ..._q8_update_wo_phase_ns,
+    rq_dense_phase_ns).
     Synchronous: call it after the launch has finished."""
     buf = (ctypes.c_ulonglong * n)()
     check(getattr(library(), name)(ctypes.cast(buf, ctypes.c_void_p)), name)

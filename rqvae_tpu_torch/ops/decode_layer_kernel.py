@@ -1,9 +1,14 @@
 """The dense half of a decode transformer layer: LN1+QKV and proj+LN2+MLP.
 
 Counterparts of rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv and
-::fused_proj_mlp. The CUDA kernels are csrc/decode_layer.cu (its source
-note says what bounds them on the H100 and how the design answers that);
-this module holds their wrappers and the plain PyTorch versions.
+::fused_proj_mlp. The CUDA kernels of the bf16 pair are csrc/decode_dense.cu
+(wgmma, a TMA weight ring, split-K reduced in a thread-block cluster's
+shared memory; one launch per call; its source note says what bounds them
+on the H100 and how the design answers that); `dense_plan` is their launch
+plan. The int8 pair and the first, split-K design of the bf16 pair
+(`*_splitk`, kept as the A/B baseline that only chip_smoke.py runs) are
+csrc/decode_layer.cu. This module holds their wrappers and the plain
+PyTorch versions.
 
 Weights come in the nn.Linear [out, in] layout (wqkv is the fused [3C, C]
 buffer), not the JAX [in, out] one. Rounding points follow the JAX kernels
@@ -14,9 +19,13 @@ added to the fp32 sum before the one cast; the projection is cast before
 then the cast, then the residual. The exact erf replaces the JAX kernel's
 polynomial erf, a Mosaic workaround within 1e-6 of it.
 
-fused_proj_mlp on the card is six launches behind one wrapper call (proj,
-its epilogue, LN2+w1, gelu epilogue, w2, residual epilogue), since LN2
-needs the whole of x2; it counts as one launch of the function.
+fused_ln_qkv and fused_proj_mlp take the widths of the head layers the
+port builds (WIDTHS: the zoo's 512, 1024 and 1280, the 1.4B's 1536, bench's
+3800M 2560) with N = 3C and H = 4C, and any number of rows M >= 1.
+fused_proj_mlp_splitk (and fused_proj_mlp_q8) on the card is six launches
+behind one wrapper call (proj, its epilogue, LN2+w1, gelu epilogue, w2,
+residual epilogue), since LN2 needs the whole of x2; it counts as one
+launch of the function.
 
 fused_ln_qkv_q8 / fused_proj_mlp_q8 take int8 weights [out, in] with one
 bf16 scale per output channel (model.quantize_weight). They stand for both
@@ -31,13 +40,30 @@ scale applied once to the whole sum.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+from dataclasses import dataclass
+
 import torch
 
 from rqvae_tpu_torch.ops import _build
 
 LN_EPS = 1e-5
-_BK = 64  # reduction chunk of the CUDA GEMM (csrc/decode_layer.cu kBK)
-_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
+_BK = 64  # reduction chunk of the CUDA GEMMs (csrc/decode_layer.cu and decode_dense.cu kBK)
+_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs (the split-K kernels)
+
+# csrc/decode_dense.cu
+WIDTHS = (512, 1024, 1280, 1536, 2560)  # C of the head layers the port builds
+SMS = 132  # the H100's streaming multiprocessors
+SMEM_LIMIT = 232_448  # dynamic shared memory one CTA may use
+_TILE = 64  # weight rows per tile (the wgmma M)
+_STAGES = (4, 16)  # least and most weight tiles in the ring
+CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs of a cluster: the split of K
+ROW_TILES_MLP = tuple(range(8, 129, 8))  # activation rows per tile, the kernels built (RQ_TILES_*)
+ROW_TILES_QKV = ROW_TILES_MLP + (160, 192, 224, 256)
+# the plan's price of one tile's cluster reduction, in weight bytes (about
+# the time an SM's share of the HBM rate takes to bring 16 KB)
+_ROUND_BYTES = 16384
 
 
 def _layer_norm(x, weight, bias):
@@ -97,13 +123,154 @@ def fused_proj_mlp_q8_plain(
 
 
 def _splits(M: int, N: int, K: int) -> int:
-    """Split-K factor: enough blocks to fill the card, K divisible by the
-    split times the staged chunk."""
+    """Split-K factor of the csrc/decode_layer.cu kernels (the q8 pair and
+    the *_splitk baselines): enough blocks to fill the card, K divisible by
+    the split times the staged chunk."""
     blocks = -(-N // 64) * -(-M // 128)
     s = max(1, min(K // _BK, -(-_TARGET_BLOCKS // blocks)))
     while K % (s * _BK):
         s -= 1
     return s
+
+
+def _smem_bytes(mt: int, k_slice: int, stages: int, mlp: bool) -> int:
+    """Dynamic shared memory of a decode_dense.cu kernel (its `layout`): the
+    ring, the resident B panel, the reduction buffer (red_bytes), a float2
+    per row, the LN parameters of the K-slice as float2, the mbarriers and
+    1024 bytes of alignment slack."""
+    stage = _TILE * _BK * 2 + (mt * _BK * 2 if mlp else 0)
+    red = (mt // 2 + CLUSTER_SIZES[-1]) * 512
+    return (stages * stage + (k_slice // _BK) * mt * _BK * 2 + red + mt * 8 + k_slice * 8
+            + (2 * stages + 4) * 8 + 1024)
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """The launch of one decode_dense.cu kernel: `clusters` clusters of
+    `cluster` CTAs (grid cluster * clusters, CTA b is rank b % cluster of
+    cluster b // cluster), activation row tiles of `row_tile` rows
+    (`row_tiles` of them, row_tiles * row_tile >= M), a ring of `stages`
+    weight tiles, `smem` bytes of dynamic shared memory."""
+
+    mlp: bool
+    M: int
+    C: int
+    N: int  # 3C (fused_ln_qkv) or H (fused_proj_mlp)
+    cluster: int
+    clusters: int
+    row_tile: int
+    row_tiles: int
+    stages: int
+    smem: int
+
+    def products(self) -> list[tuple[int, int]]:
+        """(weight row tiles, reduction length) of each product, in order."""
+        C, N = self.C, self.N
+        return [(C // _TILE, C), (N // _TILE, C), (C // _TILE, N)] if self.mlp else [(N // _TILE, C)]
+
+    def units(self, cta: int):
+        """What CTA `cta` computes, in the kernel's order: (product, first
+        activation row, weight row tile, first reduction element) of each
+        64 x 64 weight tile it multiplies."""
+        cid, rank = divmod(cta, self.cluster)
+        for i, (tiles, k) in enumerate(self.products()):
+            ks = k // self.cluster
+            for rt in range(self.row_tiles):
+                for j in range(cid, tiles, self.clusters):
+                    for kc in range(ks // _BK):
+                        yield i, rt * self.row_tile, j, rank * ks + kc * _BK
+
+
+def dense_plan(M: int, C: int, N: int, mlp: bool, sms: int = SMS, max_clusters=None) -> DensePlan:
+    """The launch plan of fused_ln_qkv (mlp False, N = 3C) or fused_proj_mlp
+    (mlp True, N = H = 4C) for M rows. For each cluster size s (C / s a
+    multiple of 64), the fewest row tiles whose shared memory fits with a
+    ring of at least four stages (as many as fit, up to sixteen); at most
+    sms // s clusters (one wave), no more than the largest product has
+    tiles, nor than max_clusters(mlp, row_tile, s, smem) (the device's
+    count of co-resident clusters, when given). Of those, the one whose
+    busiest CTA streams the fewest weight bytes, each cluster reduction
+    priced at _ROUND_BYTES; ties go to the smaller cluster."""
+    if C not in WIDTHS or N != (4 if mlp else 3) * C or M < 1:
+        raise ValueError(
+            f"decode_dense: needs C in {WIDTHS}, {'H = 4C' if mlp else 'N = 3C'} and M >= 1, got M={M}, C={C}, "
+            f"{'H' if mlp else 'N'}={N}"
+        )
+    tiles_built = ROW_TILES_MLP if mlp else ROW_TILES_QKV
+    best, best_cost = None, None
+    for s in CLUSTER_SIZES:
+        if C % (_BK * s):
+            continue
+        fit = None
+        for n_rt in range(1, M + 1):
+            need = -(-M // n_rt)
+            mt = next((t for t in tiles_built if t >= need), None)
+            if mt is None:
+                continue
+            stage = _smem_bytes(mt, C // s, 1, mlp) - _smem_bytes(mt, C // s, 0, mlp)
+            stages = min(_STAGES[1], (SMEM_LIMIT - _smem_bytes(mt, C // s, 0, mlp)) // stage)
+            if stages >= _STAGES[0]:
+                fit = (mt, n_rt, stages, _smem_bytes(mt, C // s, stages, mlp))
+                break
+            if mt == tiles_built[0]:
+                break
+        if fit is None:
+            continue
+        mt, n_rt, stages, smem = fit
+        plan = DensePlan(mlp, M, C, N, s, 1, mt, n_rt, stages, smem)
+        G = min(sms // s, max(tiles for tiles, _ in plan.products()))
+        if max_clusters is not None:
+            G = min(G, max_clusters(mlp, mt, s, smem))
+        if G < 1:
+            continue
+        cost = n_rt * sum(-(-tiles // G) * (_TILE * (k // s) * 2 + _ROUND_BYTES) for tiles, k in plan.products())
+        if best is None or cost < best_cost:
+            best = DensePlan(mlp, M, C, N, s, G, mt, n_rt, stages, smem)
+            best_cost = cost
+    if best is None:
+        raise ValueError(f"decode_dense: no launch plan fits M={M}, C={C}, N={N}")
+    return best
+
+
+_plans: dict = {}
+_maps: dict = {}
+
+
+def _device_plan(M, C, N, mlp, device) -> DensePlan:
+    """dense_plan on this device (its SM count, its co-resident clusters),
+    cached. Call with `device` current."""
+    key = (M, C, N, mlp, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        lib = _build.library()
+
+        def most(mlp, mt, s, smem):
+            out = ctypes.c_int(0)
+            _build.check(lib.rq_dense_max_clusters(int(mlp), mt, s, smem, ctypes.addressof(out)),
+                         "rq_dense_max_clusters")
+            return out.value
+
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _plans[key] = dense_plan(M, C, N, mlp, sms, most)
+    return plan
+
+
+def _tensor_map(t, box_rows: int = _TILE) -> int:
+    """Address of the TMA tensor map of the bf16 matrix t [rows, cols] in
+    boxes of box_rows rows x 64 columns: a weight's (64), encoded once per
+    weight tensor, or an activation's (the row tile), encoded once per
+    address the allocator hands out; keyed by address, shape and box, the
+    cache emptied when it holds 4096."""
+    key = (t.data_ptr(), *t.shape, box_rows)
+    buf = _maps.get(key)
+    if buf is None:
+        if len(_maps) >= 4096:
+            _maps.clear()
+        buf = (ctypes.c_uint8 * 128)()  # a CUtensorMap
+        _build.check(_build.library().rq_dense_tensor_map(t.data_ptr(), t.shape[0], t.shape[1], box_rows,
+                                                          ctypes.addressof(buf)), "rq_dense_tensor_map")
+        _maps[key] = buf
+    return ctypes.addressof(buf)
 
 
 def _check_cuda(name, tensors, shapes, int8=()):
@@ -124,32 +291,77 @@ def _check_cuda(name, tensors, shapes, int8=()):
             raise ValueError(f"{name}: {arg} must start on a 32-byte boundary")
 
 
+def _check_dense(name, tensors, shapes):
+    """_check_cuda for the decode_dense.cu wrappers, on their hot path: one
+    pass of cheap tests, and _check_cuda's messages when one fails; every
+    tensor also on a 16-byte boundary (the kernels' vector loads)."""
+    dev = tensors[0][1].get_device()
+    for (arg, t), shape in zip(tensors, shapes):
+        if (t.dtype is not torch.bfloat16 or t.shape != shape or t.get_device() != dev or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            _check_cuda(name, tensors, shapes)
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+
+
+def _device(x):
+    """torch.cuda.device(x.device), or nothing when x's device is current."""
+    return contextlib.nullcontext() if x.get_device() == torch.cuda.current_device() else torch.cuda.device(x.device)
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(x) -> int:
+    """The current CUDA stream of x's device as an int (torch's raw accessor
+    where it has one: torch.cuda.current_stream() builds a Python object,
+    several us of host time a call)."""
+    if _raw_stream is not None:
+        return _raw_stream(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+_scratch: dict = {}
+
+
+def _mlp_scratch(x, C, H, plan):
+    """fused_proj_mlp's scratch (x2 [M, C], t [H / 64, rows, 64], stats [M,
+    C / 64, 2] fp32), kept per device and shape: the kernel is one launch at
+    a time on a device (its grid barrier's counters), so calls on a stream
+    may share it, and the host saves three allocations a call."""
+    M = x.shape[0]
+    key = (x.get_device(), M, C, H, plan.row_tile, plan.row_tiles)
+    bufs = _scratch.get(key)
+    if bufs is None:
+        if len(_scratch) >= 16:
+            _scratch.clear()
+        bufs = _scratch[key] = (
+            torch.empty((M, C), dtype=x.dtype, device=x.device),
+            torch.empty((H // _BK, plan.row_tiles * plan.row_tile, _BK), dtype=x.dtype, device=x.device),
+            torch.empty((M, C // _TILE, 2), dtype=torch.float32, device=x.device),
+        )
+    return bufs
+
+
 def fused_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_layer.cu::rq_fused_ln_qkv or raises. One call on
-    the card adds one to `fused_ln_qkv.launches`."""
+    launches csrc/decode_dense.cu::rq_fused_ln_qkv (one launch) or raises.
+    One call on the card adds one to `fused_ln_qkv.launches`."""
     if x.device.type == "cpu":
         return fused_ln_qkv_plain(x, ln_scale, ln_bias, wqkv, bqkv)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_qkv: no kernel for device {x.device}")
     M, C = x.shape
     N = wqkv.shape[0]
-    _check_cuda(
-        "fused_ln_qkv",
-        [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wqkv", wqkv), ("bqkv", bqkv)],
-        [(M, C), (C,), (C,), (N, C), (N,)],
-    )
-    if C % _BK or N % 16:
-        raise ValueError(f"fused_ln_qkv: needs C % {_BK} == 0 and N % 16 == 0, got C={C}, N={N}")
-    s = _splits(M, N, C)
+    args = [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wqkv", wqkv), ("bqkv", bqkv)]
+    _check_dense("fused_ln_qkv", args, [(M, C), (C,), (C,), (N, C), (N,)])
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    work = torch.empty((s, M, N), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _device(x):
+        plan = _device_plan(M, C, N, False, x.device)
         err = lib.rq_fused_ln_qkv(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-            bqkv.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, C, s, LN_EPS,
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), _tensor_map(x, plan.row_tile), ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(wqkv),
+            bqkv.data_ptr(), out.data_ptr(), M, C, N, plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles,
+            plan.stages, plan.smem, LN_EPS, _stream(x),
         )
     _build.check(err, "rq_fused_ln_qkv")
     fused_ln_qkv.launches += 1
@@ -161,8 +373,9 @@ fused_ln_qkv.launches = 0
 
 def fused_proj_mlp(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version="v1"):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    runs the six launches of csrc/decode_layer.cu::rq_fused_proj_mlp or
-    raises. One call on the card adds one to `fused_proj_mlp.launches`."""
+    launches csrc/decode_dense.cu::rq_fused_proj_mlp (one persistent
+    launch) or raises. One call on the card adds one to
+    `fused_proj_mlp.launches`."""
     if x.device.type == "cpu":
         return fused_proj_mlp_plain(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version)
     if x.device.type != "cuda":
@@ -171,27 +384,20 @@ def fused_proj_mlp(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version
         raise ValueError(f"fused_proj_mlp: unknown gelu version {gelu_version!r}")
     M, C = x.shape
     H = w1.shape[0]
-    _check_cuda(
-        "fused_proj_mlp",
-        [("x", x), ("y", y), ("wo", wo), ("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias),
-         ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)],
-        [(M, C), (M, C), (C, C), (C,), (C,), (C,), (H, C), (H,), (C, H), (C,)],
-    )
-    if C % _BK or H % _BK:
-        raise ValueError(f"fused_proj_mlp: needs C and H divisible by {_BK}, got C={C}, H={H}")
-    so, s1, s2 = _splits(M, C, C), _splits(M, H, C), _splits(M, C, H)
-    out = torch.empty_like(x)
-    x2 = torch.empty_like(x)
-    hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
-    work = torch.empty((max(so * C, s1 * H, s2 * C) * M,), dtype=torch.float32, device=x.device)
+    args = [("x", x), ("y", y), ("wo", wo), ("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias),
+            ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)]
+    _check_dense("fused_proj_mlp", args, [(M, C), (M, C), (C, C), (C,), (C,), (C,), (H, C), (H,), (C, H), (C,)])
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _device(x):
+        plan = _device_plan(M, C, H, True, x.device)
+        out = torch.empty_like(x)
+        x2, t, stats = _mlp_scratch(x, C, H, plan)
         err = lib.rq_fused_proj_mlp(
-            x.data_ptr(), y.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), x2.data_ptr(), hidden.data_ptr(), work.data_ptr(),
-            M, C, H, so, s1, s2, int(gelu_version == "v2"), LN_EPS,
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), y.data_ptr(), _tensor_map(y, plan.row_tile), _tensor_map(wo), bo.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(w1), b1.data_ptr(), _tensor_map(w2), b2.data_ptr(),
+            out.data_ptr(), x2.data_ptr(), _tensor_map(x2, plan.row_tile), t.data_ptr(), stats.data_ptr(), M, C, H,
+            plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles, plan.stages, plan.smem,
+            int(gelu_version == "v2"), LN_EPS, _stream(x),
         )
     _build.check(err, "rq_fused_proj_mlp")
     fused_proj_mlp.launches += 1
@@ -199,6 +405,81 @@ def fused_proj_mlp(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version
 
 
 fused_proj_mlp.launches = 0
+
+
+def fused_ln_qkv_splitk(x, ln_scale, ln_bias, wqkv, bqkv):
+    """fused_ln_qkv through its first, split-K design (csrc/decode_layer.cu::
+    rq_fused_ln_qkv_splitk: the GEMM and its epilogue, two launches), CUDA
+    tensors only: the A/B baseline of chip_smoke.py. Adds one to
+    `fused_ln_qkv_splitk.launches` per call."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ln_qkv_splitk: no kernel for device {x.device}")
+    M, C = x.shape
+    N = wqkv.shape[0]
+    _check_cuda(
+        "fused_ln_qkv_splitk",
+        [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wqkv", wqkv), ("bqkv", bqkv)],
+        [(M, C), (C,), (C,), (N, C), (N,)],
+    )
+    if C % _BK or N % 16:
+        raise ValueError(f"fused_ln_qkv_splitk: needs C % {_BK} == 0 and N % 16 == 0, got C={C}, N={N}")
+    s = _splits(M, N, C)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    work = torch.empty((s, M, N), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.rq_fused_ln_qkv_splitk(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, C, s, LN_EPS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "rq_fused_ln_qkv_splitk")
+    fused_ln_qkv_splitk.launches += 1
+    return out
+
+
+fused_ln_qkv_splitk.launches = 0
+
+
+def fused_proj_mlp_splitk(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version="v1"):
+    """fused_proj_mlp through its first, split-K design (csrc/decode_layer.cu::
+    rq_fused_proj_mlp_splitk, six launches), CUDA tensors only: the A/B
+    baseline of chip_smoke.py. Adds one to `fused_proj_mlp_splitk.launches`
+    per call."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_proj_mlp_splitk: no kernel for device {x.device}")
+    if gelu_version not in ("v1", "v2"):
+        raise ValueError(f"fused_proj_mlp_splitk: unknown gelu version {gelu_version!r}")
+    M, C = x.shape
+    H = w1.shape[0]
+    _check_cuda(
+        "fused_proj_mlp_splitk",
+        [("x", x), ("y", y), ("wo", wo), ("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias),
+         ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)],
+        [(M, C), (M, C), (C, C), (C,), (C,), (C,), (H, C), (H,), (C, H), (C,)],
+    )
+    if C % _BK or H % _BK:
+        raise ValueError(f"fused_proj_mlp_splitk: needs C and H divisible by {_BK}, got C={C}, H={H}")
+    so, s1, s2 = _splits(M, C, C), _splits(M, H, C), _splits(M, C, H)
+    out = torch.empty_like(x)
+    x2 = torch.empty_like(x)
+    hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
+    work = torch.empty((max(so * C, s1 * H, s2 * C) * M,), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.rq_fused_proj_mlp_splitk(
+            x.data_ptr(), y.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), x2.data_ptr(), hidden.data_ptr(), work.data_ptr(),
+            M, C, H, so, s1, s2, int(gelu_version == "v2"), LN_EPS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "rq_fused_proj_mlp_splitk")
+    fused_proj_mlp_splitk.launches += 1
+    return out
+
+
+fused_proj_mlp_splitk.launches = 0
 
 
 def fused_ln_qkv_q8(x, ln_scale, ln_bias, wq, ws, bqkv):
