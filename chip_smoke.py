@@ -11,10 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
-     and #3 fused_proj_mlp (csrc/decode_dense.cu) also at B 37, 300 and
-     500, #3 with both gelu forms, and both at C 2560 (bench's 3800M
-     width), each call one device kernel (torch.profiler), timed also
-     against the split-K kernels they replaced; the read-only
+     and #3 fused_proj_mlp (csrc/decode_dense.cu), and the same kernels on
+     int8 weights, #5/#7 fused_ln_qkv_q8 and #6/#8 fused_proj_mlp_q8, also
+     at B 37, 300 and 500, #3 / #6 with both gelu forms, and at C 2560
+     (bench's 3800M width), each call one device kernel (torch.profiler),
+     timed also against the split-K kernels they replaced (device time in
+     CUDA graphs, eager time, the host time of a wrapper call); the read-only
      decode attention also at the experiment's B 500, on a [4, 100, 257,
      1536] stack at cur_len 256 and, at head size 104, on a [2, 100, 257,
      1664] stack of 16 heads, its caches bit-unchanged; the bf16 update
@@ -77,9 +79,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      predicts;
  10. the port of tools/exp_w8a8.py (rqvae_tpu_torch.tools.exp_w8a8) at B
      100, 16 layers, chains of W8A8_ITERS x 16 calls captured in CUDA
-     graphs: #3 (bf16, the single-launch kernel; its chain time beside the
-     split-K design's), #6 (q8) and #16 (q8a8), with the exact launch
-     counts it issues and every other counter 0;
+     graphs: #3 (bf16) and #6 (q8), each the single-launch kernel (its
+     chain time beside the split-K design's), and #16 (q8a8), with the
+     exact launch counts it issues and every other counter 0;
  11. the port of tools/exp_mlp_kernel.py (rqvae_tpu_torch.tools.
      exp_mlp_kernel) at B 100 and 500, 24 layers, chains of MLP_ITERS x 24
      calls: the plain xla_mlp against #15, with #15's exact launch counts
@@ -89,6 +91,10 @@ The second-to-last line is a JSON table of the kernels, the last line
 
 Run from the repository root on a machine with one CUDA device:
     python3 chip_smoke.py
+`python3 chip_smoke.py dense` runs phases 1-2 and phase 3's checks of the
+head's dense pair alone, bf16 and int8 (check_dense), and prints no
+result line: run from two source trees in one call, it compares two
+designs of those kernels on one card.
 """
 
 from __future__ import annotations
@@ -558,133 +564,186 @@ def check_attention_q8_read_only(AK, dev, gen):
 
 
 def device_kernels(fn) -> list[str]:
-    """Names of the device kernels one call of fn issues (torch.profiler)."""
+    """Names of the device kernels one call of fn issues (torch.profiler).
+    Now and then the profiler records no device activity at all for a call
+    (on the card, about one profile in twelve of `chip_smoke.py dense`), so
+    a profile without a single device event is taken again, up to three
+    times; a profile with events is returned as it is."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        log("  (the profiler recorded no device event for this call; profiling it again)")
+    return names
 
 
-DENSE_BATCHES = (37, 100, 300, 500)  # phase 3's rows for #2 and #3 at C 1536 (C 2560: B 100)
+DENSE_BATCHES = (37, 100, 300, 500)  # phase 3's rows for #2 / #3 and #5-#8 at C 1536 (C 2560: B 100)
 DENSE_QKV_PHASES = ("LN1 staged", "tiles")
 DENSE_MLP_PHASES = ("proj", "barrier 1", "LN2 + w1", "barrier 2", "w2")
 
 
-def check_dense(DK, dev, gen):
-    """#2 and #3 (csrc/decode_dense.cu) against their plain versions at B 37,
-    100, 300 and 500 (#3 with both gelu forms) at C 1536, and at B 100 at C
-    2560 (bench's 3800M width); one device kernel per call, and where the
-    time of one call went (CTA 0's stamps); then, at B 100,
-    C 1536, back to back and L2-cold, the kernel, its split-K predecessor
-    (csrc/decode_layer.cu), the plain version and the library call, with
-    the bound."""
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds of one call of fn, back to back without a
+    synchronisation (the wrapper's dispatch: its checks, allocations and
+    launches; the device runs behind)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def check_dense(DK, dev, gen, quantize_weight=None):
+    """#2 and #3 (csrc/decode_dense.cu), or with quantize_weight given #5/#7
+    and #6/#8 (the same kernels on int8 weights with per-channel scales),
+    against their plain versions at B 37, 100, 300 and 500 (#3 / #6 with
+    both gelu forms) at C 1536, and at B 100 at C 2560 (bench's 3800M
+    width); one device kernel per call, and where the time of one call went
+    (CTA 0's stamps); then, at B 100, C 1536, L2-cold (distinct weight sets
+    of > 100 MB in turn), back to back and as device time in a CUDA graph:
+    the kernel, its split-K predecessor (csrc/decode_layer.cu), the plain
+    version and the library call (F.linear, on the dequantized bf16 weights
+    for int8), with the bound; the host time of one wrapper call, new and
+    split-K; the device time at B 1."""
     C = 1536
     H = 4 * C
+    q8 = quantize_weight is not None
+    sfx = "_q8" if q8 else ""
+    nw = 2 if q8 else 1  # tensors per weight: (int8 weight, scales) or (bf16 weight,)
+    qkv_fn, qkv_split, qkv_plain_fn = (getattr(DK, f"fused_ln_qkv{sfx}{t}") for t in ("", "_splitk", "_plain"))
+    mlp_fn, mlp_split, mlp_plain_fn = (getattr(DK, f"fused_proj_mlp{sfx}{t}") for t in ("", "_splitk", "_plain"))
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
 
+    def lin(*shape):
+        w = rnd(*shape, std=0.02)
+        return tuple(quantize_weight(w)) if q8 else (w,)
+
+    def qkv_weights(C):
+        return (*lin(3 * C, C), rnd(3 * C, std=0.02))
+
+    def mlp_weights(C):
+        return (*lin(C, C), rnd(C, std=0.02), *lin(4 * C, C), rnd(4 * C, std=0.02), *lin(C, 4 * C), rnd(C, std=0.02))
+
     def weights(C):
-        ln = (rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1))
-        qkv = (rnd(3 * C, C, std=0.02), rnd(3 * C, std=0.02))
-        mlp = (rnd(C, C, std=0.02), rnd(C, std=0.02), rnd(4 * C, C, std=0.02), rnd(4 * C, std=0.02),
-               rnd(C, 4 * C, std=0.02), rnd(C, std=0.02))
-        return ln, qkv, mlp
+        return (rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)), qkv_weights(C), mlp_weights(C)
+
+    def dense(w):
+        """The weight of a (weight, scales) / (weight,) tuple as bf16: the library's operand."""
+        return w[0].to(torch.bfloat16) * w[1][:, None] if q8 else w[0]
 
     def proj_mlp(fn, x, y, ln, s, gelu="v1"):
-        wo, bo, w1, b1, w2, b2 = s
-        return fn(x, y, wo, bo, *ln, w1, b1, w2, b2, gelu_version=gelu)
+        return fn(x, y, *s[:nw + 1], *ln, *s[nw + 1:], gelu_version=gelu)
+
+    def mlp_lib_weights(s):
+        return [dense(s[i:i + nw]) for i in (0, nw + 1, 2 * nw + 2)]
 
     qkv_err = mlp_err = 0.0
     for width, batches in ((C, DENSE_BATCHES), (2560, (BATCH,))):
         ln, qkv_w, mlp_w = weights(width)
         for B in batches:
             x, y = rnd(B, width), rnd(B, width)
-            plan = DK.dense_plan(B, width, 3 * width, False)
-            got = DK.fused_ln_qkv(x, *ln, *qkv_w)
+            plan = DK.dense_plan(B, width, 3 * width, False, wbytes=3 - nw)
+            got = qkv_fn(x, *ln, *qkv_w)
             torch.cuda.synchronize()
-            err, _ = compare(f"fused_ln_qkv x[{B},{width}] wqkv[{3 * width},{width}] (cluster {plan.cluster}, "
-                             f"row tile {plan.row_tile} x {plan.row_tiles})", got, DK.fused_ln_qkv_plain(x, *ln, *qkv_w))
+            err, _ = compare(f"fused_ln_qkv{sfx} x[{B},{width}] wqkv[{3 * width},{width}] (cluster {plan.cluster}, "
+                             f"row tile {plan.row_tile} x {plan.row_tiles})", got, qkv_plain_fn(x, *ln, *qkv_w))
             qkv_err = max(qkv_err, err)
             for gelu in ("v1", "v2"):
-                got = proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w, gelu)
+                got = proj_mlp(mlp_fn, x, y, ln, mlp_w, gelu)
                 torch.cuda.synchronize()
-                err, _ = compare(f"fused_proj_mlp x[{B},{width}] H {4 * width} gelu {gelu}", got,
-                                 proj_mlp(DK.fused_proj_mlp_plain, x, y, ln, mlp_w, gelu))
+                err, _ = compare(f"fused_proj_mlp{sfx} x[{B},{width}] H {4 * width} gelu {gelu}", got,
+                                 proj_mlp(mlp_plain_fn, x, y, ln, mlp_w, gelu))
                 mlp_err = max(mlp_err, err)
+        del ln, qkv_w, mlp_w
     B = BATCH
     x, y = rnd(B, C), rnd(B, C)
     ln, qkv_w, mlp_w = weights(C)
-    for name, fn in (("fused_ln_qkv", lambda: DK.fused_ln_qkv(x, *ln, *qkv_w)),
-                     ("fused_proj_mlp", lambda: proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w))):
+    qkv_name, mlp_name = f"fused_ln_qkv{sfx}", f"fused_proj_mlp{sfx}"
+    for name, fn in ((qkv_name, lambda: qkv_fn(x, *ln, *qkv_w)), (mlp_name, lambda: proj_mlp(mlp_fn, x, y, ln, mlp_w))):
         fn()  # the plan and tensor maps of these weights are made on the host before the profiled call
         kernels = device_kernels(fn)
         if len([k for k in kernels if "dense_kernel" in k]) != 1 or len(kernels) != 1:
             raise AssertionError(f"{name}: one call issued device kernels {kernels}, not one dense_kernel")
-        log(f"  {name}: one call issues one device kernel ({kernels[0][:60]}...)")
+        log(f"  {name}: one call issues one device kernel ({kernels[0][:72]}...)")
     from rqvae_tpu_torch.ops import _build
 
-    for name, fn, phases in (("fused_ln_qkv", lambda: DK.fused_ln_qkv(x, *ln, *qkv_w), DENSE_QKV_PHASES),
-                             ("fused_proj_mlp", lambda: proj_mlp(DK.fused_proj_mlp, x, y, ln, mlp_w), DENSE_MLP_PHASES)):
+    for name, fn, phases in ((qkv_name, lambda: qkv_fn(x, *ln, *qkv_w), DENSE_QKV_PHASES),
+                             (mlp_name, lambda: proj_mlp(mlp_fn, x, y, ln, mlp_w), DENSE_MLP_PHASES)):
         fn()
         torch.cuda.synchronize()
         us = _build.phase_us("rq_dense_phase_ns", 6)  # csrc/decode_dense.cu g_stamps: CTA 0's timeline
         log(f"  {name} phases of one call (CTA 0, us): " + ", ".join(f"{n} {u:.1f}" for n, u in zip(phases, us)))
 
-    qkv_sets = [(rnd(3 * C, C, std=0.02), rnd(3 * C, std=0.02)) for _ in range(8)]  # 8 x 14 MB
-    mlp_sets = [weights(C)[2] for _ in range(3)]  # 3 x 42 MB
-    qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, *ln, *s) for s in qkv_sets], 50)
-    qkv_split = cuda_ms([lambda s=s: DK.fused_ln_qkv_splitk(x, *ln, *s) for s in qkv_sets], 50)
-    qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_plain(x, *ln, *s) for s in qkv_sets], 50)
-    qkv_lib = cuda_ms([lambda s=s: F.linear(x, s[0]) for s in qkv_sets], 50)
-    qkv_ms2 = cuda_ms([lambda s=s: DK.fused_ln_qkv(x, *ln, *s) for s in qkv_sets], 50)
-    qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C * 2 + 3 * C * 2 + B * 3 * C * 2, 2 * B * 3 * C * C,
+    wbytes = 3 - nw
+    qkv_sets = [qkv_weights(C) for _ in range(8 * nw)]  # 8 x 14 MB bf16, 16 x 7.1 MB int8
+    mlp_sets = [mlp_weights(C) for _ in range(3 * nw)]  # 3 x 42 MB bf16, 6 x 21.2 MB int8
+    qkv_lib_w = [dense(s[:nw]) for s in qkv_sets[:8]]
+    mlp_lib_w = [mlp_lib_weights(s) for s in mlp_sets[:3]]
+    qkv_ms = cuda_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_sk = cuda_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_plain = cuda_ms([lambda s=s: qkv_plain_fn(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_lib = cuda_ms([lambda w=w: F.linear(x, w) for w in qkv_lib_w], 50)
+    qkv_ms2 = cuda_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C * wbytes + 3 * C * 2 * nw + B * 3 * C * 2, 2 * B * 3 * C * C,
                   BF16_TENSOR_FLOPS)
-    log(f"  fused_ln_qkv time: kernel {qkv_ms:.4f} ms (again after the others: {qkv_ms2:.4f}), split-K kernel "
-        f"{qkv_split:.4f} ms ({qkv_split / qkv_ms:.2f}x the kernel), plain {qkv_plain:.4f} ms, library (F.linear, "
-        f"the GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
+    lib_what = "on the dequantized bf16 weights, " if q8 else ""
+    log(f"  {qkv_name} time: kernel {qkv_ms:.4f} ms (again after the others: {qkv_ms2:.4f}), split-K kernel "
+        f"{qkv_sk:.4f} ms ({qkv_sk / qkv_ms:.2f}x the kernel), plain {qkv_plain:.4f} ms, library (F.linear "
+        f"{lib_what}the GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
         f"{qkv_b['bound_by']}")
-    qkv_graph = {name: graph_ms([lambda s=s: fn(s) for s in qkv_sets]) for name, fn in (
-        ("kernel", lambda s: DK.fused_ln_qkv(x, *ln, *s)), ("split-K", lambda s: DK.fused_ln_qkv_splitk(x, *ln, *s)),
-        ("library", lambda s: F.linear(x, s[0])))}
-    log("  fused_ln_qkv device time (8 calls in a CUDA graph, replayed): "
+    qkv_graph = {"kernel": graph_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets]),
+                 "split-K": graph_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets]),
+                 "library": graph_ms([lambda w=w: F.linear(x, w) for w in qkv_lib_w])}
+    log(f"  {qkv_name} device time ({len(qkv_sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in qkv_graph.items()))
-    mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s) for s in mlp_sets], 30)
-    mlp_split = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_splitk, x, y, ln, s) for s in mlp_sets], 30)
-    mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_plain, x, y, ln, s) for s in mlp_sets], 30)
-    mlp_lib = cuda_ms([lambda s=s: gemms_alone(x, y, s[0], s[2], s[4]) for s in mlp_sets], 30)
-    mlp_ms2 = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s) for s in mlp_sets], 30)
-    mlp_b = proj_mlp_bound(B, C, H, 2)
-    log(f"  fused_proj_mlp time: kernel {mlp_ms:.4f} ms (again after the others: {mlp_ms2:.4f}), split-K kernel "
-        f"{mlp_split:.4f} ms ({mlp_split / mlp_ms:.2f}x the kernel), plain {mlp_plain:.4f} ms, library (three "
-        f"F.linear, the GEMMs alone without LN, gelu or epilogues) {mlp_lib:.4f} ms, bound "
+    mlp_ms = cuda_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_sk = cuda_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_plain = cuda_ms([lambda s=s: proj_mlp(mlp_plain_fn, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in mlp_lib_w], 30)
+    mlp_ms2 = cuda_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_b = proj_mlp_bound(B, C, H, wbytes)
+    log(f"  {mlp_name} time: kernel {mlp_ms:.4f} ms (again after the others: {mlp_ms2:.4f}), split-K kernel "
+        f"{mlp_sk:.4f} ms ({mlp_sk / mlp_ms:.2f}x the kernel), plain {mlp_plain:.4f} ms, library (three "
+        f"F.linear {lib_what}the GEMMs alone without LN, gelu or epilogues) {mlp_lib:.4f} ms, bound "
         f"{mlp_b['bound_ms']:.4f} ms by {mlp_b['bound_by']}")
-    mlp_graph = {name: graph_ms([lambda s=s: fn(s) for s in mlp_sets]) for name, fn in (
-        ("kernel", lambda s: proj_mlp(DK.fused_proj_mlp, x, y, ln, s)),
-        ("split-K", lambda s: proj_mlp(DK.fused_proj_mlp_splitk, x, y, ln, s)),
-        ("library", lambda s: gemms_alone(x, y, s[0], s[2], s[4])))}
-    log("  fused_proj_mlp device time (3 calls in a CUDA graph, replayed): "
+    mlp_graph = {"kernel": graph_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets]),
+                 "split-K": graph_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets]),
+                 "library": graph_ms([lambda w=w: gemms_alone(x, y, *w) for w in mlp_lib_w])}
+    log(f"  {mlp_name} device time ({len(mlp_sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in mlp_graph.items()))
     x1, y1 = rnd(1, C), rnd(1, C)  # one row: the kernels' latency floor, with the same weight bytes
-    log(f"  device time at B 1 (graph replay): fused_ln_qkv "
-        f"{graph_ms([lambda s=s: DK.fused_ln_qkv(x1, *ln, *s) for s in qkv_sets]):.4f} ms, fused_proj_mlp "
-        f"{graph_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp, x1, y1, ln, s) for s in mlp_sets]):.4f} ms")
-    for name, eager, split, graph in (("fused_ln_qkv", max(qkv_ms, qkv_ms2), qkv_split, qkv_graph),
-                                      ("fused_proj_mlp", max(mlp_ms, mlp_ms2), mlp_split, mlp_graph)):
+    log(f"  device time at B 1 (graph replay): {qkv_name} "
+        f"{graph_ms([lambda s=s: qkv_fn(x1, *ln, *s) for s in qkv_sets]):.4f} ms, {mlp_name} "
+        f"{graph_ms([lambda s=s: proj_mlp(mlp_fn, x1, y1, ln, s) for s in mlp_sets]):.4f} ms")
+    host = {qkv_name: (host_us(lambda: qkv_fn(x, *ln, *qkv_sets[0])), host_us(lambda: qkv_split(x, *ln, *qkv_sets[0]))),
+            mlp_name: (host_us(lambda: proj_mlp(mlp_fn, x, y, ln, mlp_sets[0])),
+                       host_us(lambda: proj_mlp(mlp_split, x, y, ln, mlp_sets[0])))}
+    log("  host time of one wrapper call (back to back, no synchronisation): " + "; ".join(
+        f"{name} {new:.1f} us, split-K {old:.1f} us" for name, (new, old) in host.items()) + f"; {card_line()}")
+    for name, eager, split, graph in ((qkv_name, max(qkv_ms, qkv_ms2), qkv_sk, qkv_graph),
+                                      (mlp_name, max(mlp_ms, mlp_ms2), mlp_sk, mlp_graph)):
         log(f"  {name}: {graph['split-K'] / graph['kernel']:.2f}x faster than the split-K kernel on the device "
             f"(graph replay), {split / eager:.2f}x back to back from the host (the slower of the kernel's two "
             f"eager times: it includes the wrapper's host dispatch); the redesign's aim: >= 2x; {card_line()}")
-    return (
-        {"max_abs_err": qkv_err, "ms": qkv_ms, "splitk_ms": qkv_split, "plain_ms": qkv_plain, "library_ms": qkv_lib,
-         "graph_ms": qkv_graph["kernel"], "splitk_graph_ms": qkv_graph["split-K"],
-         "library_graph_ms": qkv_graph["library"], **qkv_b},
-        {"max_abs_err": mlp_err, "ms": mlp_ms, "splitk_ms": mlp_split, "plain_ms": mlp_plain, "library_ms": mlp_lib,
-         "graph_ms": mlp_graph["kernel"], "splitk_graph_ms": mlp_graph["split-K"],
-         "library_graph_ms": mlp_graph["library"], **mlp_b},
-    )
+    return tuple(
+        {"max_abs_err": err, "ms": ms, "splitk_ms": sk, "plain_ms": plain, "library_ms": lib,
+         "graph_ms": graph["kernel"], "splitk_graph_ms": graph["split-K"], "library_graph_ms": graph["library"],
+         "host_us": host[name][0], "splitk_host_us": host[name][1], **b}
+        for name, err, ms, sk, plain, lib, graph, b in (
+            (qkv_name, qkv_err, qkv_ms, qkv_sk, qkv_plain, qkv_lib, qkv_graph, qkv_b),
+            (mlp_name, mlp_err, mlp_ms, mlp_sk, mlp_plain, mlp_lib, mlp_graph, mlp_b)))
 
 
 def gemms_alone(x, y, wo, w1, w2):
@@ -702,65 +761,6 @@ def proj_mlp_bound(B, C, H, weight_bytes):
     return bound(n_bytes, 2 * B * (C * C + 2 * C * H), BF16_TENSOR_FLOPS)
 
 
-def check_dense_q8(DK, quantize_weight, dev, gen):
-    B, C = BATCH, 1536
-    H = 4 * C
-
-    def rnd(*shape, std=1.0, mean=0.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
-
-    def qw(*shape):
-        return quantize_weight(rnd(*shape, std=0.02))
-
-    x, y = rnd(B, C), rnd(B, C)
-    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
-    qkv_sets = [(*qw(3 * C, C), rnd(3 * C, std=0.02)) for _ in range(16)]  # 16 x 7.1 MB
-    mlp_sets = [
-        (*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
-        for _ in range(6)  # 6 x 21.2 MB
-    ]
-    got = DK.fused_ln_qkv_q8(x, ln_s, ln_b, *qkv_sets[0])
-    want = DK.fused_ln_qkv_q8_plain(x, ln_s, ln_b, *qkv_sets[0])
-    torch.cuda.synchronize()
-    qkv_err, _ = compare("fused_ln_qkv_q8 x[100,1536] wq int8[4608,1536]", got, want)
-    qkv_ms = cuda_ms([lambda s=s: DK.fused_ln_qkv_q8(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
-    qkv_plain = cuda_ms([lambda s=s: DK.fused_ln_qkv_q8_plain(x, ln_s, ln_b, *s) for s in qkv_sets], 50)
-    w_bf16 = [(s[0].to(torch.bfloat16) * s[1][:, None]) for s in qkv_sets[:8]]
-    qkv_lib = cuda_ms([lambda w=w: F.linear(x, w) for w in w_bf16], 50)
-    del w_bf16
-    qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C + 2 * 3 * C * 2 + B * 3 * C * 2, 2 * B * 3 * C * C,
-                  BF16_TENSOR_FLOPS)
-    log(f"  fused_ln_qkv_q8 time: kernel {qkv_ms:.4f} ms, plain {qkv_plain:.4f} ms, library (F.linear on the "
-        f"bf16 weight of the same shape, the GEMM alone) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms "
-        f"by {qkv_b['bound_by']}")
-
-    def proj_mlp(fn, s, gelu="v1"):
-        return fn(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:], gelu_version=gelu)
-
-    got = proj_mlp(DK.fused_proj_mlp_q8, mlp_sets[0])
-    want = proj_mlp(DK.fused_proj_mlp_q8_plain, mlp_sets[0])
-    torch.cuda.synchronize()
-    mlp_err, _ = compare("fused_proj_mlp_q8 wo int8[1536,1536] w1 int8[6144,1536] w2 int8[1536,6144]", got, want)
-    got = proj_mlp(DK.fused_proj_mlp_q8, mlp_sets[1], "v2")
-    want = proj_mlp(DK.fused_proj_mlp_q8_plain, mlp_sets[1], "v2")
-    torch.cuda.synchronize()
-    compare("fused_proj_mlp_q8 gelu v2 (sigmoid form)", got, want)
-    mlp_ms = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_q8, s) for s in mlp_sets], 30)
-    mlp_plain = cuda_ms([lambda s=s: proj_mlp(DK.fused_proj_mlp_q8_plain, s) for s in mlp_sets], 30)
-    deq = [[(q.to(torch.bfloat16) * sc[:, None]) for q, sc in ((s[0], s[1]), (s[3], s[4]), (s[6], s[7]))]
-           for s in mlp_sets[:3]]
-    mlp_lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq], 30)
-    del deq
-    mlp_b = proj_mlp_bound(B, C, H, 1)
-    log(f"  fused_proj_mlp_q8 time: kernel {mlp_ms:.4f} ms, plain {mlp_plain:.4f} ms, library (three F.linear "
-        f"on bf16 weights of the same shapes, the GEMMs alone) {mlp_lib:.4f} ms, bound {mlp_b['bound_ms']:.4f} "
-        f"ms by {mlp_b['bound_by']}")
-    return (
-        {"max_abs_err": qkv_err, "ms": qkv_ms, "plain_ms": qkv_plain, "library_ms": qkv_lib, **qkv_b},
-        {"max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain, "library_ms": mlp_lib, **mlp_b},
-    )
-
-
 def check_q8_pipeline(QP, quantize_weight, dev, gen):
     """#17-#20 (ops/q8_pipeline_kernel.py) against their plain versions at
     the experiment's shapes: B 100, C 1536, H 6144, bf16 activations, int8
@@ -770,7 +770,7 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
     chunk or n_buf); #19 in both modes at (1536, 4) and (768, 4), bit-equal
     to the plain version (integer sums, exact in fp32), the int32 view
     within 1e-6 of |ref|; #20 in the four ablation cases: TOL. Timed as
-    check_dense_q8 times #6 (#18 bit-equal to #17, so its error is #17's;
+    check_dense times #6 (#18 bit-equal to #17, so its error is #17's;
     the plain and library times are #17's, the same function). Returns the
     JSON entries of #17, #18, #19 and #20 (no launches yet)."""
     B, C = BATCH, 1536
@@ -1448,8 +1448,9 @@ def w8a8_phase(counters, dev, card) -> int:
     mean_d, max_d, mean_q8 = res["err"]
     if not 0 < mean_d < mean_q8:
         raise AssertionError(f"[exp_w8a8] q8a8 vs q8 mean |d| {mean_d} outside (0, mean |q8| {mean_q8})")
-    log(f"  [exp_w8a8] bf16 chain through #3's single-launch kernel (csrc/decode_dense.cu): {res['ms']['bf16']:.2f} "
-        f"ms per 16 layers (the split-K design it replaced: 3.14 ms on an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6); {card}")
+    log(f"  [exp_w8a8] bf16 and q8 chains through #3's and #6's single-launch kernel (csrc/decode_dense.cu): "
+        f"{res['ms']['bf16']:.2f} and {res['ms']['q8']:.2f} ms per 16 layers (the split-K designs they replaced: 3.14 "
+        f"and 3.29 ms on an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6); {card}")
     log(f"  [exp_w8a8] launches: fused_proj_mlp {n}, fused_proj_mlp_q8 {n + 1}, fused_proj_mlp_q8a8 {n + 1} "
         f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of "
         f"{W8A8_ITERS} x 16 calls; + 1 each of #6 and #16 for the error line), every other kernel 0; "
@@ -1491,6 +1492,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 
 def main() -> None:
+    dense_only = sys.argv[1:] == ["dense"]
+    if sys.argv[1:] and not dense_only:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only one is 'dense'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -1522,7 +1526,7 @@ def main() -> None:
         f"one nvcc per source, all at once: " + ", ".join(f"{k} {v:.1f} s" for k, v in per_source.items())
         + f" (sum {sum(per_source.values()):.1f} s)")
     for line in (build_dir / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
+        if "Used" in line or "spill" in line or "Compiling entry" in line or "wgmma" in line:
             log(f"  ptxas: {line.strip()}")
     _build.library()
     imma = count_sass(build_dir / "libw8a8.so", "IMMA")
@@ -1539,12 +1543,16 @@ def main() -> None:
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
     gen = torch.Generator(device=dev).manual_seed(0)
+    if dense_only:
+        check_dense(DK, dev, gen)
+        check_dense(DK, dev, gen, quantize_weight)
+        return
     attn = check_attention(AK, dev, gen)
     attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
     qkv, mlp = check_dense(DK, dev, gen)
     attn_q8 = check_attention_q8(AK, dev, gen)
     attn_q8_read = check_attention_q8_read_only(AK, dev, gen)
-    qkv_q8, mlp_q8 = check_dense_q8(DK, quantize_weight, dev, gen)
+    qkv_q8, mlp_q8 = check_dense(DK, dev, gen, quantize_weight)
     nearest = check_nearest_code(RK, dev, gen)
     mega = check_decode_layer_step(MK, dev, gen)
     attn_wo = check_attention_q8_wo(AK, quantize_weight, dev, gen)
@@ -1668,9 +1676,9 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:329", **mlp),
         dict(name="decode_attention_q8_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:577", **attn_q8),
-        dict(name="fused_ln_qkv_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+        dict(name="fused_ln_qkv_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:246 (ring) and :161 (grid)", **qkv_q8),
-        dict(name="fused_proj_mlp_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_layer.cu",
+        dict(name="fused_proj_mlp_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:451 (ring) and :559 (grid)", **mlp_q8),
         dict(name="nearest_code", route="cuda", source="rqvae_tpu_torch/csrc/nearest_code.cu",
              replaces="rqvae_tpu/ops/rq_kernel.py:69", **nearest),

@@ -1,16 +1,23 @@
-// The dense half of a decode transformer layer on Hopper (sm_90a), bf16
-// weights, one launch per call:
+// The dense half of a decode transformer layer on Hopper (sm_90a), one
+// launch per call, with bf16 weights or int8 weights and one bf16 scale s
+// per output channel (a weight row):
 //
 //   rq_fused_ln_qkv:   qkv = bf16(LN1(x) @ wqkv^T + bqkv)
-//   rq_fused_proj_mlp: x2  = x + bf16(bf16(y @ wo^T) + bo)
-//                      t   = bf16(gelu(LN2(x2) @ w1^T + b1))
-//                      out = x2 + bf16(t @ w2^T + b2)
+//                     (int8: bf16(acc * s + bqkv), acc = LN1(x) @ q^T in fp32)
+//   rq_fused_proj_mlp: x2  = x + bf16(bf16(y @ wo^T) + bo)  (int8: x + bf16(acc_o * s_o + bo))
+//                      t   = bf16(gelu(LN2(x2) @ w1^T + b1))  (int8: bf16(gelu(acc_1 * s_1 + b1)))
+//                      out = x2 + bf16(t @ w2^T + b2)  (int8: x2 + bf16(acc_2 * s_2 + b2))
 //
 // Replace the TPU kernels rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv
-// (:109) and ::fused_proj_mlp (:329), at their rounding points (one-pass
-// fp32 LayerNorm cast to bf16; fp32 products; QKV's bias on the fp32 sum
-// before its one cast; the projection cast before + bo and the residual;
-// gelu in fp32, then the cast; + b2 in fp32, the cast, the residual). The
+// (:109) and ::fused_proj_mlp (:329), and with int8 weights
+// ::fused_ln_qkv_q8_ring (:246) / ::fused_ln_qkv_q8 (:161) and
+// ::fused_proj_mlp_q8_ring (:451) / ::fused_proj_mlp_q8 (:559) (each pair
+// differs only in TPU DMA depth), at their rounding points (one-pass fp32
+// LayerNorm cast to bf16; fp32 products; QKV's bias on the fp32 sum before
+// its one cast; the bf16 projection cast before + bo and the residual, the
+// int8 one scaled and biased in fp32 before its cast; gelu in fp32, then
+// the cast; + b2 in fp32, the cast, the residual; an int8 weight's scale on
+// the whole fp32 sum of its channel, after the cluster's reduction). The
 // weights come in the nn.Linear [out, in] layout. The split-K kernels
 // these replace stay in csrc/decode_layer.cu (rq_*_splitk) as the A/B
 // baseline.
@@ -72,6 +79,22 @@
 //   is not carried over: on 132 parallel CTAs each H-slice would leave a
 //   [B, C] fp32 partial, ~96 x 600 KB to reduce at B 100, C 1536, more than
 //   the weights themselves.
+//
+// int8 weights halve the bytes that bound the kernel: at C 1536 and B 100 a
+// call moves 8.3 MB (ln_qkv) or 22.4 MB (proj_mlp), at least 0.0025 ms or
+// 0.0066 ms at 3.35 TB/s. The int8 tile (64 rows x 64 bytes) comes by TMA
+// with the 64-byte swizzle, so a ring stage is 4 KB and the ring holds twice
+// the tiles of the bf16 one in the same bytes. The products stay bf16 x
+// bf16 -> fp32 on wgmma (int8 values are exact in bf16, so the sums equal
+// those on the weight dequantized before its scale); the widening runs in
+// the wgmma warpgroup's registers: each lane reads its A fragment bytes
+// (mma.m16n8k16's A layout, two 32-bit loads a row, no bank conflict under
+// the swizzle), widens them with byte permutes and an fp32 magic-number
+// subtraction (2.75 instructions an element), and issues wgmma with A from
+// registers and B from shared memory; a k16 step's fragment is widened
+// while the step before runs (two fragments alternate). No bf16 copy of a
+// weight tile exists anywhere, and the epilogue reads the scales beside the
+// biases.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,7 +109,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;                    // weight rows per tile (the wgmma M)
 constexpr int kBK = 64;                      // reduction elements per stage: one 128-byte row
-constexpr int kTileBytes = kTile * kBK * 2;  // 8 KB: one weight tile of the ring
 constexpr int kRowBytes = kBK * 2;           // one activation row of a B tile
 constexpr int kConsumers = 256;              // two warpgroups: the first runs wgmma
 constexpr int kThreads = kConsumers + 32;    // + the producer warp
@@ -99,6 +121,7 @@ constexpr int kMaxSmem = 232448;
 // plan, ops/decode_layer_kernel.py::_smem_bytes, mirrors `total`).
 struct Layout {
   int stage_bytes;  // one ring stage: a weight tile (+ a t tile for proj_mlp)
+  int tile_bytes;   // a weight tile: 64 x 64 elements of wbytes each
   int panel;        // the resident B operand: k_slice / 64 blocks of [mt, 64] swizzled
   int red;          // the partial tiles pushed to this CTA: red_bytes(mt)
   int norm;         // float2 [mt]: (mean, rstd)
@@ -116,9 +139,10 @@ struct Layout {
 // use it too: slot q of every CTA gets q's float2 [mt].
 __host__ __device__ inline int red_bytes(int mt) { return (mt / 2 + kMaxCluster) * 512; }
 
-__host__ __device__ inline Layout layout(int mt, int k_slice, int stages, bool mlp) {
+__host__ __device__ inline Layout layout(int mt, int k_slice, int stages, bool mlp, int wbytes) {
   Layout l;
-  l.stage_bytes = kTileBytes + (mlp ? mt * kRowBytes : 0);
+  l.tile_bytes = kTile * kBK * wbytes;
+  l.stage_bytes = l.tile_bytes + (mlp ? mt * kRowBytes : 0);
   l.panel = stages * l.stage_bytes;
   l.red = l.panel + (k_slice / kBK) * mt * kRowBytes;
   l.norm = l.red + red_bytes(mt);
@@ -136,6 +160,9 @@ struct Params {
   const bf16* b0;    // bqkv [N] (ln_qkv), bo [C] (proj_mlp)
   const bf16* b1;    // [H]
   const bf16* b2;    // [C]
+  const bf16* s0;    // the int8 weights' scales: wqkv's [N] (ln_qkv), wo's [C] (proj_mlp)
+  const bf16* s1;    // w1's [H]
+  const bf16* s2;    // w2's [C]
   bf16* out;         // [M, N] (ln_qkv), [M, C] (proj_mlp)
   bf16* x2;          // [M, C] scratch
   bf16* t;           // [H / 64, row_tiles * mt, 64] scratch, swizzled B tiles
@@ -649,6 +676,127 @@ __device__ __forceinline__ void wgmma<256>(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A from registers (the int8
+// weight tile widened to bf16: four 32-bit registers a lane, the
+// mma.m16n8k16 A layout, warp w holding rows 16 w .. 16 w + 15), B from
+// shared memory as above, D scaled by 1 (accumulate); N of 8, 16, ..., 256
+template <int N>
+__device__ __forceinline__ void wgmma_rs_shape(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<8>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<16>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<32>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_shape<256>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N] with A from registers, for every row
+// tile the kernels are built for: N as a sum of the shapes above, widest
+// first (104 = 64 + 32 + 8), each on its own columns of D and rows of B
+// (N-row c0 of a B tile starts c0 * 128 bytes on)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  constexpr int W = N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32 : N >= 16 ? 16 : 8;
+  wgmma_rs_shape<W>(d, a, db);
+  if constexpr (N > W) wgmma_rs<N - W>(d + W / 2, a, db + (uint64_t)(W * kRowBytes >> 4));
+}
+
 // ---- small helpers --------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -675,6 +823,47 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return u;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// four int8 (bytes of v) -> two bf16 pairs, exactly: each byte, its sign bit
+// flipped (x + 128), goes under the exponent of 2^23 and 2^23 + 128 is taken
+// off in fp32; the upper halves of the exact floats are their bf16 values.
+// lo = (byte 0, byte 1), hi = (byte 2, byte 3), the lower byte in the low half
+__device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// The A fragment of k16 step kk of the int8 weight tile at `tile` (64 rows
+// x 64 bytes, the TMA 64-byte swizzle: 16-byte chunk c of row r at r * 64 +
+// ((c ^ (r / 2 % 4)) << 4)), widened to bf16, for the wgmma warpgroup's
+// lane l of warp w: rows r = 16 w + l / 4 and r + 8, K pairs (2q, 2q + 1)
+// and (2q + 8, 2q + 9) of the step, q = l % 4, in a = {(r, lo), (r + 8, lo),
+// (r, hi), (r + 8, hi)}. A row's two words (K 4 (q / 2) .. + 3 and 8 + 4 (q /
+// 2) .. + 3) give its four bytes by one byte permute; across the warp the
+// 32-bit loads fall on 32 distinct banks.
+__device__ __forceinline__ void load_a_q8(uint32_t* a, uint32_t tile, int kk) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int q = lane & 3;
+  const uint32_t word = tile + r * 64 + ((kk ^ ((r >> 1) & 3)) << 4) + 4 * (q >> 1);
+  const uint32_t sel = (q & 1) ? 0x7632u : 0x5410u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows r and r + 8: the same swizzle, 512 bytes on
+    const uint32_t v = __byte_perm(lds_u32(word + h * 512), lds_u32(word + h * 512 + 8), sel);
+    widen4(v, a[h], a[2 + h]);
+  }
 }
 
 // byte offset of 16-byte chunk c (of 8) of row m in a swizzled [rows, 64] B tile
@@ -774,7 +963,7 @@ __device__ __forceinline__ Product product(bool mlp, int i, const Params& p) {
 
 struct Ring {
   uint32_t base, full, empty;
-  int stages, stage_bytes;
+  int stages, stage_bytes, tile_bytes;
 };
 
 // The producer: lane 0 of the last warp issues every weight tile (and, in
@@ -794,7 +983,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* map0, const CUtensor
     mbar_wait(gate, 0);
     fence_async_global();
     for (int d = 0; d < n_def; ++d)
-      bulk_copy(ring.base + def_stage[d] * ring.stage_bytes + kTileBytes, def_src[d], MT * kRowBytes,
+      bulk_copy(ring.base + def_stage[d] * ring.stage_bytes + ring.tile_bytes, def_src[d], MT * kRowBytes,
                 ring.full + def_stage[d] * 8);
     n_def = 0;
     open = true;
@@ -805,7 +994,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* map0, const CUtensor
     const int ks = pr.k / s;
     const int k_lo = rank * ks;
     const int chunks = ks / kBK;
-    const uint32_t bytes = kTileBytes + (pr.streamed ? MT * kRowBytes : 0);
+    const uint32_t bytes = ring.tile_bytes + (pr.streamed ? MT * kRowBytes : 0);
     for (int rt = 0; rt < p.row_tiles; ++rt) {
       for (int j = cid; j < pr.tiles; j += G) {
         for (int kc = 0; kc < chunks; ++kc, ++it) {
@@ -823,7 +1012,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* map0, const CUtensor
           if (pr.streamed) {
             const bf16* src = p.t + ((size_t)(k_lo / kBK + kc) * m_pad + (size_t)rt * MT) * kBK;
             if (open) {
-              bulk_copy(dst + kTileBytes, src, MT * kRowBytes, full);
+              bulk_copy(dst + ring.tile_bytes, src, MT * kRowBytes, full);
             } else {
               def_stage[n_def] = stage;
               def_src[n_def] = src;
@@ -840,8 +1029,11 @@ __device__ __forceinline__ void producer(const CUtensorMap* map0, const CUtensor
 // One weight tile's K loop over this CTA's chunks, by the first warpgroup:
 // acc = its partial product. B comes from the panel (block kc at panel + kc
 // * MT * 128) or, when streamed, from the stage itself (after the weight
-// tile).
-template <int MT>
+// tile). A bf16 weight tile is wgmma's A operand in shared memory, a chunk
+// one commit group; an int8 one is widened into registers a k16 step at a
+// time (load_a_q8), a step one commit group, the next step's fragment
+// widened while the step runs.
+template <int MT, bool kQ8>
 __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring, uint32_t panel, bool streamed,
                                        int& it) {
 #pragma unroll
@@ -852,16 +1044,31 @@ __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring,
     const int stage = it % ring.stages;
     mbar_wait(ring.full + stage * 8, (it / ring.stages) & 1);
     const uint32_t a = ring.base + stage * ring.stage_bytes;
-    const uint32_t b = streamed ? a + kTileBytes : panel + kc * MT * kRowBytes;
-    const uint64_t da = sw128_desc(a);
+    const uint32_t b = streamed ? a + ring.tile_bytes : panel + kc * MT * kRowBytes;
     const uint64_t db = sw128_desc(b);
-    fence_acc<MT / 2>(acc);
-    wgmma_fence();
+    if constexpr (kQ8) {
+      uint32_t frag[2][4];
+      load_a_q8(frag[0], a, 0);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma<MT>(acc, da + 2 * kk, db + 2 * kk);  // +32 bytes per k16
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        fence_acc<MT / 2>(acc);
+        wgmma_fence();
+        wgmma_rs<MT>(acc, frag[kk & 1], db + 2 * kk);  // +32 bytes per k16
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before is done: its fragment may be rewritten
+        if (kk == 0 && prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);  // and the chunk before
+        if (kk + 1 < kBK / 16) load_a_q8(frag[(kk + 1) & 1], a, kk + 1);
+      }
+    } else {
+      const uint64_t da = sw128_desc(a);
+      fence_acc<MT / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma<MT>(acc, da + 2 * kk, db + 2 * kk);  // +32 bytes per k16
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);
+    }
     prev = stage;
   }
   wgmma_wait<0>();
@@ -913,8 +1120,9 @@ __device__ __forceinline__ void store_bf16(bf16* p, float v) { *p = __float2bflo
 // After the round: this CTA sums its row pairs over the s slots in rank
 // order and applies the epilogue. Of the consumer warps from warp0 on
 // (nwarps of them), warp w takes pairs lo + w, lo + w + nwarps, ...; lane l
-// the column pair (o, o + 8), o = 16 (l / 8) + l % 8, of both rows.
-template <int MT, Epilogue E>
+// the column pair (o, o + 8), o = 16 (l / 8) + l % 8, of both rows. With
+// int8 weights (kQ8) each channel's sum is scaled before the bias.
+template <int MT, Epilogue E, bool kQ8>
 __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int s, int rank, int m0, int j,
                                          int warp0, int nwarps) {
   constexpr int P = MT / 2;
@@ -928,6 +1136,12 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
   const int m_pad = p.row_tiles * MT;
   const bf16* bias = (E == kQkv || E == kProj) ? p.b0 : E == kGelu ? p.b1 : p.b2;
   const float b0 = bf16_at(bias + n), b8 = bf16_at(bias + n + 8);
+  float sc0 = 1.f, sc8 = 1.f;
+  if (kQ8) {
+    const bf16* scale = (E == kQkv || E == kProj) ? p.s0 : E == kGelu ? p.s1 : p.s2;
+    sc0 = bf16_at(scale + n);
+    sc8 = bf16_at(scale + n + 8);
+  }
   for (int mp = lo + warp; mp < hi; mp += nwarps) {
     float4 v = red[(mp - lo) * 32 + lane];
     for (int q = 1; q < s; ++q) {
@@ -944,17 +1158,20 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
       const bool ok = E == kGelu ? true : gm < p.M;
       const float a = h ? v.y : v.x;
       const float c = h ? v.w : v.z;
+      // the fp32 sum plus the bias (int8: times the scale, then plus the bias)
+      const float y0 = kQ8 ? __fadd_rn(__fmul_rn(a, sc0), b0) : a + b0;
+      const float y8 = kQ8 ? __fadd_rn(__fmul_rn(c, sc8), b8) : c + b8;
       if (E == kQkv) {
         if (ok) {
-          store_bf16(p.out + (size_t)gm * p.N + n, a + b0);
-          store_bf16(p.out + (size_t)gm * p.N + n + 8, c + b8);
+          store_bf16(p.out + (size_t)gm * p.N + n, y0);
+          store_bf16(p.out + (size_t)gm * p.N + n + 8, y8);
         }
       } else if (E == kProj) {
         float x0 = 0.f, x8 = 0.f;
-        if (ok) {
+        if (ok) {  // bf16 weights: the product is cast before + bo
           const bf16* xr = p.x + (size_t)gm * p.C + n;
-          x0 = round_bf16(bf16_at(xr) + round_bf16(round_bf16(a) + b0));
-          x8 = round_bf16(bf16_at(xr + 8) + round_bf16(round_bf16(c) + b8));
+          x0 = round_bf16(bf16_at(xr) + round_bf16(kQ8 ? y0 : round_bf16(a) + b0));
+          x8 = round_bf16(bf16_at(xr + 8) + round_bf16(kQ8 ? y8 : round_bf16(c) + b8));
           store_bf16(p.x2 + (size_t)gm * p.C + n, x0);
           store_bf16(p.x2 + (size_t)gm * p.C + n + 8, x8);
         }
@@ -962,7 +1179,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
         const float s2 = warp_sum(x0 * x0 + x8 * x8);
         if (ok && lane == 0) p.stats[(size_t)gm * (p.C / kTile) + j] = make_float2(s1, s2);
       } else if (E == kGelu) {
-        float t0 = a + b0, t8 = c + b8;
+        float t0 = y0, t8 = y8;
         if (p.gelu_sigmoid) {
           t0 = t0 / (1.f + expf(-1.702f * t0));
           t8 = t8 / (1.f + expf(-1.702f * t8));
@@ -976,8 +1193,8 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
         store_bf16(tile + (((((o + 8) >> 3) ^ (gm & 7)) << 3) | (o & 7)), t8);
       } else if (ok) {
         const bf16* x2r = p.x2 + (size_t)gm * p.C + n;
-        store_bf16(p.out + (size_t)gm * p.C + n, bf16_at_cg(x2r) + round_bf16(a + b0));
-        store_bf16(p.out + (size_t)gm * p.C + n + 8, bf16_at_cg(x2r + 8) + round_bf16(c + b8));
+        store_bf16(p.out + (size_t)gm * p.C + n, bf16_at_cg(x2r) + round_bf16(y0));
+        store_bf16(p.out + (size_t)gm * p.C + n + 8, bf16_at_cg(x2r + 8) + round_bf16(y8));
       }
     }
   }
@@ -1122,7 +1339,7 @@ __device__ __forceinline__ void ln2_stats(const Params& p, int m0, int rows, flo
 // epilogue of tile j - G (its round's pushes having landed meanwhile); then
 // the first pushes tile j's partial. The last tile's epilogue runs on all
 // consumer warps.
-template <int MT, Epilogue E>
+template <int MT, Epilogue E, bool kQ8>
 __device__ __forceinline__ void run_tiles(const Params& p, float* acc, int tiles, int cid, int G, int chunks,
                                           const Ring& ring, uint32_t panel, bool streamed, int& it, Exchange& xc,
                                           const float4* red, uint32_t red_u32, int s, int rank, int m0) {
@@ -1130,10 +1347,10 @@ __device__ __forceinline__ void run_tiles(const Params& p, float* acc, int tiles
   int pending = -1;
   for (int j = cid; j < tiles; j += G) {
     if (mma) {
-      k_loop<MT>(acc, chunks, ring, panel, streamed, it);
+      k_loop<MT, kQ8>(acc, chunks, ring, panel, streamed, it);
     } else if (pending >= 0) {
       xc.wait();
-      epilogue<MT, E>(p, red, s, rank, m0, pending, 4, 4);
+      epilogue<MT, E, kQ8>(p, red, s, rank, m0, pending, 4, 4);
     }
     if (pending >= 0) xc.end();  // the consumer barrier first
     xc.begin(partial_bytes(MT, s, rank));
@@ -1142,16 +1359,18 @@ __device__ __forceinline__ void run_tiles(const Params& p, float* acc, int tiles
   }
   if (pending >= 0) {
     xc.wait();
-    epilogue<MT, E>(p, red, s, rank, m0, pending, 0, kConsumers / 32);
+    epilogue<MT, E, kQ8>(p, red, s, rank, m0, pending, 0, kConsumers / 32);
     xc.end();
   }
 }
 
-template <int MT, bool kMlp>
+// W: the weights' element type, bf16 or int8_t (scaled per output channel)
+template <int MT, bool kMlp, typename W>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_kernel(const __grid_constant__ CUtensorMap map0, const __grid_constant__ CUtensorMap map1,
                  const __grid_constant__ CUtensorMap map2, const __grid_constant__ CUtensorMap amap0,
                  const __grid_constant__ CUtensorMap amap1, const Params p) {
+  constexpr bool kQ8 = sizeof(W) == 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int s = (int)(gridDim.x / cluster_count());
@@ -1159,13 +1378,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cid = (int)cluster_id();
   const int G = (int)cluster_count();
   const int k_slice = p.C / s;  // this CTA's K of every product over C
-  const Layout L = layout(MT, k_slice, p.stages, kMlp);
+  const Layout L = layout(MT, k_slice, p.stages, kMlp, (int)sizeof(W));
   uint8_t* panel = smem + L.panel;
   float* red = reinterpret_cast<float*>(smem + L.red);
   float2* norm = reinterpret_cast<float2*>(smem + L.norm);
   float2* lnp = reinterpret_cast<float2*>(smem + L.lnp);
   const uint32_t bars = smem_u32(smem + L.bars);
-  const Ring ring{smem_u32(smem), bars, bars + p.stages * 8, p.stages, L.stage_bytes};
+  const Ring ring{smem_u32(smem), bars, bars + p.stages * 8, p.stages, L.stage_bytes, L.tile_bytes};
   const uint32_t xfull = bars + 2 * p.stages * 8;
   const uint32_t xempty = xfull + 8;
   const uint32_t gate = xempty + 8;
@@ -1221,16 +1440,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         xc.end();  // includes the consumer barrier: norm is complete
         normalise_panel<MT>(panel, k_slice, rows, norm, lnp);
         if (rt == 0) stamp(1);
-        run_tiles<MT, kQkv>(p, acc, pr.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4, red_u32,
+        run_tiles<MT, kQkv, kQ8>(p, acc, pr.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4, red_u32,
                             s, rank, m0);
       }
     } else {
-      // phase 1: x2 = x + bf16(bf16(y wo^T) + bo), with LN2's partial sums
+      // phase 1: x2 = x + bf16(bf16(y wo^T) + bo) (int8: x + bf16(acc_o s_o + bo)), with LN2's partial sums
       const Product p0 = product(true, 0, p);
       for (int rt = 0; rt < p.row_tiles && cid < p0.tiles; ++rt) {
         const int m0 = rt * MT;
         load_panel<MT>(panel_u32, &amap0, k_lo, k_slice, m0, pbar, loads++ & 1);
-        run_tiles<MT, kProj>(p, acc, p0.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4,
+        run_tiles<MT, kProj, kQ8>(p, acc, p0.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4,
                              red_u32, s, rank, m0);
       }
       stamp(1);
@@ -1250,7 +1469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ln2_stats<MT>(p, m0, rows, norm);
         mbar_wait(pbar, loads++ & 1);
         normalise_panel<MT>(panel, k_slice, rows, norm, lnp);
-        run_tiles<MT, kGelu>(p, acc, p1.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4,
+        run_tiles<MT, kGelu, kQ8>(p, acc, p1.tiles, cid, G, k_slice / kBK, ring, panel_u32, false, it, xc, red4,
                              red_u32, s, rank, m0);
       }
       fence_async_global();  // t is read by bulk copies after the barrier
@@ -1261,7 +1480,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // phase 3: out = x2 + bf16(t w2^T + b2), t tiles through the ring
       const Product p2 = product(true, 2, p);
       for (int rt = 0; rt < p.row_tiles; ++rt)
-        run_tiles<MT, kOut>(p, acc, p2.tiles, cid, G, p2.k / s / kBK, ring, 0u, true, it, xc, red4, red_u32, s,
+        run_tiles<MT, kOut, kQ8>(p, acc, p2.tiles, cid, G, p2.k / s / kBK, ring, 0u, true, it, xc, red4, red_u32, s,
                             rank, rt * MT);
     }
     stamp(kMlp ? 5 : 2);
@@ -1295,11 +1514,11 @@ EncodeTiled encode_tiled() {
 }
 
 // the dynamic shared memory each kernel may use, set once per kernel
-template <int MT, bool kMlp>
+template <int MT, bool kMlp, typename W>
 cudaError_t allow_smem(int smem) {
   static int allowed = 0;
   if (smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute((const void*)dense_kernel<MT, kMlp>,
+  const cudaError_t e = cudaFuncSetAttribute((const void*)dense_kernel<MT, kMlp, W>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) allowed = smem;
   return e;
@@ -1321,7 +1540,7 @@ cudaLaunchConfig_t config(int cluster, int clusters, int smem, cudaStream_t stre
 }
 
 // clusters of `cluster` CTAs with `smem` bytes each that the device holds at once
-template <int MT, bool kMlp>
+template <int MT, bool kMlp, typename W>
 cudaError_t max_clusters(int cluster, int smem, int* out) {
   static int keys[32], values[32], n = 0;  // (cluster, smem) -> count, per kernel
   const int key = cluster * (kMaxSmem + 1) + smem;
@@ -1330,11 +1549,11 @@ cudaError_t max_clusters(int cluster, int smem, int* out) {
       *out = values[i];
       return cudaSuccess;
     }
-  cudaError_t e = allow_smem<MT, kMlp>(smem);
+  cudaError_t e = allow_smem<MT, kMlp, W>(smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(cluster, 1, smem, nullptr, attr);
-  e = cudaOccupancyMaxActiveClusters(out, (const void*)dense_kernel<MT, kMlp>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(out, (const void*)dense_kernel<MT, kMlp, W>, &cfg);
   if (e == cudaSuccess && n < 32) {
     keys[n] = key;
     values[n++] = *out;
@@ -1342,18 +1561,18 @@ cudaError_t max_clusters(int cluster, int smem, int* out) {
   return e;
 }
 
-template <int MT, bool kMlp>
+template <int MT, bool kMlp, typename W>
 int launch(const void* const* maps, const Params& p, int cluster, int clusters, int smem, cudaStream_t stream) {
   const int k_slice = p.C / cluster;
   if (cluster < 1 || cluster > kMaxCluster || clusters < 1 || p.stages < kMinStages || p.stages > kMaxStages ||
-      k_slice % kBK || layout(MT, k_slice, p.stages, kMlp).total > smem || smem > kMaxSmem ||
+      k_slice % kBK || layout(MT, k_slice, p.stages, kMlp, (int)sizeof(W)).total > smem || smem > kMaxSmem ||
       (kMlp && (p.N / cluster) % kBK) || p.row_tiles * MT < p.M)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem<MT, kMlp>(smem);
+  cudaError_t e = allow_smem<MT, kMlp, W>(smem);
   if (e != cudaSuccess) return (int)e;
   if (kMlp) {  // the grid barriers need every CTA resident at once
     int most = 0;
-    e = max_clusters<MT, kMlp>(cluster, smem, &most);
+    e = max_clusters<MT, kMlp, W>(cluster, smem, &most);
     if (e != cudaSuccess) return (int)e;
     if (clusters > most) return (int)cudaErrorCooperativeLaunchTooLarge;
   }
@@ -1363,7 +1582,7 @@ int launch(const void* const* maps, const Params& p, int cluster, int clusters, 
   void* args[] = {&t[0], &t[1], &t[2], &t[3], &t[4], &params};
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(cluster, clusters, smem, stream, attr);
-  e = cudaLaunchKernelExC(&cfg, (const void*)dense_kernel<MT, kMlp>, args);
+  e = cudaLaunchKernelExC(&cfg, (const void*)dense_kernel<MT, kMlp, W>, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1374,22 +1593,56 @@ int launch(const void* const* maps, const Params& p, int cluster, int clusters, 
   X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
 #define RQ_TILES_QKV(X) RQ_TILES_MLP(X) X(160) X(192) X(224) X(256)
 
+// launch() and max_clusters() of the kernel built for row tile mt
+template <bool kMlp, typename W>
+int launch_tile(int mt, const void* const* maps, const Params& p, int cluster, int clusters, int smem,
+                cudaStream_t stream) {
+#define RQ_CASE(T) \
+  case T:          \
+    return launch<T, kMlp, W>(maps, p, cluster, clusters, smem, stream);
+  if constexpr (kMlp) {
+    switch (mt) { RQ_TILES_MLP(RQ_CASE) }
+  } else {
+    switch (mt) { RQ_TILES_QKV(RQ_CASE) }
+  }
+#undef RQ_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kMlp, typename W>
+int max_clusters_tile(int mt, int cluster, int smem, int* out) {
+#define RQ_CASE(T) \
+  case T:          \
+    return (int)max_clusters<T, kMlp, W>(cluster, smem, out);
+  if constexpr (kMlp) {
+    switch (mt) { RQ_TILES_MLP(RQ_CASE) }
+  } else {
+    switch (mt) { RQ_TILES_QKV(RQ_CASE) }
+  }
+#undef RQ_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Encode the TMA tensor map of a bf16 matrix [rows, cols] (row-major, 16-byte
-// aligned) in boxes of box_rows rows x 64 columns with the 128-byte swizzle
-// into out (128 bytes): a weight's (box_rows 64) or an activation's (the row
-// tile). Rows past `rows` read as zeros. Returns 0, or a CUDA error code.
-extern "C" int rq_dense_tensor_map(const void* w, int rows, int cols, int box_rows, void* out) {
+// Encode the TMA tensor map of a matrix [rows, cols] (row-major, 16-byte
+// aligned) of bf16 (elem_bytes 2) or int8 (1) in boxes of box_rows rows x
+// 64 columns, with the 128-byte (bf16) or 64-byte (int8) swizzle, into out
+// (128 bytes): a weight's (box_rows 64) or an activation's (the row tile).
+// Rows past `rows` read as zeros. Returns 0, or a CUDA error code.
+extern "C" int rq_dense_tensor_map(const void* w, int rows, int cols, int box_rows, int elem_bytes, void* out) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (elem_bytes != 1 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
+  const bool int8 = elem_bytes == 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {kBK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   CUtensorMap map;  // 64-byte aligned here; out need not be
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = encode(&map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            const_cast<void*>(w), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out-of-bounds elements read as zeros
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   memcpy(out, &map, sizeof(map));
@@ -1397,38 +1650,33 @@ extern "C" int rq_dense_tensor_map(const void* w, int rows, int cols, int box_ro
 }
 
 // How many clusters of `cluster` CTAs of the row-tile-`mt` kernel (mlp: the
-// proj_mlp one) with `smem` bytes of shared memory the device holds at once.
-extern "C" int rq_dense_max_clusters(int mlp, int mt, int cluster, int smem, int* out) {
-#define RQ_CASE_MLP(T) \
-  case T:              \
-    return (int)max_clusters<T, true>(cluster, smem, out);
-#define RQ_CASE_QKV(T) \
-  case T:              \
-    return (int)max_clusters<T, false>(cluster, smem, out);
-  if (mlp) {
-    switch (mt) { RQ_TILES_MLP(RQ_CASE_MLP) }
-  } else {
-    switch (mt) { RQ_TILES_QKV(RQ_CASE_QKV) }
-  }
-#undef RQ_CASE_MLP
-#undef RQ_CASE_QKV
-  return (int)cudaErrorInvalidValue;
+// proj_mlp one; int8: for int8 weights) with `smem` bytes of shared memory
+// the device holds at once.
+extern "C" int rq_dense_max_clusters(int mlp, int mt, int cluster, int smem, int int8, int* out) {
+  if (mlp)
+    return int8 ? max_clusters_tile<true, int8_t>(mt, cluster, smem, out)
+                : max_clusters_tile<true, bf16>(mt, cluster, smem, out);
+  return int8 ? max_clusters_tile<false, int8_t>(mt, cluster, smem, out)
+              : max_clusters_tile<false, bf16>(mt, cluster, smem, out);
 }
 
-// qkv = bf16(LN1(x) @ w^T + bqkv). x: [M, C] and x_map, its tensor map in
-// boxes of mt rows; ln_w, ln_b: [C]; w_map: the tensor map of wqkv [N, C];
-// bqkv: [N]; out: [M, N]; all bf16. One launch of
-// `clusters` clusters of `cluster` CTAs, row tiles of `mt` rows (row_tiles *
-// mt >= M), a ring of `stages` weight tiles, `smem` bytes of dynamic shared
-// memory (the plan of ops/decode_layer_kernel.py::dense_plan).
+// qkv = bf16(LN1(x) @ w^T + bqkv), or with int8 weights bf16((LN1(x) @ q^T)
+// * ws + bqkv). x: [M, C] and x_map, its tensor map in boxes of mt rows;
+// ln_w, ln_b: [C]; w_map: the tensor map of the weight [N, C] (bf16, or
+// int8 when ws is given); ws: the int8 weight's scales [N], or null; bqkv:
+// [N]; out: [M, N]; all else bf16. One launch of `clusters` clusters of
+// `cluster` CTAs, row tiles of `mt` rows (row_tiles * mt >= M), a ring of
+// `stages` weight tiles, `smem` bytes of dynamic shared memory (the plan of
+// ops/decode_layer_kernel.py::dense_plan).
 extern "C" int rq_fused_ln_qkv(const void* x, const void* x_map, const void* ln_w, const void* ln_b, const void* w_map,
-                               const void* bqkv, void* out, int M, int C, int N, int cluster, int clusters, int mt,
-                               int row_tiles, int stages, int smem, float eps, void* stream) {
+                               const void* ws, const void* bqkv, void* out, int M, int C, int N, int cluster,
+                               int clusters, int mt, int row_tiles, int stages, int smem, float eps, void* stream) {
   Params p = {};
   p.x = static_cast<const bf16*>(x);
   p.ln_w = static_cast<const bf16*>(ln_w);
   p.ln_b = static_cast<const bf16*>(ln_b);
   p.b0 = static_cast<const bf16*>(bqkv);
+  p.s0 = static_cast<const bf16*>(ws);
   p.out = static_cast<bf16*>(out);
   p.M = M;
   p.C = C;
@@ -1437,27 +1685,30 @@ extern "C" int rq_fused_ln_qkv(const void* x, const void* x_map, const void* ln_
   p.stages = stages;
   p.eps = eps;
   const void* maps[5] = {w_map, w_map, w_map, x_map, x_map};
-#define RQ_CASE(T) \
-  case T:          \
-    return launch<T, false>(maps, p, cluster, clusters, smem, (cudaStream_t)stream);
-  switch (mt) { RQ_TILES_QKV(RQ_CASE) }
-#undef RQ_CASE
-  return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return ws ? launch_tile<false, int8_t>(mt, maps, p, cluster, clusters, smem, st)
+            : launch_tile<false, bf16>(mt, maps, p, cluster, clusters, smem, st);
 }
 
 // x2 = x + bf16(bf16(y @ wo^T) + bo); out = x2 + bf16(bf16(gelu(LN2(x2) @
-// w1^T + b1)) @ w2^T + b2). x, y, out, x2 (scratch): [M, C], and the tensor
-// maps of y and x2 in boxes of mt rows; the tensor maps of wo [C, C], w1
-// [H, C], w2 [C, H]; biases and LN2 [C] or [H]; t (scratch):
+// w1^T + b1)) @ w2^T + b2); with int8 weights (their scales wo_s [C], w1_s
+// [H], w2_s [C] given; all three null for bf16 weights) x2 = x + bf16((y @
+// wo_q^T) * wo_s + bo), t = bf16(gelu((LN2(x2) @ w1_q^T) * w1_s + b1)), out
+// = x2 + bf16((t @ w2_q^T) * w2_s + b2). x, y, out, x2 (scratch): [M, C],
+// and the tensor maps of y and x2 in boxes of mt rows; the tensor maps of
+// wo [C, C], w1 [H, C], w2 [C, H]; biases and LN2 [C] or [H]; t (scratch):
 // [H / 64, row_tiles * mt, 64]; stats (scratch): fp32 [M, C / 64, 2]; all
 // else bf16. gelu_sigmoid selects t * sigmoid(1.702 t) over the exact erf.
 // One persistent launch, co-resident or refused; the plan as for
 // rq_fused_ln_qkv.
-extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map, const void* wo_map, const void* bo,
-                                 const void* ln_w, const void* ln_b, const void* w1_map, const void* b1,
-                                 const void* w2_map, const void* b2, void* out, void* x2, const void* x2_map, void* t, void* stats, int M,
-                                 int C, int H, int cluster, int clusters, int mt, int row_tiles, int stages, int smem,
+extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map, const void* wo_map, const void* wo_s,
+                                 const void* bo, const void* ln_w, const void* ln_b, const void* w1_map,
+                                 const void* w1_s, const void* b1, const void* w2_map, const void* w2_s, const void* b2,
+                                 void* out, void* x2, const void* x2_map, void* t, void* stats, int M, int C, int H,
+                                 int cluster, int clusters, int mt, int row_tiles, int stages, int smem,
                                  int gelu_sigmoid, float eps, void* stream) {
+  if ((wo_s == nullptr) != (w1_s == nullptr) || (wo_s == nullptr) != (w2_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   Params p = {};
   p.x = static_cast<const bf16*>(x);
   p.y = static_cast<const bf16*>(y);
@@ -1466,6 +1717,9 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map
   p.b0 = static_cast<const bf16*>(bo);
   p.b1 = static_cast<const bf16*>(b1);
   p.b2 = static_cast<const bf16*>(b2);
+  p.s0 = static_cast<const bf16*>(wo_s);
+  p.s1 = static_cast<const bf16*>(w1_s);
+  p.s2 = static_cast<const bf16*>(w2_s);
   p.out = static_cast<bf16*>(out);
   p.x2 = static_cast<bf16*>(x2);
   p.t = static_cast<bf16*>(t);
@@ -1478,12 +1732,9 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map
   p.gelu_sigmoid = gelu_sigmoid;
   p.eps = eps;
   const void* maps[5] = {wo_map, w1_map, w2_map, y_map, x2_map};
-#define RQ_CASE(T) \
-  case T:          \
-    return launch<T, true>(maps, p, cluster, clusters, smem, (cudaStream_t)stream);
-  switch (mt) { RQ_TILES_MLP(RQ_CASE) }
-#undef RQ_CASE
-  return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return wo_s ? launch_tile<true, int8_t>(mt, maps, p, cluster, clusters, smem, st)
+              : launch_tile<true, bf16>(mt, maps, p, cluster, clusters, smem, st);
 }
 
 // The globaltimer stamps of the last launch (g_stamps) into out (6 x u64).

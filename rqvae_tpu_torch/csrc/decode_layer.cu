@@ -4,16 +4,17 @@
 //   rq_fused_proj_mlp_splitk: x2  = x + (y @ wo^T + bo)
 //                             out = x2 + (gelu(LN2(x2) @ w1^T + b1) @ w2^T + b2)
 //
-// The bf16 pair is the first design of #2 / #3, kept as the A/B baseline of
-// their single-launch kernels in csrc/decode_dense.cu (rq_fused_ln_qkv,
-// rq_fused_proj_mlp), which the sampler runs; only chip_smoke.py reaches
-// these. The int8-weight forms, with one bf16 scale s per output column,
-// are the sampler's kernels at the int8 points:
+// with int8 weights and one bf16 scale s per output column:
 //
-//   rq_fused_ln_qkv_q8:   qkv = bf16(acc * s + bqkv),      acc = LN1(x) @ q^T
-//   rq_fused_proj_mlp_q8: x2  = x + bf16(acc_o * s_o + bo)
-//                         t   = bf16(gelu(acc_1 * s_1 + b1))
-//                         out = x2 + bf16(acc_2 * s_2 + b2)
+//   rq_fused_ln_qkv_q8_splitk:   qkv = bf16(acc * s + bqkv),      acc = LN1(x) @ q^T
+//   rq_fused_proj_mlp_q8_splitk: x2  = x + bf16(acc_o * s_o + bo)
+//                                t   = bf16(gelu(acc_1 * s_1 + b1))
+//                                out = x2 + bf16(acc_2 * s_2 + b2)
+//
+// These are the first design of #2 / #3 and #5-#8, kept as the A/B baseline
+// of their single-launch kernels in csrc/decode_dense.cu (rq_fused_ln_qkv,
+// rq_fused_proj_mlp, bf16 or int8 weights), which the sampler runs; only
+// chip_smoke.py reaches these.
 //
 // Replace the TPU kernels rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv
 // and ::fused_proj_mlp, and ::fused_ln_qkv_q8 / ::fused_ln_qkv_q8_ring and
@@ -342,7 +343,7 @@ extern "C" int rq_fused_ln_qkv_splitk(const void* x, const void* ln_w, const voi
 }
 
 // rq_fused_ln_qkv_splitk with int8 wq [N, C] and bf16 column scales ws [N].
-extern "C" int rq_fused_ln_qkv_q8(const void* x, const void* ln_w, const void* ln_b,
+extern "C" int rq_fused_ln_qkv_q8_splitk(const void* x, const void* ln_w, const void* ln_b,
                                   const void* wq, const void* ws, const void* bqkv, void* out,
                                   void* work, int M, int N, int C, int splits, float eps,
                                   void* stream) {
@@ -372,7 +373,7 @@ extern "C" int rq_fused_proj_mlp_splitk(const void* x, const void* y, const void
 
 // rq_fused_proj_mlp_splitk with int8 wo_q / w1_q / w2_q (same shapes) and bf16
 // column scales wo_s [C], w1_s [H], w2_s [C].
-extern "C" int rq_fused_proj_mlp_q8(const void* x, const void* y, const void* wo_q,
+extern "C" int rq_fused_proj_mlp_q8_splitk(const void* x, const void* y, const void* wo_q,
                                     const void* wo_s, const void* bo, const void* ln_w,
                                     const void* ln_b, const void* w1_q, const void* w1_s,
                                     const void* b1, const void* w2_q, const void* w2_s,

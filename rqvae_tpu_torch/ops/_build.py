@@ -45,15 +45,15 @@ _SIGNATURES = {
     "rq_decode_attention": (_P,) * 6 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8_update": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8": (_P,) * 8 + (_I,) * 6 + (_P,),
-    "rq_fused_ln_qkv": (_P,) * 7 + (_I,) * 9 + (_F, _P),
+    "rq_fused_ln_qkv": (_P,) * 8 + (_I,) * 9 + (_F, _P),
     "rq_fused_ln_qkv_splitk": (_P,) * 7 + (_I,) * 4 + (_F, _P),
-    "rq_fused_ln_qkv_q8": (_P,) * 8 + (_I,) * 4 + (_F, _P),
-    "rq_fused_proj_mlp": (_P,) * 16 + (_I,) * 10 + (_F, _P),
+    "rq_fused_ln_qkv_q8_splitk": (_P,) * 8 + (_I,) * 4 + (_F, _P),
+    "rq_fused_proj_mlp": (_P,) * 19 + (_I,) * 10 + (_F, _P),
     "rq_fused_proj_mlp_splitk": (_P,) * 14 + (_I,) * 7 + (_F, _P),
-    "rq_dense_tensor_map": (_P, _I, _I, _I, _P),
-    "rq_dense_max_clusters": (_I,) * 4 + (_P,),
+    "rq_dense_tensor_map": (_P,) + (_I,) * 4 + (_P,),
+    "rq_dense_max_clusters": (_I,) * 5 + (_P,),
     "rq_dense_phase_ns": (_P,),
-    "rq_fused_proj_mlp_q8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
+    "rq_fused_proj_mlp_q8_splitk": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rq_decode_layer_step": (_P,) * 17 + (_I,) * 8 + (_F, _P),
     "rq_decode_attention_q8_update_wo": (_P,) * 16 + (_I,) * 7 + (_F, _P),

@@ -1,12 +1,13 @@
 """The dense half of a decode transformer layer: LN1+QKV and proj+LN2+MLP.
 
 Counterparts of rqvae_tpu/ops/decode_layer_kernel.py::fused_ln_qkv and
-::fused_proj_mlp. The CUDA kernels of the bf16 pair are csrc/decode_dense.cu
-(wgmma, a TMA weight ring, split-K reduced in a thread-block cluster's
-shared memory; one launch per call; its source note says what bounds them
-on the H100 and how the design answers that); `dense_plan` is their launch
-plan. The int8 pair and the first, split-K design of the bf16 pair
-(`*_splitk`, kept as the A/B baseline that only chip_smoke.py runs) are
+::fused_proj_mlp, and of their int8-weight forms. The CUDA kernels of both
+pairs are csrc/decode_dense.cu (wgmma, a TMA weight ring, split-K reduced
+in a thread-block cluster's shared memory; one launch per call; an int8
+weight tile widened to bf16 in the wgmma warpgroup's registers; its source
+note says what bounds them on the H100 and how the design answers that);
+`dense_plan` is their launch plan. Their first, split-K design (`*_splitk`,
+kept as the A/B baseline that only chip_smoke.py runs) is
 csrc/decode_layer.cu. This module holds their wrappers and the plain
 PyTorch versions.
 
@@ -19,13 +20,13 @@ added to the fp32 sum before the one cast; the projection is cast before
 then the cast, then the residual. The exact erf replaces the JAX kernel's
 polynomial erf, a Mosaic workaround within 1e-6 of it.
 
-fused_ln_qkv and fused_proj_mlp take the widths of the head layers the
-port builds (WIDTHS: the zoo's 512, 1024 and 1280, the 1.4B's 1536, bench's
-3800M 2560) with N = 3C and H = 4C, and any number of rows M >= 1.
-fused_proj_mlp_splitk (and fused_proj_mlp_q8) on the card is six launches
-behind one wrapper call (proj, its epilogue, LN2+w1, gelu epilogue, w2,
-residual epilogue), since LN2 needs the whole of x2; it counts as one
-launch of the function.
+fused_ln_qkv, fused_proj_mlp and their q8 forms take the widths of the
+head layers the port builds (WIDTHS: the zoo's 512, 1024 and 1280, the
+1.4B's 1536, bench's 3800M 2560) with N = 3C and H = 4C, and any number of
+rows M >= 1. fused_proj_mlp_splitk (and fused_proj_mlp_q8_splitk) on the
+card is six launches behind one wrapper call (proj, its epilogue, LN2+w1,
+gelu epilogue, w2, residual epilogue), since LN2 needs the whole of x2; it
+counts as one launch of the function.
 
 fused_ln_qkv_q8 / fused_proj_mlp_q8 take int8 weights [out, in] with one
 bf16 scale per output channel (model.quantize_weight). They stand for both
@@ -49,7 +50,7 @@ import torch
 from rqvae_tpu_torch.ops import _build
 
 LN_EPS = 1e-5
-_BK = 64  # reduction chunk of the CUDA GEMMs (csrc/decode_layer.cu and decode_dense.cu kBK)
+_BK = 64  # reduction chunk of the CUDA GEMMs (csrc/decode_layer.cu and decode_dense.cu kBK; bf16 and int8 tiles)
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs (the split-K kernels)
 
 # csrc/decode_dense.cu
@@ -133,12 +134,13 @@ def _splits(M: int, N: int, K: int) -> int:
     return s
 
 
-def _smem_bytes(mt: int, k_slice: int, stages: int, mlp: bool) -> int:
+def _smem_bytes(mt: int, k_slice: int, stages: int, mlp: bool, wbytes: int = 2) -> int:
     """Dynamic shared memory of a decode_dense.cu kernel (its `layout`): the
-    ring, the resident B panel, the reduction buffer (red_bytes), a float2
-    per row, the LN parameters of the K-slice as float2, the mbarriers and
-    1024 bytes of alignment slack."""
-    stage = _TILE * _BK * 2 + (mt * _BK * 2 if mlp else 0)
+    ring (a 64 x 64 weight tile of wbytes-byte elements per stage, + a t
+    tile for mlp), the resident B panel, the reduction buffer (red_bytes), a
+    float2 per row, the LN parameters of the K-slice as float2, the
+    mbarriers and 1024 bytes of alignment slack."""
+    stage = _TILE * _BK * wbytes + (mt * _BK * 2 if mlp else 0)
     red = (mt // 2 + CLUSTER_SIZES[-1]) * 512
     return (stages * stage + (k_slice // _BK) * mt * _BK * 2 + red + mt * 8 + k_slice * 8
             + (2 * stages + 4) * 8 + 1024)
@@ -150,12 +152,14 @@ class DensePlan:
     `cluster` CTAs (grid cluster * clusters, CTA b is rank b % cluster of
     cluster b // cluster), activation row tiles of `row_tile` rows
     (`row_tiles` of them, row_tiles * row_tile >= M), a ring of `stages`
-    weight tiles, `smem` bytes of dynamic shared memory."""
+    weight tiles of `wbytes`-byte elements (2 bf16, 1 int8), `smem` bytes
+    of dynamic shared memory."""
 
     mlp: bool
     M: int
     C: int
     N: int  # 3C (fused_ln_qkv) or H (fused_proj_mlp)
+    wbytes: int
     cluster: int
     clusters: int
     row_tile: int
@@ -181,21 +185,30 @@ class DensePlan:
                         yield i, rt * self.row_tile, j, rank * ks + kc * _BK
 
 
-def dense_plan(M: int, C: int, N: int, mlp: bool, sms: int = SMS, max_clusters=None) -> DensePlan:
-    """The launch plan of fused_ln_qkv (mlp False, N = 3C) or fused_proj_mlp
-    (mlp True, N = H = 4C) for M rows. For each cluster size s (C / s a
-    multiple of 64), the fewest row tiles whose shared memory fits with a
-    ring of at least four stages (as many as fit, up to sixteen); at most
-    sms // s clusters (one wave), no more than the largest product has
-    tiles, nor than max_clusters(mlp, row_tile, s, smem) (the device's
-    count of co-resident clusters, when given). Of those, the one whose
-    busiest CTA streams the fewest weight bytes, each cluster reduction
-    priced at _ROUND_BYTES; ties go to the smaller cluster."""
+def _check_shape(M: int, C: int, N: int, mlp: bool) -> None:
+    """The widths decode_dense.cu takes: C in WIDTHS, N = 3C (ln_qkv) or H =
+    4C (proj_mlp), M >= 1; ValueError otherwise."""
     if C not in WIDTHS or N != (4 if mlp else 3) * C or M < 1:
         raise ValueError(
             f"decode_dense: needs C in {WIDTHS}, {'H = 4C' if mlp else 'N = 3C'} and M >= 1, got M={M}, C={C}, "
             f"{'H' if mlp else 'N'}={N}"
         )
+
+
+def dense_plan(M: int, C: int, N: int, mlp: bool, sms: int = SMS, max_clusters=None, wbytes: int = 2) -> DensePlan:
+    """The launch plan of fused_ln_qkv (mlp False, N = 3C) or fused_proj_mlp
+    (mlp True, N = H = 4C) for M rows, with bf16 (wbytes 2) or int8 (wbytes
+    1) weights. For each cluster size s (C / s a multiple of 64, the
+    reduction depth of a weight tile of either type), the fewest row tiles
+    whose shared memory fits with a ring of at least four stages (as many
+    as fit, up to sixteen); at most sms // s clusters (one wave), no more
+    than the largest product has tiles, nor than max_clusters(mlp,
+    row_tile, s, smem) (the device's count of co-resident clusters, when
+    given). Of those, the one whose busiest CTA streams the fewest weight
+    bytes, each cluster reduction priced at _ROUND_BYTES (so at int8 a
+    round costs twice the weight elements it does at bf16); ties go to the
+    smaller cluster."""
+    _check_shape(M, C, N, mlp)
     tiles_built = ROW_TILES_MLP if mlp else ROW_TILES_QKV
     best, best_cost = None, None
     for s in CLUSTER_SIZES:
@@ -207,25 +220,26 @@ def dense_plan(M: int, C: int, N: int, mlp: bool, sms: int = SMS, max_clusters=N
             mt = next((t for t in tiles_built if t >= need), None)
             if mt is None:
                 continue
-            stage = _smem_bytes(mt, C // s, 1, mlp) - _smem_bytes(mt, C // s, 0, mlp)
-            stages = min(_STAGES[1], (SMEM_LIMIT - _smem_bytes(mt, C // s, 0, mlp)) // stage)
+            base = _smem_bytes(mt, C // s, 0, mlp, wbytes)
+            stage = _smem_bytes(mt, C // s, 1, mlp, wbytes) - base
+            stages = min(_STAGES[1], (SMEM_LIMIT - base) // stage)
             if stages >= _STAGES[0]:
-                fit = (mt, n_rt, stages, _smem_bytes(mt, C // s, stages, mlp))
+                fit = (mt, n_rt, stages, _smem_bytes(mt, C // s, stages, mlp, wbytes))
                 break
             if mt == tiles_built[0]:
                 break
         if fit is None:
             continue
         mt, n_rt, stages, smem = fit
-        plan = DensePlan(mlp, M, C, N, s, 1, mt, n_rt, stages, smem)
+        plan = DensePlan(mlp, M, C, N, wbytes, s, 1, mt, n_rt, stages, smem)
         G = min(sms // s, max(tiles for tiles, _ in plan.products()))
         if max_clusters is not None:
             G = min(G, max_clusters(mlp, mt, s, smem))
         if G < 1:
             continue
-        cost = n_rt * sum(-(-tiles // G) * (_TILE * (k // s) * 2 + _ROUND_BYTES) for tiles, k in plan.products())
+        cost = n_rt * sum(-(-tiles // G) * (_TILE * (k // s) * wbytes + _ROUND_BYTES) for tiles, k in plan.products())
         if best is None or cost < best_cost:
-            best = DensePlan(mlp, M, C, N, s, G, mt, n_rt, stages, smem)
+            best = DensePlan(mlp, M, C, N, wbytes, s, G, mt, n_rt, stages, smem)
             best_cost = cost
     if best is None:
         raise ValueError(f"decode_dense: no launch plan fits M={M}, C={C}, N={N}")
@@ -236,39 +250,48 @@ _plans: dict = {}
 _maps: dict = {}
 
 
-def _device_plan(M, C, N, mlp, device) -> DensePlan:
+def _device_plan(M, C, N, mlp, wbytes, device) -> DensePlan:
     """dense_plan on this device (its SM count, its co-resident clusters),
-    cached. Call with `device` current."""
-    key = (M, C, N, mlp, device.index)
+    cached. Call with `device` current. A shape outside the contract raises
+    ValueError before the device or the kernel library is asked anything."""
+    key = (M, C, N, mlp, wbytes, device.index)
     plan = _plans.get(key)
     if plan is None:
-        lib = _build.library()
+        _check_shape(M, C, N, mlp)
 
         def most(mlp, mt, s, smem):
             out = ctypes.c_int(0)
-            _build.check(lib.rq_dense_max_clusters(int(mlp), mt, s, smem, ctypes.addressof(out)),
-                         "rq_dense_max_clusters")
+            _build.check(_build.library().rq_dense_max_clusters(int(mlp), mt, s, smem, int(wbytes == 1),
+                                                                ctypes.addressof(out)), "rq_dense_max_clusters")
             return out.value
 
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = _plans[key] = dense_plan(M, C, N, mlp, sms, most)
+        plan = _plans[key] = dense_plan(M, C, N, mlp, sms, most, wbytes)
     return plan
 
 
+def _map_key(t, box_rows: int) -> tuple:
+    """The tensor-map cache key of t: its address, element type, shape and
+    box (an int8 tensor the allocator places where a bf16 one of the same
+    shape was gets a map of its own)."""
+    return (t.data_ptr(), t.dtype, *t.shape, box_rows)
+
+
 def _tensor_map(t, box_rows: int = _TILE) -> int:
-    """Address of the TMA tensor map of the bf16 matrix t [rows, cols] in
-    boxes of box_rows rows x 64 columns: a weight's (64), encoded once per
-    weight tensor, or an activation's (the row tile), encoded once per
-    address the allocator hands out; keyed by address, shape and box, the
-    cache emptied when it holds 4096."""
-    key = (t.data_ptr(), *t.shape, box_rows)
+    """Address of the TMA tensor map of the bf16 or int8 matrix t [rows,
+    cols] in boxes of box_rows rows x 64 columns: a weight's (64), encoded
+    once per weight tensor, or an activation's (the row tile), encoded once
+    per address the allocator hands out; keyed by _map_key, the cache
+    emptied when it holds 4096."""
+    key = _map_key(t, box_rows)
     buf = _maps.get(key)
     if buf is None:
         if len(_maps) >= 4096:
             _maps.clear()
         buf = (ctypes.c_uint8 * 128)()  # a CUtensorMap
         _build.check(_build.library().rq_dense_tensor_map(t.data_ptr(), t.shape[0], t.shape[1], box_rows,
-                                                          ctypes.addressof(buf)), "rq_dense_tensor_map")
+                                                          t.element_size(), ctypes.addressof(buf)),
+                     "rq_dense_tensor_map")
         _maps[key] = buf
     return ctypes.addressof(buf)
 
@@ -291,15 +314,15 @@ def _check_cuda(name, tensors, shapes, int8=()):
             raise ValueError(f"{name}: {arg} must start on a 32-byte boundary")
 
 
-def _check_dense(name, tensors, shapes):
+def _check_dense(name, tensors, shapes, int8=()):
     """_check_cuda for the decode_dense.cu wrappers, on their hot path: one
     pass of cheap tests, and _check_cuda's messages when one fails; every
-    tensor also on a 16-byte boundary (the kernels' vector loads)."""
+    tensor also on a 16-byte boundary (the kernels' vector loads and TMA)."""
     dev = tensors[0][1].get_device()
     for (arg, t), shape in zip(tensors, shapes):
-        if (t.dtype is not torch.bfloat16 or t.shape != shape or t.get_device() != dev or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            _check_cuda(name, tensors, shapes)
+        if (t.dtype is not (torch.int8 if arg in int8 else torch.bfloat16) or t.shape != shape
+                or t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 16):
+            _check_cuda(name, tensors, shapes, int8)
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
 
 
@@ -342,6 +365,47 @@ def _mlp_scratch(x, C, H, plan):
     return bufs
 
 
+def _ln_qkv(x, ln_scale, ln_bias, w, ws, bqkv):
+    """One launch of csrc/decode_dense.cu::rq_fused_ln_qkv on checked CUDA
+    tensors: bf16 weights w (ws None) or int8 ones with their scales ws."""
+    M, C = x.shape
+    N = w.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    with _device(x):
+        plan = _device_plan(M, C, N, False, w.element_size(), x.device)
+        err = _build.library().rq_fused_ln_qkv(
+            x.data_ptr(), _tensor_map(x, plan.row_tile), ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(w),
+            None if ws is None else ws.data_ptr(), bqkv.data_ptr(), out.data_ptr(), M, C, N, plan.cluster,
+            plan.clusters, plan.row_tile, plan.row_tiles, plan.stages, plan.smem, LN_EPS, _stream(x),
+        )
+    _build.check(err, "rq_fused_ln_qkv")
+    return out
+
+
+def _proj_mlp(x, y, wo, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version):
+    """One persistent launch of csrc/decode_dense.cu::rq_fused_proj_mlp on
+    checked CUDA tensors: bf16 weights (the scales None) or int8 ones with
+    their scales."""
+    if gelu_version not in ("v1", "v2"):
+        raise ValueError(f"fused_proj_mlp: unknown gelu version {gelu_version!r}")
+    M, C = x.shape
+    H = w1.shape[0]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with _device(x):
+        plan = _device_plan(M, C, H, True, w1.element_size(), x.device)
+        out = torch.empty_like(x)
+        x2, t, stats = _mlp_scratch(x, C, H, plan)
+        err = _build.library().rq_fused_proj_mlp(
+            x.data_ptr(), y.data_ptr(), _tensor_map(y, plan.row_tile), _tensor_map(wo), ptr(wo_s), bo.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(w1), ptr(w1_s), b1.data_ptr(), _tensor_map(w2),
+            ptr(w2_s), b2.data_ptr(), out.data_ptr(), x2.data_ptr(), _tensor_map(x2, plan.row_tile), t.data_ptr(),
+            stats.data_ptr(), M, C, H, plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles, plan.stages,
+            plan.smem, int(gelu_version == "v2"), LN_EPS, _stream(x),
+        )
+    _build.check(err, "rq_fused_proj_mlp")
+    return out
+
+
 def fused_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
     launches csrc/decode_dense.cu::rq_fused_ln_qkv (one launch) or raises.
@@ -354,16 +418,7 @@ def fused_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv):
     N = wqkv.shape[0]
     args = [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wqkv", wqkv), ("bqkv", bqkv)]
     _check_dense("fused_ln_qkv", args, [(M, C), (C,), (C,), (N, C), (N,)])
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with _device(x):
-        plan = _device_plan(M, C, N, False, x.device)
-        err = lib.rq_fused_ln_qkv(
-            x.data_ptr(), _tensor_map(x, plan.row_tile), ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(wqkv),
-            bqkv.data_ptr(), out.data_ptr(), M, C, N, plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles,
-            plan.stages, plan.smem, LN_EPS, _stream(x),
-        )
-    _build.check(err, "rq_fused_ln_qkv")
+    out = _ln_qkv(x, ln_scale, ln_bias, wqkv, None, bqkv)
     fused_ln_qkv.launches += 1
     return out
 
@@ -380,26 +435,12 @@ def fused_proj_mlp(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version
         return fused_proj_mlp_plain(x, y, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, gelu_version)
     if x.device.type != "cuda":
         raise ValueError(f"fused_proj_mlp: no kernel for device {x.device}")
-    if gelu_version not in ("v1", "v2"):
-        raise ValueError(f"fused_proj_mlp: unknown gelu version {gelu_version!r}")
     M, C = x.shape
     H = w1.shape[0]
     args = [("x", x), ("y", y), ("wo", wo), ("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias),
             ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)]
     _check_dense("fused_proj_mlp", args, [(M, C), (M, C), (C, C), (C,), (C,), (C,), (H, C), (H,), (C, H), (C,)])
-    lib = _build.library()
-    with _device(x):
-        plan = _device_plan(M, C, H, True, x.device)
-        out = torch.empty_like(x)
-        x2, t, stats = _mlp_scratch(x, C, H, plan)
-        err = lib.rq_fused_proj_mlp(
-            x.data_ptr(), y.data_ptr(), _tensor_map(y, plan.row_tile), _tensor_map(wo), bo.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(w1), b1.data_ptr(), _tensor_map(w2), b2.data_ptr(),
-            out.data_ptr(), x2.data_ptr(), _tensor_map(x2, plan.row_tile), t.data_ptr(), stats.data_ptr(), M, C, H,
-            plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles, plan.stages, plan.smem,
-            int(gelu_version == "v2"), LN_EPS, _stream(x),
-        )
-    _build.check(err, "rq_fused_proj_mlp")
+    out = _proj_mlp(x, y, wo, None, bo, ln_scale, ln_bias, w1, None, b1, w2, None, b2, gelu_version)
     fused_proj_mlp.launches += 1
     return out
 
@@ -484,33 +525,18 @@ fused_proj_mlp_splitk.launches = 0
 
 def fused_ln_qkv_q8(x, ln_scale, ln_bias, wq, ws, bqkv):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_layer.cu::rq_fused_ln_qkv_q8 or raises. One call on
-    the card adds one to `fused_ln_qkv_q8.launches`."""
+    launches csrc/decode_dense.cu::rq_fused_ln_qkv with the int8 weight wq
+    and its scales ws (one launch) or raises. One call on the card adds one
+    to `fused_ln_qkv_q8.launches`."""
     if x.device.type == "cpu":
         return fused_ln_qkv_q8_plain(x, ln_scale, ln_bias, wq, ws, bqkv)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_qkv_q8: no kernel for device {x.device}")
     M, C = x.shape
     N = wq.shape[0]
-    _check_cuda(
-        "fused_ln_qkv_q8",
-        [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wq", wq), ("ws", ws), ("bqkv", bqkv)],
-        [(M, C), (C,), (C,), (N, C), (N,), (N,)],
-        int8=("wq",),
-    )
-    if C % _BK or N % 16:
-        raise ValueError(f"fused_ln_qkv_q8: needs C % {_BK} == 0 and N % 16 == 0, got C={C}, N={N}")
-    s = _splits(M, N, C)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    work = torch.empty((s, M, N), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.rq_fused_ln_qkv_q8(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-            bqkv.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, C, s, LN_EPS,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "rq_fused_ln_qkv_q8")
+    args = [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wq", wq), ("ws", ws), ("bqkv", bqkv)]
+    _check_dense("fused_ln_qkv_q8", args, [(M, C), (C,), (C,), (N, C), (N,), (N,)], int8=("wq",))
+    out = _ln_qkv(x, ln_scale, ln_bias, wq, ws, bqkv)
     fused_ln_qkv_q8.launches += 1
     return out
 
@@ -522,19 +548,18 @@ def fused_proj_mlp_q8(
     x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version="v1"
 ):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    runs the six launches of csrc/decode_layer.cu::rq_fused_proj_mlp_q8 or
-    raises. One call on the card adds one to `fused_proj_mlp_q8.launches`."""
+    launches csrc/decode_dense.cu::rq_fused_proj_mlp with the int8 weights
+    and their scales (one persistent launch) or raises. One call on the card
+    adds one to `fused_proj_mlp_q8.launches`."""
     if x.device.type == "cpu":
         return fused_proj_mlp_q8_plain(
             x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_proj_mlp_q8: no kernel for device {x.device}")
-    if gelu_version not in ("v1", "v2"):
-        raise ValueError(f"fused_proj_mlp_q8: unknown gelu version {gelu_version!r}")
     M, C = x.shape
     H = w1_q.shape[0]
-    _check_cuda(
+    _check_dense(
         "fused_proj_mlp_q8",
         [("x", x), ("y", y), ("wo_q", wo_q), ("wo_s", wo_s), ("bo", bo), ("ln_scale", ln_scale),
          ("ln_bias", ln_bias), ("w1_q", w1_q), ("w1_s", w1_s), ("b1", b1), ("w2_q", w2_q),
@@ -542,8 +567,72 @@ def fused_proj_mlp_q8(
         [(M, C), (M, C), (C, C), (C,), (C,), (C,), (C,), (H, C), (H,), (H,), (C, H), (C,), (C,)],
         int8=("wo_q", "w1_q", "w2_q"),
     )
+    out = _proj_mlp(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version)
+    fused_proj_mlp_q8.launches += 1
+    return out
+
+
+fused_proj_mlp_q8.launches = 0
+
+
+def fused_ln_qkv_q8_splitk(x, ln_scale, ln_bias, wq, ws, bqkv):
+    """fused_ln_qkv_q8 through its first, split-K design (csrc/decode_layer.cu::
+    rq_fused_ln_qkv_q8_splitk: the GEMM and its epilogue, two launches),
+    CUDA tensors only: the A/B baseline of chip_smoke.py. Adds one to
+    `fused_ln_qkv_q8_splitk.launches` per call."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ln_qkv_q8_splitk: no kernel for device {x.device}")
+    M, C = x.shape
+    N = wq.shape[0]
+    _check_cuda(
+        "fused_ln_qkv_q8_splitk",
+        [("x", x), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("wq", wq), ("ws", ws), ("bqkv", bqkv)],
+        [(M, C), (C,), (C,), (N, C), (N,), (N,)],
+        int8=("wq",),
+    )
+    if C % _BK or N % 16:
+        raise ValueError(f"fused_ln_qkv_q8_splitk: needs C % {_BK} == 0 and N % 16 == 0, got C={C}, N={N}")
+    s = _splits(M, N, C)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    work = torch.empty((s, M, N), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.rq_fused_ln_qkv_q8_splitk(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+            bqkv.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, C, s, LN_EPS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "rq_fused_ln_qkv_q8_splitk")
+    fused_ln_qkv_q8_splitk.launches += 1
+    return out
+
+
+fused_ln_qkv_q8_splitk.launches = 0
+
+
+def fused_proj_mlp_q8_splitk(
+    x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version="v1"
+):
+    """fused_proj_mlp_q8 through its first, split-K design (csrc/decode_layer.cu::
+    rq_fused_proj_mlp_q8_splitk, six launches), CUDA tensors only: the A/B
+    baseline of chip_smoke.py. Adds one to `fused_proj_mlp_q8_splitk.launches`
+    per call."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_proj_mlp_q8_splitk: no kernel for device {x.device}")
+    if gelu_version not in ("v1", "v2"):
+        raise ValueError(f"fused_proj_mlp_q8_splitk: unknown gelu version {gelu_version!r}")
+    M, C = x.shape
+    H = w1_q.shape[0]
+    _check_cuda(
+        "fused_proj_mlp_q8_splitk",
+        [("x", x), ("y", y), ("wo_q", wo_q), ("wo_s", wo_s), ("bo", bo), ("ln_scale", ln_scale),
+         ("ln_bias", ln_bias), ("w1_q", w1_q), ("w1_s", w1_s), ("b1", b1), ("w2_q", w2_q),
+         ("w2_s", w2_s), ("b2", b2)],
+        [(M, C), (M, C), (C, C), (C,), (C,), (C,), (C,), (H, C), (H,), (H,), (C, H), (C,), (C,)],
+        int8=("wo_q", "w1_q", "w2_q"),
+    )
     if C % _BK or H % _BK:
-        raise ValueError(f"fused_proj_mlp_q8: needs C and H divisible by {_BK}, got C={C}, H={H}")
+        raise ValueError(f"fused_proj_mlp_q8_splitk: needs C and H divisible by {_BK}, got C={C}, H={H}")
     so, s1, s2 = _splits(M, C, C), _splits(M, H, C), _splits(M, C, H)
     out = torch.empty_like(x)
     x2 = torch.empty_like(x)
@@ -551,16 +640,16 @@ def fused_proj_mlp_q8(
     work = torch.empty((max(so * C, s1 * H, s2 * C) * M,), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.rq_fused_proj_mlp_q8(
+        err = lib.rq_fused_proj_mlp_q8_splitk(
             x.data_ptr(), y.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), bo.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
             w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), x2.data_ptr(),
             hidden.data_ptr(), work.data_ptr(), M, C, H, so, s1, s2, int(gelu_version == "v2"), LN_EPS,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "rq_fused_proj_mlp_q8")
-    fused_proj_mlp_q8.launches += 1
+    _build.check(err, "rq_fused_proj_mlp_q8_splitk")
+    fused_proj_mlp_q8_splitk.launches += 1
     return out
 
 
-fused_proj_mlp_q8.launches = 0
+fused_proj_mlp_q8_splitk.launches = 0

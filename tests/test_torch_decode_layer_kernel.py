@@ -67,21 +67,18 @@ def test_split_k_divides_the_reduction(M, N, K):
     assert s >= 1 and K % (s * 64) == 0
 
 
-@pytest.mark.parametrize("mlp", [False, True], ids=["ln_qkv", "proj_mlp"])
-@pytest.mark.parametrize("C", DK.WIDTHS)
-@pytest.mark.parametrize("M", [1, 37, 100, 129, 300, 500])
-def test_dense_plan_covers_each_output_and_reduction_once(M, C, mlp):
-    """decode_dense.cu's launch plan at every head width the port builds: the
-    row tiles cover the M rows (none empty), every (row tile, weight row
-    tile, 64-element K-chunk) of every product falls to exactly one CTA, and
-    the launch fits the card: clusters of at most 8, one wave of 132 SMs,
-    at most 232,448 bytes of shared memory, a ring of 4 to 16 stages, a row
-    tile the kernel is built for."""
+def _check_plan_covers(M, C, mlp, wbytes):
+    """decode_dense.cu's launch plan: the row tiles cover the M rows (none
+    empty), every (row tile, weight row tile, 64-element K-chunk) of every
+    product falls to exactly one CTA, and the launch fits the card: clusters
+    of at most 8, one wave of 132 SMs, at most 232,448 bytes of shared
+    memory, a ring of 4 to 16 stages, a row tile the kernel is built for."""
     N = (4 if mlp else 3) * C
-    plan = DK.dense_plan(M, C, N, mlp)
+    plan = DK.dense_plan(M, C, N, mlp, wbytes=wbytes)
+    assert plan.wbytes == wbytes
     assert plan.cluster <= 8 and plan.cluster * plan.clusters <= 132
     assert plan.smem <= 232_448 and 4 <= plan.stages <= 16
-    assert plan.smem == DK._smem_bytes(plan.row_tile, C // plan.cluster, plan.stages, mlp)
+    assert plan.smem == DK._smem_bytes(plan.row_tile, C // plan.cluster, plan.stages, mlp, wbytes)
     assert plan.row_tile in (DK.ROW_TILES_MLP if mlp else DK.ROW_TILES_QKV)
     assert (plan.row_tiles - 1) * plan.row_tile < M <= plan.row_tiles * plan.row_tile
     products = plan.products()
@@ -94,6 +91,35 @@ def test_dense_plan_covers_each_output_and_reduction_once(M, C, mlp):
     assert [(tiles * 64, k) for tiles, k in products] == want
     for (tiles, k), c in zip(products, counts):
         assert (c == 1).all(), f"product [{tiles * 64}, {k}]: counts {np.unique(c)}"
+
+
+@pytest.mark.parametrize("mlp", [False, True], ids=["ln_qkv", "proj_mlp"])
+@pytest.mark.parametrize("C", DK.WIDTHS)
+@pytest.mark.parametrize("M", [1, 37, 100, 129, 300, 500])
+def test_dense_plan_covers_each_output_and_reduction_once(M, C, mlp):
+    """_check_plan_covers at every head width the port builds, bf16 weights."""
+    _check_plan_covers(M, C, mlp, 2)
+
+
+@pytest.mark.parametrize("mlp", [False, True], ids=["ln_qkv_q8", "proj_mlp_q8"])
+@pytest.mark.parametrize("C", DK.WIDTHS)
+@pytest.mark.parametrize("M", [1, 37, 100, 129, 300, 500])
+def test_dense_plan_q8_covers_each_output_and_reduction_once(M, C, mlp):
+    """The same with int8 weights (fused_ln_qkv_q8, fused_proj_mlp_q8): a
+    ring stage's weight tile is 4 KB, so more stages fit, the K-chunks are
+    the same 64 elements."""
+    _check_plan_covers(M, C, mlp, 1)
+
+
+def test_dense_plan_q8_stage_is_half_the_weight_bytes():
+    """An int8 ring stage holds 64 x 64 bytes of weight, a bf16 one 8 KB;
+    the t tile of proj_mlp (bf16 activations) and the stage's two mbarriers
+    are the same in both."""
+    for mlp in (False, True):
+        s1 = DK._smem_bytes(104, 384, 1, mlp, 1) - DK._smem_bytes(104, 384, 0, mlp, 1)
+        s2 = DK._smem_bytes(104, 384, 1, mlp, 2) - DK._smem_bytes(104, 384, 0, mlp, 2)
+        t = 104 * 128 if mlp else 0
+        assert (s1, s2) == (4096 + t + 16, 8192 + t + 16)
 
 
 @pytest.mark.parametrize("most", [1, 7, 32])
@@ -111,8 +137,55 @@ def test_dense_plan_keeps_to_the_co_resident_clusters(most):
     assert len(seen) == sum(plan.row_tiles * tiles * k // 64 for tiles, k in plan.products())
 
 
-@pytest.mark.parametrize("M,C,N,mlp", [(100, 768, 2304, False), (100, 1536, 4096, False), (100, 1536, 4608, True),
-                                       (0, 1536, 4608, False)])
+@pytest.mark.parametrize("most", [1, 7, 32])
+def test_dense_plan_q8_keeps_to_the_co_resident_clusters(most):
+    """As above with int8 weights, for both products."""
+    for mlp, N in ((True, 6144), (False, 4608)):
+        plan = DK.dense_plan(100, 1536, N, mlp, max_clusters=lambda mlp, mt, s, smem: most, wbytes=1)
+        assert plan.clusters <= most
+        seen = set()
+        for cta in range(plan.cluster * plan.clusters):
+            for unit in plan.units(cta):
+                assert unit not in seen
+                seen.add(unit)
+        assert len(seen) == sum(plan.row_tiles * tiles * k // 64 for tiles, k in plan.products())
+
+
+REFUSED = [(100, 768, 2304, False), (100, 1536, 4096, False), (100, 1536, 4608, True), (0, 1536, 4608, False)]
+
+
+@pytest.mark.parametrize("M,C,N,mlp", REFUSED)
 def test_dense_plan_refuses_other_shapes(M, C, N, mlp):
     with pytest.raises(ValueError, match="decode_dense"):
         DK.dense_plan(M, C, N, mlp)
+
+
+@pytest.mark.parametrize("M,C,N,mlp", REFUSED + [(100, 2560, 10240, False), (37, 1280, 3840, True)])
+def test_dense_plan_q8_refuses_other_shapes_before_the_library(M, C, N, mlp, monkeypatch):
+    """The q8 wrappers' plan (_device_plan, which they call before anything
+    else reaches the device or the kernel library) raises ValueError for C
+    outside WIDTHS, N != 3C (ln_qkv) or H != 4C (proj_mlp) and M < 1, with
+    neither the library nor the device asked; dense_plan with int8 weights
+    refuses the same shapes."""
+    def asked(*args, **kwargs):
+        raise AssertionError("the kernel library or the device was asked")
+
+    monkeypatch.setattr(DK._build, "library", asked)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", asked)
+    with pytest.raises(ValueError, match="decode_dense"):
+        DK._device_plan(M, C, N, mlp, 1, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="decode_dense"):
+        DK.dense_plan(M, C, N, mlp, wbytes=1)
+
+
+def test_tensor_map_key_tells_int8_from_bf16():
+    """The TMA tensor-map cache key: an int8 tensor at the address and of
+    the shape of a bf16 one (the allocator may reuse a freed weight's
+    memory) gets another key, and so its own map."""
+    raw = torch.zeros(4, 128, dtype=torch.int8)
+    as_bf16 = raw.view(torch.bfloat16)  # [4, 64] bf16 at raw's address
+    as_int8 = raw[:, :64]  # [4, 64] int8 at the same address
+    assert as_bf16.data_ptr() == as_int8.data_ptr() and as_bf16.shape == as_int8.shape
+    assert DK._map_key(as_bf16, 64) != DK._map_key(as_int8, 64)
+    assert DK._map_key(as_int8, 64) == DK._map_key(raw[:, :64], 64)
+    assert DK._map_key(as_int8, 64) != DK._map_key(as_int8, 104)  # an activation's box
