@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once; libw8a8.so must hold IMMA (s8
-     tensor-core) and libdecode_dense.so HGMMA (wgmma) instructions;
+     tensor-core) and libdecode_dense.so and libdecode_fused.so HGMMA
+     (wgmma) instructions;
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
@@ -26,8 +27,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode_attention_q8 at the experiment's shapes (B 100 and 500),
      cur_len == T, cur_len 0, a ragged batch and head size 104, its caches
      bit-unchanged;
-     decode_layer_step and decode_attention_q8_update_wo also at a ragged
-     batch of 37 rows; nearest_code: fp32, 6400 rows of 256 against 16384
+     decode_layer_step (#14) and decode_attention_q8_update_wo (#13), one
+     launch each of csrc/decode_fused.cu, also at a ragged batch of 37 rows,
+     both windows, both gelu forms (#14), int8 and bf16 wo (#13), timed as
+     device time in CUDA-graph replays against their cooperative first
+     design (*_coop) and the unfused chains (#2 -> #1 -> #3; #4 -> the
+     library's wo, residual and LayerNorm), with CTA 0's phase and
+     attention-step stamps; nearest_code: fp32, 6400 rows of 256 against 16384
      codes, with planted ties; the q8 pipeline kernels of
      tools/exp_q8_pipeline.py at its shapes, B 100, C 1536, H 6144, int8
      weights: #17 / #18 at several (chunk, n_buf), bit-equal to each other,
@@ -40,9 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bound; the two fused kernels print where their time went, phase by
      phase;
   4. the main path at six operating points: bench.py's three (bf16 cache;
-     int8 KV cache "kv_q8"; int8 weights + kv_q8), each also with its
+     int8 KV cache "kv_q8"; int8 weights + kv_q8, whose body S == 1 steps
+     run the int8 dense pair #5 / #6 as the head's do), each also with its
      fused body-layer path (bf16+mega: decode_layer_step; kv_q8+attn_wo and
-     int8+kv_q8+attn_wo: decode_attention_q8_update_wo): 1.4B
+     int8+kv_q8+attn_wo: decode_attention_q8_update_wo, the int8 body's QKV
+     half through #5): 1.4B
      class-conditional sampling at bs100 (bench.py's geometry, random
      weights from a seed, temperature 1, no top-k/top-p) and the RQ-VAE
      decode to 256x256 pixels, each point with its launch counts (all
@@ -92,9 +100,10 @@ The second-to-last line is a JSON table of the kernels, the last line
 Run from the repository root on a machine with one CUDA device:
     python3 chip_smoke.py
 `python3 chip_smoke.py dense` runs phases 1-2 and phase 3's checks of the
-head's dense pair alone, bf16 and int8 (check_dense), and prints no
-result line: run from two source trees in one call, it compares two
-designs of those kernels on one card.
+dense pair, bf16 and int8 (check_dense), and of the two fused kernels
+(#14, #13), and prints no result line; `python3 chip_smoke.py fused` the
+fused kernels' checks alone. Run from two source trees in one call, they
+compare two designs of those kernels on one card.
 """
 
 from __future__ import annotations
@@ -1009,8 +1018,12 @@ def count_sass(lib_path, op) -> int:
     return len(re.findall(rf"\b{op}\b", sass))
 
 
-MEGA_PHASES = ("LN1", "QKV", "attention", "wo", "residual+LN2", "w1", "gelu", "w2", "residual")
-WO_PHASES = ("attention", "wo", "residual+LN2")
+# CTA 0's phases of one fused kernel (csrc/decode_fused.cu g_stamps, rq_fused_phase_ns)
+MEGA_PHASES = ("LN1 + QKV", "barrier 1", "attention", "barrier 2", "wo", "barrier 3", "LN2 + w1", "barrier 4", "w2")
+WO_PHASES = ("attention", "barrier 1", "wo", "barrier 2", "LN2")
+# the cooperative baselines' phases (their own stamps)
+MEGA_COOP_PHASES = ("LN1", "QKV", "attention", "wo", "residual+LN2", "w1", "gelu", "w2", "residual")
+WO_COOP_PHASES = ("attention", "wo", "residual+LN2")
 
 
 def _build_phases(entry, names):
@@ -1019,6 +1032,22 @@ def _build_phases(entry, names):
 
     torch.cuda.synchronize()
     return {n: round(us, 1) for n, us in zip(names, _build.phase_us(entry, len(names) + 1))}
+
+
+def attention_steps(first):
+    """{step: us} of the attention of the last rq_fused_* launch, CTA 0's
+    thread 0's first task: its K pass, softmax and V pass (g_stamps first ..
+    first + 2) from the attention phase's start (stamp 2 of the layer step,
+    0 of the attention with wo), then its other tasks up to the next barrier
+    (stamp 3, 1)."""
+    from rqvae_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    st = _build.stamps_ns("rq_fused_phase_ns")
+    start, end = (2, 3) if first == 10 else (0, 1)
+    order = ((start, first, "K pass"), (first, first + 1, "softmax"), (first + 1, first + 2, "V pass"),
+             (first + 2, end, "the rest"))
+    return {name: round((st[b] - st[a]) / 1e3, 1) for a, b, name in order}
 
 
 def layer_weights(rnd, C, H):
@@ -1042,9 +1071,23 @@ def check_rows(name, got, want, old, cur):
         raise AssertionError(f"{name}: cache rows other than {cur} changed")
 
 
-def check_decode_layer_step(MK, dev, gen):
-    """decode_layer_step (the whole body layer) against its plain version at
-    the main-path shapes, a ragged batch, both gelu forms; timed."""
+def one_kernel(name, fn, kernel):
+    """One call of fn issues one device kernel, whose name holds `kernel`."""
+    fn()  # the plan, tensor maps and scratch are made on the host before the profiled call
+    kernels = device_kernels(fn)
+    if len(kernels) != 1 or kernel not in kernels[0]:
+        raise AssertionError(f"{name}: one call issued device kernels {kernels}, not one {kernel}")
+    log(f"  {name}: one call issues one device kernel ({kernels[0][:72]}...)")
+
+
+def check_decode_layer_step(MK, DK, AK, dev, gen):
+    """decode_layer_step (the whole body layer, csrc/decode_fused.cu) against
+    its plain version at the main-path shapes, a ragged batch, both gelu
+    forms, its written k/v rows within TOL and every other row unchanged;
+    one device kernel per call; CTA 0's phases; timed (eager and as device
+    time in CUDA-graph replays) against the cooperative kernel it replaced
+    (decode_layer_step_coop), the unfused chain #2 -> #1 -> #3, the plain
+    version and the library."""
     C, nh, T = 1536, 24, 64
     H = 4 * C
 
@@ -1062,7 +1105,9 @@ def check_decode_layer_step(MK, dev, gen):
         got = MK.decode_layer_step(x, k1, v1, cur, **w, n_head=nh, t_window=window, gelu_version=gelu)
         want = MK.decode_layer_step_plain(x, k0, v0, cur, **w, n_head=nh, t_window=window, gelu_version=gelu)
         torch.cuda.synchronize()
-        tag = f"decode_layer_step B={B} cur_len={cur} window={window} gelu {gelu}"
+        plan = DK.fused_plan(B, C, True, window)
+        tag = (f"decode_layer_step B={B} cur_len={cur} window={window} gelu {gelu} (cluster {plan.cluster} x "
+               f"{plan.clusters}, row tile {plan.row_tile} x {plan.row_tiles}, {plan.stages} stages)")
         err, _ = compare(tag, got, want)
         worst = max(worst, err)
         check_rows(tag + " k", k1, k0, kc, cur)
@@ -1073,33 +1118,65 @@ def check_decode_layer_step(MK, dev, gen):
     B = BATCH
     x = rnd(B, C)
     sets = [(layer_weights(rnd, C, H), rnd(B, T, C), rnd(B, T, C)) for _ in range(2)]
-    ms = cuda_ms([lambda s=s: MK.decode_layer_step(x, s[1], s[2], 63, **s[0], n_head=nh, t_window=64)
-                  for s in sets], 30)
-    plain = cuda_ms([lambda s=s: MK.decode_layer_step_plain(x, s[1], s[2], 63, **s[0], n_head=nh, t_window=64)
-                     for s in sets], 30)
+
+    def step(fn, s):
+        return fn(x, s[1], s[2], 63, **s[0], n_head=nh, t_window=64)
+
+    def unfused(s):  # #2 -> #1 -> #3, as the bf16 point's body would run them with the head's kernels
+        w = s[0]
+        q, k, v = DK.fused_ln_qkv(x, w["ln1_scale"], w["ln1_bias"], w["wqkv"], w["bqkv"]).split(C, dim=-1)
+        y = AK.decode_attention_update(q.contiguous(), k.contiguous(), v.contiguous(), s[1], s[2], 63, nh,
+                                       t_window=64)
+        return DK.fused_proj_mlp(x, y, w["wo"], w["bo"], w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"], w["w2"],
+                                 w["b2"])
 
     def library(w, kc, vc):
         q, k, v = F.linear(x, w["wqkv"]).split(C, dim=-1)
         y = sdpa_rows(q, kc, vc, nh, 64).reshape(B, C)
         return F.linear(F.linear(F.linear(y, w["wo"]), w["w1"]), w["w2"])
 
+    one_kernel("decode_layer_step", lambda: step(MK.decode_layer_step, sets[0]), "fused_kernel")
+    ms = cuda_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets], 30)
+    coop = cuda_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets], 30)
+    plain = cuda_ms([lambda s=s: step(MK.decode_layer_step_plain, s) for s in sets], 30)
     lib = cuda_ms([lambda s=s: library(*s) for s in sets], 30)
+    graph = {"kernel": graph_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets]),
+             "cooperative": graph_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets]),
+             "unfused #2 -> #1 -> #3": graph_ms([lambda s=s: unfused(s) for s in sets]),
+             "library": graph_ms([lambda s=s: library(*s) for s in sets])}
+    graph["kernel, again"] = graph_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets])
     n = 63
     weights = (3 * C * C + C * C + 2 * C * H) * 2
     vectors = (3 * C + C + H + C + 4 * C) * 2  # biases and LN parameters
     b = bound(weights + vectors + 2 * B * n * C * 2 + B * C * 2 + 2 * B * C * 2 + B * C * 2,
               2 * B * (3 * C * C + C * C + 2 * C * H), BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
-    log(f"  decode_layer_step time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library (four F.linear bf16 "
-        f"GEMMs + scaled_dot_product_attention over the 64 rows, no LN, bias, gelu or cache write) {lib:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
-    phases = _build_phases("rq_decode_layer_step_phase_ns", MEGA_PHASES)
-    log(f"  decode_layer_step phases of its last timed launch, us: {phases}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    log(f"  decode_layer_step time: kernel {ms:.4f} ms, cooperative kernel {coop:.4f} ms, plain {plain:.4f} ms, "
+        f"library (four F.linear bf16 GEMMs + scaled_dot_product_attention over the 64 rows, no LN, bias, gelu or "
+        f"cache write) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
+    kernel_ms = max(graph["kernel"], graph["kernel, again"])
+    log(f"  decode_layer_step device time ({len(sets)} calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x), "
+        f"{graph['unfused #2 -> #1 -> #3'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); {card_line()}")
+    step(MK.decode_layer_step, sets[0])
+    log(f"  decode_layer_step phases of one call (CTA 0, us): {_build_phases('rq_fused_phase_ns', MEGA_PHASES)}; "
+        f"its attention, CTA 0's first task (us): {attention_steps(10)}")
+    step(MK.decode_layer_step_coop, sets[0])
+    log(f"  decode_layer_step_coop phases of one call, us: "
+        f"{_build_phases('rq_decode_layer_step_phase_ns', MEGA_COOP_PHASES)}")
+    return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "coop_ms": coop,
+            "coop_graph_ms": graph["cooperative"], "unfused_graph_ms": graph["unfused #2 -> #1 -> #3"],
+            "plain_ms": plain, "library_ms": lib, "library_graph_ms": graph["library"], **b}
 
 
-def check_attention_q8_wo(AK, quantize_weight, dev, gen):
-    """decode_attention_q8_update_wo against its plain version with int8 and
-    bf16 wo at the main-path shapes and a ragged batch; timed."""
+def check_attention_q8_wo(AK, DK, quantize_weight, dev, gen):
+    """decode_attention_q8_update_wo (csrc/decode_fused.cu) against its plain
+    version with int8 and bf16 wo at the main-path shapes and a ragged
+    batch, its four caches bit-equal to the plain version's; one device
+    kernel per call; CTA 0's phases; timed (eager and as device time in
+    CUDA-graph replays) against the cooperative kernel it replaced
+    (decode_attention_q8_update_wo_coop), the unfused chain #4 -> the
+    library's wo + residual + LayerNorm, the plain version and the library."""
     C, nh, T = 1536, 24, 64
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1113,7 +1190,8 @@ def check_attention_q8_wo(AK, quantize_weight, dev, gen):
     worst = 0.0
     for int8 in (True, False):
         wo, wo_s = wo_pair(int8)
-        for B, cur, window in ((BATCH, 0, 64), (BATCH, 15, 32), (BATCH, 16, 32), (BATCH, 63, 64), (37, 0, 24)):
+        for B, cur, window in ((BATCH, 0, 64), (BATCH, 15, 32), (BATCH, 16, 32), (BATCH, 63, 64), (37, 0, 24),
+                               (37, 30, 24)):
             q, kn, vn, x = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, C)
             cache = q8_cache(AK, rnd, B, T, C, nh)
             got, ref = [c.clone() for c in cache], [c.clone() for c in cache]
@@ -1121,7 +1199,10 @@ def check_attention_q8_wo(AK, quantize_weight, dev, gen):
             x2_0, h2_0 = AK.decode_attention_q8_update_wo_plain(q, kn, vn, *ref, cur, x, wo, wo_s, *vec, nh,
                                                                 t_window=window)
             torch.cuda.synchronize()
-            tag = f"decode_attention_q8_update_wo {'int8' if int8 else 'bf16'} wo B={B} cur_len={cur} window={window}"
+            plan = DK.fused_plan(B, C, False, window, 1 if int8 else 2)
+            tag = (f"decode_attention_q8_update_wo {'int8' if int8 else 'bf16'} wo B={B} cur_len={cur} "
+                   f"window={window} (cluster {plan.cluster} x {plan.clusters}, row tile {plan.row_tile}, "
+                   f"{plan.stages} stages)")
             worst = max(worst, compare(tag + " x2", x2, x2_0)[0], compare(tag + " h2", h2, h2_0)[0])
             for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
                 if not torch.equal(a, b0):
@@ -1130,26 +1211,53 @@ def check_attention_q8_wo(AK, quantize_weight, dev, gen):
     B, n = BATCH, 63
     q, kn, vn, x = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, C)
     sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
+    ln2 = (vec[1], vec[2])
     for int8 in (True, False):
         wos = [wo_pair(int8) for _ in range(6)]
+        deq = [w.to(torch.bfloat16) * s[:, None] if int8 else w for w, s in wos]
 
         def call(fn, i):
             return fn(q, kn, vn, *sets[i], n, x, *wos[i], *vec, nh, t_window=64)
 
+        def unfused(i):  # #4, then the library's wo (the dequantized weight), residual and LayerNorm
+            y = AK.decode_attention_q8_update(q, kn, vn, *sets[i], n, nh, t_window=64)
+            x2 = x + F.linear(y, deq[i], vec[0])
+            return x2, F.layer_norm(x2, (C,), *ln2, eps=DK.LN_EPS)
+
+        tag = f"decode_attention_q8_update_wo, {'int8' if int8 else 'bf16'} wo"
+        one_kernel(tag, lambda: call(AK.decode_attention_q8_update_wo, 0), "fused_kernel")
         ms = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)], 50)
+        coop = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i) for i in range(6)], 50)
         plain = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_plain, i) for i in range(6)], 50)
-        deq = [w.to(torch.bfloat16) * s[:, None] if int8 else w for w, s in wos]
         lib = cuda_ms([lambda i=i: F.linear(x, deq[i]) for i in range(6)], 50)
+        graph = {"kernel": graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)]),
+                 "cooperative": graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i)
+                                          for i in range(6)]),
+                 "unfused #4 -> library wo + LN": graph_ms([lambda i=i: unfused(i) for i in range(6)]),
+                 "library": graph_ms([lambda i=i: F.linear(x, deq[i]) for i in range(6)])}
+        graph["kernel, again"] = graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)])
         wo_bytes = C * C + C * 2 if int8 else C * C * 2
         b = bound(2 * B * n * (C + 2 * nh) + 4 * B * C * 2 + wo_bytes + 3 * C * 2 + 2 * B * C * 2
                   + 2 * B * (C + 2 * nh), 2 * B * C * C, BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
-        log(f"  decode_attention_q8_update_wo time, {'int8' if int8 else 'bf16'} wo: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, library (F.linear, the wo GEMM alone: no torch call attends an int8 cache) "
-            f"{lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
-        phases = _build_phases("rq_decode_attention_q8_update_wo_phase_ns", WO_PHASES)
-        log(f"  decode_attention_q8_update_wo phases of its last timed launch, us: {phases}")
+        log(f"  {tag} time: kernel {ms:.4f} ms, cooperative kernel {coop:.4f} ms, plain {plain:.4f} ms, library "
+            f"(F.linear, the wo GEMM alone: no torch call attends an int8 cache) {lib:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
+        kernel_ms = max(graph["kernel"], graph["kernel, again"])
+        log(f"  {tag} device time (6 calls in a CUDA graph, replayed): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+            + f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x), "
+            f"{graph['unfused #4 -> library wo + LN'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); "
+            f"{card_line()}")
+        call(AK.decode_attention_q8_update_wo, 0)
+        log(f"  {tag} phases of one call (CTA 0, us): {_build_phases('rq_fused_phase_ns', WO_PHASES)}; "
+            f"its attention, CTA 0's first task (us): {attention_steps(6)}")
+        call(AK.decode_attention_q8_update_wo_coop, 0)
+        log(f"  {tag}, cooperative kernel, phases of one call, us: "
+            f"{_build_phases('rq_decode_attention_q8_update_wo_phase_ns', WO_COOP_PHASES)}")
         if int8:  # the kernels table lists the int8-wo point's numbers
-            row = {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+            row = {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "coop_ms": coop,
+                   "coop_graph_ms": graph["cooperative"], "unfused_graph_ms": graph["unfused #4 -> library wo + LN"],
+                   "plain_ms": plain, "library_ms": lib, "library_graph_ms": graph["library"], **b}
     return row
 
 
@@ -1492,9 +1600,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 
 def main() -> None:
-    dense_only = sys.argv[1:] == ["dense"]
-    if sys.argv[1:] and not dense_only:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only one is 'dense'")
+    mode = sys.argv[1] if len(sys.argv) == 2 else None
+    if sys.argv[1:] and mode not in ("dense", "fused"):
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense' and 'fused'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -1534,18 +1642,22 @@ def main() -> None:
         raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
     log(f"  libw8a8.so: {imma} IMMA (s8 x s8 -> s32 tensor-core) instructions, "
         f"{count_sass(build_dir / 'libw8a8.so', 'HMMA')} HMMA (the bf16 wo product)")
-    hgmma = count_sass(build_dir / "libdecode_dense.so", "HGMMA")
-    if hgmma == 0:
-        raise AssertionError("libdecode_dense.so holds no HGMMA instruction: #2 / #3 do not run on wgmma")
-    log(f"  libdecode_dense.so: {hgmma} HGMMA (wgmma) instructions, "
-        f"{count_sass(build_dir / 'libdecode_dense.so', 'UTMALDG')} UTMALDG (TMA tile loads)")
+    for lib, what in (("libdecode_dense.so", "#2 / #3 and #5-#8"), ("libdecode_fused.so", "#13 / #14")):
+        hgmma = count_sass(build_dir / lib, "HGMMA")
+        if hgmma == 0:
+            raise AssertionError(f"{lib} holds no HGMMA instruction: {what} do not run on wgmma")
+        log(f"  {lib}: {hgmma} HGMMA (wgmma) instructions, {count_sass(build_dir / lib, 'UTMALDG')} UTMALDG "
+            f"(TMA tile loads)")
 
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    if dense_only:
+    if mode == "dense":
         check_dense(DK, dev, gen)
         check_dense(DK, dev, gen, quantize_weight)
+    if mode in ("dense", "fused"):
+        check_decode_layer_step(MK, DK, AK, dev, gen)
+        check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
         return
     attn = check_attention(AK, dev, gen)
     attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
@@ -1554,8 +1666,8 @@ def main() -> None:
     attn_q8_read = check_attention_q8_read_only(AK, dev, gen)
     qkv_q8, mlp_q8 = check_dense(DK, dev, gen, quantize_weight)
     nearest = check_nearest_code(RK, dev, gen)
-    mega = check_decode_layer_step(MK, dev, gen)
-    attn_wo = check_attention_q8_wo(AK, quantize_weight, dev, gen)
+    mega = check_decode_layer_step(MK, DK, AK, dev, gen)
+    attn_wo = check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
     pipe_ring, pipe_packed, pipe_probe, pipe_ablate = check_q8_pipeline(QP, quantize_weight, dev, gen)
     w8a8 = check_w8a8(W8, quantize_weight, dev, gen)
     mlp15 = check_mlp(MLP, dev, gen)
@@ -1582,18 +1694,21 @@ def main() -> None:
                 AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
                 MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
                 AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
-                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp)
+                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
+                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
-         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        # int8 weights: the body's S == 1 steps run the int8 dense pair too (its
+        # QKV half alone under attn_wo, whose MLP stays on the plain _mm)
+        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
-         (0, 0, 0, 0, D, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -1602,7 +1717,8 @@ def main() -> None:
         want = {fn.__name__: n for fn, n in zip(counters, expect)}
         codes, times, warm_s = timed_samples(name, lambda seed: sample(seed, **options), counters, want)
         log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): {want}")
-        launches.update({k: v for k, v in want.items() if v})
+        for k, v in want.items():  # a kernel's most launches at any point (#5 / #6: int8+kv_q8's)
+            launches[k] = max(launches.get(k, 0), v)
         pixels, decode_s = decode_checked(vqvae, codes, (BATCH, 8, 8, 4), 16384)
         results[name] = codes
         if name == "bf16":
@@ -1682,9 +1798,9 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:451 (ring) and :559 (grid)", **mlp_q8),
         dict(name="nearest_code", route="cuda", source="rqvae_tpu_torch/csrc/nearest_code.cu",
              replaces="rqvae_tpu/ops/rq_kernel.py:69", **nearest),
-        dict(name="decode_layer_step", route="cuda", source="rqvae_tpu_torch/csrc/decode_megakernel.cu",
+        dict(name="decode_layer_step", route="cuda", source="rqvae_tpu_torch/csrc/decode_fused.cu",
              replaces="rqvae_tpu/ops/decode_megakernel.py:215", **mega),
-        dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+        dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_fused.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:728", **attn_wo),
         dict(name="decode_attention_stacked", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:149 and :209", **attn_read,

@@ -24,14 +24,20 @@ package's DecodePolicy / resolve_* tables were tuned for the TPU v5e):
     kernel (ops/attention_kernel.py: decode_attention_update for (k, v)
     caches, decode_attention_q8_update for int8 caches, the read-only
     decode_attention_stacked on layer l of a stacked cache in stack_step),
-    and its dense half as torch.matmul (for int8 weights, the plain _mm);
+    and its dense half as torch.matmul for float weights; with int8 weights
+    stack_step_unrolled runs it through the two int8 dense kernels
+    (ops/decode_layer_kernel.py: fused_ln_qkv_q8, fused_proj_mlp_q8; the
+    JAX route dense="pallas"), stack_step through the plain _mm (no
+    operating point runs int8 weights on the stacked path);
   - with dense="mega" (DecodePolicy.dense; (k, v) caches and float weights
     only) a body S == 1 step is one decode_layer_step per layer
     (ops/decode_megakernel.py): the whole layer in one kernel;
   - with attn_wo=True (DecodePolicy.attn_wo; int8 caches only) a body
-    S == 1 step runs decode_attention_q8_update_wo per layer (the q8
-    attention with wo, the residual and LN2 folded in), then the MLP as
-    torch.matmul (_mm for int8 weights);
+    S == 1 step runs its QKV half as above (fused_ln_qkv_q8 for int8
+    weights, torch.matmul for float ones), decode_attention_q8_update_wo
+    per layer (the q8 attention with wo, the residual and LN2 folded in),
+    then the MLP alone as torch.matmul (the plain _mm for int8 weights: no
+    kernel computes the MLP without wo and LN2);
   - a head S == 1 step runs its dense half through the two dense kernels
     (ops/decode_layer_kernel.py; the _q8 pair when the block's weights are
     int8); its attention over <= D cache rows stays plain;
@@ -375,14 +381,15 @@ def stack_step_unrolled(
         return xt[:, None], caches
     attn_wo_fn = AK.decode_attention_q8_update_wo if kernels else AK.decode_attention_q8_update_wo_plain
     body_attn = kernels and body_step
-    head_dense = stack.role == "head" and S == 1
+    # the dense kernel pair: a head S == 1 step, and a body one with int8 weights
+    fused_dense = S == 1 and (stack.role == "head" or stack.blocks[0].int8)
     if q8_cache:
         attn_fn = AK.decode_attention_q8_update if body_attn else AK.decode_attention_q8_update_plain
     else:
         attn_fn = AK.decode_attention_update if body_attn else AK.decode_attention_update_plain
 
     for blk, cache_l in zip(stack.blocks, caches):
-        q, k, v = _block_qkv(blk, x, head_dense, kernels).split(C, dim=-1)
+        q, k, v = _block_qkv(blk, x, fused_dense, kernels).split(C, dim=-1)
         if body_step and attn_wo:
             wo, wo_s = (blk.wo_q, blk.wo_s) if blk.int8 else (blk.attn.proj.weight, None)
             x2, h2 = attn_wo_fn(
@@ -409,20 +416,20 @@ def stack_step_unrolled(
                 y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
                 k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
                 v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
-        x = _block_out(blk, x, y, head_dense, kernels, stack.cfg.gelu)
+        x = _block_out(blk, x, y, fused_dense, kernels, stack.cfg.gelu)
     return x, caches
 
 
-def _block_qkv(blk: Block, x: torch.Tensor, head_dense: bool, kernels: bool) -> torch.Tensor:
-    """LN1 and the fused QKV projection of x [B, S, C] -> [B, S, 3C]. A
-    head S == 1 step (`head_dense`) runs fused_ln_qkv (fused_ln_qkv_q8 for
+def _block_qkv(blk: Block, x: torch.Tensor, fused_dense: bool, kernels: bool) -> torch.Tensor:
+    """LN1 and the fused QKV projection of x [B, S, C] -> [B, S, 3C]. An
+    S == 1 step given `fused_dense` runs fused_ln_qkv (fused_ln_qkv_q8 for
     int8 weights), or its plain version when not `kernels`; anything else
     runs F.linear (_mm for int8 weights)."""
     ln1 = (blk.ln1.weight, blk.ln1.bias)
-    if head_dense and blk.int8:
+    if fused_dense and blk.int8:
         fn = DK.fused_ln_qkv_q8 if kernels else DK.fused_ln_qkv_q8_plain
         return fn(x[:, 0], *ln1, blk.wqkv_q, blk.wqkv_s, blk.bqkv)[:, None]
-    if head_dense:
+    if fused_dense:
         fn = DK.fused_ln_qkv if kernels else DK.fused_ln_qkv_plain
         return fn(x[:, 0], *ln1, blk.wqkv, blk.bqkv)[:, None]
     if blk.int8:
@@ -430,21 +437,22 @@ def _block_qkv(blk: Block, x: torch.Tensor, head_dense: bool, kernels: bool) -> 
     return F.linear(layer_norm(x, *ln1), blk.wqkv, blk.bqkv)
 
 
-def _block_out(blk: Block, x: torch.Tensor, y: torch.Tensor, head_dense: bool, kernels: bool,
+def _block_out(blk: Block, x: torch.Tensor, y: torch.Tensor, fused_dense: bool, kernels: bool,
                gelu_version: str) -> torch.Tensor:
     """The rest of the block after attention: x2 = x + y @ wo + bo, then
-    x2 + MLP(LN2(x2)). A head S == 1 step runs fused_proj_mlp
-    (fused_proj_mlp_q8 for int8 weights), or its plain version when not
-    `kernels`; anything else F.linear (_mm for int8 weights)."""
+    x2 + MLP(LN2(x2)). An S == 1 step given `fused_dense` runs
+    fused_proj_mlp (fused_proj_mlp_q8 for int8 weights), or its plain
+    version when not `kernels`; anything else F.linear (_mm for int8
+    weights)."""
     mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
     ln2, bo = (blk.ln2.weight, blk.ln2.bias), blk.attn.proj.bias
-    if head_dense and blk.int8:
+    if fused_dense and blk.int8:
         fn = DK.fused_proj_mlp_q8 if kernels else DK.fused_proj_mlp_q8_plain
         return fn(
             x[:, 0], y[:, 0], blk.wo_q, blk.wo_s, bo, *ln2, blk.w1_q, blk.w1_s, mlp0.bias,
             blk.w2_q, blk.w2_s, mlp2.bias, gelu_version=gelu_version,
         )[:, None]
-    if head_dense:
+    if fused_dense:
         fn = DK.fused_proj_mlp if kernels else DK.fused_proj_mlp_plain
         return fn(
             x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,

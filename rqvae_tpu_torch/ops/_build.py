@@ -53,6 +53,10 @@ _SIGNATURES = {
     "rq_dense_tensor_map": (_P,) + (_I,) * 4 + (_P,),
     "rq_dense_max_clusters": (_I,) * 5 + (_P,),
     "rq_dense_phase_ns": (_P,),
+    "rq_fused_layer_step": (_P,) * 24 + (_I,) * 14 + (_F, _P),
+    "rq_fused_attn_wo": (_P,) * 18 + (_I,) * 12 + (_F, _P),
+    "rq_fused_max_clusters": (_I,) * 5 + (_P,),
+    "rq_fused_phase_ns": (_P,),
     "rq_fused_proj_mlp_q8_splitk": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rq_decode_layer_step": (_P,) * 17 + (_I,) * 8 + (_F, _P),
@@ -154,14 +158,24 @@ def library() -> SimpleNamespace:
         return _loaded["lib"]
 
 
-def phase_us(name: str, n: int) -> list[float]:
-    """The microseconds between the n globaltimer stamps that a fused
-    kernel's last launch left (its phases), read through its C entry point
-    `name` (rq_decode_layer_step_phase_ns, ..._q8_update_wo_phase_ns,
-    rq_dense_phase_ns).
-    Synchronous: call it after the launch has finished."""
-    buf = (ctypes.c_ulonglong * n)()
+MAX_STAMPS = 16  # at least the globaltimer stamps any kernel's phase entry point copies out
+
+
+def stamps_ns(name: str) -> list[int]:
+    """The globaltimer stamps (ns) that a fused kernel's last launch left,
+    read through its C entry point `name` (rq_decode_layer_step_phase_ns,
+    ..._q8_update_wo_phase_ns, rq_dense_phase_ns, rq_fused_phase_ns), which
+    copies at most MAX_STAMPS of them. Synchronous: call it after the
+    launch has finished."""
+    buf = (ctypes.c_ulonglong * MAX_STAMPS)()
     check(getattr(library(), name)(ctypes.cast(buf, ctypes.c_void_p)), name)
+    return list(buf)
+
+
+def phase_us(name: str, n: int) -> list[float]:
+    """The microseconds between the first n stamps of stamps_ns(name): a
+    fused kernel's phases, in order."""
+    buf = stamps_ns(name)
     return [(buf[i + 1] - buf[i]) / 1e3 for i in range(n - 1)]
 
 

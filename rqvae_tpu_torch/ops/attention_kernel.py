@@ -45,8 +45,14 @@ decode_attention_q8_update_wo is the counterpart of
 ::decode_attention_q8_update_wo: the q8 attention, then the output
 projection (int8 wo with its per-output scale, or a float wo), the residual
 and LN2, returning (x2, h2) for the MLP. Its CUDA kernel is
-rq_decode_attention_q8_update_wo in csrc/decode_attention_q8.cu: one
-cooperative launch whose phases are separated by grid barriers.
+csrc/decode_fused.cu::rq_fused_attn_wo: one persistent launch on
+csrc/decode_dense.cu's machinery (the attention on the consumer warps
+while the producer fills the weight ring with wo; wgmma, cluster split-K;
+grid barriers), planned by ops/decode_layer_kernel.py::fused_plan; it
+serves C in decode_layer_kernel.WIDTHS. Its first, cooperative design
+(rq_decode_attention_q8_update_wo in csrc/decode_attention_q8.cu) stays as
+the A/B baseline decode_attention_q8_update_wo_coop, which only
+chip_smoke.py runs.
 
 Head sizes: the attention kernels serve C / n_head in HEAD_SIZES (the CUDA
 templates' instantiations: 64, and 104 for the zoo's vqgan_large); the
@@ -62,6 +68,7 @@ import math
 import torch
 
 from rqvae_tpu_torch.ops import _build
+from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _layer_norm
 
 # head sizes of the CUDA attention kernels (the instantiations in
@@ -533,14 +540,26 @@ def decode_attention_q8_update_wo(
     t_window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_attention_q8.cu::rq_decode_attention_q8_update_wo
-    (bf16 activations, int8 cache, int8 or bf16 wo, head size
-    WO_HEAD_SIZE = 64, contiguous) or raises. One launch adds one to
-    `decode_attention_q8_update_wo.launches`."""
+    launches csrc/decode_fused.cu::rq_fused_attn_wo (bf16 activations, int8
+    cache, int8 or bf16 wo, head size WO_HEAD_SIZE = 64, C in
+    decode_layer_kernel.WIDTHS, contiguous) or raises. One launch adds one
+    to `decode_attention_q8_update_wo.launches`."""
     args = (q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head, t_window)
     if q.device.type == "cpu":
         return decode_attention_q8_update_wo_plain(*args)
-    name = "decode_attention_q8_update_wo"
+    W = _check_wo("decode_attention_q8_update_wo", *args)
+    x2, h2 = DK.fused_attn_wo(*args[:-1], W)
+    decode_attention_q8_update_wo.launches += 1
+    return x2, h2
+
+
+decode_attention_q8_update_wo.launches = 0
+
+
+def _check_wo(name, q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head,
+              t_window) -> int:
+    """The checks of the CUDA wrappers of decode_attention_q8_update_wo;
+    returns the window W."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name, head_sizes=(WO_HEAD_SIZE,))
@@ -558,10 +577,43 @@ def decode_attention_q8_update_wo(
             raise ValueError(f"{name}: {arg} must be a contiguous bf16 tensor on {q.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dim() == 2 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+    for arg, t in (("q", q), ("k_new", k_new), ("v_new", v_new), ("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs)):
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
     if W > _build.MAX_WINDOW:
         raise ValueError(f"{name}: the window holds at most {_build.MAX_WINDOW} rows, got {W}")
+    return W
+
+
+def decode_attention_q8_update_wo_coop(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    x: torch.Tensor,
+    wo: torch.Tensor,
+    wo_scale: torch.Tensor | None,
+    bo: torch.Tensor,
+    ln2_scale: torch.Tensor,
+    ln2_bias: torch.Tensor,
+    n_head: int,
+    t_window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """decode_attention_q8_update_wo through its first, cooperative design
+    (csrc/decode_attention_q8.cu::rq_decode_attention_q8_update_wo), CUDA
+    tensors only: the A/B baseline of chip_smoke.py. Adds one to
+    `decode_attention_q8_update_wo_coop.launches` per launch."""
+    name = "decode_attention_q8_update_wo_coop"
+    W = _check_wo(name, q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head,
+                  t_window)
+    B, C = q.shape
+    T = kq.shape[1]
     x2, h2 = torch.empty_like(x), torch.empty_like(x)
     work = torch.empty(_build.MAX_SPLITS * B * C * 4 + B * C * 2, dtype=torch.uint8, device=q.device)
     lib = _build.library()
@@ -574,8 +626,8 @@ def decode_attention_q8_update_wo(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "rq_decode_attention_q8_update_wo")
-    decode_attention_q8_update_wo.launches += 1
+    decode_attention_q8_update_wo_coop.launches += 1
     return x2, h2
 
 
-decode_attention_q8_update_wo.launches = 0
+decode_attention_q8_update_wo_coop.launches = 0

@@ -9,7 +9,10 @@ note says what bounds them on the H100 and how the design answers that);
 `dense_plan` is their launch plan. Their first, split-K design (`*_splitk`,
 kept as the A/B baseline that only chip_smoke.py runs) is
 csrc/decode_layer.cu. This module holds their wrappers and the plain
-PyTorch versions.
+PyTorch versions, and `fused_plan` with the launches of the fused
+body-layer kernels of csrc/decode_fused.cu (#14 decode_layer_step, #13
+decode_attention_q8_update_wo, whose wrappers are in decode_megakernel.py
+and attention_kernel.py), built on the same machinery.
 
 Weights come in the nn.Linear [out, in] layout (wqkv is the fused [3C, C]
 buffer), not the JAX [in, out] one. Rounding points follow the JAX kernels
@@ -65,6 +68,13 @@ ROW_TILES_QKV = ROW_TILES_MLP + (160, 192, 224, 256)
 # the plan's price of one tile's cluster reduction, in weight bytes (about
 # the time an SM's share of the HBM rate takes to bring 16 KB)
 _ROUND_BYTES = 16384
+# csrc/decode_fused.cu: the row tiles its kernels are built for
+# (RQ_TILES_FUSED), its consumer warps (kConsumers / 32), the shared memory
+# that the scores of the warps that attend may take (decode_dense.cuh
+# attn_warps)
+ROW_TILES_FUSED = (8, 16, 24, 32, 40, 48, 64, 80, 104, 128)
+_CONSUMER_WARPS = 8
+_SCORE_BUDGET = 65536
 
 
 def _layer_norm(x, weight, bias):
@@ -134,16 +144,18 @@ def _splits(M: int, N: int, K: int) -> int:
     return s
 
 
-def _smem_bytes(mt: int, k_slice: int, stages: int, mlp: bool, wbytes: int = 2) -> int:
-    """Dynamic shared memory of a decode_dense.cu kernel (its `layout`): the
-    ring (a 64 x 64 weight tile of wbytes-byte elements per stage, + a t
-    tile for mlp), the resident B panel, the reduction buffer (red_bytes), a
+def _smem_bytes(mt: int, k_slice: int, stages: int, mlp: bool, wbytes: int = 2, scores: int = 0) -> int:
+    """Dynamic shared memory of a decode_dense.cu or decode_fused.cu kernel
+    (decode_dense.cuh `layout`): the ring (a 64 x 64 weight tile of
+    wbytes-byte elements per stage, + a t tile for mlp), the resident B
+    panel (or, when larger, the fused kernels' attention scores, `scores`
+    bytes, which use the panel's bytes), the reduction buffer (red_bytes), a
     float2 per row, the LN parameters of the K-slice as float2, the
     mbarriers and 1024 bytes of alignment slack."""
     stage = _TILE * _BK * wbytes + (mt * _BK * 2 if mlp else 0)
     red = (mt // 2 + CLUSTER_SIZES[-1]) * 512
-    return (stages * stage + (k_slice // _BK) * mt * _BK * 2 + red + mt * 8 + k_slice * 8
-            + (2 * stages + 4) * 8 + 1024)
+    panel = max((k_slice // _BK) * mt * _BK * 2, scores)
+    return stages * stage + panel + red + mt * 8 + k_slice * 8 + (2 * stages + 4) * 8 + 1024
 
 
 @dataclass(frozen=True)
@@ -653,3 +665,197 @@ def fused_proj_mlp_q8_splitk(
 
 
 fused_proj_mlp_q8_splitk.launches = 0
+
+
+# ---- csrc/decode_fused.cu: the fused body-layer steps (#14 and #13) --------
+
+
+def _attn_warps(window: int) -> int:
+    """The consumer warps that attend (decode_dense.cuh attn_warps): all 8,
+    or as many as keep their scores within _SCORE_BUDGET, at least one."""
+    return min(_CONSUMER_WARPS, max(1, _SCORE_BUDGET // (32 * (window + 1))))
+
+
+def _score_bytes(window: int) -> int:
+    """The attention's shared memory in one CTA (decode_dense.cuh
+    score_bytes): for each of an attending warp's 4 heads, window + 1
+    scores and as many V scales, fp32."""
+    return _attn_warps(window) * 4 * 2 * (window + 1) * 4
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """The launch of one decode_fused.cu kernel: the layer step (`layer`,
+    bf16 weights; products wqkv, wo, w1, w2) or the q8 attention with wo
+    (products: wo, of `wbytes`-byte elements), one grid of `clusters`
+    clusters of `cluster` CTAs for every product and for the attention (a
+    warp per row and 4 heads, keeping window + 1 scores and V scales of
+    each), row tiles of
+    `row_tile` rows, a ring of `stages` weight tiles, `smem` bytes."""
+
+    layer: bool
+    M: int
+    C: int
+    wbytes: int
+    window: int
+    cluster: int
+    clusters: int
+    row_tile: int
+    row_tiles: int
+    stages: int
+    smem: int
+
+    def products(self) -> list[tuple[int, int]]:
+        """(weight row tiles, reduction length) of each product, in order."""
+        C, H = self.C, 4 * self.C
+        if self.layer:
+            return [(3 * C // _TILE, C), (C // _TILE, C), (H // _TILE, C), (C // _TILE, H)]
+        return [(C // _TILE, C)]
+
+    units = DensePlan.units
+
+    def attention_units(self, cta: int):
+        """The (row, head) units CTA `cta` attends, in its warps' order (the
+        kernel's attention_phase: CTA c takes rows b = c, c + grid, ..., its
+        warp w < attn_warps the 4 heads 4 q .. 4 q + 3 of quads q = w, w +
+        attn_warps, ...)."""
+        grid, aw = self.cluster * self.clusters, _attn_warps(self.window)
+        quads = self.C // 64 // 4
+        for w in range(aw):
+            for b in range(cta, self.M, grid):
+                for q in range(w, quads, aw):
+                    yield from ((b, 4 * q + g) for g in range(4))
+
+
+def fused_plan(M: int, C: int, layer: bool, window: int, wbytes: int = 2, sms: int = SMS,
+               max_clusters=None) -> FusedPlan:
+    """The launch plan of decode_layer_step (layer True; bf16 weights, H =
+    4C) or decode_attention_q8_update_wo (layer False; wo of wbytes 1 or 2)
+    on csrc/decode_fused.cu, for M rows and a `window`-row attention window:
+    dense_plan's search over cluster sizes and row tiles (ROW_TILES_FUSED)
+    for all the kernel's products at once, the attention's scores in the
+    panel's bytes; every cluster the SMs hold (the attention runs on all of
+    them; clusters past a product's tiles skip it), no more than
+    max_clusters(layer, row_tile, s, smem) when given. ValueError for C
+    outside WIDTHS, M < 1 or a window outside [0, MAX_WINDOW]."""
+    if C not in WIDTHS or M < 1 or not 0 <= window <= _build.MAX_WINDOW:
+        raise ValueError(f"decode_fused: needs C in {WIDTHS}, M >= 1 and a window of 0 .. {_build.MAX_WINDOW} rows, "
+                         f"got M={M}, C={C}, window={window}")
+    scores = _score_bytes(window)
+    best, best_cost = None, None
+    for s in CLUSTER_SIZES:
+        if C % (_BK * s):
+            continue
+        fit = None
+        for n_rt in range(1, M + 1):
+            mt = next((t for t in ROW_TILES_FUSED if t >= -(-M // n_rt)), None)
+            if mt is None:
+                continue
+            base = _smem_bytes(mt, C // s, 0, layer, wbytes, scores)
+            stage = _smem_bytes(mt, C // s, 1, layer, wbytes, scores) - base
+            stages = min(_STAGES[1], (SMEM_LIMIT - base) // stage)
+            if stages >= _STAGES[0]:
+                fit = (mt, n_rt, stages, _smem_bytes(mt, C // s, stages, layer, wbytes, scores))
+                break
+            if mt == ROW_TILES_FUSED[0]:
+                break
+        if fit is None:
+            continue
+        mt, n_rt, stages, smem = fit
+        G = sms // s
+        if max_clusters is not None:
+            G = min(G, max_clusters(layer, mt, s, smem))
+        if G < 1:
+            continue
+        plan = FusedPlan(layer, M, C, wbytes, window, s, G, mt, n_rt, stages, smem)
+        cost = n_rt * sum(-(-tiles // G) * (_TILE * (k // s) * wbytes + _ROUND_BYTES) for tiles, k in plan.products())
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    if best is None:
+        raise ValueError(f"decode_fused: no launch plan fits M={M}, C={C}, window={window}")
+    return best
+
+
+def _fused_device_plan(M, C, layer, window, wbytes, device) -> FusedPlan:
+    """fused_plan on this device, cached; as _device_plan, a shape outside
+    the contract raises ValueError before the device or the library is asked."""
+    key = ("fused", M, C, layer, window, wbytes, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        fused_plan(M, C, layer, window, wbytes, max_clusters=lambda *a: SMS)  # the contract, on the host alone
+
+        def most(layer, mt, s, smem):
+            out = ctypes.c_int(0)
+            _build.check(_build.library().rq_fused_max_clusters(int(layer), mt, s, smem, int(wbytes == 1),
+                                                                ctypes.addressof(out)), "rq_fused_max_clusters")
+            return out.value
+
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _plans[key] = fused_plan(M, C, layer, window, wbytes, sms, most)
+    return plan
+
+
+def _fused_scratch(x, plan: FusedPlan):
+    """A fused kernel's scratch, kept per device and plan (one launch of a
+    decode_fused.cu kernel at a time per device, as _mlp_scratch): the layer
+    step's qkv [M, 3C], att, x2 [M, C], t [H / 64, rows, 64] and stats [M,
+    C / 64, 2] fp32; the attention with wo's att and stats."""
+    M, C = plan.M, plan.C
+    key = ("fused", x.get_device(), plan)
+    bufs = _scratch.get(key)
+    if bufs is None:
+        if len(_scratch) >= 16:
+            _scratch.clear()
+        new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)  # noqa: E731
+        stats = new(M, C // _TILE, 2, dtype=torch.float32)
+        if plan.layer:
+            bufs = (new(M, 3 * C), new(M, C), new(M, C), new(4 * C // _BK, plan.row_tiles * plan.row_tile, _BK), stats)
+        else:
+            bufs = (new(M, C), stats)
+        _scratch[key] = bufs
+    return bufs
+
+
+def fused_layer_step(x, k_cache, v_cache, cur_len, p, n_head, window, gelu_version):
+    """One launch of csrc/decode_fused.cu::rq_fused_layer_step on checked
+    CUDA tensors (ops/decode_megakernel.py::decode_layer_step's contract;
+    p: its weights by keyword). Returns out [M, C]; writes row cur_len of
+    the caches."""
+    M, C = x.shape
+    H = p["w1"].shape[0]
+    with _device(x):
+        plan = _fused_device_plan(M, C, True, window, 2, x.device)
+        out = torch.empty_like(x)
+        qkv, att, x2, t, stats = _fused_scratch(x, plan)
+        mt = plan.row_tile
+        err = _build.library().rq_fused_layer_step(
+            x.data_ptr(), _tensor_map(x, mt), k_cache.data_ptr(), v_cache.data_ptr(), p["ln1_scale"].data_ptr(),
+            p["ln1_bias"].data_ptr(), _tensor_map(p["wqkv"]), p["bqkv"].data_ptr(), _tensor_map(p["wo"]),
+            p["bo"].data_ptr(), p["ln2_scale"].data_ptr(), p["ln2_bias"].data_ptr(), _tensor_map(p["w1"]),
+            p["b1"].data_ptr(), _tensor_map(p["w2"]), p["b2"].data_ptr(), out.data_ptr(), qkv.data_ptr(),
+            att.data_ptr(), _tensor_map(att, mt), x2.data_ptr(), _tensor_map(x2, mt), t.data_ptr(), stats.data_ptr(),
+            M, k_cache.shape[1], C, H, n_head, window, cur_len, plan.cluster, plan.clusters, mt, plan.row_tiles,
+            plan.stages, plan.smem, int(gelu_version == "v2"), LN_EPS, _stream(x),
+        )
+    _build.check(err, "rq_fused_layer_step")
+    return out
+
+
+def fused_attn_wo(q, k_new, v_new, kq, ks, vq, vs, cur_len, x, wo, wo_scale, bo, ln2_scale, ln2_bias, n_head, window):
+    """One launch of csrc/decode_fused.cu::rq_fused_attn_wo on checked CUDA
+    tensors (ops/attention_kernel.py::decode_attention_q8_update_wo's
+    contract). Returns (x2, h2) [M, C]; writes row cur_len of the four caches."""
+    M, C = q.shape
+    with _device(q):
+        plan = _fused_device_plan(M, C, False, window, wo.element_size(), q.device)
+        x2, h2 = torch.empty_like(x), torch.empty_like(x)
+        att, stats = _fused_scratch(q, plan)
+        err = _build.library().rq_fused_attn_wo(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+            vs.data_ptr(), x.data_ptr(), _tensor_map(wo), None if wo_scale is None else wo_scale.data_ptr(),
+            bo.data_ptr(), ln2_scale.data_ptr(), ln2_bias.data_ptr(), x2.data_ptr(), h2.data_ptr(), att.data_ptr(),
+            _tensor_map(att, plan.row_tile), stats.data_ptr(), M, kq.shape[1], C, n_head, window, cur_len,
+            plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles, plan.stages, plan.smem, LN_EPS, _stream(q),
+        )
+    _build.check(err, "rq_fused_attn_wo")
+    return x2, h2

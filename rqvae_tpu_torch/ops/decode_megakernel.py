@@ -2,9 +2,15 @@
 KV cache with the in-place row write, wo + residual, LN2, MLP + residual.
 
 Counterpart of rqvae_tpu/ops/decode_megakernel.py::decode_layer_step. The
-CUDA kernel is csrc/decode_megakernel.cu (its source note says what bounds
-it on the H100 and how the design answers that); this module holds its
-wrapper and the plain PyTorch version of the same function.
+CUDA kernel is csrc/decode_fused.cu::rq_fused_layer_step (one persistent
+launch on csrc/decode_dense.cu's machinery: wgmma, a TMA weight ring,
+cluster split-K, the attention on the consumer warps between grid
+barriers; its source note says what bounds it on the H100 and how the
+design answers that), planned by ops/decode_layer_kernel.py::fused_plan.
+Its first, cooperative design (csrc/decode_megakernel.cu, nine phases of
+wmma split-K tiles) stays as the A/B baseline `decode_layer_step_coop`,
+which only chip_smoke.py runs. This module holds the wrappers and the
+plain PyTorch version of the same function.
 
 Contract (both versions): x [B, C], one layer's caches k_cache, v_cache
 [B, T, C], weights in the nn.Linear [out, in] layout as the dense kernels
@@ -31,6 +37,7 @@ import math
 import torch
 
 from rqvae_tpu_torch.ops import _build
+from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _gelu32, _layer_norm
 
 # the only head size the CUDA kernel serves: it runs only on the unrolled
@@ -71,8 +78,7 @@ def decode_layer_step_plain(
     return out
 
 
-def _check(x, k_cache, v_cache, cur_len, params, n_head, W):
-    name = "decode_layer_step"
+def _check(x, k_cache, v_cache, cur_len, params, n_head, W, name="decode_layer_step"):
     B, C = x.shape
     H = params["w1"].shape[0]
     shapes = {
@@ -92,8 +98,8 @@ def _check(x, k_cache, v_cache, cur_len, params, n_head, W):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shapes[arg]}")
         if t.dim() >= 2 and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
-    if C != n_head * HEAD_SIZE or H % 64:
-        raise ValueError(f"{name}: the kernel serves head size {HEAD_SIZE} and H % 64 == 0, got C={C}, "
+    if C != n_head * HEAD_SIZE or H != 4 * C:
+        raise ValueError(f"{name}: the kernel serves head size {HEAD_SIZE} and H == 4C, got C={C}, "
                          f"n_head={n_head}, H={H}")
     if not 0 <= cur_len < T:
         raise ValueError(f"{name}: cur_len={cur_len} outside the cache (T={T})")
@@ -101,26 +107,54 @@ def _check(x, k_cache, v_cache, cur_len, params, n_head, W):
         raise ValueError(f"{name}: the window holds at most {_build.MAX_WINDOW} rows, got {W}")
 
 
+def _checked(name, x, k_cache, v_cache, cur_len, params, n_head, t_window, gelu_version) -> int:
+    """The CUDA wrappers' checks (_check's and the device's, the gelu
+    form's); returns the window W."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if gelu_version not in ("v1", "v2"):
+        raise ValueError(f"{name}: unknown gelu version {gelu_version!r}")
+    T = k_cache.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    _check(x, k_cache, v_cache, cur_len, params, n_head, W, name)
+    return W
+
+
 def decode_layer_step(
     x, k_cache, v_cache, cur_len, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
     w1, b1, w2, b2, n_head, t_window=None, gelu_version="v1",
 ):
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_megakernel.cu (bf16, head size 64, contiguous) or
-    raises. One launch adds one to `decode_layer_step.launches`."""
+    launches csrc/decode_fused.cu::rq_fused_layer_step (bf16, head size 64,
+    C in decode_layer_kernel.WIDTHS, H = 4C, contiguous) or raises. One
+    launch adds one to `decode_layer_step.launches`."""
     params = dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo,
                   ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2)
     if x.device.type == "cpu":
         return decode_layer_step_plain(x, k_cache, v_cache, cur_len, **params, n_head=n_head,
                                        t_window=t_window, gelu_version=gelu_version)
-    if x.device.type != "cuda":
-        raise ValueError(f"decode_layer_step: no kernel for device {x.device}")
-    if gelu_version not in ("v1", "v2"):
-        raise ValueError(f"decode_layer_step: unknown gelu version {gelu_version!r}")
+    W = _checked("decode_layer_step", x, k_cache, v_cache, cur_len, params, n_head, t_window, gelu_version)
+    out = DK.fused_layer_step(x, k_cache, v_cache, cur_len, params, n_head, W, gelu_version)
+    decode_layer_step.launches += 1
+    return out
+
+
+decode_layer_step.launches = 0
+
+
+def decode_layer_step_coop(
+    x, k_cache, v_cache, cur_len, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
+    w1, b1, w2, b2, n_head, t_window=None, gelu_version="v1",
+):
+    """decode_layer_step through its first, cooperative design
+    (csrc/decode_megakernel.cu::rq_decode_layer_step), CUDA tensors only:
+    the A/B baseline of chip_smoke.py. Adds one to
+    `decode_layer_step_coop.launches` per launch."""
+    params = dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo,
+                  ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2)
+    W = _checked("decode_layer_step_coop", x, k_cache, v_cache, cur_len, params, n_head, t_window, gelu_version)
     B, C = x.shape
     T = k_cache.shape[1]
-    W = T if t_window is None else min(t_window, T)
-    _check(x, k_cache, v_cache, cur_len, params, n_head, W)
     H = w1.shape[0]
     out = torch.empty_like(x)
     work = torch.empty(_build.MAX_SPLITS * B * max(3 * C, H) * 4 + (2 * B * C + B * H) * 2,
@@ -135,8 +169,8 @@ def decode_layer_step(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "rq_decode_layer_step")
-    decode_layer_step.launches += 1
+    decode_layer_step_coop.launches += 1
     return out
 
 
-decode_layer_step.launches = 0
+decode_layer_step_coop.launches = 0

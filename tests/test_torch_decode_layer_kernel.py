@@ -189,3 +189,108 @@ def test_tensor_map_key_tells_int8_from_bf16():
     assert DK._map_key(as_bf16, 64) != DK._map_key(as_int8, 64)
     assert DK._map_key(as_int8, 64) == DK._map_key(raw[:, :64], 64)
     assert DK._map_key(as_int8, 64) != DK._map_key(as_int8, 104)  # an activation's box
+
+
+FUSED_KINDS = [(True, 2), (False, 1), (False, 2)]  # (layer, wbytes): #14; #13 with int8 wo, with bf16 wo
+FUSED_IDS = ["layer_step", "attn_wo_q8", "attn_wo_bf16"]
+
+
+def _check_fused_plan_covers(plan, M, C, layer, wbytes, window):
+    """csrc/decode_fused.cu's launch plan: the row tiles cover the M rows,
+    every (row tile, weight row tile, K-chunk) of every product falls to
+    exactly one CTA, every (row, head) of the attention to exactly one warp,
+    and the launch fits the card: clusters of at most 8, one wave of 132
+    SMs, the shared memory of the layout with the attention's scores (in
+    the panel's bytes) within 232,448 bytes, a ring of 4 to 16 stages, a
+    row tile the kernels are built for."""
+    assert (plan.layer, plan.M, plan.C, plan.wbytes, plan.window) == (layer, M, C, wbytes, window)
+    assert plan.cluster <= 8 and plan.cluster * plan.clusters <= 132
+    assert plan.row_tile in DK.ROW_TILES_FUSED
+    assert (plan.row_tiles - 1) * plan.row_tile < M <= plan.row_tiles * plan.row_tile
+    scores = DK._score_bytes(window)
+    warps = DK._attn_warps(window)  # each keeps fp32 scores and V scales of window + 1 rows for 4 heads
+    assert scores == warps * 4 * 2 * (window + 1) * 4 and 1 <= warps <= 8
+    assert warps == 8 or (warps == 1 and scores > 65536) or scores <= 65536 < scores // warps * (warps + 1)
+    assert plan.smem == DK._smem_bytes(plan.row_tile, C // plan.cluster, plan.stages, layer, wbytes, scores)
+    assert plan.smem <= DK.SMEM_LIMIT and 4 <= plan.stages <= 16
+    products = plan.products()
+    want = [(3 * C, C), (C, C), (4 * C, C), (C, 4 * C)] if layer else [(C, C)]  # (weight rows, K)
+    assert [(tiles * 64, k) for tiles, k in products] == want
+    counts = [np.zeros((plan.row_tiles, tiles, k // 64), np.int32) for tiles, k in products]
+    heads = np.zeros((M, C // 64), np.int32)
+    for cta in range(plan.cluster * plan.clusters):
+        for i, m0, j, k0 in plan.units(cta):
+            counts[i][m0 // plan.row_tile, j, k0 // 64] += 1
+        for b, h in plan.attention_units(cta):
+            heads[b, h] += 1
+    for (tiles, k), c in zip(products, counts):
+        assert (c == 1).all(), f"product [{tiles * 64}, {k}]: counts {np.unique(c)}"
+    assert (heads == 1).all(), f"attention units: counts {np.unique(heads)}"
+
+
+@pytest.mark.parametrize("layer,wbytes", FUSED_KINDS, ids=FUSED_IDS)
+@pytest.mark.parametrize("C", DK.WIDTHS)
+@pytest.mark.parametrize("M", [1, 37, 100, 129])
+def test_fused_plan_covers_each_output_and_reduction_once(M, C, layer, wbytes):
+    """_check_fused_plan_covers at every head width the port builds, at the
+    sampler's 64-row window."""
+    plan = DK.fused_plan(M, C, layer, 64, wbytes)
+    _check_fused_plan_covers(plan, M, C, layer, wbytes, 64)
+
+
+@pytest.mark.parametrize("layer,wbytes", FUSED_KINDS, ids=FUSED_IDS)
+@pytest.mark.parametrize("window", [0, 24, 255, 256, 1024, 4223])
+def test_fused_plan_fits_the_scores_of_every_window(window, layer, wbytes):
+    """Up to the wrappers' longest window (MAX_WINDOW, 4223 rows) the scores
+    of a CTA's warps fit beside the ring, at the widest width too."""
+    for C in (1536, 2560):
+        _check_fused_plan_covers(DK.fused_plan(100, C, layer, window, wbytes), 100, C, layer, wbytes, window)
+
+
+@pytest.mark.parametrize("most", [1, 7, 32])
+def test_fused_plan_keeps_to_the_co_resident_clusters(most):
+    """With fewer co-resident clusters than SMs allow (the device's count
+    for the fused kernel itself), the plan launches no more, and still
+    covers every output, reduction and attention unit once."""
+    for layer, wbytes in FUSED_KINDS:
+        asked = []
+
+        def count(*args, asked=asked):
+            asked.append(args)
+            return most
+
+        plan = DK.fused_plan(100, 1536, layer, 64, wbytes, max_clusters=count)
+        assert plan.clusters <= most
+        assert all(a[0] is layer for a in asked)  # the layer step's kernel or the attention with wo's
+        _check_fused_plan_covers(plan, 100, 1536, layer, wbytes, 64)
+
+
+FUSED_REFUSED = [(100, 768, 64), (100, 3072, 64), (0, 1536, 64), (100, 1536, 4224), (100, 1536, -1)]
+
+
+@pytest.mark.parametrize("M,C,window", FUSED_REFUSED)
+def test_fused_plan_refuses_other_shapes_before_the_library(M, C, window, monkeypatch):
+    """The fused wrappers' plan (_fused_device_plan, called before anything
+    else reaches the device or the kernel library) raises ValueError for C
+    outside WIDTHS, M < 1 and a window outside 0 .. MAX_WINDOW, with
+    neither the library nor the device asked."""
+    def asked(*args, **kwargs):
+        raise AssertionError("the kernel library or the device was asked")
+
+    monkeypatch.setattr(DK._build, "library", asked)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", asked)
+    for layer, wbytes in FUSED_KINDS:
+        with pytest.raises(ValueError, match="decode_fused"):
+            DK._fused_device_plan(M, C, layer, window, wbytes, torch.device("cuda", 0))
+        with pytest.raises(ValueError, match="decode_fused"):
+            DK.fused_plan(M, C, layer, window, wbytes)
+
+
+def test_fused_layout_keeps_the_dense_layout_when_the_scores_fit():
+    """The scores share the panel's bytes: a layout whose scores fit in the
+    panel is the dense kernels' own; larger scores grow the panel region to
+    their size, and nothing else."""
+    for mlp in (False, True):
+        panel = (384 // 64) * 104 * 128
+        assert DK._smem_bytes(104, 384, 5, mlp, 2, panel) == DK._smem_bytes(104, 384, 5, mlp, 2)
+        assert DK._smem_bytes(104, 384, 5, mlp, 2, panel + 4096) == DK._smem_bytes(104, 384, 5, mlp, 2) + 4096

@@ -330,3 +330,61 @@ def test_greedy_sample_equals_jax_sampler_at_int8_points(int8):
     got = TS.sample(model, 2, torch.Generator().manual_seed(0), cond=torch.from_numpy(cond).long(),
                     quantizer=books, top_k=1, kv_q8=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+DENSE_FNS = ("fused_ln_qkv", "fused_proj_mlp", "fused_ln_qkv_q8", "fused_proj_mlp_q8", "fused_ln_qkv_q8_plain",
+             "fused_proj_mlp_q8_plain")
+# (stack, int8 weights, attn_wo, kernels, S, stacked cache): the dense
+# functions each layer of the step calls; on the CPU a kernel wrapper calls
+# its plain version, so the wrappers' calls show in the plain counts too
+DISPATCH_CASES = {
+    "body_int8": ("body", True, False, True, 1, False, {"fused_ln_qkv_q8": 1, "fused_proj_mlp_q8": 1,
+                                                         "fused_ln_qkv_q8_plain": 1, "fused_proj_mlp_q8_plain": 1}),
+    "body_int8_attn_wo": ("body", True, True, True, 1, False, {"fused_ln_qkv_q8": 1, "fused_ln_qkv_q8_plain": 1}),
+    "body_int8_plain": ("body", True, False, False, 1, False, {"fused_ln_qkv_q8_plain": 1,
+                                                                "fused_proj_mlp_q8_plain": 1}),
+    "body_bf16": ("body", False, False, True, 1, False, {}),
+    "body_bf16_attn_wo": ("body", False, True, True, 1, False, {}),
+    "body_int8_prefill": ("body", True, False, True, 3, False, {}),
+    "body_int8_stacked": ("body", True, False, True, 1, True, {}),
+    "head_int8": ("head", True, False, True, 1, False, {"fused_ln_qkv_q8": 1, "fused_proj_mlp_q8": 1,
+                                                         "fused_ln_qkv_q8_plain": 1, "fused_proj_mlp_q8_plain": 1}),
+}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_int8_body_step_runs_the_int8_dense_pair(case, monkeypatch):
+    """A body S == 1 step with int8 weights runs fused_ln_qkv_q8 and
+    fused_proj_mlp_q8 per layer (the QKV half alone under attn_wo, whose MLP
+    stays on _mm), their plain versions with kernels=False, as the head's
+    S == 1 step does; a float-weight body step, a prefill and the stacked
+    path call none of them. Spies on the DK functions count the calls; the
+    wrappers' launch counters do not move on the CPU."""
+    role, int8, attn_wo, kernels, S, stacked, want = DISPATCH_CASES[case]
+    _, _, _, _, model, _ = build_pair()
+    if int8:
+        model.quantize_int8()
+    wrappers = [getattr(DK, name) for name in DENSE_FNS[:4]]
+    before = [fn.launches for fn in wrappers]
+    calls = dict.fromkeys(DENSE_FNS, 0)
+    for name in DENSE_FNS:
+        def spy(*args, _fn=getattr(DK, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(DK, name, spy)
+    stack = model.body_transformer if role == "body" else model.head_transformer
+    cfg = model.config.body if role == "body" else model.config.head
+    B, T, C = 3, 8, cfg.embed_dim
+    x = torch.from_numpy(np.random.RandomState(7).standard_normal((B, S, C)).astype(np.float32))
+    if stacked:
+        TM.stack_step(stack, x, TM.init_kv_cache(cfg, B, T, torch.float32, "cpu"), 2, kernels=kernels)
+    elif role == "body":
+        caches = TM.init_unrolled_kv_cache_q8(cfg, B, T, "cpu")
+        TM.stack_step_unrolled(stack, x, caches, 2, kernels=kernels, attn_wo=attn_wo)
+    else:
+        TM.stack_step_unrolled(stack, x, TM.init_unrolled_kv_cache(cfg, B, T, torch.float32, "cpu"), 2,
+                               kernels=kernels)
+    n = len(stack.blocks)
+    assert calls == {name: want.get(name, 0) * n for name in DENSE_FNS}
+    assert [fn.launches for fn in wrappers] == before

@@ -133,7 +133,13 @@ def _steps(r, B, S0=3, n=4):
 def test_stack_step_matches_jax_and_unrolled(role, int8):
     """Port stack_step against JAX stack_step (prefill S = 3, then 4 decode
     steps; outputs and every layer's cache at 1e-5) and against the port's
-    stack_step_unrolled on the same inputs (equal)."""
+    stack_step_unrolled on the same inputs (equal). The one exception: a
+    body S == 1 step with int8 weights runs the int8 dense pair on the
+    unrolled path (JAX's dense="pallas" route; its plain versions here,
+    whose gelu is the JAX kernel's 0.5 t (1 + erf(t / sqrt 2)) form) and _mm
+    with F.gelu on the stacked one (JAX's stack_step route): the same
+    function in fp32, measured <= 2.4e-7 apart per layer, held to the JAX
+    bound 1e-5."""
     params, jcfg, _, _, model, _ = build_pair()
     if int8:
         params = JM.quantize_transformer_params(params)
@@ -145,16 +151,25 @@ def test_stack_step_matches_jax_and_unrolled(role, int8):
     cache = TM.init_kv_cache(stack.cfg, B, T, torch.float32, "cpu")
     assert cache.k.shape == (scfg.n_layer, B, T, C) and not cache.k.any()
     caches = TM.init_unrolled_kv_cache(stack.cfg, B, T, torch.float32, "cpu")
+    same_route = not (int8 and role == "body")  # the docstring's one exception
+
+    def agree(a, b):
+        if same_route:
+            assert torch.equal(a, b)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+
     for x, cur_len in _steps(np.random.RandomState(7), B):
         y_j, jcache = JM.stack_step(params[role], jnp.asarray(x), jcache, jnp.int32(cur_len), scfg)
         y_t, cache = TM.stack_step(stack, torch.from_numpy(x), cache, cur_len)
         y_u, _ = TM.stack_step_unrolled(stack, torch.from_numpy(x), caches, cur_len)
         np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5, rtol=0)
-        assert torch.equal(y_t, y_u)
+        agree(y_t, y_u)
     np.testing.assert_allclose(cache.k.numpy(), np.asarray(jcache.k), atol=1e-5, rtol=0)
     np.testing.assert_allclose(cache.v.numpy(), np.asarray(jcache.v), atol=1e-5, rtol=0)
     for layer, (k_l, v_l) in enumerate(caches):
-        assert torch.equal(cache.k[layer], k_l) and torch.equal(cache.v[layer], v_l)
+        agree(cache.k[layer], k_l)
+        agree(cache.v[layer], v_l)
     with pytest.raises(ValueError, match="outside the cache"):
         TM.stack_step(stack, torch.zeros(B, 2, C), cache, T - 1)
 
