@@ -20,10 +20,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      CUDA graphs, eager time, the host time of a wrapper call); the read-only
      decode attention also at the experiment's B 500, on a [4, 100, 257,
      1536] stack at cur_len 256 and, at head size 104, on a [2, 100, 257,
-     1664] stack of 16 heads, its caches bit-unchanged; the bf16 update
-     also once at head size 104, its written row bit-equal; int8 caches and
-     weights for the q8 kernels, whose cache writes must be bit-equal (the
-     q8 update also once at head size 104), and the read-only q8 attention
+     1664] stack of 16 heads, its caches bit-unchanged; the update
+     attention #1 / #4 (csrc/decode_attention_tma.cu, one launch each) at
+     B 100 at both sampler windows, B 37, B 8 and head size 104, #1's
+     written row equal to k_new / v_new and every other row bit-unchanged,
+     #4's four caches bit-equal to the plain version's, timed as CUDA-graph
+     device time against their first design (*_v1) and SDPA, with a sweep
+     of launch plans, each also streaming its copies alone, and CTA 0's
+     phases; int8 caches and weights for the q8 kernels, and the read-only q8 attention
      decode_attention_q8 at the experiment's shapes (B 100 and 500),
      cur_len == T, cur_len 0, a ragged batch and head size 104, its caches
      bit-unchanged;
@@ -102,8 +106,9 @@ Run from the repository root on a machine with one CUDA device:
 `python3 chip_smoke.py dense` runs phases 1-2 and phase 3's checks of the
 dense pair, bf16 and int8 (check_dense), and of the two fused kernels
 (#14, #13), and prints no result line; `python3 chip_smoke.py fused` the
-fused kernels' checks alone. Run from two source trees in one call, they
-compare two designs of those kernels on one card.
+fused kernels' checks alone; `python3 chip_smoke.py attention` those of
+the update attention #1 / #4 alone. Run from two source trees in one
+call, they compare two designs of those kernels on one card.
 """
 
 from __future__ import annotations
@@ -316,54 +321,137 @@ def compare(name: str, got, want, tol: float = TOL, mean_tol: float | None = Non
     return max_abs, max_rel
 
 
+# (B, C, n_head, cur_len, window) of phase 3's update-attention cases on a
+# 64-row cache: the main path's B 100 at both sampler windows, a ragged
+# batch of 37 and the forced-logits batch of 8, head size 104 (C 1664, 16
+# heads)
+ATTN_CASES = [(BATCH, 1536, 24, cur, window) for window in (32, 64) for cur in (0, 15, 16, 63)] + [
+    (37, 1536, 24, 30, 24), (37, 1536, 24, 0, 24), (8, 1536, 24, 63, 64), (8, 1536, 24, 16, 32),
+    (BATCH, 1664, 16, 63, 64), (37, 1664, 16, 30, 24)]
+# plans of csrc/decode_attention_tma.cu timed at B 100 beside the plan's own
+# choice: (head groups, CTAs per SM, stage bytes)
+ATTN_SPLITS = tuple((g, k, sb) for k in (1, 2, 3) for g in (1, 2, 3, 4, 6, 8, 12)
+                    for sb in (16384, 32768, 65536))
+
+
+def check_tma_plan(AK, lib, B, C, nh, window, q8):
+    """The plan of attention_plan, its shared memory equal to what the
+    kernel library computes for it (csrc/decode_attention_tma.cu::tma_layout
+    against its Python mirror)."""
+    plan = AK.attention_plan(B, C, nh, window, q8)
+    got = lib.rq_attention_tma_smem(C, nh, int(q8), window, plan.groups, plan.rows, plan.stages)
+    if got != plan.smem:
+        raise AssertionError(f"attention plan {plan}: the kernel computes {got} bytes of shared memory")
+    return plan
+
+
+# the mean window of the body attention over a 1.4B sample call's 64
+# positions (cur_len 0 .. 63, the cond token first)
+ATTN_MEAN_ROWS = 31.5
+# CTA 0's first unit (rq_attention_tma_phase_ns)
+ATTN_STAMPS = ("first chunk", "K pass", "self term + row write", "softmax", "V pass", "y")
+
+
+def time_attention_splits(AK, entry, q8, q, tensor_sets, nh):
+    """Device time (graph_ms) of the update kernel at B 100, cur_len 63,
+    window 64 on each plan of ATTN_SPLITS, and of the same plan streaming
+    its copies alone (probe): {(groups, CTAs per SM, stage bytes): (ms,
+    copies-alone ms)}; prints them, fastest first, and CTA 0's phases of
+    one call of the default plan."""
+    B, C = q.shape
+    out = {}
+    for groups, per_sm, stage in ATTN_SPLITS:
+        try:
+            plan = AK.attention_plan(B, C, nh, 64, q8, groups=groups, ctas_per_sm=per_sm, stage_bytes=stage)
+        except ValueError:
+            continue
+        out[(groups, per_sm, stage)] = tuple(
+            graph_ms([lambda s=s: AK._launch_tma(entry, plan, q, s, 64, 63, probe) for s in tensor_sets])
+            for probe in (False, True))
+    log(f"  {entry} plans (groups, CTAs per SM, stage bytes) -> device ms (copies alone), fastest first: "
+        + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f})" for k, v in sorted(out.items(), key=lambda kv: kv[1][0])))
+    plan = AK.attention_plan(B, C, nh, 64, q8)
+    AK._launch_tma(entry, plan, q, tensor_sets[0], 64, 63)
+    torch.cuda.synchronize()
+    ns = AK._build.stamps_ns("rq_attention_tma_phase_ns")
+    log(f"  {entry} CTA 0 of one call (us): " + ", ".join(
+        f"{name} {(ns[i + 1] - ns[i]) / 1e3:.2f}" for i, name in enumerate(ATTN_STAMPS))
+        + f", its end {(ns[7] - ns[0]) / 1e3:.2f}, the last CTA's end {(ns[8] - ns[0]) / 1e3:.2f}")
+    return out
+
+
 def check_attention(AK, dev, gen):
-    B, C, nh, T = BATCH, 1536, 24, 64
+    """decode_attention_update (#1, csrc/decode_attention_tma.cu) against its
+    plain version at ATTN_CASES: y within TOL, row cur_len equal to k_new /
+    v_new, every other row bit-unchanged; one device kernel per call; timed
+    eager and as graph-replay device time against its first design
+    (decode_attention_update_v1), SDPA over the same rows, and the other
+    head / window splits."""
+    T = 64
+    lib = AK._build.library()
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
-    kc, vc = rnd(B, T, C), rnd(B, T, C)
     worst = 0.0
-    for window in (32, 64):
-        for cur in (0, 15, 16, 63):
-            k1, v1, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            y1 = AK.decode_attention_update(q, kn, vn, k1, v1, cur, nh, t_window=window)
-            y0 = AK.decode_attention_update_plain(q, kn, vn, k0, v0, cur, nh, t_window=window)
-            torch.cuda.synchronize()
-            err, _ = compare(f"decode_attention_update cur_len={cur} window={window}", y1, y0)
-            worst = max(worst, err)
-            keep = torch.ones(T, dtype=torch.bool, device=dev)
-            keep[cur] = False
-            if not (torch.equal(k1[:, cur], kn) and torch.equal(v1[:, cur], vn)):
-                raise AssertionError(f"cache row {cur} was not set to k_new/v_new")
-            if not (torch.equal(k1[:, keep], kc[:, keep]) and torch.equal(v1[:, keep], vc[:, keep])):
-                raise AssertionError(f"cache rows other than {cur} changed")
-    # once at head size 104 (C 1664, 16 heads)
-    C1, nh1 = 1664, 16
-    q1, kn1, vn1, kc1, vc1 = rnd(B, C1), rnd(B, C1), rnd(B, C1), rnd(B, T, C1), rnd(B, T, C1)
-    k1, v1, k0, v0 = kc1.clone(), vc1.clone(), kc1.clone(), vc1.clone()
-    y1 = AK.decode_attention_update(q1, kn1, vn1, k1, v1, 63, nh1, t_window=64)
-    y0 = AK.decode_attention_update_plain(q1, kn1, vn1, k0, v0, 63, nh1, t_window=64)
-    torch.cuda.synchronize()
-    worst = max(worst, compare("decode_attention_update head size 104 cur_len=63 window=64", y1, y0)[0])
-    if not (torch.equal(k1, k0) and torch.equal(v1, v0) and torch.equal(k1[:, 63], kn1)):
-        raise AssertionError("head size 104: the caches after the kernel's write differ from the plain version's")
-    del q1, kn1, vn1, kc1, vc1, k1, v1, k0, v0
-    log("  decode_attention_update: row cur_len written, every other cache row bit-unchanged, at head sizes 64 "
-        "and 104")
+    for B, C, nh, cur, window in ATTN_CASES:
+        q, kn, vn, kc, vc = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, T, C), rnd(B, T, C)
+        plan = check_tma_plan(AK, lib, B, C, nh, window, False)
+        k1, v1, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        y1 = AK.decode_attention_update(q, kn, vn, k1, v1, cur, nh, t_window=window)
+        y0 = AK.decode_attention_update_plain(q, kn, vn, k0, v0, cur, nh, t_window=window)
+        torch.cuda.synchronize()
+        tag = (f"decode_attention_update B={B} C={C} head size {C // nh} cur_len={cur} window={window} (groups "
+               f"{plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)")
+        worst = max(worst, compare(tag, y1, y0)[0])
+        keep = torch.ones(T, dtype=torch.bool, device=dev)
+        keep[cur] = False
+        if not (torch.equal(k1[:, cur], kn) and torch.equal(v1[:, cur], vn)):
+            raise AssertionError(f"{tag}: cache row {cur} was not set to k_new/v_new")
+        if not (torch.equal(k1[:, keep], kc[:, keep]) and torch.equal(v1[:, keep], vc[:, keep])):
+            raise AssertionError(f"{tag}: cache rows other than {cur} changed")
+    log("  decode_attention_update: y within the bound, row cur_len = k_new / v_new, every other cache row "
+        "bit-unchanged, at head sizes 64 and 104")
     # time the heaviest main-path call (window 64, cur_len 63) on 4 distinct
     # cache pairs (4 x 39 MB), so L2 does not carry one call's cache over
+    B, C, nh, n = BATCH, 1536, 24, 63
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
     sets = [(rnd(B, T, C), rnd(B, T, C)) for _ in range(4)]
-    ms = cuda_ms([lambda s=s: AK.decode_attention_update(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
-    plain = cuda_ms([lambda s=s: AK.decode_attention_update_plain(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
-    lib = cuda_ms([lambda s=s: sdpa_rows(q, *s, nh, 64) for s in sets], 50)
-    n = 63
+    one_kernel("decode_attention_update", lambda: AK.decode_attention_update(q, kn, vn, *sets[0], n, nh, 64),
+               "attention_tma_kernel")
+    calls = {"kernel": lambda s: AK.decode_attention_update(q, kn, vn, *s, n, nh, 64),
+             "first design (v1)": lambda s: AK.decode_attention_update_v1(q, kn, vn, *s, n, nh, 64),
+             "library (SDPA over the 64 rows)": lambda s: sdpa_rows(q, *s, nh, 64)}
+    ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
+    plain = cuda_ms([lambda s=s: AK.decode_attention_update_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    lib_ms = cuda_ms([lambda s=s: sdpa_rows(q, *s, nh, 64) for s in sets], 50)
+    graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
+    graph["kernel, again"] = graph_ms([lambda s=s: calls["kernel"](s) for s in sets])
     b = bound(2 * B * n * C * 2 + 3 * B * C * 2 + B * C * 2 + 2 * B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
-    log(f"  decode_attention_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"(scaled_dot_product_attention over the 64 rows, no cache write) {lib:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    mean = ATTN_MEAN_ROWS  # a sample call's mean window
+    b_mean = bound(2 * B * mean * C * 2 + 3 * B * C * 2 + B * C * 2 + 2 * B * C * 2, 4 * B * (mean + 1) * C,
+                   FP32_FLOPS)["bound_ms"]
+    kernel_ms = max(graph["kernel"], graph["kernel, again"])
+    splits = time_attention_splits(AK, "rq_attention_tma_update", False, q,
+                                   [(q, kn, vn, *s) for s in sets], nh)
+    plan = AK.attention_plan(B, C, nh, 64, False)
+    log(f"  decode_attention_update time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain {plain:.4f} ms, "
+        f"library (scaled_dot_product_attention over the 64 rows, no cache write) {lib_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63; {b_mean:.4f} ms at a sample call's "
+        f"mean window of {mean} rows)")
+    log(f"  decode_attention_update device time ({len(sets)} calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound (aim >= 70%), "
+        f"{graph['library (SDPA over the 64 rows)'] / kernel_ms:.2f}x SDPA's speed (aim >= 1), "
+        f"{graph['first design (v1)'] / kernel_ms:.2f}x the first design; {card_line()}")
+    log(f"  decode_attention_update plan: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} "
+        f"stages, {plan.smem} B")
+    return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
+            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": lib_ms,
+            "library_graph_ms": graph["library (SDPA over the 64 rows)"],
+            "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, "bound_mean_ms": b_mean,
+            **b}
 
 
 def sdpa_rows(q, k_cache, v_cache, nh, rows):
@@ -476,55 +564,73 @@ def q8_cache(AK, rnd, B, T, C, nh):
 
 
 def check_attention_q8(AK, dev, gen):
-    B, C, nh, T = BATCH, 1536, 24, 64
+    """decode_attention_q8_update (#4, csrc/decode_attention_tma.cu) against
+    its plain version at ATTN_CASES: y within TOL, all four caches bit-equal
+    to the plain version's, row cur_len equal to quantize_kv(k_new / v_new);
+    one device kernel per call; timed eager and as graph-replay device time
+    against its first design (decode_attention_q8_update_v1) and the other
+    head / window splits."""
+    T = 64
+    lib = AK._build.library()
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
-    cache = q8_cache(AK, rnd, B, T, C, nh)
     worst = 0.0
-    for window in (32, 64):
-        for cur in (0, 15, 16, 63):
-            got, ref = [c.clone() for c in cache], [c.clone() for c in cache]
-            y1 = AK.decode_attention_q8_update(q, kn, vn, *got, cur, nh, t_window=window)
-            y0 = AK.decode_attention_q8_update_plain(q, kn, vn, *ref, cur, nh, t_window=window)
-            torch.cuda.synchronize()
-            err, _ = compare(f"decode_attention_q8_update cur_len={cur} window={window}", y1, y0)
-            worst = max(worst, err)
-            for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
-                if not torch.equal(a, b0):
-                    raise AssertionError(f"{name} after the kernel's write differs from the plain version's")
-            kq_new, ks_new = AK.quantize_kv(kn, nh)
-            if not (torch.equal(got[0][:, cur], kq_new) and torch.equal(got[1][:, cur], ks_new.to(torch.bfloat16))):
-                raise AssertionError(f"cache row {cur} is not quantize_kv(k_new)")
-    # once at head size 104 (C 1664, 16 heads)
-    C1, nh1 = 1664, 16
-    q1, kn1, vn1 = rnd(B, C1), rnd(B, C1), rnd(B, C1)
-    cache1 = q8_cache(AK, rnd, B, T, C1, nh1)
-    got, ref = [c.clone() for c in cache1], [c.clone() for c in cache1]
-    y1 = AK.decode_attention_q8_update(q1, kn1, vn1, *got, 63, nh1, t_window=64)
-    y0 = AK.decode_attention_q8_update_plain(q1, kn1, vn1, *ref, 63, nh1, t_window=64)
-    torch.cuda.synchronize()
-    worst = max(worst, compare("decode_attention_q8_update head size 104 cur_len=63 window=64", y1, y0)[0])
-    for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
-        if not torch.equal(a, b0):
-            raise AssertionError(f"head size 104: {name} after the kernel's write differs from the plain version's")
-    del q1, kn1, vn1, cache1, got, ref
+    for B, C, nh, cur, window in ATTN_CASES:
+        q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+        cache = q8_cache(AK, rnd, B, T, C, nh)
+        plan = check_tma_plan(AK, lib, B, C, nh, window, True)
+        got, ref = [c.clone() for c in cache], [c.clone() for c in cache]
+        y1 = AK.decode_attention_q8_update(q, kn, vn, *got, cur, nh, t_window=window)
+        y0 = AK.decode_attention_q8_update_plain(q, kn, vn, *ref, cur, nh, t_window=window)
+        torch.cuda.synchronize()
+        tag = (f"decode_attention_q8_update B={B} C={C} head size {C // nh} cur_len={cur} window={window} (groups "
+               f"{plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)")
+        worst = max(worst, compare(tag, y1, y0)[0])
+        for name, a, b0 in zip(("kq", "ks", "vq", "vs"), got, ref):
+            if not torch.equal(a, b0):
+                raise AssertionError(f"{tag}: {name} after the kernel's write differs from the plain version's")
+        kq_new, ks_new = AK.quantize_kv(kn, nh)
+        if not (torch.equal(got[0][:, cur], kq_new) and torch.equal(got[1][:, cur], ks_new.to(torch.bfloat16))):
+            raise AssertionError(f"{tag}: cache row {cur} is not quantize_kv(k_new)")
     log("  decode_attention_q8_update: all four caches bit-equal to the plain version's "
         "(row cur_len = quantize_kv(k_new/v_new), every other row unchanged), at head sizes 64 and 104")
+    B, C, nh, n = BATCH, 1536, 24, 63
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
     sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
-    ms = cuda_ms([lambda s=s: AK.decode_attention_q8_update(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
-    plain = cuda_ms([lambda s=s: AK.decode_attention_q8_update_plain(q, kn, vn, *s, 63, nh, 64) for s in sets], 50)
-    n = 63
+    one_kernel("decode_attention_q8_update", lambda: AK.decode_attention_q8_update(q, kn, vn, *sets[0], n, nh, 64),
+               "attention_tma_kernel")
+    calls = {"kernel": lambda s: AK.decode_attention_q8_update(q, kn, vn, *s, n, nh, 64),
+             "first design (v1)": lambda s: AK.decode_attention_q8_update_v1(q, kn, vn, *s, n, nh, 64)}
+    ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
+    plain = cuda_ms([lambda s=s: AK.decode_attention_q8_update_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
+    graph["kernel, again"] = graph_ms([lambda s=s: calls["kernel"](s) for s in sets])
     b = bound(
         2 * B * n * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2 + 2 * B * (C + 2 * nh),
         4 * B * (n + 1) * C, FP32_FLOPS,
     )
-    log(f"  decode_attention_q8_update time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library: none "
-        f"(no torch call attends an int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-        f"(B={B}, W=64, cur_len=63)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+    mean = ATTN_MEAN_ROWS
+    b_mean = bound(2 * B * mean * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2 + 2 * B * (C + 2 * nh),
+                   4 * B * (mean + 1) * C, FP32_FLOPS)["bound_ms"]
+    kernel_ms = max(graph["kernel"], graph["kernel, again"])
+    splits = time_attention_splits(AK, "rq_attention_tma_q8_update", True, q, [(q, kn, vn, *s) for s in sets], nh)
+    plan = AK.attention_plan(B, C, nh, 64, True)
+    log(f"  decode_attention_q8_update time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain "
+        f"{plain:.4f} ms, library: none (no torch call attends an int8 cache), bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} (B={B}, W=64, cur_len=63; {b_mean:.4f} ms at a sample call's mean window of {mean} rows)")
+    log(f"  decode_attention_q8_update device time ({len(sets)} calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound (aim >= 50%), "
+        f"{graph['first design (v1)'] / kernel_ms:.2f}x the first design (aim >= 2x); {card_line()}")
+    log(f"  decode_attention_q8_update plan: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} "
+        f"stages, {plan.smem} B")
+    return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
+            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": None,
+            "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, "bound_mean_ms": b_mean,
+            **b}
 
 
 def check_attention_q8_read_only(AK, dev, gen):
@@ -1601,8 +1707,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused"):
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense' and 'fused'")
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention"):
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused' and "
+                         f"'attention'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -1648,6 +1755,9 @@ def main() -> None:
             raise AssertionError(f"{lib} holds no HGMMA instruction: {what} do not run on wgmma")
         log(f"  {lib}: {hgmma} HGMMA (wgmma) instructions, {count_sass(build_dir / lib, 'UTMALDG')} UTMALDG "
             f"(TMA tile loads)")
+    log(f"  libdecode_attention_tma.so: {count_sass(build_dir / 'libdecode_attention_tma.so', 'UBLKCP')} UBLKCP "
+        f"(bulk async copies), {count_sass(build_dir / 'libdecode_attention_tma.so', 'SYNCS')} SYNCS (mbarrier) "
+        f"instructions")
 
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
@@ -1658,6 +1768,10 @@ def main() -> None:
     if mode in ("dense", "fused"):
         check_decode_layer_step(MK, DK, AK, dev, gen)
         check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
+        return
+    if mode == "attention":
+        check_attention(AK, dev, gen)
+        check_attention_q8(AK, dev, gen)
         return
     attn = check_attention(AK, dev, gen)
     attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
@@ -1695,20 +1809,22 @@ def main() -> None:
                 MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
                 AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
                 QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
-                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop)
+                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
+                AK.decode_attention_q8_update_v1)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
-         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         # int8 weights: the body's S == 1 steps run the int8 dense pair too (its
         # QKV half alone under attn_wo, whose MLP stays on the plain _mm)
-        ("int8+kv_q8", True, dict(kv_q8=True), (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("int8+kv_q8", True, dict(kv_q8=True),
+         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
-         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -1784,13 +1900,13 @@ def main() -> None:
     launches["fused_mlp"] = mlp_phase(counters, dev, card)
 
     kernels = [
-        dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
+        dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:316", **attn),
         dict(name="fused_ln_qkv", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:109", **qkv),
         dict(name="fused_proj_mlp", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:329", **mlp),
-        dict(name="decode_attention_q8_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+        dict(name="decode_attention_q8_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:577", **attn_q8),
         dict(name="fused_ln_qkv_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="rqvae_tpu/ops/decode_layer_kernel.py:246 (ring) and :161 (grid)", **qkv_q8),

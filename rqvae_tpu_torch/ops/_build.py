@@ -45,6 +45,10 @@ _SIGNATURES = {
     "rq_decode_attention": (_P,) * 6 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8_update": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_decode_attention_q8": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "rq_attention_tma_update": (_P,) * 6 + (_I,) * 11 + (_P,),
+    "rq_attention_tma_q8_update": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "rq_attention_tma_smem": (_I,) * 7,
+    "rq_attention_tma_phase_ns": (_P,),
     "rq_fused_ln_qkv": (_P,) * 8 + (_I,) * 9 + (_F, _P),
     "rq_fused_ln_qkv_splitk": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "rq_fused_ln_qkv_q8_splitk": (_P,) * 8 + (_I,) * 4 + (_F, _P),

@@ -1,10 +1,17 @@
 """Decode attention over a KV cache: with the in-place row write, and read-only.
 
 Counterpart of rqvae_tpu/ops/attention_kernel.py::decode_attention_update,
-::decode_attention and ::decode_attention_stacked. The CUDA kernel is
-csrc/decode_attention.cu, one template in two forms (its source note says
-what bounds it on the H100 and how the design answers that); this module
-holds the wrappers and the plain PyTorch versions of the same functions.
+::decode_attention and ::decode_attention_stacked. The update forms, bf16
+(decode_attention_update) and int8 (decode_attention_q8_update), launch
+csrc/decode_attention_tma.cu: each batch row's window staged through shared
+memory by bulk async copies, on the launch plan of attention_plan (its
+source note says what bounds it on the H100 and how the design answers
+that). The first design, csrc/decode_attention.cu and
+csrc/decode_attention_q8.cu (one template each, with and without the row
+write), serves the read-only forms and stays reachable as the A/B
+baselines decode_attention_update_v1 / decode_attention_q8_update_v1, which
+only chip_smoke.py runs. This module holds the wrappers and the plain
+PyTorch versions of the same functions.
 
 Contract (both versions): for q, k_new, v_new [B, C] and one layer's caches
 k_cache, v_cache [B, T, C], the token attends cache rows
@@ -27,8 +34,9 @@ a Mosaic constraint and is not carried over.
 
 The int8 cache (kv_q8) is the counterpart of ::quantize_kv,
 ::dequantize_cache and ::decode_attention_q8_update (CUDA kernel
-csrc/decode_attention_q8.cu). One layer's cache is (kq int8 [B, T, C],
-ks bf16 [B, T, n_head], vq, vs): one scale per (row, head). quantize_kv
+csrc/decode_attention_tma.cu; the first design csrc/decode_attention_q8.cu).
+One layer's cache is (kq int8 [B, T, C], ks bf16 [B, T, n_head], vq, vs):
+one scale per (row, head). quantize_kv
 returns the fp32 scale; the cache stores it as bf16, but the int8 values
 were rounded with the fp32 one.
 
@@ -55,7 +63,10 @@ the A/B baseline decode_attention_q8_update_wo_coop, which only
 chip_smoke.py runs.
 
 Head sizes: the attention kernels serve C / n_head in HEAD_SIZES (the CUDA
-templates' instantiations: 64, and 104 for the zoo's vqgan_large); the
+templates' instantiations: 64, and 104 for the zoo's vqgan_large; the
+update kernels of decode_attention_tma.cu need 16-byte aligned tensors and,
+on an int8 cache at head size 104, an even n_head: their bulk copies move
+16-byte multiples); the
 fused decode_attention_q8_update_wo serves 64 only, since it runs only on
 the unrolled sampling path (H·W <= 128), where every configuration of the
 repository has head size 64.
@@ -64,6 +75,7 @@ repository has head size 64.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -72,8 +84,9 @@ from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 from rqvae_tpu_torch.ops.decode_layer_kernel import LN_EPS, _layer_norm
 
 # head sizes of the CUDA attention kernels (the instantiations in
-# csrc/decode_attention.cu and csrc/decode_attention_q8.cu), each with the
-# bytes of one lane's bf16 load, to which every bf16 pointer is aligned
+# csrc/decode_attention.cu, csrc/decode_attention_q8.cu and
+# csrc/decode_attention_tma.cu), each with the bytes of one lane's bf16 load
+# in the first two, to which every bf16 pointer is aligned
 HEAD_SIZES = {64: 4, 104: 8}
 WO_HEAD_SIZE = 64  # the only head size of decode_attention_q8_update_wo
 
@@ -91,6 +104,184 @@ def _check_head(name, C, n_head, head_sizes, *bf16_tensors, int8_tensors=()):
         for t in tensors:
             if t.data_ptr() % align:
                 raise ValueError(f"{name}: a {kind} tensor must start on a {align}-byte boundary at head size {hs}")
+
+
+# csrc/decode_attention_tma.cu: consumer threads of a CTA (+ a producer
+# warp), values per lane, the int8 scales of a unit a thread holds, floats
+# per head of the reductions
+TMA_THREADS = 256
+TMA_VALS = 8
+TMA_MAX_SCALES = 8
+_TMA_RED_FLOATS = 2
+SM_SMEM = 233_472  # shared memory of one SM; each resident CTA also takes 1 KB of it
+TMA_STAGE_BYTES = 32_768  # a ring stage's target size
+TMA_MAX_STAGES = 32
+TMA_CTAS_PER_SM = 2  # resident CTAs per SM of the persistent grid
+TMA_MIN_PIECE = 512  # the smallest row piece of a group the plan picks: a bulk copy has a fixed cost
+# the longest window: the unrolled sampler's caches hold cond_len + H W - 1
+# rows (at most 128 positions, sampling.resolve_unroll), rounded up to 32 at
+# int8, so 512 leaves room for a long condition
+TMA_MAX_WINDOW = 512
+
+
+def _round_up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _team_lanes(hs: int) -> int:
+    """Lanes of one head's team: 8 at head size 64, 16 at 104 (13 hold columns)."""
+    return 8 if hs <= 64 else 16
+
+
+def _tma_smem(piece: int, hpc: int, window: int, rows: int, stages: int, q8: bool) -> int:
+    """The shared-memory bytes of csrc/decode_attention_tma.cu::tma_layout:
+    the ring, a full and an empty mbarrier a stage, the [n_sub, cols]
+    partial y sums, the scores (and at int8 the V scales) of `window` rows
+    x hpc heads as floats, the per-head self terms."""
+    ring = stages * _round_up(rows * piece, 128)
+    per_row = _round_up(window * hpc * 4, 16)
+    return (_round_up(ring + 2 * stages * 8, 16) + TMA_THREADS * TMA_VALS * 4 + per_row * (2 if q8 else 1)
+            + _round_up(_TMA_RED_FLOATS * hpc * 4, 16))
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """The launch of one csrc/decode_attention_tma.cu kernel: B batch rows
+    of C columns in n_head heads, a window of `window` cache rows of
+    `eb`-byte elements. Units (batch row b, head group g) of hpc heads, u = b
+    groups + g, go round-robin to a persistent grid of `ctas` CTAs (CTA c
+    takes units c, c + ctas, ...); each CTA streams its units' windows
+    through `stages` stages of `rows` cache rows, `smem` bytes in all."""
+
+    B: int
+    C: int
+    n_head: int
+    window: int
+    eb: int
+    groups: int
+    rows: int
+    stages: int
+    ctas: int
+    smem: int
+
+    @property
+    def hs(self) -> int:
+        return self.C // self.n_head
+
+    @property
+    def hpc(self) -> int:
+        return self.n_head // self.groups
+
+    @property
+    def piece(self) -> int:
+        """Bytes of one cache row's group columns: one bulk copy per row."""
+        return self.hpc * self.hs * self.eb
+
+    @property
+    def n_sub(self) -> int:
+        """Cache rows a CTA's consumers take at once (a team per head each)."""
+        return TMA_THREADS // (self.hpc * _team_lanes(self.hs))
+
+    def units(self, cta: int) -> range:
+        """The units CTA `cta` takes, in order."""
+        return range(cta, self.B * self.groups, self.ctas)
+
+    def copies(self, cta: int, n_valid: int, T: int):
+        """The bulk copies of CTA `cta` in issue order, unit after unit:
+        (chunk, unit, pass "k" or "v", source byte offset in the cache, stage
+        byte offset, bytes), the cache a contiguous [B, T, C] tensor."""
+        nck = -(-n_valid // self.rows)
+        row_bytes = self.C * self.eb
+        stage = _round_up(self.rows * self.piece, 128)
+        for i, u in enumerate(self.units(cta)):
+            b, g = divmod(u, self.groups)
+            for k in range(2 * nck):
+                c = i * 2 * nck + k
+                which, r0 = ("k", k * self.rows) if k < nck else ("v", (k - nck) * self.rows)
+                nr = min(self.rows, n_valid - r0)
+                src = (b * T + r0) * row_bytes + g * self.piece
+                dst = (c % self.stages) * stage
+                if self.piece == row_bytes:
+                    yield c, u, which, src, dst, nr * self.piece
+                else:
+                    for r in range(nr):
+                        yield c, u, which, src + r * row_bytes, dst + r * self.piece, self.piece
+
+
+def attention_plan(B: int, C: int, n_head: int, window: int, q8: bool, sms: int = DK.SMS,
+                   groups: int | None = None, ctas_per_sm: int = TMA_CTAS_PER_SM,
+                   stage_bytes: int = TMA_STAGE_BYTES) -> AttentionPlan:
+    """The launch plan of decode_attention_update (q8 False) or
+    decode_attention_q8_update (q8 True) on csrc/decode_attention_tma.cu.
+    Head groups: of those whose teams fit the consumers, whose row piece is
+    a 16-byte multiple and (int8) whose window's scales the threads hold,
+    and whose piece is at least TMA_MIN_PIECE bytes (else the fewest), the
+    fewest that give every SM a unit (B * groups >= sms), else the most.
+    Ring stages of at most about stage_bytes that split the window evenly
+    (no short last chunk to wait for), as many (up to TMA_MAX_STAGES) as an
+    SM's shared memory holds for ctas_per_sm CTAs, so that the copies run
+    ahead into the next unit (at least one, in a CTA's whole shared
+    memory); no more CTAs than units. `groups` pins the split. ValueError
+    for a head size outside HEAD_SIZES, B outside 1..65535, a window outside
+    0..TMA_MAX_WINDOW, or no such group (an int8 cache at head size 104 with
+    an odd n_head: no 16-byte piece)."""
+    hs = C // n_head if n_head > 0 else 0
+    eb = 1 if q8 else 2
+    name = "decode_attention_q8_update" if q8 else "decode_attention_update"
+    if hs * n_head != C or hs not in HEAD_SIZES:
+        raise ValueError(f"{name}: the kernel serves head sizes {sorted(HEAD_SIZES)}, got C={C}, n_head={n_head}")
+    if not 1 <= B <= 65535 or not 0 <= window <= TMA_MAX_WINDOW:
+        raise ValueError(f"{name}: needs B in 1..65535 and a window of 0..{TMA_MAX_WINDOW} rows, "
+                         f"got B={B}, window={window}")
+    valid = [G for G in range(1, n_head + 1)
+             if n_head % G == 0 and (n_head // G) * _team_lanes(hs) <= TMA_THREADS
+             and (C * eb) % 16 == 0 and (n_head // G * hs * eb) % 16 == 0
+             and (not q8 or window * (n_head // G) <= TMA_MAX_SCALES * TMA_THREADS)]
+    if groups is not None:
+        valid = [G for G in valid if G == groups]
+    if not valid:
+        raise ValueError(f"{name}: no head group of C={C}, n_head={n_head} is a 16-byte multiple of "
+                         f"{eb}-byte elements (the bulk copies' unit) whose window's scales fit"
+                         + (f" at groups={groups}" if groups else ""))
+    slots = ctas_per_sm * sms
+    wide = [G for G in valid if n_head // G * hs * eb >= TMA_MIN_PIECE] or valid[:1]
+    G = next((G for G in wide if B * G >= sms), wide[-1])
+    shape = AttentionPlan(B, C, n_head, window, eb, G, 1, 1, 1, 0)
+    nck = max(1, -(-window * shape.piece // stage_bytes))  # chunks of a pass, the window split evenly
+    rows = _round_up(max(1, -(-window // nck)), shape.n_sub)
+    cap = min(SM_SMEM // ctas_per_sm - 1024, DK.SMEM_LIMIT)
+    for limit in (cap, DK.SMEM_LIMIT):
+        fits = [s for s in range(1, TMA_MAX_STAGES + 1)
+                if _tma_smem(shape.piece, shape.hpc, window, rows, s, q8) <= limit]
+        if fits:
+            return AttentionPlan(B, C, n_head, window, eb, G, rows, fits[-1], min(B * G, slots),
+                                 _tma_smem(shape.piece, shape.hpc, window, rows, fits[-1], q8))
+    raise ValueError(f"{name}: no plan of C={C}, n_head={n_head}, window={window} fits "
+                     f"{DK.SMEM_LIMIT} bytes of shared memory")
+
+
+_tma_plans: dict = {}
+
+
+def _device_attention_plan(B, C, n_head, window, q8, device) -> AttentionPlan:
+    """attention_plan on this device (its SM count), cached. A shape outside
+    the contract raises ValueError before the device or the kernel library
+    is asked anything."""
+    key = (B, C, n_head, window, q8, device.index)
+    plan = _tma_plans.get(key)
+    if plan is None:
+        attention_plan(B, C, n_head, window, q8)  # the contract, on the host alone
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _tma_plans[key] = attention_plan(B, C, n_head, window, q8, sms)
+    return plan
+
+
+def _check_tma(name, *tensors) -> None:
+    """The bulk copies and 16-byte loads of decode_attention_tma.cu need
+    every tensor on a 16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must start on a 16-byte boundary")
 
 
 def decode_attention_plain(
@@ -190,20 +381,70 @@ def decode_attention_update(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_attention.cu (bf16, a head size of HEAD_SIZES,
-    contiguous) or raises. One launch adds one to
-    `decode_attention_update.launches`."""
+    launches rq_attention_tma_update in csrc/decode_attention_tma.cu (bf16,
+    a head size of HEAD_SIZES, contiguous, 16-byte aligned, a window of at
+    most TMA_MAX_WINDOW rows) on the plan of attention_plan, or raises. One
+    launch adds one to `decode_attention_update.launches`."""
     if q.device.type == "cpu":
         return decode_attention_update_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    name = "decode_attention_update"
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_update: no kernel for device {q.device}")
-    _check("decode_attention_update", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=True)
-    y = _launch("rq_decode_attention_update", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=True)
+    _check_tma(name, q, k_new, v_new, k_cache, v_cache)
+    B, C = q.shape
+    T = k_cache.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = _launch_tma("rq_attention_tma_update", _device_attention_plan(B, C, n_head, W, False, q.device),
+                    q, (q, k_new, v_new, k_cache, v_cache), T, cur_len)
     decode_attention_update.launches += 1
     return y
 
 
 decode_attention_update.launches = 0
+
+
+def _launch_tma(entry, plan: AttentionPlan, q, tensors, T, cur_len, probe=False):
+    """Launch `entry` of csrc/decode_attention_tma.cu on `plan` with the
+    pointers of `tensors` and a new y; returns y. `probe` streams the
+    windows through the ring and computes and writes nothing (chip_smoke.py
+    times the copies alone with it)."""
+    y = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = getattr(_build.library(), entry)(
+            *(t.data_ptr() for t in tensors), y.data_ptr(), plan.B, T, plan.C, plan.n_head, plan.window, cur_len,
+            plan.groups, plan.rows, plan.stages, plan.ctas, int(probe),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, entry)
+    return y
+
+
+def decode_attention_update_v1(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """decode_attention_update through its first design
+    (csrc/decode_attention.cu::rq_decode_attention_update, a block per
+    (head, batch row)), CUDA tensors only: the A/B baseline of
+    chip_smoke.py. Adds one to `decode_attention_update_v1.launches` per
+    launch."""
+    name = "decode_attention_update_v1"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=True)
+    y = _launch("rq_decode_attention_update", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    decode_attention_update_v1.launches += 1
+    return y
+
+
+decode_attention_update_v1.launches = 0
 
 
 def decode_attention(
@@ -421,20 +662,57 @@ def decode_attention_q8_update(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper: the plain version for CPU tensors; for CUDA tensors it
-    launches csrc/decode_attention_q8.cu (bf16 activations, int8 cache, a
-    head size of HEAD_SIZES, contiguous) or raises. One launch adds one to
-    `decode_attention_q8_update.launches`."""
+    launches rq_attention_tma_q8_update in csrc/decode_attention_tma.cu
+    (bf16 activations, int8 cache, a head size of HEAD_SIZES, an even n_head
+    at head size 104, contiguous, 16-byte aligned, a window of at most
+    TMA_MAX_WINDOW rows) on the plan of attention_plan, or raises. One launch
+    adds one to `decode_attention_q8_update.launches`."""
     if q.device.type == "cpu":
         return decode_attention_q8_update_plain(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    name = "decode_attention_q8_update"
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_q8_update: no kernel for device {q.device}")
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head)
-    y = _launch_q8("rq_decode_attention_q8_update", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    _check_tma(name, q, k_new, v_new, kq, ks, vq, vs)
+    B, C = q.shape
+    T = kq.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    y = _launch_tma("rq_attention_tma_q8_update", _device_attention_plan(B, C, n_head, W, True, q.device),
+                    q, (q, k_new, v_new, kq, ks, vq, vs), T, cur_len)
     decode_attention_q8_update.launches += 1
     return y
 
 
 decode_attention_q8_update.launches = 0
+
+
+def decode_attention_q8_update_v1(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """decode_attention_q8_update through its first design
+    (csrc/decode_attention_q8.cu::rq_decode_attention_q8_update, a block per
+    (head, batch row)), CUDA tensors only: the A/B baseline of
+    chip_smoke.py. Adds one to `decode_attention_q8_update_v1.launches` per
+    launch."""
+    name = "decode_attention_q8_update_v1"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name)
+    y = _launch_q8("rq_decode_attention_q8_update", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    decode_attention_q8_update_v1.launches += 1
+    return y
+
+
+decode_attention_q8_update_v1.launches = 0
 
 
 def decode_attention_q8_plain(
