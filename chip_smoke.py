@@ -18,19 +18,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      (bench's 3800M width), each call one device kernel (torch.profiler),
      timed also against the split-K kernels they replaced (device time in
      CUDA graphs, eager time, the host time of a wrapper call); the read-only
-     decode attention also at the experiment's B 500, on a [4, 100, 257,
-     1536] stack at cur_len 256 and, at head size 104, on a [2, 100, 257,
-     1664] stack of 16 heads, its caches bit-unchanged; the update
+     decode attention #10 / #12 (csrc/decode_attention_tma.cu's read-only
+     form, one launch a call) also at the experiment's B 500, cur_len == T,
+     on a [4, 100, 257, 1536] stack at cur_len 256 and 257, at head size
+     104 on a [2, 100, 257, 1664] stack of 16 heads, and at the f8 stacked
+     sampler's long windows (T 1025 and 1056) and T 2048, its caches
+     bit-unchanged, timed at #10's own shape (B 100, T 64, cur_len 63), on
+     the stacks at cur_len 1, 64, 128 and 256 and at T = cur_len = 1056 as
+     CUDA-graph device time against its first design (decode_attention_v1),
+     SDPA over the same rows and the bound, with a sweep of head groups and
+     stage sizes at 256 rows and CTA 0's phases; the update
      attention #1 / #4 (csrc/decode_attention_tma.cu, one launch each) at
      B 100 at both sampler windows, B 37, B 8 and head size 104, #1's
      written row equal to k_new / v_new and every other row bit-unchanged,
      #4's four caches bit-equal to the plain version's, timed as CUDA-graph
      device time against their first design (*_v1) and SDPA, with a sweep
      of launch plans, each also streaming its copies alone, and CTA 0's
-     phases; int8 caches and weights for the q8 kernels, and the read-only q8 attention
-     decode_attention_q8 at the experiment's shapes (B 100 and 500),
-     cur_len == T, cur_len 0, a ragged batch and head size 104, its caches
-     bit-unchanged;
+     phases; int8 caches and weights for the q8 kernels, and the read-only q8
+     attention decode_attention_q8 (#11, the same file's read-only int8
+     form) at the experiment's shapes (B 100 and 500), cur_len == T,
+     cur_len 0, a ragged batch, head size 104 and windows of 1024 and 1056
+     rows, its caches bit-unchanged,
+     timed as CUDA-graph device time against its first design
+     (decode_attention_q8_v1) and #10 on the same rows, with the plan sweep
+     and CTA 0's phases;
      decode_layer_step (#14) and decode_attention_q8_update_wo (#13), one
      launch each of csrc/decode_fused.cu, also at a ragged batch of 37 rows,
      both windows, both gelu forms (#14), int8 and bf16 wo (#13), timed as
@@ -82,7 +93,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      exp_attn_q8cache) at B 100 and 500, T 64, 50 calls per chain:
      decode_attention (#10) against decode_attention_q8 (#11), each chain
      captured in a CUDA graph and replayed, with the exact launch counts it
-     issues (each replay counted) and every other counter 0;
+     issues (each replay counted) and every other counter 0, and which cache
+     form it finds faster;
   9. the port of tools/exp_q8_pipeline.py (rqvae_tpu_torch.tools.
      exp_q8_pipeline) at B 100, C 1536, H 6144, 16 layers, the full sweeps
      and probes, chains of PIPE_ITERS x 16 calls captured in CUDA graphs:
@@ -107,8 +119,10 @@ Run from the repository root on a machine with one CUDA device:
 dense pair, bf16 and int8 (check_dense), and of the two fused kernels
 (#14, #13), and prints no result line; `python3 chip_smoke.py fused` the
 fused kernels' checks alone; `python3 chip_smoke.py attention` those of
-the update attention #1 / #4 alone. Run from two source trees in one
-call, they compare two designs of those kernels on one card.
+the attention kernels of csrc/decode_attention_tma.cu alone: the update
+forms #1 / #4, then the read-only forms #10 / #12 and #11. Run from two
+source trees in one call, they compare two designs of those kernels on one
+card.
 """
 
 from __future__ import annotations
@@ -334,11 +348,11 @@ ATTN_SPLITS = tuple((g, k, sb) for k in (1, 2, 3) for g in (1, 2, 3, 4, 6, 8, 12
                     for sb in (16384, 32768, 65536))
 
 
-def check_tma_plan(AK, lib, B, C, nh, window, q8):
+def check_tma_plan(AK, lib, B, C, nh, window, q8, write=True):
     """The plan of attention_plan, its shared memory equal to what the
     kernel library computes for it (csrc/decode_attention_tma.cu::tma_layout
     against its Python mirror)."""
-    plan = AK.attention_plan(B, C, nh, window, q8)
+    plan = AK.attention_plan(B, C, nh, window, q8, write=write)
     got = lib.rq_attention_tma_smem(C, nh, int(q8), window, plan.groups, plan.rows, plan.stages)
     if got != plan.smem:
         raise AssertionError(f"attention plan {plan}: the kernel computes {got} bytes of shared memory")
@@ -352,17 +366,19 @@ ATTN_MEAN_ROWS = 31.5
 ATTN_STAMPS = ("first chunk", "K pass", "self term + row write", "softmax", "V pass", "y")
 
 
-def time_attention_splits(AK, entry, q8, q, tensor_sets, nh):
-    """Device time (graph_ms) of the update kernel at B 100, cur_len 63,
-    window 64 on each plan of ATTN_SPLITS, and of the same plan streaming
-    its copies alone (probe): {(groups, CTAs per SM, stage bytes): (ms,
-    copies-alone ms)}; prints them, fastest first, and CTA 0's phases of
-    one call of the default plan."""
+def time_attention_splits(AK, entry, q8, q, tensor_sets, nh, write=True):
+    """Device time (graph_ms) of the update kernel (`write`; else its
+    read-only form) at B 100, cur_len 63, window 64 on each plan of
+    ATTN_SPLITS, and of the same plan streaming its copies alone (probe):
+    {(groups, CTAs per SM, stage bytes): (ms, copies-alone ms)}; prints
+    them, fastest first, and CTA 0's phases of one call of the default
+    plan."""
     B, C = q.shape
     out = {}
     for groups, per_sm, stage in ATTN_SPLITS:
         try:
-            plan = AK.attention_plan(B, C, nh, 64, q8, groups=groups, ctas_per_sm=per_sm, stage_bytes=stage)
+            plan = AK.attention_plan(B, C, nh, 64, q8, groups=groups, ctas_per_sm=per_sm, stage_bytes=stage,
+                                     write=write)
         except ValueError:
             continue
         out[(groups, per_sm, stage)] = tuple(
@@ -370,14 +386,18 @@ def time_attention_splits(AK, entry, q8, q, tensor_sets, nh):
             for probe in (False, True))
     log(f"  {entry} plans (groups, CTAs per SM, stage bytes) -> device ms (copies alone), fastest first: "
         + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f})" for k, v in sorted(out.items(), key=lambda kv: kv[1][0])))
-    plan = AK.attention_plan(B, C, nh, 64, q8)
-    AK._launch_tma(entry, plan, q, tensor_sets[0], 64, 63)
+    AK._launch_tma(entry, AK.attention_plan(B, C, nh, 64, q8, write=write), q, tensor_sets[0], 64, 63)
+    log_stamps(AK, entry)
+    return out
+
+
+def log_stamps(AK, what):
+    """CTA 0's phases of the last launch of csrc/decode_attention_tma.cu."""
     torch.cuda.synchronize()
     ns = AK._build.stamps_ns("rq_attention_tma_phase_ns")
-    log(f"  {entry} CTA 0 of one call (us): " + ", ".join(
+    log(f"  {what} CTA 0 of one call (us): " + ", ".join(
         f"{name} {(ns[i + 1] - ns[i]) / 1e3:.2f}" for i, name in enumerate(ATTN_STAMPS))
         + f", its end {(ns[7] - ns[0]) / 1e3:.2f}, the last CTA's end {(ns[8] - ns[0]) / 1e3:.2f}")
-    return out
 
 
 def check_attention(AK, dev, gen):
@@ -464,15 +484,44 @@ def sdpa_rows(q, k_cache, v_cache, nh, rows):
     return F.scaled_dot_product_attention(q.view(B, nh, 1, hs), k, v)
 
 
+# the stacked sampler's read-only calls timed on the [L, 100, 257, C]
+# stacks: its first position, 64 rows, a call's mean window (128 rows) and
+# its longest (256 rows)
+STACKED_CURS = (1, 64, 128, 256)
+STACKED_MEAN = 128
+# read-only plans timed at cur_len 256 beside the plan's own choice: (head
+# groups, stage bytes)
+READ_SPLITS = tuple((g, sb) for g in (1, 2, 3, 4, 6) for sb in (24576, 32768, 49152))
+# the read-only form's long windows, (B, C, n_head, T, cur_len): the f8
+# stacked sampler's T = cond_len + 32 x 32 (cond_len 1 and cc3m's 32; one
+# ring stage at 2 CTAs an SM, or 2), and a 2048-row cache (one CTA an SM)
+LONG_READS = ((BATCH, 1536, 24, 1025, 1025), (BATCH, 1536, 24, 1025, 600), (BATCH, 1664, 16, 1056, 1056),
+              (37, 1664, 16, 1056, 1000), (BATCH, 1536, 24, 2048, 2048))
+
+
+def read_bound(B, n, C, nh=0, q8=False) -> dict:
+    """The read-only attention's bound: n cache rows of K and V (int8 with
+    their bf16 scales, or bf16), q, k_new, v_new read and y written, fp32
+    operations."""
+    row = C + 2 * nh if q8 else 2 * C
+    return bound(2 * B * n * row + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
+
+
 def check_attention_read_only(AK, dev, gen):
-    """decode_attention (read-only) and decode_attention_stacked against
-    their plain versions: the unrolled main-path shape, the experiment's B
-    500, a 4-layer stack of
-    the stacked sampler's rows at its last step (cur_len 256), a ragged
-    batch, cur_len 0; the caches bit-unchanged; timed at the stacked shape.
-    Then the same at head size 104 (vqgan_large: C 1664, 16 heads) on a
-    2-layer stack. Returns (the head-size-64 row, the head-size-104 row)."""
+    """decode_attention (#10, read-only, csrc/decode_attention_tma.cu) and
+    decode_attention_stacked (#12) against their plain versions: the
+    experiment's shape (B 100 and 500, T 64, cur_len 63), cur_len == T, a
+    window, cur_len 0, a ragged batch, and a 4-layer stack of the stacked
+    sampler's rows at cur_len 256, 0 and others; the caches bit-unchanged;
+    each call one device kernel. Timed at #10's own shape, and on the stack
+    at STACKED_CURS as graph-replay device time against the first design
+    (decode_attention_v1), SDPA over the same rows and the bound, with the
+    sweep of plans and CTA 0's phases at 256 rows. Then the same at head
+    size 104 (vqgan_large: C 1664, 16 heads) on a 2-layer stack, then the
+    long windows (check_long_reads). Returns (#10's row, #12's head-size-64
+    row with the long windows' worst difference, its head-size-104 row)."""
     B, C, nh, L, T = BATCH, 1536, 24, 4, 257
+    lib = AK._build.library()
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -487,18 +536,23 @@ def check_attention_read_only(AK, dev, gen):
             if not torch.equal(c, before):
                 raise AssertionError(f"{tag}: the kernel changed a cache it may only read")
 
-    for b, t, window, cur in ((B, 64, 64, 63), (500, 64, 64, 63), (B, 64, 32, 16), (B, 64, 64, 0),
-                              (37, 64, 24, 30)):
+    for b, t, window, cur in ((B, 64, 64, 63), (500, 64, 64, 63), (B, 64, 64, 64), (B, 64, 32, 16), (B, 64, 64, 0),
+                              (37, 64, 24, 30), (8, 64, 64, 64)):
         q, kn, vn, kc, vc = rnd(b, C), rnd(b, C), rnd(b, C), rnd(b, t, C), rnd(b, t, C)
+        plan = check_tma_plan(AK, lib, b, C, nh, window, False, write=False)
         k0, v0 = kc.clone(), vc.clone()
         got = AK.decode_attention(q, kn, vn, kc, vc, cur, nh, t_window=window)
-        held(f"decode_attention B={b} T={t} window={window} cur_len={cur}", got,
+        held(f"decode_attention B={b} T={t} window={window} cur_len={cur} (groups {plan.groups}, {plan.ctas} "
+             f"CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)", got,
              AK.decode_attention_plain(q, kn, vn, k0, v0, cur, nh, t_window=window), (kc, k0), (vc, v0))
+    row10 = {"max_abs_err": worst, **time_read_at_64(AK, rnd, B, C, nh)}
+    worst = 0.0  # the stacked cases' own
     q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
     ks, vs = rnd(L, B, T, C), rnd(L, B, T, C)  # 2 x 316 MB
     k0, v0 = ks.clone(), vs.clone()
+    check_tma_plan(AK, lib, B, C, nh, T, False, write=False)
     for layer in range(L):
-        for cur in (256, 0, 100 + layer):
+        for cur in (256, 0, 100 + layer, 257 - layer):
             got = AK.decode_attention_stacked(q, kn, vn, ks, vs, layer, cur, nh)
             held(f"decode_attention_stacked [{L},{B},{T},{C}] layer={layer} cur_len={cur}", got,
                  AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, layer, cur, nh), (ks, k0), (vs, v0))
@@ -509,6 +563,8 @@ def check_attention_read_only(AK, dev, gen):
          AK.decode_attention_stacked(qr, knr, vnr, kr, vr, 1, 200, nh),
          AK.decode_attention_stacked_plain(qr, knr, vnr, kr, vr, 1, 200, nh))
     del qr, knr, vnr, kr, vr
+    one_kernel("decode_attention_stacked", lambda: AK.decode_attention_stacked(q, kn, vn, ks, vs, 1, 256, nh),
+               "attention_tma_kernel")
     log("  decode_attention / decode_attention_stacked: y within the bound, every cache bit-unchanged")
     row64 = {"max_abs_err": worst, **time_stacked(AK, q, kn, vn, ks, vs, nh, 40)}
     del ks, vs
@@ -518,8 +574,9 @@ def check_attention_read_only(AK, dev, gen):
     q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
     ks, vs = rnd(L, B, T, C), rnd(L, B, T, C)
     k0, v0 = ks.clone(), vs.clone()
+    check_tma_plan(AK, lib, B, C, nh, T, False, write=False)
     for layer in range(L):
-        for cur in (256, 0):
+        for cur in (256, 0, 257):
             got = AK.decode_attention_stacked(q, kn, vn, ks, vs, layer, cur, nh)
             held(f"decode_attention_stacked head size 104 [{L},{B},{T},{C}] layer={layer} cur_len={cur}", got,
                  AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, layer, cur, nh), (ks, k0), (vs, v0))
@@ -534,24 +591,171 @@ def check_attention_read_only(AK, dev, gen):
     del qr, knr, vnr, kr, vr, k0, v0
     log("  decode_attention_stacked at head size 104: y within the bound, every cache bit-unchanged")
     row104 = {"max_abs_err": worst, **time_stacked(AK, q, kn, vn, ks, vs, nh, 40)}
-    return row64, row104
+    del q, kn, vn, ks, vs
+    row64["max_abs_err"] = max(row64["max_abs_err"], check_long_reads(AK, rnd, lib, held))
+    return row10, row64, row104
+
+
+def check_long_reads(AK, rnd, lib, held):
+    """decode_attention_stacked at LONG_READS on 2-layer stacks (layer 1's
+    view), against its plain version with the caches bit-unchanged, one
+    device kernel a call; then the f8 sampler's last call (T 1056, cur_len
+    1056, head size 64) as graph-replay device time against the first
+    design, SDPA over the same rows and the bound. Returns the worst
+    |difference|."""
+    worst = 0.0
+    for b, C, nh, T, cur in LONG_READS:
+        q, kn, vn = rnd(b, C), rnd(b, C), rnd(b, C)
+        ks, vs = rnd(2, b, T, C), rnd(2, b, T, C)
+        k0, v0 = ks.clone(), vs.clone()
+        plan = check_tma_plan(AK, lib, b, C, nh, T, False, write=False)
+        got = AK.decode_attention_stacked(q, kn, vn, ks, vs, 1, cur, nh)
+        want = AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, 1, cur, nh)
+        held(f"decode_attention_stacked [2,{b},{T},{C}] head size {C // nh} layer=1 cur_len={cur} (groups "
+             f"{plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)", got, want,
+             (ks, k0), (vs, v0))
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        del ks, vs, k0, v0
+    B, C, nh, T = BATCH, 1536, 24, 1056
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    ks, vs = rnd(2, B, T, C), rnd(2, B, T, C)
+    one_kernel("decode_attention_stacked", lambda: AK.decode_attention_stacked(q, kn, vn, ks, vs, 1, T, nh),
+               "attention_tma_kernel")
+    calls = {"kernel": lambda l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, T, nh),
+             "first design (v1)": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], T, nh),
+             "SDPA over the same rows": lambda l: sdpa_rows(q, ks[l], vs[l], nh, T)}
+    graph = {k: graph_ms([lambda l=l, f=f: f(l) for l in range(2)]) for k, f in calls.items()}
+    b = read_bound(B, T, C)
+    plan = AK.attention_plan(B, C, nh, T, False, write=False)
+    log(f"  decode_attention_stacked at the long windows {LONG_READS}: y within the bound, every cache "
+        f"bit-unchanged; at B={B}, T={T}, cur_len={T} (groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x "
+        f"{plan.stages} stages, {plan.smem} B) device time (2 calls in a CUDA graph, replayed) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f", bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {100 * b['bound_ms'] / graph['kernel']:.1f}% of it; "
+        f"{card_line()}")
+    del q, kn, vn, ks, vs
+    for B, T in LONG_SWEEP:
+        time_long_plans(AK, rnd, B, C, nh, T)
+    return worst
+
+
+# the long windows' plans swept at cur_len = T, head size 64: (B, T)
+LONG_SWEEP = ((BATCH, 1056), (500, 1056), (BATCH, 2048))
+
+
+def time_long_plans(AK, rnd, B, C, nh, T):
+    """Graph-replay device time of rq_attention_tma_read at cur_len = T on
+    2-layer stacks over plans of the default plan's head groups with other
+    stage rows, ring depths (1, 2) and CTAs an SM (1, 2), each where its
+    shared memory fits that many CTAs: how the plan should trade stage size
+    against ring depth when a long window's scores fill shared memory."""
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    ks, vs = rnd(2, B, T, C), rnd(2, B, T, C)
+    own = AK.attention_plan(B, C, nh, T, False, write=False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    for rows in sorted({own.rows, *(r * own.n_sub for r in (1, 2, 4, 6, 11))}):
+        for stages in (1, 2):
+            smem = AK._tma_smem(own.piece, own.hpc, T, rows, stages, False)
+            for per_sm in (1, 2):
+                if smem > min(AK.SM_SMEM // per_sm - 1024, AK.DK.SMEM_LIMIT):
+                    continue
+                plan = AK.AttentionPlan(B, C, nh, T, 2, own.groups, rows, stages, min(B * own.groups, per_sm * sms),
+                                        smem, False)
+                times[(rows, stages, per_sm)] = graph_ms([
+                    lambda l=l: AK._launch_tma("rq_attention_tma_read", plan, q, (q, kn, vn, ks[l], vs[l]), T, T)
+                    for l in range(2)])
+    log(f"  rq_attention_tma_read long-window plans at B={B}, T=cur_len={T}, head size {C // nh}, groups "
+        f"{own.groups} (stage rows, stages, CTAs an SM) -> device ms, fastest first: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: kv[1]))
+        + f"; the plan's own: {own.rows} rows x {own.stages} stages, {own.ctas} CTAs, {own.smem} B; "
+        f"bound {read_bound(B, T, C)['bound_ms']:.4f} ms; {card_line()}")
+
+
+def time_read_at_64(AK, rnd, B, C, nh):
+    """#10 at its own shape (phase 8's: B 100, T 64, cur_len 63) on 6
+    distinct cache pairs (6 x 39 MB), one device kernel a call: eager and
+    graph-replay device time against the first design, the plain version,
+    SDPA over the 63 rows and the bound."""
+    T, n = 64, 63
+    q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
+    sets = [(rnd(B, T, C), rnd(B, T, C)) for _ in range(6)]
+    one_kernel("decode_attention", lambda: AK.decode_attention(q, kn, vn, *sets[0], n, nh), "attention_tma_kernel")
+    calls = {"kernel": lambda s: AK.decode_attention(q, kn, vn, *s, n, nh),
+             "first design (v1)": lambda s: AK.decode_attention_v1(q, kn, vn, *s, n, nh),
+             "library (SDPA over the 63 rows)": lambda s: sdpa_rows(q, *s, nh, n)}
+    eager = {k: cuda_ms([lambda s=s, f=f: f(s) for s in sets], 50) for k, f in calls.items()}
+    plain = cuda_ms([lambda s=s: AK.decode_attention_plain(q, kn, vn, *s, n, nh) for s in sets], 50)
+    graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
+    b = read_bound(B, n, C)
+    log(f"  decode_attention (#10) at B={B}, T={T}, cur_len={n}: eager " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in eager.items()) + f", plain {plain:.4f} ms; device time ({len(sets)} calls in "
+        f"a CUDA graph, replayed) " + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {100 * b['bound_ms'] / graph['kernel']:.1f}% of it; "
+        f"{card_line()}")
+    return {"ms": eager["kernel"], "graph_ms": graph["kernel"], "v1_ms": eager["first design (v1)"],
+            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain,
+            "library_ms": eager["library (SDPA over the 63 rows)"],
+            "library_graph_ms": graph["library (SDPA over the 63 rows)"], **b}
 
 
 def time_stacked(AK, q, kn, vn, ks, vs, nh, n_calls):
-    """Time the stacked sampler's heaviest call (cur_len 256) on each layer
-    of the [L, B, 257, C] stack in turn (each layer's 256 rows exceed L2),
-    against the plain version, SDPA and the bound."""
-    (B, C), L, n = q.shape, ks.shape[0], 256
+    """Time the stacked sampler's calls on each layer of the [L, B, 257, C]
+    stack in turn (each layer's 256 rows exceed L2): at cur_len 256 eager
+    against the plain version and SDPA; at each of STACKED_CURS as
+    graph-replay device time against the first design (decode_attention_v1),
+    SDPA over the same rows and the bound; the sweep of READ_SPLITS at 256
+    rows, each plan also streaming its copies alone (probe), and CTA 0's
+    phases of one call of the default plan."""
+    (B, C), L, T, n = q.shape, ks.shape[0], ks.shape[2], 256
+    hs = C // nh
     ms = cuda_ms([lambda l=l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], n_calls)
+    v1 = cuda_ms([lambda l=l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], n, nh) for l in range(L)], n_calls)
     plain = cuda_ms([lambda l=l: AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, l, n, nh) for l in range(L)],
                     n_calls // 2)
     lib = cuda_ms([lambda l=l: sdpa_rows(q, ks[l], vs[l], nh, n) for l in range(L)], n_calls)
-    b = bound(2 * B * n * C * 2 + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
-    log(f"  decode_attention_stacked time, head size {C // nh}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"(scaled_dot_product_attention over the {n} rows) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by "
-        f"{b['bound_by']} (B={B}, C={C}, T={ks.shape[2]}, cur_len={n}); {2 * B * n * C * 2 / ms / 1e9:.3f} TB/s "
-        f"of cache")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    b = read_bound(B, n, C)
+    log(f"  decode_attention_stacked time (eager), head size {hs}: kernel {ms:.4f} ms, first design {v1:.4f} ms, "
+        f"plain {plain:.4f} ms, library (scaled_dot_product_attention over the {n} rows) {lib:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, C={C}, T={T}, cur_len={n}); "
+        f"{2 * B * n * C * 2 / ms / 1e9:.3f} TB/s of cache")
+    by_cur = {}
+    for cur in STACKED_CURS:
+        calls = {"kernel": lambda l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, cur, nh),
+                 "v1": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], cur, nh),
+                 "sdpa": lambda l: sdpa_rows(q, ks[l], vs[l], nh, cur)}
+        row = {k: graph_ms([lambda l=l, f=f: f(l) for l in range(L)]) for k, f in calls.items()}
+        if cur == n:
+            row["kernel"] = max(row["kernel"], graph_ms([lambda l=l: calls["kernel"](l) for l in range(L)]))
+        row["bound"] = read_bound(B, cur, C)["bound_ms"]
+        by_cur[cur] = row
+        log(f"  decode_attention_stacked device time ({L} calls in a CUDA graph, replayed), head size {hs}, "
+            f"cur_len {cur}: kernel {row['kernel']:.4f} ms, first design {row['v1']:.4f} ms, SDPA over the same rows "
+            f"{row['sdpa']:.4f} ms, bound {row['bound']:.4f} ms; {100 * row['bound'] / row['kernel']:.1f}% of the "
+            f"bound, {row['sdpa'] / row['kernel']:.2f}x SDPA's speed, {row['v1'] / row['kernel']:.2f}x the first "
+            f"design; {card_line()}")
+    splits = {}
+    for groups, stage in READ_SPLITS:
+        try:
+            plan = AK.attention_plan(B, C, nh, T, False, groups=groups, stage_bytes=stage, write=False)
+        except ValueError:
+            continue
+        splits[(groups, stage)] = tuple(graph_ms(
+            [lambda l=l: AK._launch_tma("rq_attention_tma_read", plan, q, (q, kn, vn, ks[l], vs[l]), T, n, probe)
+             for l in range(L)]) for probe in (False, True))
+    plan = AK.attention_plan(B, C, nh, T, False, write=False)
+    log(f"  rq_attention_tma_read plans at cur_len {n}, head size {hs} (groups, stage bytes) -> device ms (copies "
+        f"alone), fastest first: " + ", ".join(
+            f"{k} {v[0]:.4f} ({v[1]:.4f})" for k, v in sorted(splits.items(), key=lambda kv: kv[1][0]))
+        + f"; the plan's own: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, "
+        f"{plan.smem} B")
+    AK.decode_attention_stacked(q, kn, vn, ks, vs, 0, n, nh)
+    log_stamps(AK, f"decode_attention_stacked at cur_len {n}, head size {hs},")
+    return {"ms": ms, "graph_ms": by_cur[n]["kernel"], "v1_ms": v1, "v1_graph_ms": by_cur[n]["v1"], "plain_ms": plain,
+            "library_ms": lib, "library_graph_ms": by_cur[n]["sdpa"], **b,
+            "bound_mean_ms": read_bound(B, STACKED_MEAN, C)["bound_ms"],
+            "by_cur_len_graph_ms": {str(k): v for k, v in by_cur.items()},
+            "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}}
 
 
 def q8_cache(AK, rnd, B, T, C, nh):
@@ -634,12 +838,17 @@ def check_attention_q8(AK, dev, gen):
 
 
 def check_attention_q8_read_only(AK, dev, gen):
-    """decode_attention_q8 (#11, the read-only q8 attention) against its
-    plain version at the experiment's shapes (B 100 and 500, T 64, cur_len
-    63, window 64), at cur_len == T, cur_len 0, a ragged B = 37 and head size 104; the
-    four caches bit-unchanged; timed against the plain version, the bound
-    and decode_attention (#10) on the same rows in bf16."""
+    """decode_attention_q8 (#11, the read-only q8 attention,
+    csrc/decode_attention_tma.cu) against its plain version at the
+    experiment's shapes (B 100 and 500, T 64, cur_len 63, window 64), at
+    cur_len == T, cur_len 0, a ragged B = 37, head size 104 and windows of
+    1024 and 1056 rows; the four
+    caches bit-unchanged; one device kernel a call; timed eager and as
+    graph-replay device time against the first design
+    (decode_attention_q8_v1), decode_attention (#10) on the same rows in
+    bf16 and the bound, with the sweep of plans and CTA 0's phases."""
     B, C, nh, T = BATCH, 1536, 24, 64
+    lib = AK._build.library()
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -651,31 +860,64 @@ def check_attention_q8_read_only(AK, dev, gen):
         q, kn, vn = rnd(b, c), rnd(b, c), rnd(b, c)
         cache = q8_cache(AK, rnd, b, T, c, heads)
         before = [t.clone() for t in cache]
+        plan = check_tma_plan(AK, lib, b, c, heads, window, True, write=False)
         got = AK.decode_attention_q8(q, kn, vn, *cache, cur, heads, t_window=window)
         want = AK.decode_attention_q8_plain(q, kn, vn, *cache, cur, heads, t_window=window)
         torch.cuda.synchronize()
-        tag = f"decode_attention_q8 B={b} C={c} head size {c // heads} cur_len={cur} window={window}"
+        tag = (f"decode_attention_q8 B={b} C={c} head size {c // heads} cur_len={cur} window={window} (groups "
+               f"{plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)")
         worst = max(worst, compare(tag, got, want)[0])
         for name, a, b0 in zip(("kq", "ks", "vq", "vs"), cache, before):
             if not torch.equal(a, b0):
                 raise AssertionError(f"{tag}: the kernel changed {name}, which it may only read")
-    log("  decode_attention_q8: y within the bound, all four caches bit-unchanged, at head sizes 64 and 104")
+    for b, c, heads, t, cur in ((B, C, nh, 1056, 1056), (37, 1664, 16, 1024, 700)):  # long windows, as LONG_READS
+        q, kn, vn = rnd(b, c), rnd(b, c), rnd(b, c)
+        cache = q8_cache(AK, rnd, b, t, c, heads)
+        before = [x.clone() for x in cache]
+        plan = check_tma_plan(AK, lib, b, c, heads, t, True, write=False)
+        got = AK.decode_attention_q8(q, kn, vn, *cache, cur, heads)
+        want = AK.decode_attention_q8_plain(q, kn, vn, *cache, cur, heads)
+        torch.cuda.synchronize()
+        tag = (f"decode_attention_q8 B={b} C={c} head size {c // heads} T={t} cur_len={cur} (groups {plan.groups}, "
+               f"{plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, {plan.smem} B)")
+        worst = max(worst, compare(tag, got, want)[0])
+        if not all(torch.equal(a, b0) for a, b0 in zip(cache, before)):
+            raise AssertionError(f"{tag}: the kernel changed a cache it may only read")
+    log("  decode_attention_q8: y within the bound, all four caches bit-unchanged, at head sizes 64 and 104 and at "
+        "windows of 1024 and 1056 rows")
     # the main-path call on 6 distinct caches (6 x 19.7 MB int8, 6 x 39 MB
     # bf16 for #10 on the same rows), so L2 does not carry one call's rows over
     n = 63
     q, kn, vn = rnd(B, C), rnd(B, C), rnd(B, C)
     sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]
     bf16_sets = [(AK.dequantize_cache(s[0], s[1], nh), AK.dequantize_cache(s[2], s[3], nh)) for s in sets]
-    ms = cuda_ms([lambda s=s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
+    one_kernel("decode_attention_q8", lambda: AK.decode_attention_q8(q, kn, vn, *sets[0], n, nh, 64),
+               "attention_tma_kernel")
+    calls = {"kernel": lambda s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64),
+             "first design (v1)": lambda s: AK.decode_attention_q8_v1(q, kn, vn, *s, n, nh, 64)}
+    ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
     plain = cuda_ms([lambda s=s: AK.decode_attention_q8_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
     bf16_ms = cuda_ms([lambda s=s: AK.decode_attention(q, kn, vn, *s, n, nh, 64) for s in bf16_sets], 50)
-    ms2 = cuda_ms([lambda s=s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
-    b = bound(2 * B * n * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2, 4 * B * (n + 1) * C, FP32_FLOPS)
-    log(f"  decode_attention_q8 time: kernel {ms:.4f} / {ms2:.4f} ms (before / after #10), plain {plain:.4f} ms, "
+    graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
+    graph["decode_attention (#10, bf16) on the same rows"] = graph_ms(
+        [lambda s=s: AK.decode_attention(q, kn, vn, *s, n, nh, 64) for s in bf16_sets])
+    graph["kernel, again"] = graph_ms([lambda s=s: calls["kernel"](s) for s in sets])
+    b = read_bound(B, n, C, nh, q8=True)
+    kernel_ms = max(graph["kernel"], graph["kernel, again"])
+    splits = time_attention_splits(AK, "rq_attention_tma_q8_read", True, q, [(q, kn, vn, *s) for s in sets], nh,
+                                   write=False)
+    log(f"  decode_attention_q8 time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain {plain:.4f} ms, "
         f"decode_attention (#10, bf16) on the same rows {bf16_ms:.4f} ms, library: none (no torch call attends an "
         f"int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len={n}); "
         f"{2 * B * n * (C + 2 * nh) / ms / 1e6:.1f} GB/s of int8 cache and scales")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+    log(f"  decode_attention_q8 device time ({len(sets)} calls in a CUDA graph, replayed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound, {graph['first design (v1)'] / kernel_ms:.2f}x the "
+        f"first design; {card_line()}")
+    return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
+            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": None,
+            "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, **b}
 
 
 def device_kernels(fn) -> list[str]:
@@ -976,8 +1218,9 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
         f"(dequant) {probe_plain:.4f} ms, library (torch.sum(w, 2, dtype=float32) over w1p and w2p, the row sums "
         f"of the dequant mode; none computes dma's one-value-per-row touch) {probe_lib:.4f} ms, bound "
         f"{pb['bound_ms']:.4f} ms by {pb['bound_by']}")
-    probe_entry = {"max_abs_err": 0.0, "ms": probe_ms["dequant"],  # bit-equal, checked above "plain_ms": probe_plain,
-                   "library_ms": probe_lib, **pb, "dma_ms": probe_ms["dma"]}
+    probe_entry = {"max_abs_err": 0.0,  # bit-equal, checked above
+                   "ms": probe_ms["dequant"], "plain_ms": probe_plain, "library_ms": probe_lib, **pb,
+                   "dma_ms": probe_ms["dma"]}
 
     # #20: the MLP alone, the four ablation cases
     h = rnd(B, C)
@@ -1552,22 +1795,21 @@ def vqgan_phase(S, counters, dev, card, name) -> int:
     return steps
 
 
-def experiment_phase(AK, counters, dev, card) -> int:
+def experiment_phase(AK, counters, dev, card) -> tuple[int, dict]:
     """Phase 8: the port of tools/exp_attn_q8cache.py at B 100 and 500, T
     64, 50 calls per chain: decode_attention (#10) against
     decode_attention_q8 (#11) in CUDA-graph-replayed chains. All counts set
     to 0 just before it; after it each of the two kernels must show the
     launches the experiment issues (its eager chains, a warm-up call, the
     chain once at capture and each of its replays, per batch) and every
-    other kernel 0. Returns #11's
-    launches."""
+    other kernel 0. Returns (#11's launches, the experiment's rows)."""
     from rqvae_tpu_torch.tools import exp_attn_q8cache as E
 
     batches, t, iters = [100, 500], 64, 50
     os.environ.update(EXP_T=str(t), EXP_ITERS=str(iters))
     for fn in counters:
         fn.launches = 0
-    E.main([str(b) for b in batches], device=dev)
+    rows = E.main([str(b) for b in batches], device=dev)
     n = len(batches) * E.launches_per_batch(iters)
     want = {fn.__name__: 0 for fn in counters} | {"decode_attention": n, "decode_attention_q8": n}
     counts = {fn.__name__: fn.launches for fn in counters}
@@ -1576,7 +1818,10 @@ def experiment_phase(AK, counters, dev, card) -> int:
     log(f"  [exp_attn_q8cache] launches: decode_attention {n}, decode_attention_q8 {n} ({len(batches)} batches x "
         f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of {iters})), "
         f"every other kernel 0; {card}")
-    return n
+    log("  [exp_attn_q8cache] the faster cache form, per batch: " + ", ".join(
+        f"B {b} {'int8' if r['q8_us'] < r['bf16_us'] else 'bf16'} ({r['q8_us']:.1f} us int8, {r['bf16_us']:.1f} us "
+        f"bf16)" for b, r in rows.items()))
+    return n, rows
 
 
 PIPE_ITERS = 30  # phase 9's chain iterations, the JAX experiment's default: the phase takes ~20 s
@@ -1772,9 +2017,11 @@ def main() -> None:
     if mode == "attention":
         check_attention(AK, dev, gen)
         check_attention_q8(AK, dev, gen)
+        check_attention_read_only(AK, dev, gen)
+        check_attention_q8_read_only(AK, dev, gen)
         return
     attn = check_attention(AK, dev, gen)
-    attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
+    attn_read10, attn_read, attn_read104 = check_attention_read_only(AK, dev, gen)
     qkv, mlp = check_dense(DK, dev, gen)
     attn_q8 = check_attention_q8(AK, dev, gen)
     attn_q8_read = check_attention_q8_read_only(AK, dev, gen)
@@ -1810,21 +2057,22 @@ def main() -> None:
                 AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
                 QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
                 MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
-                AK.decode_attention_q8_update_v1)
+                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("bf16+mega", False, dict(dense="mega"), (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16+mega", False, dict(dense="mega"),
+         (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
-         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         # int8 weights: the body's S == 1 steps run the int8 dense pair too (its
         # QKV half alone under attn_wo, whose MLP stays on the plain _mm)
         ("int8+kv_q8", True, dict(kv_q8=True),
-         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
-         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -1875,14 +2123,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"# phase 7: vqgan_huge (f16-d1-c16384), then vqgan_large (f16-d1-c1024, head size 104), "
         f"class-conditional sampling through the stacked-cache sampler + RQ-VAE decode, bs{BATCH}, on {card}")
-    launches["decode_attention_stacked"] = vqgan_phase(S, counters, dev, card, "vqgan_huge")
+    launches["decode_attention_stacked"] = launches["decode_attention"] = vqgan_phase(S, counters, dev, card,
+                                                                                    "vqgan_huge")
     torch.cuda.empty_cache()
     attn_read104["launches"] = vqgan_phase(S, counters, dev, card, "vqgan_large")
     torch.cuda.empty_cache()
 
     # phase 8: the ported experiment, #10 against #11
     log(f"# phase 8: rqvae_tpu_torch.tools.exp_attn_q8cache, B 100 and 500, T 64, 50 calls per chain, on {card}")
-    launches["decode_attention_q8"] = experiment_phase(AK, counters, dev, card)
+    launches["decode_attention_q8"], chains = experiment_phase(AK, counters, dev, card)
+    attn_read10["chain_us"] = {b: r["bf16_us"] for b, r in chains.items()}
+    attn_q8_read["chain_us"] = {b: r["q8_us"] for b, r in chains.items()}
 
     # phase 9: the ported q8 pipeline experiment, #6 against #17-#20
     log(f"# phase 9: rqvae_tpu_torch.tools.exp_q8_pipeline, B {BATCH}, the full sweeps and probes, "
@@ -1918,10 +2169,12 @@ def main() -> None:
              replaces="rqvae_tpu/ops/decode_megakernel.py:215", **mega),
         dict(name="decode_attention_q8_update_wo", route="cuda", source="rqvae_tpu_torch/csrc/decode_fused.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:728", **attn_wo),
-        dict(name="decode_attention_stacked", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention.cu",
-             replaces="rqvae_tpu/ops/attention_kernel.py:149 and :209", **attn_read,
+        dict(name="decode_attention", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:209", **attn_read10),
+        dict(name="decode_attention_stacked", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
+             replaces="rqvae_tpu/ops/attention_kernel.py:149", **attn_read,
              head_size_104=attn_read104),  # the same kernel on vqgan_large's path
-        dict(name="decode_attention_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_q8.cu",
+        dict(name="decode_attention_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:830", **attn_q8_read),
         dict(name="fused_proj_mlp_q8_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
              replaces="tools/exp_q8_pipeline.py:115", **pipe_ring),

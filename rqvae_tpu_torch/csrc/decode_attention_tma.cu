@@ -1,16 +1,22 @@
-// Single-token (decode) attention over a KV cache with the new row written,
-// for the RQ-Transformer body on Hopper (sm_90a): the second design of the
-// bf16 and int8 update kernels, each batch row's window staged through
-// shared memory by bulk async copies (cp.async.bulk, mbarrier completion).
+// Single-token (decode) attention over a KV cache, with the new row written
+// or read-only, for the RQ-Transformer on Hopper (sm_90a): the second design
+// of the bf16 and int8 attention kernels, each batch row's window staged
+// through shared memory by bulk async copies (cp.async.bulk, mbarrier
+// completion).
 //
 // Replaces the TPU kernels of rqvae_tpu/ops/attention_kernel.py:
 //   - decode_attention_update (:316; math in _attn_math, :85):
-//     rq_attention_tma_update (kQ8 = false), bf16 cache [B, T, C];
+//     rq_attention_tma_update (kQ8 = false, kWrite = true), bf16 cache [B, T, C];
 //   - decode_attention_q8_update (:577; math in _attn_math_q8_val, :446):
-//     rq_attention_tma_q8_update (kQ8 = true), int8 cache kq, vq [B, T, C]
-//     with a bf16 scale per (row, head) in ks, vs [B, T, n_head].
-// The first design of both (csrc/decode_attention.cu, decode_attention_q8.cu)
-// stays as the A/B baseline and as the read-only forms.
+//     rq_attention_tma_q8_update (kQ8 = true, kWrite = true), int8 cache kq, vq
+//     [B, T, C] with a bf16 scale per (row, head) in ks, vs [B, T, n_head];
+//   - decode_attention (:209) and decode_attention_stacked (:149, the same
+//     on layer l's base pointer of an [L, B, T, C] stack): rq_attention_tma_read
+//     (kQ8 = false, kWrite = false);
+//   - decode_attention_q8 (:830): rq_attention_tma_q8_read (kQ8 = true,
+//     kWrite = false).
+// The first design of all four (csrc/decode_attention.cu,
+// decode_attention_q8.cu) stays as the A/B baseline.
 //
 // What it computes, for batch row b and head h (head size hs = C / n_head,
 // 64 or 104), n_valid = min(cur_len, window):
@@ -23,14 +29,16 @@
 //         bf16(vq[t, i] w_t) + v_new[i] e_self / denom. w_t needs the final
 //         denominator, so the softmax is explicit (no online rescaling) in
 //         both kernels: one code path, two passes over the window.
-// Then row cur_len is set to k_new / v_new (bf16), or to their per-head
-// quantization (int8): scale = max(absmax / 127, 1e-8) in fp32, q =
-// round-half-even(x / scale) with IEEE division, the scale stored as bf16,
-// bit-equal to ops/attention_kernel.py::quantize_kv.
+// With kWrite, row cur_len (< T) is then set to k_new / v_new (bf16), or to
+// their per-head quantization (int8): scale = max(absmax / 127, 1e-8) in
+// fp32, q = round-half-even(x / scale) with IEEE division, the scale stored
+// as bf16, bit-equal to ops/attention_kernel.py::quantize_kv. Without it the
+// caches are only read, and cur_len may reach T.
 //
 // Bound on the H100: cache bytes, 2 B n_valid C (int8) or twice that (bf16)
 // against a few operations per byte: at B 100, C 1536, cur_len 63, 6.4 us
-// (int8) and 12.1 us (bf16) at 3.35 TB/s.
+// (int8) and 12.1 us (bf16) at 3.35 TB/s; at the f16 stacked sampler's
+// longest window (cur_len 256), 47.3 us (bf16).
 //
 // Design. For batch row b, rows [0, n_valid) of k_cache[b] are one
 // contiguous run, and a head group's columns of one row are one contiguous
@@ -56,14 +64,19 @@
 // each lane one row's score, and each thread keeps its 8 q values and 8 y
 // sums in registers. What a unit needs besides the window (q, k_new,
 // v_new, the int8 scales) is loaded into registers during the previous
-// unit; the new row is written at the unit's start, while its first chunk
-// is in flight. Between the passes a team of 8-32 lanes per head takes the
-// head's max, denominator and every row's weight (at int8 the bf16 w_t)
-// over the scores in shared memory. The int8 products are bf16x2 multiplies of
-// int8 pairs widened to bf16 without conversion instructions (exact), each
-// product rounded to bf16 as the JAX kernel rounds it, summed in fp32. The
-// launch plan (groups, rows, stages, ctas) comes from
-// ops/attention_kernel.py::attention_plan, which mirrors tma_layout below.
+// unit; the new row (kWrite) is written at the unit's start, while its
+// first chunk is in flight. Between the passes a team of 8-32 lanes per
+// head takes the head's max, denominator and every row's weight (at int8
+// the bf16 w_t) over the scores in shared memory. The int8 products are
+// bf16x2 multiplies of int8 pairs widened to bf16 without conversion
+// instructions (exact), each product rounded to bf16 as the JAX kernel
+// rounds it, summed in fp32. The launch plan (groups, rows, stages, ctas)
+// comes from ops/attention_kernel.py::attention_plan, which mirrors
+// tma_layout below. The window's scores (at int8 also its scales) live in
+// shared memory: the update form takes windows of up to 512 rows, the
+// read-only form any window whose scores one head group's CTA holds (at
+// int8 also whose scales its threads hold), so the stacked sampler's T =
+// cond_len + H W, up to 1024 positions, included.
 //
 // Alignment. Bulk copies take 16-byte addresses and sizes: C x (element
 // bytes) and a group's piece hpc x hs x (element bytes) must be multiples of
@@ -73,9 +86,10 @@
 // the launch; there is no tail path.
 //
 // Races: a CTA reads only cache rows < n_valid <= cur_len; row cur_len (and
-// its scales) of a unit's heads is written only by the CTA that takes the
-// unit, each head's slice by one team. So reads and the write never touch
-// the same bytes, and no two CTAs write the same bytes.
+// its scales) of a unit's heads is written (kWrite) only by the CTA that
+// takes the unit, each head's slice by one team. So reads and the write
+// never touch the same bytes, and no two CTAs write the same bytes. The
+// read-only form writes y alone.
 
 #include "decode_dense.cuh"  // bf16, kConsumers / kThreads, barriers, bulk copies, widen4, stamps
 
@@ -95,7 +109,7 @@ __host__ __device__ inline int team_lanes(int hs) { return hs <= 64 ? 8 : 16; }
 struct TmaLayout {
   int stage_bytes;  // `rows` pieces of `piece` bytes, 128-byte aligned
   int bars;         // full[stages], then empty[stages] mbarriers
-  int ypart;        // float [n_sub][cols]: the partial y sums
+  int ypart;        // float [n_sub][cols]: the partial y sums, after the V pass, where the scores were
   int scores;       // float [window][hpc]: (int8: the K scales,) the scores, e, the weights
   int vscale;       // float [window][hpc] (int8)
   int red;          // float [kRedFloats][hpc]
@@ -107,9 +121,9 @@ __host__ __device__ inline TmaLayout tma_layout(int piece, int hpc, int window, 
   L.stage_bytes = round_up(rows * piece, 128);
   L.bars = stages * L.stage_bytes;
   L.ypart = round_up(L.bars + 2 * stages * 8, 16);
-  L.scores = L.ypart + kConsumers * kVals * 4;
+  L.scores = L.ypart;  // the weights are read for the last time in the V pass, before y
   const int per_row = round_up(window * hpc * 4, 16);
-  L.vscale = L.scores + per_row;
+  L.vscale = L.scores + max(per_row, kConsumers * kVals * 4);
   L.red = L.vscale + (q8 ? per_row : 0);
   L.total = L.red + round_up(kRedFloats * hpc * 4, 16);
   return L;
@@ -143,6 +157,25 @@ __device__ __forceinline__ float team_max(float v) {
 #pragma unroll
   for (int o = kLanes / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The K pass's butterfly over a team: lane l holds partial sums of the
+// team's kLanes rows in part[]; after the folds at offsets O, O / 2, .., 1
+// part[0] of lane l is row l's whole sum. Each fold keeps the half of the
+// rows its side of offset O owns and adds the other side's. (A template, so
+// that every loop bound is a constant and part[] stays in registers.)
+template <int O, int N>
+__device__ __forceinline__ void fold(float (&part)[N], int l) {
+  if constexpr (O >= 1) {
+    const bool upper = l & O;
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      const float send = upper ? part[j] : part[j + O];
+      const float keep = upper ? part[j + O] : part[j];
+      part[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    fold<O / 2>(part, l);
+  }
 }
 
 // the two bf16 of a pair as floats (exact: a bf16 is the upper half of its float)
@@ -265,10 +298,9 @@ __device__ __forceinline__ void produce(const TmaParams& p, uint32_t ring, uint3
   }
 }
 
-template <bool kQ8, int kHeadSize>
-__global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
+template <bool kQ8, bool kWrite, int kHeadSize>
+__global__ void __launch_bounds__(kThreads, 2) attention_tma_kernel(TmaParams p) {
   constexpr int kLanes = kHeadSize <= 64 ? 8 : 16;  // team_lanes(kHeadSize)
-  constexpr int kLog = kHeadSize <= 64 ? 3 : 4;      // log2(kLanes)
   constexpr int kActive = kHeadSize / kVals;        // lanes of a team that hold columns
   constexpr int kBytes = kQ8 ? 1 : 2;
   static_assert(kHeadSize % kVals == 0 && kActive <= kLanes, "8 columns per lane, one team per head");
@@ -323,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
   const int hh = (tid % tpr) / kLanes;
   const int l = tid % kLanes;
   const bool active = sub < n_sub && l < kActive;
-  const bool lead = sub == 0;                  // the team that holds k_new / v_new and writes row cur_len
+  const bool lead = sub == 0;                  // the team that holds k_new / v_new (and writes row cur_len)
   const bool lead_warp = (tid & ~31) < tpr;   // a warp with lead threads (warp-uniform)
   const int col0 = hh * kHeadSize + l * kVals;  // in the group's columns
   auto io = [&](int u) {  // this lane's first column of unit u in a [B, C] row
@@ -355,31 +387,34 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
       qf[2 * j + 1] = hi_f32(qw[j]);
     }
 
-    // the self score and the new row cur_len (the lead teams), and the
-    // unit's int8 scales, while its first chunk is in flight
+    // the self score and (kWrite) the new row cur_len (the lead teams), and
+    // the unit's int8 scales, while its first chunk is in flight
     if (!p.probe) {
       if (lead_warp) {
-        uint32_t kw[4], vw[4];
+        uint32_t kw[4];
         words(kn, kw);
-        words(vn, vw);
         const float d = team_sum<kLanes>(dot8<kQ8>(kw, qw, qf));
         if (lead && l == 0) self_s[hh] = d * p.scale;
-        const size_t dst_row = ((size_t)b * p.T + p.cur_len) * p.C + (size_t)g * cols + col0;
-        if constexpr (kQ8) {
-          float kf[kVals], vf[kVals];
+        if constexpr (kWrite) {
+          const size_t dst_row = ((size_t)b * p.T + p.cur_len) * p.C + (size_t)g * cols + col0;
+          if constexpr (kQ8) {
+            uint32_t vw[4];
+            words(vn, vw);
+            float kf[kVals], vf[kVals];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            kf[2 * j] = lo_f32(kw[j]);
-            kf[2 * j + 1] = hi_f32(kw[j]);
-            vf[2 * j] = lo_f32(vw[j]);
-            vf[2 * j + 1] = hi_f32(vw[j]);
+            for (int j = 0; j < 4; ++j) {
+              kf[2 * j] = lo_f32(kw[j]);
+              kf[2 * j + 1] = hi_f32(kw[j]);
+              vf[2 * j] = lo_f32(vw[j]);
+              vf[2 * j + 1] = hi_f32(vw[j]);
+            }
+            const size_t dst_s = ((size_t)b * p.T + p.cur_len) * p.n_head + (size_t)g * hpc + hh;
+            quantize8<kLanes>(kf, lead && active, lead && l == 0, p.kc + dst_row, p.ks + dst_s);
+            quantize8<kLanes>(vf, lead && active, lead && l == 0, p.vc + dst_row, p.vs + dst_s);
+          } else if (lead && active) {
+            *reinterpret_cast<uint4*>(p.kc + dst_row * 2) = kn;
+            *reinterpret_cast<uint4*>(p.vc + dst_row * 2) = vn;
           }
-          const size_t dst_s = ((size_t)b * p.T + p.cur_len) * p.n_head + (size_t)g * hpc + hh;
-          quantize8<kLanes>(kf, lead && active, lead && l == 0, p.kc + dst_row, p.ks + dst_s);
-          quantize8<kLanes>(vf, lead && active, lead && l == 0, p.vc + dst_row, p.vs + dst_s);
-        } else if (lead && active) {
-          *reinterpret_cast<uint4*>(p.kc + dst_row * 2) = kn;
-          *reinterpret_cast<uint4*>(p.vc + dst_row * 2) = vn;
         }
       }
       if constexpr (kQ8) {  // the K scales where the scores go, each score's lane scales it
@@ -421,17 +456,7 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
               part[j] = dot8<kQ8>(xw, qw, qf);
             }
           }
-#pragma unroll
-          for (int stage = 1; stage <= kLog; ++stage) {
-            const int o = kLanes >> stage;
-            const bool upper = l & o;
-#pragma unroll
-            for (int j = 0; j < o; ++j) {
-              const float send = upper ? part[j] : part[j + o];
-              const float keep = upper ? part[j + o] : part[j];
-              part[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-            }
-          }
+          fold<kLanes / 2>(part, l);
           const int rr = rr0 + sub + n_sub * l;
           if (sub < n_sub && rr < nr) {
             float* sc = scores + (r0 + rr) * hpc + hh;
@@ -503,7 +528,7 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
       const unsigned char* st = chunk_in(c0 + nck + k);
       const int r0 = k * p.rows;
       const int nr = min(p.rows, p.n_valid - r0);
-#pragma unroll 2
+#pragma unroll 4
       for (int rr0 = 0; rr0 < nr; rr0 += n_sub) {
         const int rr = rr0 + sub;
         if (active && rr < nr) {
@@ -533,7 +558,9 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
     }
     if (i == 0) stamp(5);
 
-    // y: the partial sums of the row slots
+    // y: the partial sums of the row slots, where the weights were (every
+    // warp done with them first)
+    consumer_sync();
     if (active) {
 #pragma unroll
       for (int j = 0; j < kVals; ++j) ypart[sub * cols + col0 + j] = acc[j];
@@ -545,6 +572,7 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
       for (int w = 0; w < n_sub; ++w) s += ypart[w * cols + col];
       yrow[col] = __float2bfloat16_rn(s);
     }
+    consumer_sync();  // y read from ypart before the next unit's scores go there
     if (i == 0) stamp(6);
   }
   stamp(7);
@@ -555,10 +583,10 @@ __global__ void __launch_bounds__(kThreads) attention_tma_kernel(TmaParams p) {
   }
 }
 
-template <bool kQ8, int kHeadSize>
+template <bool kQ8, bool kWrite, int kHeadSize>
 int launch_tma(const TmaParams& params, int ctas, int smem, cudaStream_t stream) {
   static bool allowed = false;
-  const void* kernel = (const void*)attention_tma_kernel<kQ8, kHeadSize>;
+  const void* kernel = (const void*)attention_tma_kernel<kQ8, kWrite, kHeadSize>;
   if (!allowed) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
@@ -586,10 +614,11 @@ int plan_smem(int C, int n_head, int q8, int window, int groups, int rows, int s
   return total <= kMaxSmem ? total : -1;
 }
 
-template <bool kQ8>
+template <bool kQ8, bool kWrite>
 int launch(const TmaParams& base, int B, int groups, int rows, int stages, int ctas, cudaStream_t stream) {
   const int smem = plan_smem(base.C, base.n_head, kQ8, base.window, groups, rows, stages);
-  if (smem < 0 || B < 1 || base.window > base.T || base.cur_len < 0 || base.cur_len >= base.T || ctas < 1)
+  if (smem < 0 || B < 1 || base.window > base.T || base.cur_len < 0 || (kWrite && base.cur_len >= base.T) ||
+      ctas < 1)
     return (int)cudaErrorInvalidValue;
   TmaParams p = base;
   const int hs = p.C / p.n_head;
@@ -600,7 +629,26 @@ int launch(const TmaParams& base, int B, int groups, int rows, int stages, int c
   p.units = B * groups;
   p.n_valid = min(p.cur_len, p.window);
   p.scale = 1.0f / sqrtf((float)hs);
-  return hs == 64 ? launch_tma<kQ8, 64>(p, ctas, smem, stream) : launch_tma<kQ8, 104>(p, ctas, smem, stream);
+  return hs == 64 ? launch_tma<kQ8, kWrite, 64>(p, ctas, smem, stream)
+                  : launch_tma<kQ8, kWrite, 104>(p, ctas, smem, stream);
+}
+
+TmaParams base_params(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache, void* y,
+                      int T, int C, int n_head, int window, int cur_len, int probe) {
+  TmaParams p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k_new = static_cast<const bf16*>(k_new);
+  p.v_new = static_cast<const bf16*>(v_new);
+  p.kc = static_cast<unsigned char*>(k_cache);
+  p.vc = static_cast<unsigned char*>(v_cache);
+  p.y = static_cast<bf16*>(y);
+  p.T = T;
+  p.C = C;
+  p.n_head = n_head;
+  p.window = window;
+  p.cur_len = cur_len;
+  p.probe = probe;
+  return p;
 }
 
 }  // namespace
@@ -617,20 +665,19 @@ extern "C" int rq_attention_tma_update(const void* q, const void* k_new, const v
                                        void* v_cache, void* y, int B, int T, int C, int n_head, int window,
                                        int cur_len, int groups, int rows, int stages, int ctas, int probe,
                                        void* stream) {
-  TmaParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k_new = static_cast<const bf16*>(k_new);
-  p.v_new = static_cast<const bf16*>(v_new);
-  p.kc = static_cast<unsigned char*>(k_cache);
-  p.vc = static_cast<unsigned char*>(v_cache);
-  p.y = static_cast<bf16*>(y);
-  p.T = T;
-  p.C = C;
-  p.n_head = n_head;
-  p.window = window;
-  p.cur_len = cur_len;
-  p.probe = probe;
-  return launch<false>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
+  const TmaParams p = base_params(q, k_new, v_new, k_cache, v_cache, y, T, C, n_head, window, cur_len, probe);
+  return launch<false, true>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
+}
+
+// The read-only form: the same attention, the caches only read, cur_len
+// any row count (n_valid = min(cur_len, window)).
+extern "C" int rq_attention_tma_read(const void* q, const void* k_new, const void* v_new, const void* k_cache,
+                                     const void* v_cache, void* y, int B, int T, int C, int n_head, int window,
+                                     int cur_len, int groups, int rows, int stages, int ctas, int probe,
+                                     void* stream) {
+  const TmaParams p = base_params(q, k_new, v_new, const_cast<void*>(k_cache), const_cast<void*>(v_cache), y, T, C,
+                                  n_head, window, cur_len, probe);
+  return launch<false, false>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
 }
 
 // The int8 cache: kq, vq [B, T, C] int8, ks, vs [B, T, n_head] bf16, the
@@ -639,22 +686,22 @@ extern "C" int rq_attention_tma_q8_update(const void* q, const void* k_new, cons
                                           void* vq, void* vs, void* y, int B, int T, int C, int n_head, int window,
                                           int cur_len, int groups, int rows, int stages, int ctas, int probe,
                                           void* stream) {
-  TmaParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k_new = static_cast<const bf16*>(k_new);
-  p.v_new = static_cast<const bf16*>(v_new);
-  p.kc = static_cast<unsigned char*>(kq);
-  p.vc = static_cast<unsigned char*>(vq);
+  TmaParams p = base_params(q, k_new, v_new, kq, vq, y, T, C, n_head, window, cur_len, probe);
   p.ks = static_cast<bf16*>(ks);
   p.vs = static_cast<bf16*>(vs);
-  p.y = static_cast<bf16*>(y);
-  p.T = T;
-  p.C = C;
-  p.n_head = n_head;
-  p.window = window;
-  p.cur_len = cur_len;
-  p.probe = probe;
-  return launch<true>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
+  return launch<true, true>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
+}
+
+// The read-only int8 form.
+extern "C" int rq_attention_tma_q8_read(const void* q, const void* k_new, const void* v_new, const void* kq,
+                                        const void* ks, const void* vq, const void* vs, void* y, int B, int T, int C,
+                                        int n_head, int window, int cur_len, int groups, int rows, int stages,
+                                        int ctas, int probe, void* stream) {
+  TmaParams p = base_params(q, k_new, v_new, const_cast<void*>(kq), const_cast<void*>(vq), y, T, C, n_head, window,
+                            cur_len, probe);
+  p.ks = static_cast<bf16*>(const_cast<void*>(ks));
+  p.vs = static_cast<bf16*>(const_cast<void*>(vs));
+  return launch<true, false>(p, B, groups, rows, stages, ctas, (cudaStream_t)stream);
 }
 
 // The shared-memory bytes of a plan (what the launch requests), or -1 for
@@ -666,7 +713,7 @@ extern "C" int rq_attention_tma_smem(int C, int n_head, int q8, int window, int 
 
 // The globaltimer stamps (ns) of the last launch, into host memory out[16]:
 // consumer thread 0 of CTA 0 at its start, at its first chunk, after its
-// first unit's K pass, self term and row write, softmax, V pass and y, at
+// first unit's K pass, self term (and row write), softmax, V pass and y, at
 // its end; [8] the last CTA's end. Synchronous.
 extern "C" int rq_attention_tma_phase_ns(void* out) {
   return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "rq_decode_attention_q8": (_P,) * 8 + (_I,) * 6 + (_P,),
     "rq_attention_tma_update": (_P,) * 6 + (_I,) * 11 + (_P,),
     "rq_attention_tma_q8_update": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "rq_attention_tma_read": (_P,) * 6 + (_I,) * 11 + (_P,),
+    "rq_attention_tma_q8_read": (_P,) * 8 + (_I,) * 11 + (_P,),
     "rq_attention_tma_smem": (_I,) * 7,
     "rq_attention_tma_phase_ns": (_P,),
     "rq_fused_ln_qkv": (_P,) * 8 + (_I,) * 9 + (_F, _P),

@@ -1,17 +1,18 @@
 """Decode attention over a KV cache: with the in-place row write, and read-only.
 
 Counterpart of rqvae_tpu/ops/attention_kernel.py::decode_attention_update,
-::decode_attention and ::decode_attention_stacked. The update forms, bf16
-(decode_attention_update) and int8 (decode_attention_q8_update), launch
-csrc/decode_attention_tma.cu: each batch row's window staged through shared
-memory by bulk async copies, on the launch plan of attention_plan (its
-source note says what bounds it on the H100 and how the design answers
-that). The first design, csrc/decode_attention.cu and
+::decode_attention and ::decode_attention_stacked. All four attention forms,
+bf16 and int8, update (decode_attention_update, decode_attention_q8_update)
+and read-only (decode_attention, decode_attention_q8), launch
+csrc/decode_attention_tma.cu: each batch row's window staged through
+shared memory by bulk async copies, on the launch plan of attention_plan
+(its source note says what bounds it on the H100 and how the design
+answers that). The first design, csrc/decode_attention.cu and
 csrc/decode_attention_q8.cu (one template each, with and without the row
-write), serves the read-only forms and stays reachable as the A/B
-baselines decode_attention_update_v1 / decode_attention_q8_update_v1, which
-only chip_smoke.py runs. This module holds the wrappers and the plain
-PyTorch versions of the same functions.
+write), stays reachable as the A/B baselines decode_attention_update_v1 /
+decode_attention_q8_update_v1 / decode_attention_v1 /
+decode_attention_q8_v1, which only chip_smoke.py runs. This module holds
+the wrappers and the plain PyTorch versions of the same functions.
 
 Contract (both versions): for q, k_new, v_new [B, C] and one layer's caches
 k_cache, v_cache [B, T, C], the token attends cache rows
@@ -42,7 +43,7 @@ were rounded with the fp32 one.
 
 decode_attention_q8 is the counterpart of ::decode_attention_q8: the same
 q8 attention with no write (the four caches are only read, and cur_len may
-reach T); its CUDA kernel is rq_decode_attention_q8, the read-only form of
+reach T); its CUDA kernel is rq_attention_tma_q8_read, the read-only form of
 the same device code. No sampling path calls it: the JAX sampler takes it
 only for an int8 cache whose row count is not a multiple of 32 (its update
 kernel's cache write reads 32-row tiles, a Mosaic constraint), and the
@@ -64,9 +65,10 @@ chip_smoke.py runs.
 
 Head sizes: the attention kernels serve C / n_head in HEAD_SIZES (the CUDA
 templates' instantiations: 64, and 104 for the zoo's vqgan_large; the
-update kernels of decode_attention_tma.cu need 16-byte aligned tensors and,
+kernels of decode_attention_tma.cu need 16-byte aligned tensors and,
 on an int8 cache at head size 104, an even n_head: their bulk copies move
-16-byte multiples); the
+16-byte multiples; a stack's layer view starts on one too, as C x 2 bytes
+is a multiple of 16); the
 fused decode_attention_q8_update_wo serves 64 only, since it runs only on
 the unrolled sampling path (H·W <= 128), where every configuration of the
 repository has head size 64.
@@ -117,10 +119,17 @@ SM_SMEM = 233_472  # shared memory of one SM; each resident CTA also takes 1 KB 
 TMA_STAGE_BYTES = 32_768  # a ring stage's target size
 TMA_MAX_STAGES = 32
 TMA_CTAS_PER_SM = 2  # resident CTAs per SM of the persistent grid
+# the ring of the bf16 read-only form: two stages, measured 3-4% faster than
+# the deeper rings at the stacked sampler's 256 rows at both head sizes
+# (chip_smoke.py's sweep of read-only plans; PERF.md)
+TMA_READ_STAGES = 2
 TMA_MIN_PIECE = 512  # the smallest row piece of a group the plan picks: a bulk copy has a fixed cost
-# the longest window: the unrolled sampler's caches hold cond_len + H W - 1
-# rows (at most 128 positions, sampling.resolve_unroll), rounded up to 32 at
-# int8, so 512 leaves room for a long condition
+# the longest window of the update form: the unrolled sampler's caches hold
+# cond_len + H W - 1 rows (at most 128 positions, sampling.resolve_unroll),
+# rounded up to 32 at int8, so 512 leaves room for a long condition. The
+# read-only form takes any window whose scores fit one CTA's shared memory
+# (at int8 also whose scales its threads hold): the stacked sampler's T is
+# cond_len + H W, up to 1024 positions at f8 (cli/measure_throughput.RQVAE_GEOM)
 TMA_MAX_WINDOW = 512
 
 
@@ -135,13 +144,14 @@ def _team_lanes(hs: int) -> int:
 
 def _tma_smem(piece: int, hpc: int, window: int, rows: int, stages: int, q8: bool) -> int:
     """The shared-memory bytes of csrc/decode_attention_tma.cu::tma_layout:
-    the ring, a full and an empty mbarrier a stage, the [n_sub, cols]
-    partial y sums, the scores (and at int8 the V scales) of `window` rows
-    x hpc heads as floats, the per-head self terms."""
+    the ring, a full and an empty mbarrier a stage, the scores of `window`
+    rows x hpc heads as floats and in the same bytes, after the V pass, the
+    [n_sub, cols] partial y sums, (at int8) the V scales, the per-head self
+    terms."""
     ring = stages * _round_up(rows * piece, 128)
     per_row = _round_up(window * hpc * 4, 16)
-    return (_round_up(ring + 2 * stages * 8, 16) + TMA_THREADS * TMA_VALS * 4 + per_row * (2 if q8 else 1)
-            + _round_up(_TMA_RED_FLOATS * hpc * 4, 16))
+    return (_round_up(ring + 2 * stages * 8, 16) + max(per_row, TMA_THREADS * TMA_VALS * 4)
+            + (per_row if q8 else 0) + _round_up(_TMA_RED_FLOATS * hpc * 4, 16))
 
 
 @dataclass(frozen=True)
@@ -151,7 +161,9 @@ class AttentionPlan:
     `eb`-byte elements. Units (batch row b, head group g) of hpc heads, u = b
     groups + g, go round-robin to a persistent grid of `ctas` CTAs (CTA c
     takes units c, c + ctas, ...); each CTA streams its units' windows
-    through `stages` stages of `rows` cache rows, `smem` bytes in all."""
+    through `stages` stages of `rows` cache rows, `smem` bytes in all.
+    `write`: the update form, which writes row cur_len of the unit's heads;
+    else the caches are only read."""
 
     B: int
     C: int
@@ -163,6 +175,7 @@ class AttentionPlan:
     stages: int
     ctas: int
     smem: int
+    write: bool = True
 
     @property
     def hs(self) -> int:
@@ -185,6 +198,15 @@ class AttentionPlan:
     def units(self, cta: int) -> range:
         """The units CTA `cta` takes, in order."""
         return range(cta, self.B * self.groups, self.ctas)
+
+    def writes(self, cta: int) -> list[tuple[int, int, int]]:
+        """The (batch row, first head, end head) slices of row cur_len that
+        CTA `cta` writes: its units' heads in an update plan; nothing in the
+        read-only form."""
+        if not self.write:
+            return []
+        return [(u // self.groups, u % self.groups * self.hpc, (u % self.groups + 1) * self.hpc)
+                for u in self.units(cta)]
 
     def copies(self, cta: int, n_valid: int, T: int):
         """The bulk copies of CTA `cta` in issue order, unit after unit:
@@ -210,69 +232,84 @@ class AttentionPlan:
 
 def attention_plan(B: int, C: int, n_head: int, window: int, q8: bool, sms: int = DK.SMS,
                    groups: int | None = None, ctas_per_sm: int = TMA_CTAS_PER_SM,
-                   stage_bytes: int = TMA_STAGE_BYTES) -> AttentionPlan:
+                   stage_bytes: int = TMA_STAGE_BYTES, write: bool = True) -> AttentionPlan:
     """The launch plan of decode_attention_update (q8 False) or
-    decode_attention_q8_update (q8 True) on csrc/decode_attention_tma.cu.
-    Head groups: of those whose teams fit the consumers, whose row piece is
-    a 16-byte multiple and (int8) whose window's scales the threads hold,
-    and whose piece is at least TMA_MIN_PIECE bytes (else the fewest), the
-    fewest that give every SM a unit (B * groups >= sms), else the most.
-    Ring stages of at most about stage_bytes that split the window evenly
-    (no short last chunk to wait for), as many (up to TMA_MAX_STAGES) as an
-    SM's shared memory holds for ctas_per_sm CTAs, so that the copies run
-    ahead into the next unit (at least one, in a CTA's whole shared
-    memory); no more CTAs than units. `groups` pins the split. ValueError
-    for a head size outside HEAD_SIZES, B outside 1..65535, a window outside
-    0..TMA_MAX_WINDOW, or no such group (an int8 cache at head size 104 with
-    an odd n_head: no 16-byte piece)."""
+    decode_attention_q8_update (q8 True) on csrc/decode_attention_tma.cu,
+    or with `write` False of their read-only forms decode_attention /
+    decode_attention_q8. Head groups: of those whose teams fit the
+    consumers, whose row piece is a 16-byte multiple, (int8) whose window's
+    scales the threads hold and whose plan fits a CTA's shared memory, and
+    whose piece is at least TMA_MIN_PIECE bytes (else the fewest), the
+    fewest that give every SM a unit (B * groups >= sms), else the most;
+    `groups` pins them. Ring stages of at most about stage_bytes that split
+    the window evenly (no short last chunk to wait for), as many as an SM's
+    shared memory holds for ctas_per_sm CTAs, up to TMA_MAX_STAGES
+    (TMA_READ_STAGES for the bf16 read-only form), so that the copies run
+    ahead into the next unit. Where a long window's scores leave room for
+    fewer than two, stages of half the size, down to a quarter of
+    stage_bytes; where two of those do not fit either, the stages one CTA's
+    whole shared memory holds, and one CTA an SM (the faster of the plans
+    chip_smoke.py's sweep of long windows times); no more CTAs than units.
+    ValueError for a head size outside HEAD_SIZES, B outside 1..65535, a
+    window of the update form outside 0..TMA_MAX_WINDOW, or no such group
+    (an int8 cache at head size 104 with an odd n_head: no 16-byte piece; a
+    read-only window whose scores or scales no group holds)."""
     hs = C // n_head if n_head > 0 else 0
     eb = 1 if q8 else 2
-    name = "decode_attention_q8_update" if q8 else "decode_attention_update"
+    name = "decode_attention" + ("_q8" if q8 else "") + ("_update" if write else "")
     if hs * n_head != C or hs not in HEAD_SIZES:
         raise ValueError(f"{name}: the kernel serves head sizes {sorted(HEAD_SIZES)}, got C={C}, n_head={n_head}")
-    if not 1 <= B <= 65535 or not 0 <= window <= TMA_MAX_WINDOW:
-        raise ValueError(f"{name}: needs B in 1..65535 and a window of 0..{TMA_MAX_WINDOW} rows, "
-                         f"got B={B}, window={window}")
-    valid = [G for G in range(1, n_head + 1)
+    if not 1 <= B <= 65535 or window < 0 or (write and window > TMA_MAX_WINDOW):
+        raise ValueError(f"{name}: needs B in 1..65535 and a window of " + (f"0..{TMA_MAX_WINDOW}" if write else
+                                                                               "0 or more")
+                         + f" rows, got B={B}, window={window}")
+    max_stages = TMA_MAX_STAGES if write or q8 else TMA_READ_STAGES
+    cap = min(SM_SMEM // ctas_per_sm - 1024, DK.SMEM_LIMIT)
+
+    def fit(G: int) -> AttentionPlan | None:
+        shape = AttentionPlan(B, C, n_head, window, eb, G, 1, 1, 1, 0, write)
+        for limit, per_sm, need in ((cap, ctas_per_sm, min(2, max_stages)), (DK.SMEM_LIMIT, 1, 1)):
+            nck = max(1, -(-window * shape.piece // stage_bytes))  # chunks of a pass, the window split evenly
+            while True:  # stages halved, down to a quarter of stage_bytes, until `need` of them fit
+                rows = _round_up(max(1, -(-window // nck)), shape.n_sub)
+                fits = [s for s in range(1, max_stages + 1)
+                        if _tma_smem(shape.piece, shape.hpc, window, rows, s, q8) <= limit]
+                if len(fits) >= need or 2 * rows * shape.piece < stage_bytes:
+                    break
+                nck *= 2
+            if len(fits) >= need:
+                return AttentionPlan(B, C, n_head, window, eb, G, rows, fits[-1], min(B * G, max(1, per_sm * sms)),
+                                     _tma_smem(shape.piece, shape.hpc, window, rows, fits[-1], q8), write)
+        return None
+
+    plans = {G: fit(G) for G in range(1, n_head + 1)
              if n_head % G == 0 and (n_head // G) * _team_lanes(hs) <= TMA_THREADS
              and (C * eb) % 16 == 0 and (n_head // G * hs * eb) % 16 == 0
-             and (not q8 or window * (n_head // G) <= TMA_MAX_SCALES * TMA_THREADS)]
-    if groups is not None:
-        valid = [G for G in valid if G == groups]
+             and (not q8 or window * (n_head // G) <= TMA_MAX_SCALES * TMA_THREADS)
+             and (groups is None or G == groups)}
+    valid = [G for G, plan in plans.items() if plan is not None]
     if not valid:
-        raise ValueError(f"{name}: no head group of C={C}, n_head={n_head} is a 16-byte multiple of "
-                         f"{eb}-byte elements (the bulk copies' unit) whose window's scales fit"
-                         + (f" at groups={groups}" if groups else ""))
-    slots = ctas_per_sm * sms
+        raise ValueError(f"{name}: no head group of C={C}, n_head={n_head}" + (f" at groups={groups}" if groups else "")
+                         + f" is a 16-byte multiple of {eb}-byte elements (the bulk copies' unit) whose window's "
+                         f"scales fit and whose plan of a {window}-row window fits {DK.SMEM_LIMIT} bytes of shared "
+                         "memory")
     wide = [G for G in valid if n_head // G * hs * eb >= TMA_MIN_PIECE] or valid[:1]
-    G = next((G for G in wide if B * G >= sms), wide[-1])
-    shape = AttentionPlan(B, C, n_head, window, eb, G, 1, 1, 1, 0)
-    nck = max(1, -(-window * shape.piece // stage_bytes))  # chunks of a pass, the window split evenly
-    rows = _round_up(max(1, -(-window // nck)), shape.n_sub)
-    cap = min(SM_SMEM // ctas_per_sm - 1024, DK.SMEM_LIMIT)
-    for limit in (cap, DK.SMEM_LIMIT):
-        fits = [s for s in range(1, TMA_MAX_STAGES + 1)
-                if _tma_smem(shape.piece, shape.hpc, window, rows, s, q8) <= limit]
-        if fits:
-            return AttentionPlan(B, C, n_head, window, eb, G, rows, fits[-1], min(B * G, slots),
-                                 _tma_smem(shape.piece, shape.hpc, window, rows, fits[-1], q8))
-    raise ValueError(f"{name}: no plan of C={C}, n_head={n_head}, window={window} fits "
-                     f"{DK.SMEM_LIMIT} bytes of shared memory")
+    return plans[next((G for G in wide if B * G >= sms), wide[-1])]
 
 
 _tma_plans: dict = {}
 
 
-def _device_attention_plan(B, C, n_head, window, q8, device) -> AttentionPlan:
-    """attention_plan on this device (its SM count), cached. A shape outside
-    the contract raises ValueError before the device or the kernel library
-    is asked anything."""
-    key = (B, C, n_head, window, q8, device.index)
+def _device_attention_plan(B, C, n_head, window, q8, device, write=True) -> AttentionPlan:
+    """attention_plan on this device (its SM count), cached per (B, C,
+    n_head, window, q8, write, device). A shape outside the contract raises
+    ValueError before the device or the kernel library is asked anything."""
+    key = (B, C, n_head, window, q8, write, device.index)
     plan = _tma_plans.get(key)
     if plan is None:
-        attention_plan(B, C, n_head, window, q8)  # the contract, on the host alone
+        attention_plan(B, C, n_head, window, q8, write=write)  # the contract, on the host alone
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = _tma_plans[key] = attention_plan(B, C, n_head, window, q8, sms)
+        plan = _tma_plans[key] = attention_plan(B, C, n_head, window, q8, sms, write=write)
     return plan
 
 
@@ -391,17 +428,26 @@ def decode_attention_update(
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=True)
-    _check_tma(name, q, k_new, v_new, k_cache, v_cache)
-    B, C = q.shape
-    T = k_cache.shape[1]
-    W = T if t_window is None else min(t_window, T)
-    y = _launch_tma("rq_attention_tma_update", _device_attention_plan(B, C, n_head, W, False, q.device),
-                    q, (q, k_new, v_new, k_cache, v_cache), T, cur_len)
+    y = _run_tma(name, "rq_attention_tma_update", (q, k_new, v_new, k_cache, v_cache), cur_len, n_head, t_window)
     decode_attention_update.launches += 1
     return y
 
 
 decode_attention_update.launches = 0
+
+
+def _run_tma(name, entry, tensors, cur_len, n_head, t_window):
+    """The CUDA branch of the four wrappers of csrc/decode_attention_tma.cu:
+    `tensors` (q, k_new, v_new, then the caches) on 16-byte boundaries, the
+    cached plan of this shape (window min(t_window, T); int8 by the cache's
+    dtype, the update form by `entry`), one launch of `entry`; returns y."""
+    _check_tma(name, *tensors)
+    q, cache = tensors[0], tensors[3]
+    (B, C), T = q.shape, cache.shape[1]
+    W = T if t_window is None else min(t_window, T)
+    plan = _device_attention_plan(B, C, n_head, W, cache.dtype == torch.int8, q.device,
+                                  write=entry.endswith("_update"))
+    return _launch_tma(entry, plan, q, tensors, T, cur_len)
 
 
 def _launch_tma(entry, plan: AttentionPlan, q, tensors, T, cur_len, probe=False):
@@ -458,20 +504,50 @@ def decode_attention(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper of the read-only attention: the plain version for CPU
-    tensors; for CUDA tensors it launches rq_decode_attention in
-    csrc/decode_attention.cu (bf16, a head size of HEAD_SIZES, contiguous)
-    or raises. One launch adds one to `decode_attention.launches`."""
+    tensors; for CUDA tensors it launches rq_attention_tma_read in
+    csrc/decode_attention_tma.cu (bf16, a head size of HEAD_SIZES,
+    contiguous, 16-byte aligned, a window whose scores fit a CTA's shared
+    memory; cur_len may reach T) on the read-only plan of attention_plan, or
+    raises.
+    One launch adds one to `decode_attention.launches`."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    name = "decode_attention"
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    _check("decode_attention", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=False)
-    y = _launch("rq_decode_attention", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=False)
+    y = _run_tma(name, "rq_attention_tma_read", (q, k_new, v_new, k_cache, v_cache), cur_len, n_head, t_window)
     decode_attention.launches += 1
     return y
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_v1(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """decode_attention through its first design
+    (csrc/decode_attention.cu::rq_decode_attention, a block per (head,
+    batch row)), CUDA tensors only: the A/B baseline of chip_smoke.py. Adds
+    one to `decode_attention_v1.launches` per launch."""
+    name = "decode_attention_v1"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check(name, q, k_new, v_new, k_cache, v_cache, cur_len, n_head, write=False)
+    y = _launch("rq_decode_attention", q, k_new, v_new, k_cache, v_cache, cur_len, n_head, t_window)
+    decode_attention_v1.launches += 1
+    return y
+
+
+decode_attention_v1.launches = 0
 
 
 def _check_layer(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int) -> None:
@@ -673,12 +749,7 @@ def decode_attention_q8_update(
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head)
-    _check_tma(name, q, k_new, v_new, kq, ks, vq, vs)
-    B, C = q.shape
-    T = kq.shape[1]
-    W = T if t_window is None else min(t_window, T)
-    y = _launch_tma("rq_attention_tma_q8_update", _device_attention_plan(B, C, n_head, W, True, q.device),
-                    q, (q, k_new, v_new, kq, ks, vq, vs), T, cur_len)
+    y = _run_tma(name, "rq_attention_tma_q8_update", (q, k_new, v_new, kq, ks, vq, vs), cur_len, n_head, t_window)
     decode_attention_q8_update.launches += 1
     return y
 
@@ -745,22 +816,52 @@ def decode_attention_q8(
     t_window: int | None = None,
 ) -> torch.Tensor:
     """Kernel wrapper of the read-only q8 attention: the plain version for
-    CPU tensors; for CUDA tensors it launches rq_decode_attention_q8 in
-    csrc/decode_attention_q8.cu (bf16 activations, int8 cache, a head size
-    of HEAD_SIZES, contiguous; cur_len may reach T) or raises. One launch
-    adds one to `decode_attention_q8.launches`."""
+    CPU tensors; for CUDA tensors it launches rq_attention_tma_q8_read in
+    csrc/decode_attention_tma.cu (bf16 activations, int8 cache, a head size
+    of HEAD_SIZES, an even n_head at head size 104, contiguous, 16-byte
+    aligned, a window whose scores fit a CTA's shared memory and whose
+    scales its threads hold; cur_len may reach T) on the read-only plan of attention_plan, or
+    raises. One launch adds one to `decode_attention_q8.launches`."""
     if q.device.type == "cpu":
         return decode_attention_q8_plain(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
     name = "decode_attention_q8"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name, write=False)
-    y = _launch_q8("rq_decode_attention_q8", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    y = _run_tma(name, "rq_attention_tma_q8_read", (q, k_new, v_new, kq, ks, vq, vs), cur_len, n_head, t_window)
     decode_attention_q8.launches += 1
     return y
 
 
 decode_attention_q8.launches = 0
+
+
+def decode_attention_q8_v1(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    cur_len: int,
+    n_head: int,
+    t_window: int | None = None,
+) -> torch.Tensor:
+    """decode_attention_q8 through its first design
+    (csrc/decode_attention_q8.cu::rq_decode_attention_q8, a block per (head,
+    batch row)), CUDA tensors only: the A/B baseline of chip_smoke.py. Adds
+    one to `decode_attention_q8_v1.launches` per launch."""
+    name = "decode_attention_q8_v1"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    _check_q8(q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, name, write=False)
+    y = _launch_q8("rq_decode_attention_q8", q, k_new, v_new, kq, ks, vq, vs, cur_len, n_head, t_window)
+    decode_attention_q8_v1.launches += 1
+    return y
+
+
+decode_attention_q8_v1.launches = 0
 
 
 def decode_attention_q8_update_wo_plain(

@@ -100,6 +100,24 @@ def test_decode_attention_stacked_plain_matches_jax(layer, cur_len):
     np.testing.assert_array_equal(v_t.numpy(), vc)
 
 
+@pytest.mark.parametrize("hs", [64, 104])
+def test_decode_attention_stacked_plain_matches_jax_at_the_long_window(hs):
+    """The stacked sampler's longest read: cur_len 256 of a T = 257 stack
+    (the condition and 256 positions), at head sizes 64 and 104."""
+    L, B, T, c, layer, cur_len = 2, 8, 257, NH * hs, 1, 256
+    r = np.random.RandomState(40 + hs)
+    q, kn, vn = (_rand(r, B, c) for _ in range(3))
+    kc, vc = _rand(r, L, B, T, c), _rand(r, L, B, T, c)
+    y_j = JAK.decode_attention_stacked(*(jnp.asarray(a) for a in (q, kn, vn, kc, vc)), jnp.int32(layer),
+                                       jnp.int32(cur_len), NH, interpret=True)
+    k_t, v_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    y_t = AK.decode_attention_stacked_plain(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), k_t,
+                                            v_t, layer, cur_len, NH)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(k_t.numpy(), kc)
+    np.testing.assert_array_equal(v_t.numpy(), vc)
+
+
 def test_read_only_wrappers_refuse_what_they_cannot_run():
     B, T, L = 2, 8, 3
 
