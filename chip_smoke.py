@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once; libw8a8.so must hold IMMA (s8
-     tensor-core) and libdecode_dense.so and libdecode_fused.so HGMMA
-     (wgmma) instructions;
+     tensor-core) and libdecode_dense.so, libdecode_fused.so and
+     libdense_mlp.so HGMMA (wgmma) instructions;
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
@@ -52,14 +52,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      codes, with planted ties; the q8 pipeline kernels of
      tools/exp_q8_pipeline.py at its shapes, B 100, C 1536, H 6144, int8
      weights: #17 / #18 at several (chunk, n_buf), bit-equal to each other,
-     #19 in both modes, bit-equal, #20 in the four ablation cases; #16 of
+     #19 in both modes, bit-equal; #20 (the "ring" form of
+     csrc/dense_mlp.cu, one launch a call) in the four ablation cases, timed
+     as CUDA-graph device time against its first design (ablate_ring_v1) and
+     the library, with CTA 0's phases; #16 of
      tools/exp_w8a8.py at B 100, chunks 1536 and 768, both gelu forms, a
      ragged B 37 and B 300 (three row groups), its output moving with the
-     chunk as the plain version's does; #15 of tools/exp_mlp_kernel.py at B
-     100 and 500, both gelu forms, a ragged B 37 and B 129), timed against
-     the plain version, a library call where one exists, and the card's
-     bound; the two fused kernels print where their time went, phase by
-     phase;
+     chunk as the plain version's does; #15 of tools/exp_mlp_kernel.py (the
+     "mlp" form of csrc/dense_mlp.cu, one launch a call) at B 37, 100, 129
+     and 500, both gelu forms, timed at B 100 and 500 as CUDA-graph device
+     time against its first design (fused_mlp_v1) and the library, at B 500
+     also on 128-row tiles, with CTA 0's phases), timed against the plain
+     version, a library call where one exists, and the card's bound; the
+     fused kernels print where their time went, phase by phase;
   4. the main path at six operating points: bench.py's three (bf16 cache;
      int8 KV cache "kv_q8"; int8 weights + kv_q8, whose body S == 1 steps
      run the int8 dense pair #5 / #6 as the head's do), each also with its
@@ -99,8 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      exp_q8_pipeline) at B 100, C 1536, H 6144, 16 layers, the full sweeps
      and probes, chains of PIPE_ITERS x 16 calls captured in CUDA graphs:
      #6 against #17-#20, with the exact launch counts it issues, every other
-     counter 0, and only the FAILED points the shared-memory arithmetic
-     predicts;
+     counter 0 (the first designs' too), and only the FAILED points the
+     shared-memory arithmetic predicts;
  10. the port of tools/exp_w8a8.py (rqvae_tpu_torch.tools.exp_w8a8) at B
      100, 16 layers, chains of W8A8_ITERS x 16 calls captured in CUDA
      graphs: #3 (bf16) and #6 (q8), each the single-launch kernel (its
@@ -109,7 +114,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. the port of tools/exp_mlp_kernel.py (rqvae_tpu_torch.tools.
      exp_mlp_kernel) at B 100 and 500, 24 layers, chains of MLP_ITERS x 24
      calls: the plain xla_mlp against #15, with #15's exact launch counts
-     and every other counter 0.
+     and every other counter 0 (fused_mlp_v1's too).
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -120,9 +125,10 @@ dense pair, bf16 and int8 (check_dense), and of the two fused kernels
 (#14, #13), and prints no result line; `python3 chip_smoke.py fused` the
 fused kernels' checks alone; `python3 chip_smoke.py attention` those of
 the attention kernels of csrc/decode_attention_tma.cu alone: the update
-forms #1 / #4, then the read-only forms #10 / #12 and #11. Run from two
-source trees in one call, they compare two designs of those kernels on one
-card.
+forms #1 / #4, then the read-only forms #10 / #12 and #11; `python3
+chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone. Run from
+two source trees in one call, they compare two designs of those kernels on
+one card.
 """
 
 from __future__ import annotations
@@ -135,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -1126,10 +1133,10 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
     every point bit-equal to the others (the result does not depend on
     chunk or n_buf); #19 in both modes at (1536, 4) and (768, 4), bit-equal
     to the plain version (integer sums, exact in fp32), the int32 view
-    within 1e-6 of |ref|; #20 in the four ablation cases: TOL. Timed as
-    check_dense times #6 (#18 bit-equal to #17, so its error is #17's;
-    the plain and library times are #17's, the same function). Returns the
-    JSON entries of #17, #18, #19 and #20 (no launches yet)."""
+    within 1e-6 of |ref|. Timed as check_dense times #6 (#18 bit-equal to
+    #17, so its error is #17's; the plain and library times are #17's, the
+    same function). Returns the JSON entries of #17, #18 and #19 (no
+    launches yet); #20 is check_ablate's."""
     B, C = BATCH, 1536
     H = 4 * C
 
@@ -1222,43 +1229,7 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
                    "ms": probe_ms["dequant"], "plain_ms": probe_plain, "library_ms": probe_lib, **pb,
                    "dma_ms": probe_ms["dma"]}
 
-    # #20: the MLP alone, the four ablation cases
-    h = rnd(B, C)
-    ab_err, ab_ms = {}, {}
-    cases = (("q8 full", True, True, True, 4), ("q8 no-gelu", True, False, True, 4),
-             ("q8 no-gelu-noscale", True, False, False, 4), ("bf16 same-ring", False, True, True, 2))
-    bf_pks = [(QP.pack_w1(w[1], 1536), QP.pack_w2(w[2], 1536)) for w in deq]
-    for name, int8, g, sc, nb in cases:
-        ps = pks if int8 else bf_pks
-        sc1 = [s[4] for s in sets]
-
-        def call(i, fn=QP.ablate_ring, ps=ps, g=g, sc=sc, nb=nb):
-            p = ps[i % len(ps)]
-            kw = dict(chunk=1536, n_buf=nb) if fn is QP.ablate_ring else {}
-            return fn(h, p[0], sc1[i % len(ps)], p[1], None, use_gelu=g, use_scale=sc, **kw)
-
-        got, want = call(0), call(0, QP.ablate_ring_plain)
-        torch.cuda.synchronize()
-        # w2's scale is never applied (as in JAX), so the outputs reach ~1e3
-        # (1e7 without gelu and scale): a bf16 rounding of t or of the output
-        # moves an output by the output's scale times 2^-8, whatever its own
-        # size. TOL therefore holds at that scale: both sides divided by
-        # max |want|, |d| <= TOL * (max |want| + |want|)
-        scale = float(want.float().abs().max())
-        e, _ = compare(f"ablate_ring {name} (1536, {nb}), at the output's scale {scale:.4g}",
-                       got.float() / scale, want.float() / scale)
-        ab_err[name] = e * scale
-        ab_ms[name] = cuda_ms([lambda i=i: call(i) for i in range(len(ps))], 30)
-    ab_plain = cuda_ms([lambda i=i: QP.ablate_ring_plain(h, *pks[i][:1], sets[i][4], pks[i][1]) for i in range(3)], 30)
-    ab_lib = cuda_ms([lambda w=w: F.linear(F.linear(h, w[1]), w[2]) for w in deq], 30)
-    ab_b = bound(2 * C * H + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
-    ab_b16 = bound(2 * C * H * 2 + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
-    log(f"  ablate_ring time: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ab_ms.items()) + f"; plain (q8 full) "
-        f"{ab_plain:.4f} ms, library (two F.linear on bf16 weights) {ab_lib:.4f} ms, bound {ab_b['bound_ms']:.4f} "
-        f"ms by {ab_b['bound_by']} (bf16 weights {ab_b16['bound_ms']:.4f} ms)")
-    ab_entry = {"max_abs_err": ab_err["q8 full"], "ms": ab_ms["q8 full"], "cases_max_abs_err": ab_err, "plain_ms": ab_plain, "library_ms": ab_lib, **ab_b,
-                "cases_ms": ab_ms, "bf16_bound_ms": ab_b16["bound_ms"]}
-    return ring_entry, packed_entry, probe_entry, ab_entry
+    return ring_entry, packed_entry, probe_entry
 
 
 def check_w8a8(W8, quantize_weight, dev, gen):
@@ -1323,14 +1294,49 @@ def check_w8a8(W8, quantize_weight, dev, gen):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
 
 
-def check_mlp(MK, dev, gen):
-    """#15 (ops/mlp_kernel.py) against its plain version at the experiment's
-    shapes: B 100 and 500, C 1536, H 6144, bf16 x, weights and biases (std
-    0.02), fp32 LayerNorm parameters; both gelu forms, a ragged B 37 and B
-    129 (a row group of one row): TOL. Timed at B 100 and 500 against the
-    plain version, the library (two bf16 F.linear, the GEMMs alone) and the
-    bound. Returns the JSON entry at B 100 with the B 500 row under "b500"
-    (no launches yet)."""
+DENSE_MLP_PHASES = ("panel", "LN statistics", "normalise", "phase A tiles (w1)", "grid barrier", "phase B (w2)")
+
+
+def dense_mlp_stamps(what) -> dict:
+    """CTA 0's phases of the last csrc/dense_mlp.cu launch (us), and the K
+    loop's end / the exchange's opening of its first tiles in each phase
+    (us from the phase's first tile), logged."""
+    from rqvae_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    ns = _build.stamps_ns("rq_dense_mlp_phase_ns")
+    us = dict(zip(DENSE_MLP_PHASES, ((ns[i + 1] - ns[i]) / 1e3 for i in range(6))))
+    tiles = {"A": [(ns[7 + i] - ns[3]) / 1e3 for i in range(6)], "B": [(ns[13 + i] - ns[5]) / 1e3 for i in range(2)]}
+    log(f"  {what} phases of one call (CTA 0, us): " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+        + "; first tiles' K loop end / exchange open (us into the phase): "
+        + "; ".join(f"{ph} " + ", ".join(f"{t[i]:.1f} / {t[i + 1]:.1f}" for i in range(0, len(t), 2))
+                    for ph, t in tiles.items()))
+    return {**us, "tiles_us": tiles}
+
+
+def one_dense_mlp(name, fn) -> None:
+    """fn() issues exactly one device kernel, csrc/dense_mlp.cu's."""
+    fn()  # the plan, scratch and tensor maps are made on the host before the profiled call
+    kernels = device_kernels(fn)
+    if len(kernels) != 1 or "dense_mlp_kernel" not in kernels[0]:
+        raise AssertionError(f"{name}: one call issued device kernels {kernels}, not one dense_mlp_kernel")
+    log(f"  {name}: one call issues one device kernel ({kernels[0][:72]}...)")
+
+
+def check_mlp(MK, DM, dev, gen):
+    """#15 (ops/mlp_kernel.py; the "mlp" form of csrc/dense_mlp.cu) against
+    its plain version at the experiment's shapes: C 1536, H 6144, bf16 x,
+    weights and biases (std 0.02), fp32 LayerNorm parameters; B 37, 100,
+    129 and 500, both gelu forms: TOL; its first design (fused_mlp_v1,
+    csrc/mlp.cu) at B 100 and 500 too. One device kernel per call, CTA 0's
+    phases. At B 100 and 500, L2-cold (3 weight sets of 37.7 MB in turn):
+    CUDA-graph device time of the kernel, the first design and the library
+    (two bf16 F.linear, the GEMMs alone), eager time of the kernel, the
+    plain version and the library, and the bound; at B 500 also the plan
+    mlp_plan makes of 128-row tiles alone (four weight passes) against the
+    kernel's own (two). Then C 2560, H 10240 at B 500 (three passes of 192-row tiles,
+    split between the warpgroups), both gelu forms: TOL. Returns the JSON
+    entry at B 100 with the B 500 row under "b500" (no launches yet)."""
     C = 1536
     H = 4 * C
 
@@ -1340,21 +1346,159 @@ def check_mlp(MK, dev, gen):
     sets = [(rnd(C, std=0.1, mean=1.0).float(), rnd(C, std=0.1).float(), rnd(H, C, std=0.02), rnd(H, std=0.02),
              rnd(C, H, std=0.02), rnd(C, std=0.02)) for _ in range(3)]  # 3 x 37.7 MB
     err, rows = 0.0, {}
-    for b, gelu in ((100, "v1"), (100, "v2"), (500, "v1"), (500, "v2"), (37, "v1"), (129, "v1")):
+    for b in (37, 100, 129, 500):
         x = rnd(b, C)
-        got, want = MK.fused_mlp(x, *sets[0], gelu_version=gelu), MK.fused_mlp_plain(x, *sets[0], gelu_version=gelu)
-        torch.cuda.synchronize()
-        err = max(err, compare(f"fused_mlp B={b} gelu {gelu}", got, want)[0])
+        plan = DM.device_plan(x, C, H, "mlp", 2)
+        for gelu in ("v1", "v2"):
+            want = MK.fused_mlp_plain(x, *sets[0], gelu_version=gelu)
+            got = MK.fused_mlp(x, *sets[0], gelu_version=gelu)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"fused_mlp B={b} gelu {gelu} (cluster {plan.cluster} x {plan.clusters}, row tile "
+                                   f"{plan.row_tile} x {plan.row_tiles}, {plan.stages} stages, {plan.t_slots} t slots)",
+                                   got, want)[0])
+        if b in (100, 500):
+            compare(f"fused_mlp_v1 B={b} (the first design)", MK.fused_mlp_v1(x, *sets[0]),
+                    MK.fused_mlp_plain(x, *sets[0]))
+    x = rnd(BATCH, C)
+    one_dense_mlp("fused_mlp", lambda: MK.fused_mlp(x, *sets[0]))
+    phases = {}
     for b in (100, 500):
         x = rnd(b, C)
-        ms = cuda_ms([lambda s=s: MK.fused_mlp(x, *s) for s in sets], 30)
+        MK.fused_mlp(x, *sets[0])
+        phases[b] = dense_mlp_stamps(f"fused_mlp B={b}")
+    for b in (100, 500):
+        x = rnd(b, C)
+        kernel = [lambda s=s: MK.fused_mlp(x, *s) for s in sets]
+        v1 = [lambda s=s: MK.fused_mlp_v1(x, *s) for s in sets]
+        library = [lambda s=s: F.linear(F.linear(x, s[2]), s[4]) for s in sets]
+        ms = cuda_ms(kernel, 30)
         plain = cuda_ms([lambda s=s: MK.fused_mlp_plain(x, *s) for s in sets], 30)
-        lib = cuda_ms([lambda s=s: F.linear(F.linear(x, s[2]), s[4]) for s in sets], 30)
+        lib = cuda_ms(library, 30)
+        graph = {"kernel": graph_ms(kernel), "first design": graph_ms(v1), "library": graph_ms(library)}
         bb = bound(2 * b * C * 2 + 2 * C * 4 + 2 * C * H * 2 + (H + C) * 2, 2 * b * 2 * C * H, BF16_TENSOR_FLOPS)
-        log(f"  fused_mlp time (B {b}, chunk 1536): kernel {ms:.4f} ms, plain {plain:.4f} ms, library (two F.linear, "
-            f"the GEMMs alone) {lib:.4f} ms, bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}")
-        rows[b] = {"ms": ms, "plain_ms": plain, "library_ms": lib, **bb}
+        plan = DM.device_plan(x, C, H, "mlp", 2)
+        row = {"ms": ms, "plain_ms": plain, "library_ms": graph["library"], "library_eager_ms": lib,
+               "graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"], **bb,
+               "plan": f"cluster {plan.cluster} x {plan.clusters}, row tile {plan.row_tile} x {plan.row_tiles}",
+               "phase_us": phases[b]}
+        if b == 500:  # the candidate plans: 256-row tiles (two weight passes) against 128-row ones (four)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            with mock.patch.object(DM, "ROW_TILES", tuple(t for t in DM.ROW_TILES if t <= 128)):
+                p128 = DM.mlp_plan(b, C, H, "mlp", 2, 0, sms,
+                                   lambda form, mt, s, smem: DM.max_clusters(form, mt, s, smem, 2))
+            s0 = sets[0]
+            got = DM.launch(p128, x, s0[2], s0[4], ln_w=s0[0], ln_b=s0[1], b1=s0[3], b2=s0[5])
+            torch.cuda.synchronize()
+            compare(f"fused_mlp B=500 on 128-row tiles (cluster {p128.cluster} x {p128.clusters}, "
+                    f"{p128.row_tiles} tiles)", got, MK.fused_mlp_plain(x, *s0))
+            row["tiles128_graph_ms"] = graph_ms([lambda s=s: DM.launch(p128, x, s[2], s[4], ln_w=s[0], ln_b=s[1],
+                                                                       b1=s[3], b2=s[5]) for s in sets])
+            row["graph_ms_again"] = graph_ms(kernel)
+            log(f"  fused_mlp B 500 plans (graph replay): {plan.row_tile}-row tiles x {plan.row_tiles} "
+                f"{row['graph_ms']:.4f} / {row['graph_ms_again']:.4f} ms, 128-row tiles x {p128.row_tiles} "
+                f"{row['tiles128_graph_ms']:.4f} ms")
+        log(f"  fused_mlp time (B {b}): device (graph replay) kernel {graph['kernel']:.4f} ms, first design "
+            f"{graph['first design']:.4f} ms ({graph['first design'] / graph['kernel']:.2f}x the kernel), library (two "
+            f"F.linear, the GEMMs alone) {graph['library']:.4f} ms; eager kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library {lib:.4f} ms; bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}; {row['plan']}; {card_line()}")
+        rows[b] = row
+    C, H, b = 2560, 4 * 2560, 500  # the widest of WIDTHS: 192-row tiles, the warpgroups' halves
+    w = (rnd(C, std=0.1, mean=1.0).float(), rnd(C, std=0.1).float(), rnd(H, C, std=0.02), rnd(H, std=0.02),
+         rnd(C, H, std=0.02), rnd(C, std=0.02))
+    x = rnd(b, C)
+    plan = DM.device_plan(x, C, H, "mlp", 2)
+    for gelu in ("v1", "v2"):
+        got = MK.fused_mlp(x, *w, gelu_version=gelu, chunk=C)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"fused_mlp C={C} B={b} gelu {gelu} (cluster {plan.cluster} x {plan.clusters}, row "
+                               f"tile {plan.row_tile} x {plan.row_tiles})", got,
+                               MK.fused_mlp_plain(x, *w, gelu_version=gelu))[0])
     return {"max_abs_err": err, **rows[100], "b500": rows[500]}
+
+
+ABLATE_CASES = (("q8 full", True, True, True, 4), ("q8 no-gelu", True, False, True, 4),
+                ("q8 no-gelu-noscale", True, False, False, 4), ("bf16 same-ring", False, True, True, 2))
+
+
+def check_ablate(QP, quantize_weight, dev, gen):
+    """#20 (ops/q8_pipeline_kernel.py::ablate_ring; the "ring" form of
+    csrc/dense_mlp.cu) against its plain version in the four ablation cases
+    at the experiment's shapes (B 100, C 1536, H 6144, chunk 1536, int8
+    weights from quantize_weight and their dequantized bf16 copies), at the
+    output's scale, as is its first design (ablate_ring_v1, the MLP-only
+    form of csrc/q8_pipeline.cu's ring kernel); "q8 full" also at B 500
+    (two passes of 256-row tiles, split between the warpgroups). One device
+    kernel per call, CTA 0's phases. Each case L2-cold (3 weight sets in turn): CUDA-graph
+    device time of the kernel, the first design and the library (two
+    F.linear on the bf16 weights), eager time of the kernel, and the bound.
+    Returns the JSON entry (no launches yet)."""
+    from rqvae_tpu_torch.ops import dense_mlp_kernel as DM
+
+    B, C = BATCH, 1536
+    H = 4 * C
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    q1 = [quantize_weight(rnd(H, C, std=0.02)) for _ in range(3)]
+    q2 = [quantize_weight(rnd(C, H, std=0.02)) for _ in range(3)]
+    deq = [(a.to(torch.bfloat16) * sa[:, None], b.to(torch.bfloat16) * sb[:, None]) for (a, sa), (b, sb) in zip(q1, q2)]
+    packs = {True: [(QP.pack_w1(a, 1536), QP.pack_w2(b, 1536)) for (a, _), (b, _) in zip(q1, q2)],
+             False: [(QP.pack_w1(a, 1536), QP.pack_w2(b, 1536)) for a, b in deq]}
+    h = rnd(B, C)
+    errs, rows = {}, {}
+    for name, int8, g, sc, nb in ABLATE_CASES:
+        def call(i, fn=QP.ablate_ring, int8=int8, g=g, sc=sc, nb=nb):
+            w1p, w2p = packs[int8][i]
+            kw = {} if fn is QP.ablate_ring_plain else dict(chunk=1536, n_buf=nb)
+            return fn(h, w1p, q1[i][1], w2p, None, use_gelu=g, use_scale=sc, **kw)
+
+        want = call(0, QP.ablate_ring_plain)
+        # w2's scale is never applied (as in JAX), so the outputs reach ~1e3
+        # (1e7 without gelu and scale): a bf16 rounding of t or of the output
+        # moves an output by the output's scale times 2^-8, whatever its own
+        # size. TOL therefore holds at that scale: both sides divided by
+        # max |want|, |d| <= TOL * (max |want| + |want|)
+        scale = float(want.float().abs().max())
+        for fn in (QP.ablate_ring, QP.ablate_ring_v1):
+            got = call(0, fn)
+            torch.cuda.synchronize()
+            e, _ = compare(f"{fn.__name__} {name} (1536, {nb}), at the output's scale {scale:.4g}",
+                           got.float() / scale, want.float() / scale)
+            if fn is QP.ablate_ring:
+                errs[name] = e * scale
+        if name == "q8 full":
+            one_dense_mlp("ablate_ring", lambda: call(0))
+            call(0)
+            phases = dense_mlp_stamps("ablate_ring q8 full")
+        kernel = [lambda i=i: call(i) for i in range(3)]
+        graph = {"kernel": graph_ms(kernel), "first design": graph_ms([lambda i=i: call(i, QP.ablate_ring_v1)
+                                                                      for i in range(3)])}
+        rows[name] = {"graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"], "ms": cuda_ms(kernel, 30)}
+        log(f"  ablate_ring {name}: device (graph replay) kernel {graph['kernel']:.4f} ms, first design "
+            f"{graph['first design']:.4f} ms ({graph['first design'] / graph['kernel']:.2f}x the kernel); eager kernel "
+            f"{rows[name]['ms']:.4f} ms")
+    h500 = rnd(500, C)
+    want = QP.ablate_ring_plain(h500, *packs[True][0][:1], q1[0][1], packs[True][0][1])
+    got = QP.ablate_ring(h500, *packs[True][0][:1], q1[0][1], packs[True][0][1], chunk=1536)
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    plan = DM.device_plan(h500, C, H, "ring", 1, 1536)
+    e, _ = compare(f"ablate_ring q8 full B=500 (row tile {plan.row_tile} x {plan.row_tiles}), at the output's scale "
+                   f"{scale:.4g}", got.float() / scale, want.float() / scale)
+    errs["q8 full B 500"] = e * scale
+    plain = cuda_ms([lambda i=i: QP.ablate_ring_plain(h, *packs[True][i][:1], q1[i][1], packs[True][i][1])
+                     for i in range(3)], 30)
+    lib = graph_ms([lambda w=w: F.linear(F.linear(h, w[0]), w[1]) for w in deq])
+    ab_b = bound(2 * C * H + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
+    ab_b16 = bound(2 * C * H * 2 + H * 2 + 2 * B * C * 2, 2 * B * 2 * C * H, BF16_TENSOR_FLOPS)
+    log(f"  ablate_ring: plain (q8 full) {plain:.4f} ms, library (two F.linear on bf16 weights, graph replay) "
+        f"{lib:.4f} ms, bound {ab_b['bound_ms']:.4f} ms by {ab_b['bound_by']} (bf16 weights {ab_b16['bound_ms']:.4f} "
+        f"ms); {card_line()}")
+    full = rows["q8 full"]
+    return {"max_abs_err": errs["q8 full"], "ms": full["ms"], "graph_ms": full["graph_ms"],
+            "v1_graph_ms": full["v1_graph_ms"], "plain_ms": plain, "library_ms": lib, **ab_b,
+            "cases_max_abs_err": errs, "cases": rows, "bf16_bound_ms": ab_b16["bound_ms"], "phase_us": phases}
 
 
 def count_sass(lib_path, op) -> int:
@@ -1952,9 +2096,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention"):
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused' and "
-                         f"'attention'")
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp"):
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
+                         f"'attention' and 'mlp'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -1974,6 +2118,7 @@ def main() -> None:
     from rqvae_tpu_torch.ops import attention_kernel as AK
     from rqvae_tpu_torch.ops import decode_layer_kernel as DK
     from rqvae_tpu_torch.ops import decode_megakernel as MK
+    from rqvae_tpu_torch.ops import dense_mlp_kernel as DM
     from rqvae_tpu_torch.ops import mlp_kernel as MLP
     from rqvae_tpu_torch.ops import q8_pipeline_kernel as QP
     from rqvae_tpu_torch.ops import rq_kernel as RK
@@ -1994,7 +2139,8 @@ def main() -> None:
         raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
     log(f"  libw8a8.so: {imma} IMMA (s8 x s8 -> s32 tensor-core) instructions, "
         f"{count_sass(build_dir / 'libw8a8.so', 'HMMA')} HMMA (the bf16 wo product)")
-    for lib, what in (("libdecode_dense.so", "#2 / #3 and #5-#8"), ("libdecode_fused.so", "#13 / #14")):
+    for lib, what in (("libdecode_dense.so", "#2 / #3 and #5-#8"), ("libdecode_fused.so", "#13 / #14"),
+                      ("libdense_mlp.so", "#15 / #20")):
         hgmma = count_sass(build_dir / lib, "HGMMA")
         if hgmma == 0:
             raise AssertionError(f"{lib} holds no HGMMA instruction: {what} do not run on wgmma")
@@ -2014,6 +2160,10 @@ def main() -> None:
         check_decode_layer_step(MK, DK, AK, dev, gen)
         check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
         return
+    if mode == "mlp":
+        check_mlp(MLP, DM, dev, gen)
+        check_ablate(QP, quantize_weight, dev, gen)
+        return
     if mode == "attention":
         check_attention(AK, dev, gen)
         check_attention_q8(AK, dev, gen)
@@ -2029,9 +2179,10 @@ def main() -> None:
     nearest = check_nearest_code(RK, dev, gen)
     mega = check_decode_layer_step(MK, DK, AK, dev, gen)
     attn_wo = check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
-    pipe_ring, pipe_packed, pipe_probe, pipe_ablate = check_q8_pipeline(QP, quantize_weight, dev, gen)
+    pipe_ring, pipe_packed, pipe_probe = check_q8_pipeline(QP, quantize_weight, dev, gen)
+    pipe_ablate = check_ablate(QP, quantize_weight, dev, gen)
     w8a8 = check_w8a8(W8, quantize_weight, dev, gen)
-    mlp15 = check_mlp(MLP, dev, gen)
+    mlp15 = check_mlp(MLP, DM, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
     log(f"# phase 4: 1.4B class-conditional sampling + RQ-VAE decode, bs{BATCH}, on {card}")
@@ -2057,22 +2208,23 @@ def main() -> None:
                 AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
                 QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
                 MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
-                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1)
+                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
+                MLP.fused_mlp_v1, QP.ablate_ring_v1)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("bf16+mega", False, dict(dense="mega"),
-         (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
-         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         # int8 weights: the body's S == 1 steps run the int8 dense pair too (its
         # QKV half alone under attn_wo, whose MLP stays on the plain _mm)
         ("int8+kv_q8", True, dict(kv_q8=True),
-         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
-         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -2182,11 +2334,11 @@ def main() -> None:
              replaces="tools/exp_q8_pipeline.py:216 (the same kernel as :115, packed chunk address)", **pipe_packed),
         dict(name="stream_probe", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
              replaces="tools/exp_q8_pipeline.py:302", **pipe_probe),
-        dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+        dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/dense_mlp.cu",
              replaces="tools/exp_q8_pipeline.py:379", **pipe_ablate),
         dict(name="fused_proj_mlp_q8a8", route="cuda", source="rqvae_tpu_torch/csrc/w8a8.cu",
              replaces="tools/exp_w8a8.py:107", **w8a8),
-        dict(name="fused_mlp", route="cuda", source="rqvae_tpu_torch/csrc/mlp.cu",
+        dict(name="fused_mlp", route="cuda", source="rqvae_tpu_torch/csrc/dense_mlp.cu",
              replaces="tools/exp_mlp_kernel.py:75", **mlp15),
     ]
     for k in kernels:

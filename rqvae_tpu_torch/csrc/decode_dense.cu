@@ -252,39 +252,6 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the dynamic shared memory each kernel may use, set once per kernel
-template <int MT, bool kMlp, typename W>
-cudaError_t allow_smem(int smem) {
-  static int allowed = 0;
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute((const void*)dense_kernel<MT, kMlp, W>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) allowed = smem;
-  return e;
-}
-
-// clusters of `cluster` CTAs with `smem` bytes each that the device holds at once
-template <int MT, bool kMlp, typename W>
-cudaError_t max_clusters(int cluster, int smem, int* out) {
-  static int keys[32], values[32], n = 0;  // (cluster, smem) -> count, per kernel
-  const int key = cluster * (kMaxSmem + 1) + smem;
-  for (int i = 0; i < n; ++i)
-    if (keys[i] == key) {
-      *out = values[i];
-      return cudaSuccess;
-    }
-  cudaError_t e = allow_smem<MT, kMlp, W>(smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(cluster, 1, smem, nullptr, attr);
-  e = cudaOccupancyMaxActiveClusters(out, (const void*)dense_kernel<MT, kMlp, W>, &cfg);
-  if (e == cudaSuccess && n < 32) {
-    keys[n] = key;
-    values[n++] = *out;
-  }
-  return e;
-}
-
 template <int MT, bool kMlp, typename W>
 int launch(const void* const* maps, const Params& p, int cluster, int clusters, int smem, cudaStream_t stream) {
   const int k_slice = p.C / cluster;
@@ -292,11 +259,11 @@ int launch(const void* const* maps, const Params& p, int cluster, int clusters, 
       k_slice % kBK || layout(MT, k_slice, p.stages, kMlp, (int)sizeof(W)).total > smem || smem > kMaxSmem ||
       (kMlp && (p.N / cluster) % kBK) || p.row_tiles * MT < p.M)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem<MT, kMlp, W>(smem);
+  cudaError_t e = allow_smem((const void*)dense_kernel<MT, kMlp, W>, smem);
   if (e != cudaSuccess) return (int)e;
   if (kMlp) {  // the grid barriers need every CTA resident at once
     int most = 0;
-    e = max_clusters<MT, kMlp, W>(cluster, smem, &most);
+    e = max_clusters((const void*)dense_kernel<MT, kMlp, W>, cluster, smem, &most);
     if (e != cudaSuccess) return (int)e;
     if (clusters > most) return (int)cudaErrorCooperativeLaunchTooLarge;
   }
@@ -337,7 +304,7 @@ template <bool kMlp, typename W>
 int max_clusters_tile(int mt, int cluster, int smem, int* out) {
 #define RQ_CASE(T) \
   case T:          \
-    return (int)max_clusters<T, kMlp, W>(cluster, smem, out);
+    return (int)max_clusters((const void*)dense_kernel<T, kMlp, W>, cluster, smem, out);
   if constexpr (kMlp) {
     switch (mt) { RQ_TILES_MLP(RQ_CASE) }
   } else {

@@ -1,4 +1,4 @@
-// The shared machinery of csrc/decode_dense.cu and csrc/decode_fused.cu
+// The shared machinery of csrc/decode_dense.cu, csrc/decode_fused.cu and csrc/dense_mlp.cu
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -26,8 +26,8 @@ constexpr int kMaxSmem = 232448;
 struct Layout {
   int stage_bytes;  // one ring stage: a weight tile (+ a t tile for proj_mlp)
   int tile_bytes;   // a weight tile: 64 x 64 elements of wbytes each
-  int panel;        // the resident B operand: k_slice / 64 blocks of [mt, 64] swizzled; in the
-                    // fused kernels also the attention's scores (the larger of the two sizes)
+  int panel;        // the resident B operand: k_slice / 64 blocks of [mt, 64] swizzled; also
+                    // what reuses its bytes (layout's reuse_bytes; the larger of the two sizes)
   int red;          // the partial tiles pushed to this CTA: red_bytes(mt)
   int norm;         // float2 [mt]: (mean, rstd)
   int lnp;          // float2 [k_slice]: the LN (weight, bias) of this CTA's K-slice
@@ -44,15 +44,16 @@ struct Layout {
 // use it too: slot q of every CTA gets q's float2 [mt].
 __host__ __device__ inline int red_bytes(int mt) { return (mt / 2 + kMaxCluster) * 512; }
 
-// score_bytes: the fused kernels' attention scores, which live in the
-// panel's bytes between the QKV product and the wo panel (0: none)
-__host__ __device__ inline Layout layout(int mt, int k_slice, int stages, bool mlp, int wbytes, int score_bytes = 0) {
+// reuse_bytes: what else takes the panel's bytes (0: nothing): the fused
+// kernels' attention scores, between the QKV product and the wo panel;
+// dense_mlp.cu's phase-B t slots, once phase A is done
+__host__ __device__ inline Layout layout(int mt, int k_slice, int stages, bool mlp, int wbytes, int reuse_bytes = 0) {
   Layout l;
   l.tile_bytes = kTile * kBK * wbytes;
   l.stage_bytes = l.tile_bytes + (mlp ? mt * kRowBytes : 0);
   l.panel = stages * l.stage_bytes;
   const int panel_bytes = (k_slice / kBK) * mt * kRowBytes;
-  l.red = l.panel + (panel_bytes > score_bytes ? panel_bytes : score_bytes);
+  l.red = l.panel + (panel_bytes > reuse_bytes ? panel_bytes : reuse_bytes);
   l.norm = l.red + red_bytes(mt);
   l.lnp = l.norm + mt * 8;
   l.bars = l.lnp + k_slice * 8;
@@ -779,15 +780,15 @@ __device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo, uint32_t& hi) {
 
 // The A fragment of k16 step kk of the int8 weight tile at `tile` (64 rows
 // x 64 bytes, the TMA 64-byte swizzle: 16-byte chunk c of row r at r * 64 +
-// ((c ^ (r / 2 % 4)) << 4)), widened to bf16, for the wgmma warpgroup's
-// lane l of warp w: rows r = 16 w + l / 4 and r + 8, K pairs (2q, 2q + 1)
+// ((c ^ (r / 2 % 4)) << 4)), widened to bf16, for a wgmma warpgroup's lane
+// l of its warp w (warp % 4): rows r = 16 w + l / 4 and r + 8, K pairs (2q, 2q + 1)
 // and (2q + 8, 2q + 9) of the step, q = l % 4, in a = {(r, lo), (r + 8, lo),
 // (r, hi), (r + 8, hi)}. A row's two words (K 4 (q / 2) .. + 3 and 8 + 4 (q /
 // 2) .. + 3) give its four bytes by one byte permute; across the warp the
 // 32-bit loads fall on 32 distinct banks.
 __device__ __forceinline__ void load_a_q8(uint32_t* a, uint32_t tile, int kk) {
   const int lane = threadIdx.x & 31;
-  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const int q = lane & 3;
   const uint32_t word = tile + r * 64 + ((kk ^ ((r >> 1) & 3)) << 4) + 4 * (q >> 1);
   const uint32_t sel = (q & 1) ? 0x7632u : 0x5410u;
@@ -975,34 +976,46 @@ __device__ __forceinline__ void producer(const CUtensorMap* const* maps, const P
   if (!open && n_def > 0) open_gate();
 }
 
-// One weight tile's K loop over this CTA's chunks, by the first warpgroup:
-// acc = its partial product. B comes from the panel (block kc at panel + kc
-// * MT * 128) or, when streamed, from the stage itself (after the weight
+// Where a K loop finds its B operand: block kc of the panel (panel + kc *
+// MT * 128); the ring stage itself, after its weight tile (streamed); or,
+// when slots > 0, t slot (it - first) mod slots of the panel's bytes
+// (dense_mlp.cu's phase B, `first` its first unit)
+struct BSource {
+  uint32_t panel;
+  bool streamed;
+  int slots, first;
+};
+
+// One weight tile's K loop over this CTA's chunks: acc = its partial
+// product, by the first warpgroup or, when the row tile is split (NW < MT),
+// by both, each on NW rows of it (the second's start NW rows into every B
 // tile). A bf16 weight tile is wgmma's A operand in shared memory, a chunk
 // one commit group; an int8 one is widened into registers a k16 step at a
 // time (load_a_q8), a step one commit group, the next step's fragment
 // widened while the step runs.
-template <int MT, bool kQ8>
-__device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring, uint32_t panel, bool streamed,
-                                       int& it) {
+template <int MT, bool kQ8, int NW = MT>
+__device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring, const BSource& src, int& it) {
+  const uint32_t half = NW < MT ? (threadIdx.x >> 7) * (NW * kRowBytes) : 0;
 #pragma unroll
-  for (int i = 0; i < MT / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
   const int lane = threadIdx.x & 31;
   int prev = -1;
   for (int kc = 0; kc < chunks; ++kc, ++it) {
     const int stage = it % ring.stages;
     mbar_wait(ring.full + stage * 8, (it / ring.stages) & 1);
     const uint32_t a = ring.base + stage * ring.stage_bytes;
-    const uint32_t b = streamed ? a + ring.tile_bytes : panel + kc * MT * kRowBytes;
-    const uint64_t db = sw128_desc(b);
+    const uint32_t b = src.streamed ? a + ring.tile_bytes
+                       : src.slots  ? src.panel + (uint32_t)((it - src.first) % src.slots) * (MT * kRowBytes)
+                                    : src.panel + kc * MT * kRowBytes;
+    const uint64_t db = sw128_desc(b + half);
     if constexpr (kQ8) {
       uint32_t frag[2][4];
       load_a_q8(frag[0], a, 0);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        fence_acc<MT / 2>(acc);
+        fence_acc<NW / 2>(acc);
         wgmma_fence();
-        wgmma_rs<MT>(acc, frag[kk & 1], db + 2 * kk);  // +32 bytes per k16
+        wgmma_rs<NW>(acc, frag[kk & 1], db + 2 * kk);  // +32 bytes per k16
         wgmma_commit();
         wgmma_wait<1>();  // the step before is done: its fragment may be rewritten
         if (kk == 0 && prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);  // and the chunk before
@@ -1010,10 +1023,10 @@ __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring,
       }
     } else {
       const uint64_t da = sw128_desc(a);
-      fence_acc<MT / 2>(acc);
+      fence_acc<NW / 2>(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma<MT>(acc, da + 2 * kk, db + 2 * kk);  // +32 bytes per k16
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma<NW>(acc, da + 2 * kk, db + 2 * kk);  // +32 bytes per k16
       wgmma_commit();
       wgmma_wait<1>();
       if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);
@@ -1021,7 +1034,7 @@ __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring,
     prev = stage;
   }
   wgmma_wait<0>();
-  fence_acc<MT / 2>(acc);
+  fence_acc<NW / 2>(acc);
   if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev * 8);
 }
 
@@ -1029,19 +1042,21 @@ __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring,
 // (s, the cluster size, is a power of two)
 __device__ __forceinline__ int pair_lo(int r, int P, int s) { return (r * P) >> (__ffs(s) - 1); }
 
-// Push the first warpgroup's partial tile (acc, the wgmma layout) to the
-// owners of its rows: lane (w, l) of fragment J holds row pair 4 J + l % 4,
-// column pair 8 w + l / 4, as one 16-byte cell of the owner's slot `rank`.
-template <int MT>
+// Push a warpgroup's partial tile (acc, the wgmma layout, NW rows of it:
+// see k_loop) to the owners of its rows: lane (w, l) of fragment J holds
+// row pair pair0 + 4 J + l % 4, column pair 8 (w % 4) + l / 4, as one
+// 16-byte cell of the owner's slot `rank` (pair0: NW / 2 for the second
+// warpgroup of a split tile, else 0).
+template <int MT, int NW = MT>
 __device__ __forceinline__ void push_partial(const float* acc, uint32_t red_u32, uint32_t full, int s, int rank) {
   constexpr int P = MT / 2;
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int pair0 = NW < MT ? (threadIdx.x >> 7) * (NW / 2) : 0;
   const int slot = (P + s - 1) / s;
-  const int cp = 8 * warp + (lane >> 2);
+  const int cp = 8 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
 #pragma unroll
-  for (int J = 0; J < MT / 8; ++J) {
-    const int mp = 4 * J + (lane & 3);
+  for (int J = 0; J < NW / 8; ++J) {
+    const int mp = pair0 + 4 * J + (lane & 3);
     const int r = ((mp + 1) * s - 1) / P;  // the owner: pair_lo(r) <= mp < pair_lo(r + 1)
     const uint32_t off = (uint32_t)((rank * slot + mp - pair_lo(r, P, s)) * 32 + cp) * 16;
     st_async4(mapa(red_u32 + off, r), acc[4 * J], acc[4 * J + 1], acc[4 * J + 2], acc[4 * J + 3], mapa(full, r));
@@ -1067,6 +1082,20 @@ __device__ __forceinline__ float bf16_at_cg(const bf16* p) {
 }
 
 __device__ __forceinline__ void store_bf16(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// cell `cell` of this CTA's row pairs (pair - lo) * 32 + lane, summed over
+// the s slots of `slot` pairs in rank order
+__device__ __forceinline__ float4 sum_slots(const float4* red, int cell, int slot, int s) {
+  float4 v = red[cell];
+  for (int q = 1; q < s; ++q) {
+    const float4 d = red[q * slot * 32 + cell];
+    v.x += d.x;
+    v.y += d.y;
+    v.z += d.z;
+    v.w += d.w;
+  }
+  return v;
+}
 
 // After the round: this CTA sums its row pairs over the s slots in rank
 // order and applies the epilogue. Of the consumer warps from warp0 on
@@ -1095,14 +1124,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
     sc8 = bf16_at(scale + n + 8);
   }
   for (int mp = lo + warp; mp < hi; mp += nwarps) {
-    float4 v = red[(mp - lo) * 32 + lane];
-    for (int q = 1; q < s; ++q) {
-      const float4 d = red[(q * slot + mp - lo) * 32 + lane];
-      v.x += d.x;
-      v.y += d.y;
-      v.z += d.z;
-      v.w += d.w;
-    }
+    const float4 v = sum_slots(red, (mp - lo) * 32 + lane, slot, s);
     // (row, column): v.x (m, n), v.y (m + 1, n), v.z (m, n + 8), v.w (m + 1, n + 8)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1288,34 +1310,67 @@ __device__ __forceinline__ void ln2_stats(const Params& p, int m0, int rows, flo
   consumer_sync();
 }
 
-// The weight tiles j = cid, cid + G, ... of one product for the row tile at
-// m0. The first warpgroup runs tile j's K loop while the second applies the
-// epilogue of tile j - G (its round's pushes having landed meanwhile); then
-// the first pushes tile j's partial. The last tile's epilogue runs on all
-// consumer warps.
+// The weight tiles j = cid, cid + G, ... of one product for one row tile;
+// epi(j, warp0, nwarps) applies tile j's epilogue on the consumer warps from
+// warp0 on. Unsplit (NW == MT): the first warpgroup runs tile j's K loop
+// while the second applies the epilogue of tile j - G (its round's pushes
+// having landed meanwhile); then the first pushes tile j's partial. Split
+// (see k_loop): both warpgroups run the K loop and push, and tile j - G's
+// epilogue runs on all eight warps in between. The last tile's epilogue runs
+// on all consumer warps. CTA 0 stamps its first n_st tiles from stamp `st`
+// on: K loop done, exchange open (every CTA of the cluster has read the
+// round before).
+template <int MT, bool kQ8, int NW, typename Epi>
+__device__ __forceinline__ void for_tiles(float* acc, int tiles, int cid, int G, int chunks, const Ring& ring,
+                                          const BSource& src, int& it, Exchange& xc, uint32_t red_u32, int s, int rank,
+                                          const Epi& epi, int st = 0, int n_st = 0) {
+  int pending = -1;
+  if constexpr (NW < MT) {
+    for (int j = cid, n = 0; j < tiles; j += G, ++n) {
+      k_loop<MT, kQ8, NW>(acc, chunks, ring, src, it);
+      if (n < n_st) stamp(st + 2 * n);
+      if (pending >= 0) {
+        xc.wait();
+        epi(pending, 0, kConsumers / 32);
+        xc.end();
+      }
+      xc.begin(partial_bytes(MT, s, rank));
+      if (n < n_st) stamp(st + 2 * n + 1);
+      push_partial<MT, NW>(acc, red_u32, xc.full, s, rank);
+      pending = j;
+    }
+  } else {
+    const bool mma = threadIdx.x < 128;
+    for (int j = cid, n = 0; j < tiles; j += G, ++n) {
+      if (mma) {
+        k_loop<MT, kQ8>(acc, chunks, ring, src, it);
+        if (n < n_st) stamp(st + 2 * n);
+      } else if (pending >= 0) {
+        xc.wait();
+        epi(pending, 4, 4);
+      }
+      if (pending >= 0) xc.end();  // the consumer barrier first
+      xc.begin(partial_bytes(MT, s, rank));
+      if (n < n_st) stamp(st + 2 * n + 1);
+      if (mma) push_partial<MT>(acc, red_u32, xc.full, s, rank);
+      pending = j;
+    }
+  }
+  if (pending >= 0) {
+    xc.wait();
+    epi(pending, 0, kConsumers / 32);
+    xc.end();
+  }
+}
+
+// for_tiles over the epilogues of decode_dense.cu and decode_fused.cu, for
+// the row tile at m0, B from the panel or streamed
 template <int MT, Epilogue E, bool kQ8>
 __device__ __forceinline__ void run_tiles(const Params& p, float* acc, int tiles, int cid, int G, int chunks,
                                           const Ring& ring, uint32_t panel, bool streamed, int& it, Exchange& xc,
                                           const float4* red, uint32_t red_u32, int s, int rank, int m0) {
-  const bool mma = threadIdx.x < 128;
-  int pending = -1;
-  for (int j = cid; j < tiles; j += G) {
-    if (mma) {
-      k_loop<MT, kQ8>(acc, chunks, ring, panel, streamed, it);
-    } else if (pending >= 0) {
-      xc.wait();
-      epilogue<MT, E, kQ8>(p, red, s, rank, m0, pending, 4, 4);
-    }
-    if (pending >= 0) xc.end();  // the consumer barrier first
-    xc.begin(partial_bytes(MT, s, rank));
-    if (mma) push_partial<MT>(acc, red_u32, xc.full, s, rank);
-    pending = j;
-  }
-  if (pending >= 0) {
-    xc.wait();
-    epilogue<MT, E, kQ8>(p, red, s, rank, m0, pending, 0, kConsumers / 32);
-    xc.end();
-  }
+  const auto epi = [&](int j, int w0, int nw) { epilogue<MT, E, kQ8>(p, red, s, rank, m0, j, w0, nw); };
+  for_tiles<MT, kQ8, MT>(acc, tiles, cid, G, chunks, ring, BSource{panel, streamed, 0, 0}, it, xc, red_u32, s, rank, epi);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -1334,6 +1389,47 @@ cudaLaunchConfig_t config(int cluster, int clusters, int smem, cudaStream_t stre
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// the dynamic shared memory `kernel` may use, raised once per kernel and size
+inline cudaError_t allow_smem(const void* kernel, int smem) {
+  constexpr int kSlots = 128;
+  static const void* kernels[kSlots];
+  static int allowed[kSlots], n = 0;
+  int i = 0;
+  while (i < n && kernels[i] != kernel) ++i;
+  if (i < n && smem <= allowed[i]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && i < kSlots) {
+    if (i == n) kernels[n++] = kernel;
+    allowed[i] = smem;
+  }
+  return e;
+}
+
+// clusters of `cluster` CTAs of `kernel` with `smem` bytes each that the
+// device holds at once, asked once per (kernel, cluster, smem)
+inline cudaError_t max_clusters(const void* kernel, int cluster, int smem, int* out) {
+  constexpr int kSlots = 256;
+  static const void* kernels[kSlots];
+  static int keys[kSlots], values[kSlots], n = 0;
+  const int key = cluster * (kMaxSmem + 1) + smem;
+  for (int i = 0; i < n; ++i)
+    if (kernels[i] == kernel && keys[i] == key) {
+      *out = values[i];
+      return cudaSuccess;
+    }
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(cluster, 1, smem, nullptr, attr);
+  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  if (e == cudaSuccess && n < kSlots) {
+    kernels[n] = kernel;
+    keys[n] = key;
+    values[n++] = *out;
+  }
+  return e;
 }
 
 }  // namespace

@@ -518,37 +518,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---- host side -------------------------------------------------------------
 
 template <int MT, int kKind, typename W>
-cudaError_t allow_smem(int smem) {
-  static int allowed = 0;
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute((const void*)fused_kernel<MT, kKind, W>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) allowed = smem;
-  return e;
-}
-
-template <int MT, int kKind, typename W>
-cudaError_t max_clusters(int cluster, int smem, int* out) {
-  static int keys[32], values[32], n = 0;  // (cluster, smem) -> count, per kernel
-  const int key = cluster * (kMaxSmem + 1) + smem;
-  for (int i = 0; i < n; ++i)
-    if (keys[i] == key) {
-      *out = values[i];
-      return cudaSuccess;
-    }
-  cudaError_t e = allow_smem<MT, kKind, W>(smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(cluster, 1, smem, nullptr, attr);
-  e = cudaOccupancyMaxActiveClusters(out, (const void*)fused_kernel<MT, kKind, W>, &cfg);
-  if (e == cudaSuccess && n < 32) {
-    keys[n] = key;
-    values[n++] = *out;
-  }
-  return e;
-}
-
-template <int MT, int kKind, typename W>
 int launch(const void* const* maps, const Params& p, int cluster, int clusters, int smem, cudaStream_t stream) {
   const int k_slice = p.C / cluster;
   if (cluster < 1 || cluster > kMaxCluster || clusters < 1 || p.stages < kMinStages || p.stages > kMaxStages ||
@@ -557,10 +526,10 @@ int launch(const void* const* maps, const Params& p, int cluster, int clusters, 
       layout(MT, k_slice, p.stages, kKind == kLayer, (int)sizeof(W), score_bytes(p.window)).total > smem ||
       smem > kMaxSmem || (kKind == kLayer && (p.N / cluster) % kBK) || p.row_tiles * MT < p.M)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem<MT, kKind, W>(smem);
+  cudaError_t e = allow_smem((const void*)fused_kernel<MT, kKind, W>, smem);
   if (e != cudaSuccess) return (int)e;
   int most = 0;  // the grid barriers need every CTA resident at once
-  e = max_clusters<MT, kKind, W>(cluster, smem, &most);
+  e = max_clusters((const void*)fused_kernel<MT, kKind, W>, cluster, smem, &most);
   if (e != cudaSuccess) return (int)e;
   if (clusters > most) return (int)cudaErrorCooperativeLaunchTooLarge;
   CUtensorMap t[7];
@@ -592,7 +561,7 @@ template <int kKind, typename W>
 int max_clusters_tile(int mt, int cluster, int smem, int* out) {
 #define RQ_CASE(T) \
   case T:          \
-    return (int)max_clusters<T, kKind, W>(cluster, smem, out);
+    return (int)max_clusters((const void*)fused_kernel<T, kKind, W>, cluster, smem, out);
   switch (mt) { RQ_TILES_FUSED(RQ_CASE) }
 #undef RQ_CASE
   return (int)cudaErrorInvalidValue;

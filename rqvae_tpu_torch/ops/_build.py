@@ -73,6 +73,9 @@ _SIGNATURES = {
     "rq_q8_stream_probe": (_P,) * 4 + (_I,) * 7 + (_P,),
     "rq_w8a8_mlp": (_P,) * 20 + (_I,) * 7 + (_F, _P),
     "rq_mlp": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    "rq_dense_mlp": (_I,) + (_P,) * 11 + (_I,) * 14 + (_F, _P),
+    "rq_dense_mlp_max_clusters": (_I,) * 5 + (_P,),
+    "rq_dense_mlp_phase_ns": (_P,),
 }
 
 _lock = threading.Lock()
@@ -170,7 +173,8 @@ MAX_STAMPS = 16  # at least the globaltimer stamps any kernel's phase entry poin
 def stamps_ns(name: str) -> list[int]:
     """The globaltimer stamps (ns) that a fused kernel's last launch left,
     read through its C entry point `name` (rq_decode_layer_step_phase_ns,
-    ..._q8_update_wo_phase_ns, rq_dense_phase_ns, rq_fused_phase_ns), which
+    ..._q8_update_wo_phase_ns, rq_dense_phase_ns, rq_fused_phase_ns,
+    rq_dense_mlp_phase_ns), which
     copies at most MAX_STAMPS of them. Synchronous: call it after the
     launch has finished."""
     buf = (ctypes.c_ulonglong * MAX_STAMPS)()

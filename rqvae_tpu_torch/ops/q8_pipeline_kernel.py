@@ -11,9 +11,14 @@ of tools/exp_q8_pipeline.py.
 - ablate_ring (#20): the MLP alone, Σ_j cast(gelu?(h @ w1_j^T × s1_j?)) @
   w2_j^T in fp32, cast to h's dtype; int8 or bf16 weights.
 
-The CUDA kernels are csrc/q8_pipeline.cu (its source note says what bounds
-them on the H100 and how the design answers that); this module holds
-their wrappers, the plain PyTorch versions and the packed layout.
+The CUDA kernels of #17-#19 are csrc/q8_pipeline.cu (its source note says
+what bounds them on the H100 and how the design answers that); #20's is
+the "ring" form of csrc/dense_mlp.cu (one persistent launch on
+csrc/decode_dense.cu's machinery, planned by ops/dense_mlp_kernel.py),
+with its first design, the MLP-only form of csrc/q8_pipeline.cu's ring
+kernel, kept as the A/B baseline `ablate_ring_v1` that only chip_smoke.py
+runs. This module holds their wrappers, the plain PyTorch versions and the
+packed layout.
 
 Layout. The port keeps weights in the nn.Linear [out, in] layout: w1 [H,
 C], w2 [C, H], int8 with one bf16 scale per output channel (model.
@@ -24,8 +29,9 @@ C] (the same bytes), pack_w2 [nc, C, chunk]. checkpoint/from_jax.py::
 q8_pipeline_weights_from_jax turns the experiment's arrays into these.
 
 `chunk` and `n_buf` keep the JAX meaning (the hidden slice whose w1 rows
-and w2 columns travel together; the stages in flight). The result does not
-depend on them. On the card a point whose stages a block cannot hold
+and w2 columns travel together; the stages in flight; #20's kernel plans
+its own depth, and its chunk is only the packed layout's). The result does
+not depend on them. On the card a point whose stages a block cannot hold
 raises ValueError with the arithmetic; nothing drops to a smaller depth.
 """
 
@@ -37,6 +43,7 @@ import torch
 
 from rqvae_tpu_torch.ops import _build
 from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+from rqvae_tpu_torch.ops import dense_mlp_kernel as DM
 
 PROBE_LANES = 128
 _ROW_PAD = 16  # bytes after each staged row (csrc/q8_pipeline.cu kRowPad)
@@ -360,29 +367,59 @@ def stream_probe(w1p, w2p, chunk=1536, n_buf=4, mode="dma"):
 stream_probe.launches = 0
 
 
-def ablate_ring(h, w1p, w1_scale, w2p, w2_scale=None, chunk=1536, n_buf=4, use_gelu=True, use_scale=True):
-    """Kernel wrapper (#20): the plain version for CPU tensors; for CUDA
-    tensors it launches the MLP-only form of csrc/q8_pipeline.cu::
-    rq_q8_ring_mlp on packed int8 or bf16 weights or raises. One call on
-    the card adds one to `ablate_ring.launches`."""
-    name = "ablate_ring"
+def _ablate_checked(name, h, w1p, w1_scale, w2p, chunk, n_buf):
+    """ablate_ring's refusals on any device, then on CUDA the types and
+    shapes; returns ("cpu" or "cuda", w1_scale as [H])."""
     kind = _device_kind(name, h)
     if w1p.dim() != 3 or w1p.shape[1] != chunk or tuple(w2p.shape) != (w1p.shape[0], w1p.shape[2], chunk):
         raise ValueError(f"{name}: w1p [nc, {chunk}, C] and w2p [nc, C, {chunk}] expected, got "
                          f"{tuple(w1p.shape)} and {tuple(w2p.shape)}")
     _check_chunk(name, w1p.shape[0] * chunk, chunk, n_buf)
+    s1 = w1_scale.reshape(-1)
+    if kind == "cuda":
+        if w1p.dtype not in (torch.int8, torch.bfloat16):
+            raise ValueError(f"{name}: int8 or bf16 weights, got {w1p.dtype}")
+        _check_tensors(name, [("h", h), ("w1p", w1p), ("w2p", w2p), ("w1_scale", s1)],
+                       (torch.bfloat16, w1p.dtype, w1p.dtype, torch.bfloat16))
+        if w1p.shape[2] != h.shape[1] or s1.numel() != w1p.shape[0] * chunk:
+            raise ValueError(f"{name}: h [M, {w1p.shape[2]}] and w1_scale [{w1p.shape[0] * chunk}] expected, got "
+                             f"{tuple(h.shape)} and {tuple(w1_scale.shape)}")
+    return kind, s1
+
+
+def ablate_ring(h, w1p, w1_scale, w2p, w2_scale=None, chunk=1536, n_buf=4, use_gelu=True, use_scale=True):
+    """Kernel wrapper (#20): the plain version for CPU tensors; for CUDA
+    tensors it launches the "ring" form of csrc/dense_mlp.cu (one persistent
+    launch) on packed int8 or bf16 weights or raises: C in decode_layer_kernel.
+    WIDTHS, H = 4C and chunk % 64 == 0 (ops/dense_mlp_kernel.py's contract).
+    `chunk` is the packed layout's; `n_buf` is still checked (1..8) but is
+    no longer a ring depth: the plan sets the kernel's. One call on the card
+    adds one to `ablate_ring.launches`."""
+    name = "ablate_ring"
+    kind, s1 = _ablate_checked(name, h, w1p, w1_scale, w2p, chunk, n_buf)
     if kind == "cpu":
         return ablate_ring_plain(h, w1p, w1_scale, w2p, w2_scale, use_gelu, use_scale)
-    if w1p.dtype not in (torch.int8, torch.bfloat16):
-        raise ValueError(f"{name}: int8 or bf16 weights, got {w1p.dtype}")
+    plan = DM.device_plan(h, h.shape[1], w1p.shape[0] * chunk, "ring", w1p.element_size(), chunk)
+    out = DM.launch(plan, h, w1p, w2p, s1=s1, gelu=int(use_gelu), use_scale=use_scale)
+    ablate_ring.launches += 1
+    return out
+
+
+ablate_ring.launches = 0
+
+
+def ablate_ring_v1(h, w1p, w1_scale, w2p, w2_scale=None, chunk=1536, n_buf=4, use_gelu=True, use_scale=True):
+    """ablate_ring through its first design (the MLP-only form of
+    csrc/q8_pipeline.cu::rq_q8_ring_mlp: one cooperative launch, an
+    n_buf-deep cp.async ring of chunk stages), CUDA tensors only: the A/B
+    baseline of chip_smoke.py. Adds one to `ablate_ring_v1.launches` per
+    call."""
+    name = "ablate_ring_v1"
+    kind, s1 = _ablate_checked(name, h, w1p, w1_scale, w2p, chunk, n_buf)
+    if kind != "cuda":
+        raise ValueError(f"{name}: no kernel for device {h.device}")
     M, C = h.shape
     H = w1p.shape[0] * chunk
-    s1 = w1_scale.reshape(-1)
-    _check_tensors(name, [("h", h), ("w1p", w1p), ("w2p", w2p), ("w1_scale", s1)],
-                   (torch.bfloat16, w1p.dtype, w1p.dtype, torch.bfloat16))
-    if w1p.shape[2] != C or s1.numel() != H:
-        raise ValueError(f"{name}: h [M, {w1p.shape[2]}] and w1_scale [{H}] expected, got {tuple(h.shape)} "
-                         f"and {tuple(w1_scale.shape)}")
     grid = _check_point(name, h.device, M, C, chunk, n_buf, w1p.element_size())
     out = torch.empty_like(h)
     t = torch.empty((M, H), dtype=h.dtype, device=h.device)
@@ -395,8 +432,8 @@ def ablate_ring(h, w1p, w1_scale, w2p, w2_scale=None, chunk=1536, n_buf=4, use_g
             DK.LN_EPS, torch.cuda.current_stream().cuda_stream,
         )
     _launched(err, "rq_q8_ring_mlp", f"chunk {chunk} x n_buf {n_buf}")
-    ablate_ring.launches += 1
+    ablate_ring_v1.launches += 1
     return out
 
 
-ablate_ring.launches = 0
+ablate_ring_v1.launches = 0
