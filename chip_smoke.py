@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      below is fp32;
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once; libw8a8.so must hold IMMA (s8
-     tensor-core) and libdecode_dense.so, libdecode_fused.so and
-     libdense_mlp.so HGMMA (wgmma) instructions;
+     tensor-core), libdense_w8a8.so IGMMA (s8 wgmma), and
+     libdecode_dense.so, libdecode_fused.so, libdense_mlp.so and
+     libdense_w8a8.so HGMMA (wgmma) instructions;
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
@@ -50,15 +51,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      library's wo, residual and LayerNorm), with CTA 0's phase and
      attention-step stamps; nearest_code: fp32, 6400 rows of 256 against 16384
      codes, with planted ties; the q8 pipeline kernels of
-     tools/exp_q8_pipeline.py at its shapes, B 100, C 1536, H 6144, int8
-     weights: #17 / #18 at several (chunk, n_buf), bit-equal to each other,
-     #19 in both modes, bit-equal; #20 (the "ring" form of
+     tools/exp_q8_pipeline.py at its shapes, C 1536, H 6144, int8 weights:
+     #17 / #18 (#6's kernel, csrc/decode_dense.cu, one launch a call; #18
+     through the packed w2's map) at B 37, 100 and 300, both gelu forms and
+     five (chunk, n_buf) points, bit-equal to each other and to #6, timed as
+     CUDA-graph device time against their first design (*_v1) and the
+     library; #19 in both modes, bit-equal; #20 (the "ring" form of
      csrc/dense_mlp.cu, one launch a call) in the four ablation cases, timed
      as CUDA-graph device time against its first design (ablate_ring_v1) and
-     the library, with CTA 0's phases; #16 of
-     tools/exp_w8a8.py at B 100, chunks 1536 and 768, both gelu forms, a
-     ragged B 37 and B 300 (three row groups), its output moving with the
-     chunk as the plain version's does; #15 of tools/exp_mlp_kernel.py (the
+     the library, with CTA 0's phases; #16 of tools/exp_w8a8.py
+     (csrc/dense_w8a8.cu, one launch a call, s8 wgmma) at B 100, chunks 1536
+     and 768, both gelu forms, a ragged B 37, B 300 and 500 and C 2560, its
+     output moving with the chunk as the plain version's does, timed as
+     CUDA-graph device time against its first design (fused_proj_mlp_q8a8_v1),
+     #6 and the library, with CTA 0's phases, and against #6 at B 300 and
+     500; #15 of tools/exp_mlp_kernel.py (the
      "mlp" form of csrc/dense_mlp.cu, one launch a call) at B 37, 100, 129
      and 500, both gelu forms, timed at B 100 and 500 as CUDA-graph device
      time against its first design (fused_mlp_v1) and the library, at B 500
@@ -104,8 +111,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      exp_q8_pipeline) at B 100, C 1536, H 6144, 16 layers, the full sweeps
      and probes, chains of PIPE_ITERS x 16 calls captured in CUDA graphs:
      #6 against #17-#20, with the exact launch counts it issues, every other
-     counter 0 (the first designs' too), and only the FAILED points the
-     shared-memory arithmetic predicts;
+     counter 0 (the first designs' too), and no FAILED point of #17 / #18
+     (every chunk of the sweeps is in their contract);
  10. the port of tools/exp_w8a8.py (rqvae_tpu_torch.tools.exp_w8a8) at B
      100, 16 layers, chains of W8A8_ITERS x 16 calls captured in CUDA
      graphs: #3 (bf16) and #6 (q8), each the single-launch kernel (its
@@ -126,9 +133,10 @@ dense pair, bf16 and int8 (check_dense), and of the two fused kernels
 fused kernels' checks alone; `python3 chip_smoke.py attention` those of
 the attention kernels of csrc/decode_attention_tma.cu alone: the update
 forms #1 / #4, then the read-only forms #10 / #12 and #11; `python3
-chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone. Run from
-two source trees in one call, they compare two designs of those kernels on
-one card.
+chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone; `python3
+chip_smoke.py q8` those of #16-#19 (csrc/dense_w8a8.cu, #6's kernel,
+csrc/q8_pipeline.cu) alone. Run from two source trees in one call, they
+compare two designs of those kernels on one card.
 """
 
 from __future__ import annotations
@@ -1125,18 +1133,25 @@ def proj_mlp_bound(B, C, H, weight_bytes):
     return bound(n_bytes, 2 * B * (C * C + 2 * C * H), BF16_TENSOR_FLOPS)
 
 
-def check_q8_pipeline(QP, quantize_weight, dev, gen):
-    """#17-#20 (ops/q8_pipeline_kernel.py) against their plain versions at
-    the experiment's shapes: B 100, C 1536, H 6144, bf16 activations, int8
-    weights from quantize_weight, nonzero biases. #17 at (chunk, n_buf)
-    (1536, 4) and (768, 6), #18 at (1536, 2), both gelu forms: TOL, and
-    every point bit-equal to the others (the result does not depend on
-    chunk or n_buf); #19 in both modes at (1536, 4) and (768, 4), bit-equal
-    to the plain version (integer sums, exact in fp32), the int32 view
-    within 1e-6 of |ref|. Timed as check_dense times #6 (#18 bit-equal to
-    #17, so its error is #17's; the plain and library times are #17's, the
-    same function). Returns the JSON entries of #17, #18 and #19 (no
-    launches yet); #20 is check_ablate's."""
+Q8_POINTS = (("ring", 1536, 4), ("ring", 768, 6), ("ring", 512, 2), ("packed", 1536, 2), ("packed", 3072, 2))
+Q8_BATCHES = (37, 100, 300)
+
+
+def check_q8_pipeline(QP, DK, quantize_weight, dev, gen):
+    """#17 / #18 and #19 (ops/q8_pipeline_kernel.py) against their plain
+    versions at the experiment's shapes: C 1536, H 6144, bf16 activations,
+    int8 weights from quantize_weight, nonzero biases. #17 / #18 (#6's
+    kernel, csrc/decode_dense.cu) at B 37, 100 and 300, both gelu forms, at
+    every (chunk, n_buf) of Q8_POINTS: TOL against the plain version, and
+    every point bit-equal to decode_layer_kernel.fused_proj_mlp_q8 (the
+    result depends on neither); one device kernel a call (torch.profiler);
+    at B 100, L2-cold (6 weight sets of 21.2 MB in turn), CUDA-graph device
+    time of #17, #18, their first design (*_v1, csrc/q8_pipeline.cu), #6 and
+    the library (three F.linear on the dequantized bf16 weights, the GEMMs
+    alone), eager time of #17, #18 and the plain version, and the bound. #19
+    in both modes at (1536, 4) and (768, 4), bit-equal to the plain version
+    (integer sums, exact in fp32), the int32 view within 1e-6 of |ref|.
+    Returns the JSON entries of #17, #18 and #19 (no launches yet)."""
     B, C = BATCH, 1536
     H = 4 * C
 
@@ -1146,52 +1161,85 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
     def qw(*shape):
         return quantize_weight(rnd(*shape, std=0.02))
 
-    x, y = rnd(B, C), rnd(B, C)
     ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
     sets = [(*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
             for _ in range(6)]  # 6 x 21.2 MB
-
-    def ring(s, chunk, n_buf, gelu="v1", fn=None):
-        args = (x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:])
-        if fn is not None:  # the plain version: no chunk or n_buf
-            return fn(*args, gelu_version=gelu)
-        return QP.fused_proj_mlp_q8_ring(*args, gelu_version=gelu, chunk=chunk, n_buf=n_buf)
-
-    def packed(s, chunk, n_buf, p):
-        return QP.fused_proj_mlp_q8_packed(x, y, s[0], s[1], s[2], ln_s, ln_b, p[0], s[4], s[5], p[1], s[7], s[8],
-                                           chunk=chunk, n_buf=n_buf)
+    pk = {}
 
     def packs(s, chunk):
         return QP.pack_w1(s[3], chunk), QP.pack_w2(s[6], chunk)
 
-    want = ring(sets[0], 1536, 4, fn=QP.fused_proj_mlp_q8_ring_plain)
-    got = ring(sets[0], 1536, 4)
-    torch.cuda.synchronize()
-    err, _ = compare("fused_proj_mlp_q8_ring (1536, 4) x[100,1536] int8 wo/w1/w2", got, want)
-    for tag, other in (("ring (768, 6)", ring(sets[0], 768, 6)),
-                       ("packed (1536, 2)", packed(sets[0], 1536, 2, packs(sets[0], 1536)))):
-        torch.cuda.synchronize()
-        if not torch.equal(other, got):
-            raise AssertionError(f"fused_proj_mlp_q8 {tag} differs from ring (1536, 4): "
-                                 f"max |d| {float((other.float() - got.float()).abs().max()):.3e}")
-        log(f"  fused_proj_mlp_q8 {tag}: bit-equal to ring (1536, 4)")
-    got = ring(sets[1], 1536, 4, "v2")
-    want = ring(sets[1], 1536, 4, "v2", fn=QP.fused_proj_mlp_q8_ring_plain)
-    torch.cuda.synchronize()
-    compare("fused_proj_mlp_q8_ring gelu v2 (sigmoid form)", got, want)
-    ms = cuda_ms([lambda s=s: ring(s, 1536, 4) for s in sets], 30)
-    plain = cuda_ms([lambda s=s: ring(s, 1536, 4, fn=QP.fused_proj_mlp_q8_ring_plain) for s in sets], 30)
-    pk = [packs(s, 1536) for s in sets[:3]]
-    ms_packed = cuda_ms([lambda s=s, p=p: packed(s, 1536, 2, p) for s, p in zip(sets, pk)], 30)
+    def packed_w(i, chunk):  # set i's packed w1 and w2, made once
+        if (i, chunk) not in pk:
+            pk[i, chunk] = packs(sets[i], chunk)
+        return pk[i, chunk]
+
+    def args(i, x, y):
+        s = sets[i]
+        return (x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:])
+
+    def call(point, i, x, y, gelu="v1", v1=False):
+        kind, chunk, n_buf = point
+        if kind == "ring":
+            fn = QP.fused_proj_mlp_q8_ring_v1 if v1 else QP.fused_proj_mlp_q8_ring
+            return fn(*args(i, x, y), gelu_version=gelu, chunk=chunk, n_buf=n_buf)
+        fn = QP.fused_proj_mlp_q8_packed_v1 if v1 else QP.fused_proj_mlp_q8_packed
+        s, (w1p, w2p) = sets[i], packed_w(i, chunk)
+        return fn(x, y, s[0], s[1], s[2], ln_s, ln_b, w1p, s[4], s[5], w2p, s[7], s[8], gelu_version=gelu,
+                  chunk=chunk, n_buf=n_buf)
+
+    err = 0.0
+    for b in Q8_BATCHES:
+        x, y = rnd(b, C), rnd(b, C)
+        plan = DK.dense_plan(b, C, H, True, wbytes=1)
+        for gelu in ("v1", "v2"):
+            want = QP.fused_proj_mlp_q8_ring_plain(*args(0, x, y), gelu_version=gelu)
+            ref = DK.fused_proj_mlp_q8(*args(0, x, y), gelu_version=gelu)
+            torch.cuda.synchronize()
+            for n, point in enumerate(Q8_POINTS):
+                got = call(point, 0, x, y, gelu)
+                torch.cuda.synchronize()
+                if n == 0:
+                    err = max(err, compare(f"fused_proj_mlp_q8_ring {point[1:]} B={b} gelu {gelu} (cluster "
+                                           f"{plan.cluster} x {plan.clusters}, row tile {plan.row_tile} x "
+                                           f"{plan.row_tiles})", got, want)[0])
+                if not torch.equal(got, ref):
+                    d = float((got.float() - ref.float()).abs().max())
+                    raise AssertionError(f"fused_proj_mlp_q8 {point} B={b} gelu {gelu} differs from "
+                                         f"fused_proj_mlp_q8: max |d| {d:.3e}")
+            log(f"  fused_proj_mlp_q8_ring / _packed B={b} gelu {gelu}: the {len(Q8_POINTS)} points {Q8_POINTS} "
+                f"bit-equal to each other and to fused_proj_mlp_q8")
+    x, y = rnd(B, C), rnd(B, C)
+    for name, point in (("fused_proj_mlp_q8_ring", Q8_POINTS[0]), ("fused_proj_mlp_q8_packed", Q8_POINTS[3])):
+        fn = lambda point=point: call(point, 0, x, y)  # noqa: E731
+        fn()  # the plan, scratch and tensor maps are made on the host before the profiled call
+        kernels = device_kernels(fn)
+        if len(kernels) != 1 or "dense_kernel" not in kernels[0]:
+            raise AssertionError(f"{name}: one call issued device kernels {kernels}, not one dense_kernel")
+        log(f"  {name}: one call issues one device kernel ({kernels[0][:72]}...)")
+    ring = [lambda i=i: call(Q8_POINTS[0], i, x, y) for i in range(6)]
+    packed = [lambda i=i: call(Q8_POINTS[3], i, x, y) for i in range(6)]
     deq = [[(q.to(torch.bfloat16) * sc[:, None]) for q, sc in ((s[0], s[1]), (s[3], s[4]), (s[6], s[7]))]
            for s in sets[:3]]
-    lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq], 30)
+    graph = {"#17": graph_ms(ring), "#18": graph_ms(packed),
+             "#17 first design": graph_ms([lambda i=i: call(Q8_POINTS[0], i, x, y, v1=True) for i in range(6)]),
+             "#18 first design": graph_ms([lambda i=i: call(Q8_POINTS[3], i, x, y, v1=True) for i in range(6)]),
+             "#6": graph_ms([lambda i=i: DK.fused_proj_mlp_q8(*args(i, x, y)) for i in range(6)]),
+             "library": graph_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq])}
+    ms, ms_packed = cuda_ms(ring, 30), cuda_ms(packed, 30)
+    plain = cuda_ms([lambda i=i: QP.fused_proj_mlp_q8_ring_plain(*args(i, x, y)) for i in range(6)], 30)
     b = proj_mlp_bound(B, C, H, 1)
-    log(f"  fused_proj_mlp_q8_ring time (1536, 4): kernel {ms:.4f} ms (packed (1536, 2): {ms_packed:.4f} ms), "
-        f"plain {plain:.4f} ms, library (three F.linear on bf16 weights, the GEMMs alone) {lib:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
-    ring_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
-    packed_entry = {"max_abs_err": err, "ms": ms_packed, "plain_ms": plain, "library_ms": lib, **b}
+    log(f"  fused_proj_mlp_q8_ring (1536, 4) / _packed (1536, 2) time (B {B}): device (graph replay) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f" (the first designs {graph['#17 first design'] / graph['#17']:.2f}x / "
+        f"{graph['#18 first design'] / graph['#18']:.2f}x the kernel); eager #17 {ms:.4f} ms, #18 {ms_packed:.4f} "
+        f"ms, plain {plain:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; {card_line()}")
+    del pk
+    ring_entry = {"max_abs_err": err, "ms": ms, "graph_ms": graph["#17"], "v1_graph_ms": graph["#17 first design"],
+                  "q8_graph_ms": graph["#6"], "plain_ms": plain, "library_ms": graph["library"], **b}
+    packed_entry = {"max_abs_err": err, "ms": ms_packed, "graph_ms": graph["#18"],
+                    "v1_graph_ms": graph["#18 first design"], "q8_graph_ms": graph["#6"], "plain_ms": plain,
+                    "library_ms": graph["library"], **b}
 
     # #19: the chunk stream alone
     probe_ms = {}
@@ -1232,18 +1280,106 @@ def check_q8_pipeline(QP, quantize_weight, dev, gen):
     return ring_entry, packed_entry, probe_entry
 
 
-def check_w8a8(W8, quantize_weight, dev, gen):
-    """#16 (ops/w8a8_kernel.py) against its plain version at the
-    experiment's shapes: B 100, C 1536, H 6144, bf16 activations, int8
-    weights from quantize_weight, nonzero biases; chunks 1536 and 768, both
-    gelu forms, a ragged B 37 and B 300 (three row groups of 128): TOL. The
+W8A8_PHASES = ("proj", "barrier 1", "LN2 + hq rows", "barrier 2", "phase A (w1)", "barrier 3", "tq", "barrier 4",
+               "phase B (w2)")
+# #16's quantized activations: the share of hq and tq entries that may
+# differ from the plain version's, each by one (tests/test_torch_w8a8.py FLIPS)
+W8A8_FLIPS = 0.005
+
+
+def w8a8_stamps(what) -> dict:
+    """CTA 0's phases of the last csrc/dense_w8a8.cu launch (us) and the K
+    loop's end / the exchange's opening of phase A's first tiles (us into
+    phase A), logged."""
+    from rqvae_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    ns = _build.stamps_ns("rq_dense_w8a8_phase_ns")
+    us = dict(zip(W8A8_PHASES, ((ns[i + 1] - ns[i]) / 1e3 for i in range(9))))
+    tiles = [(ns[10 + i] - ns[4]) / 1e3 for i in range(6)]
+    log(f"  {what} phases of one call (CTA 0, us): " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+        + "; phase A's first tiles' K loop end / exchange open (us into phase A): "
+        + ", ".join(f"{tiles[i]:.1f} / {tiles[i + 1]:.1f}" for i in range(0, 6, 2)))
+    return {**us, "tiles_us": tiles}
+
+
+def q8a8_held(W8, name, args, chunk, gelu, got):
+    """#16's output `got` against its plain version, with the kernel's own
+    quantized activations (hq, the tq tile images and ts in its scratch,
+    read right after the call) against the plain version's: at most
+    W8A8_FLIPS of the hq and of the tq entries may differ, each by one, and
+    elementwise |got - want| <= TOL (1 + |want|) + what they explain. An
+    ulp of x2 or of LN2's statistics (cuBLAS's sums against the kernel's
+    split-K ones) can move h / hs across a rounding half; the hq entry then
+    differs by one, its row of t moves by hs w1 s1, some tq entries follow,
+    and each moves an output by ts |w2| s2: the bound adds sum_j (ts_j |tq_j
+    - tq_j'|) @ (|w2_j| s2)^T + |ts_j - ts_j'| |tq_j'| @ (|w2_j| s2)^T
+    (tests/test_torch_w8a8.py, which holds the port to JAX the same way).
+    Logs how many elements pass TOL alone. Returns the max |got - want|."""
+    x, w1_q, w2_q, w2_s = args[0], args[7], args[10], args[11]
+    M, C = x.shape
+    H = w1_q.shape[0]
+    want, st = W8.q8a8_steps(*args, gelu_version=gelu, chunk=chunk)
+    torch.cuda.synchronize()
+    plan = W8._device_plan(M, C, H, chunk, x.device)
+    buf = W8._scratch(x, plan)
+    rows = plan.row_tiles * plan.row_tile
+    m = torch.arange(M, device=x.device)
+    where = torch.arange(4, device=x.device)[None, :] ^ ((m[:, None] >> 1) & 3)  # row m's chunk c: at c ^ (m / 2 % 4)
+    img = buf["tq"].view(H // 64, rows, 4, 16)[:, :M]
+    tq = torch.gather(img, 2, where[None, :, :, None].expand(H // 64, M, 4, 16)).permute(1, 0, 2, 3).reshape(M, H)
+    ts = buf["ts"][:, :M]
+    flips = {}
+    for what, a, b in (("hq", buf["hq"][:M], st["hq"]), ("tq", tq, torch.cat(st["tq"], 1))):
+        d = (a.int() - b.int()).abs()
+        flips[what] = int((d > 0).sum())
+        if int(d.max()) > 1 or flips[what] > W8A8_FLIPS * d.numel():
+            raise AssertionError(f"{name}: {flips[what]} of {d.numel()} {what} entries differ from the plain "
+                                 f"version's, by up to {int(d.max())}")
+    w2abs = w2_q.abs().float() * w2_s.float()[:, None]
+    explained = torch.zeros((M, C), dtype=torch.float32, device=x.device)
+    for j in range(H // chunk):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        sk, sp = ts[j][:, None], st["ts"][j]
+        dq = (tq[:, sl].float() - st["tq"][j].float()).abs()
+        explained += (sk * dq) @ w2abs[:, sl].t() + ((sk - sp).abs() * st["tq"][j].float().abs()) @ w2abs[:, sl].t()
+    diff = (got.float() - want.float()).abs()
+    tol = TOL * (1 + want.float().abs())
+    beyond = diff > tol + explained
+    n_tol = int((diff > tol).sum())
+    if bool(beyond.any()):
+        i = int(((diff - tol - explained) * beyond).flatten().argmax())
+        raise AssertionError(f"{name}: disagreement beyond TOL (1 + |ref|) + the flips' share at "
+                             f"{int(beyond.sum())} of {diff.numel()} elements, worst at flat index {i}: got "
+                             f"{float(got.flatten()[i])}, want {float(want.flatten()[i])}, explained "
+                             f"{float(explained.flatten()[i]):.3e}")
+    err = float(diff.max())
+    log(f"  {name}: max_abs_err {err:.3e} mean_abs_err {float(diff.mean()):.3e}; hq entries differing {flips['hq']}, "
+        f"tq {flips['tq']} (each by one); beyond TOL alone {n_tol} of {diff.numel()} elements, all within what the "
+        f"flips explain; ok")
+    return err
+
+
+def check_w8a8(W8, DK, quantize_weight, dev, gen):
+    """#16 (ops/w8a8_kernel.py; csrc/dense_w8a8.cu, s8 wgmma) against its
+    plain version at the experiment's shapes: C 1536, H 6144, bf16
+    activations, int8 weights from quantize_weight, nonzero biases; B 100 at
+    chunks 1536 and 768 and both gelu forms, a ragged B 37, B 300 and B 500,
+    and C 2560 (H 10240, chunk 2560) at B 100 both gelu forms: q8a8_held
+    (TOL plus what the quantized activations that differ explain). The
     chunk is part of the result (ts_j is taken per chunk): the kernel's
     output at chunk 768 must differ from its output at 1536 by the plain
-    version's mean |d| within 10%. Timed at (B 100, chunk 1536) against the
-    plain version, the library (F.linear for wo on the dequantized bf16 wo,
-    then two torch._int_mm over the whole H on int8 activations of the same
-    shapes) and the bound (int8 products at the int8 peak, the wo product at
-    the bf16 peak). Returns the JSON entry (no launches yet)."""
+    version's mean |d| within 10%. One device kernel a call, CTA 0's
+    phases. At (B 100, chunk 1536), L2-cold (6 weight sets of 21.2 MB in
+    turn): CUDA-graph device time of the kernel, its first design
+    (fused_proj_mlp_q8a8_v1, csrc/w8a8.cu), #6 (the same layer on bf16
+    activations) and the library (F.linear for wo on the dequantized bf16
+    wo, then two torch._int_mm over the whole H on int8 activations of the
+    same shapes), eager time of the kernel and the plain version, and the
+    bound (int8 products at the int8 peak, the wo product at the bf16
+    peak); at B 300 and 500 the device time of the kernel and #6 on the same
+    weight sets (where int8 activations pay). Returns the JSON entry (no
+    launches yet)."""
     B, C = BATCH, 1536
     H = 4 * C
 
@@ -1253,20 +1389,28 @@ def check_w8a8(W8, quantize_weight, dev, gen):
     def qw(*shape):
         return quantize_weight(rnd(*shape, std=0.02))
 
-    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
-    sets = [(*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
-            for _ in range(6)]  # 6 x 21.2 MB
+    def layer(C, H):
+        return (*qw(C, C), rnd(C, std=0.02), *qw(H, C), rnd(H, std=0.02), *qw(C, H), rnd(C, std=0.02))
 
-    def call(fn, x, y, s, chunk=1536, gelu="v1"):
-        return fn(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:], gelu_version=gelu, chunk=chunk)
+    ln_s, ln_b = rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1)
+    sets = [layer(C, H) for _ in range(6)]  # 6 x 21.2 MB
+
+    def call(fn, x, y, s, chunk=1536, gelu="v1", ln=(ln_s, ln_b)):
+        return fn(x, y, s[0], s[1], s[2], *ln, *s[3:], gelu_version=gelu, chunk=chunk)
+
+    def held(tag, x, y, s, chunk=1536, gelu="v1", ln=(ln_s, ln_b)):
+        got = call(W8.fused_proj_mlp_q8a8, x, y, s, chunk, gelu, ln)
+        plan = W8._device_plan(x.shape[0], x.shape[1], s[3].shape[0], chunk, dev)
+        err = q8a8_held(W8, f"fused_proj_mlp_q8a8 {tag} chunk={chunk} gelu {gelu} (cluster {plan.cluster} x "
+                             f"{plan.clusters}, row tile {plan.row_tile} x {plan.row_tiles}, {plan.stages} stages)",
+                        (x, y, s[0], s[1], s[2], *ln, *s[3:]), chunk, gelu, got)
+        return err, got, call(W8.fused_proj_mlp_q8a8_plain, x, y, s, chunk, gelu, ln)
 
     x, y = rnd(B, C), rnd(B, C)
     err, outs = 0.0, {}
     for chunk, gelu in ((1536, "v1"), (768, "v1"), (1536, "v2")):
-        got, want = call(W8.fused_proj_mlp_q8a8, x, y, sets[0], chunk, gelu), call(
-            W8.fused_proj_mlp_q8a8_plain, x, y, sets[0], chunk, gelu)
-        torch.cuda.synchronize()
-        err = max(err, compare(f"fused_proj_mlp_q8a8 B={B} chunk={chunk} gelu {gelu}", got, want)[0])
+        e, got, want = held(f"B={B}", x, y, sets[0], chunk, gelu)
+        err = max(err, e)
         outs[chunk, gelu] = got, want
     (k1, p1), (k2, p2) = outs[1536, "v1"], outs[768, "v1"]
     dk, dp = float((k1.float() - k2.float()).abs().mean()), float((p1.float() - p2.float()).abs().mean())
@@ -1274,27 +1418,59 @@ def check_w8a8(W8, quantize_weight, dev, gen):
         raise AssertionError(f"fused_proj_mlp_q8a8: chunk 1536 -> 768 moves the kernel's output by mean |d| "
                              f"{dk:.4e}, the plain version's by {dp:.4e}")
     log(f"  fused_proj_mlp_q8a8 chunk 1536 -> 768: mean |d| kernel {dk:.4e}, plain {dp:.4e} (within 10%)")
-    for b in (37, 300):
-        xb, yb = rnd(b, C), rnd(b, C)
-        got, want = call(W8.fused_proj_mlp_q8a8, xb, yb, sets[1]), call(W8.fused_proj_mlp_q8a8_plain, xb, yb, sets[1])
-        torch.cuda.synchronize()
-        err = max(err, compare(f"fused_proj_mlp_q8a8 B={b} chunk=1536", got, want)[0])
-    ms = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8, x, y, s) for s in sets], 30)
-    plain = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_plain, x, y, s) for s in sets], 6)
+    for b in (37, 300, 500):
+        err = max(err, held(f"B={b}", rnd(b, C), rnd(b, C), sets[1])[0])
+    wide = layer(2560, 10240)
+    ln_wide = (rnd(2560, std=0.1, mean=1.0), rnd(2560, std=0.1))
+    xw, yw = rnd(B, 2560), rnd(B, 2560)
+    for gelu in ("v1", "v2"):
+        err = max(err, held(f"C=2560 B={B}", xw, yw, wide, 2560, gelu, ln_wide)[0])
+    del wide
+    fn = lambda: call(W8.fused_proj_mlp_q8a8, x, y, sets[0])  # noqa: E731
+    fn()  # the plan, scratch and tensor maps are made on the host before the profiled call
+    kernels = device_kernels(fn)
+    if len(kernels) != 1 or "w8a8_kernel" not in kernels[0]:
+        raise AssertionError(f"fused_proj_mlp_q8a8: one call issued device kernels {kernels}, not one w8a8_kernel")
+    log(f"  fused_proj_mlp_q8a8: one call issues one device kernel ({kernels[0][:72]}...)")
+    fn()
+    phases = w8a8_stamps(f"fused_proj_mlp_q8a8 B={B}")
     hq = torch.randint(-127, 128, (B, C), generator=gen, device=dev, dtype=torch.int8)
     tq = torch.randint(-127, 128, (B, H), generator=gen, device=dev, dtype=torch.int8)
     wo_bf = [s[0].to(torch.bfloat16) * s[1][:, None] for s in sets]
-    lib = cuda_ms([lambda s=s, w=w: (F.linear(y, w), torch._int_mm(hq, s[3].t()), torch._int_mm(tq, s[6].t()))
-                   for s, w in zip(sets, wo_bf)], 30)
+    kernel = [lambda s=s: call(W8.fused_proj_mlp_q8a8, x, y, s) for s in sets]
+    library = [lambda s=s, w=w: (F.linear(y, w), torch._int_mm(hq, s[3].t()), torch._int_mm(tq, s[6].t()))
+               for s, w in zip(sets, wo_bf)]
+    graph = {"kernel": graph_ms(kernel),
+             "first design": graph_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_v1, x, y, s) for s in sets]),
+             "#6": graph_ms([lambda s=s: DK.fused_proj_mlp_q8(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:])
+                             for s in sets]),
+             "library": graph_ms(library)}
+    ms = cuda_ms(kernel, 30)
+    plain = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_plain, x, y, s) for s in sets], 6)
+    # where int8 activations pay: #16 against #6 at the larger batches, on the same weights
+    wider = {}
+    for b in (300, 500):
+        xb, yb = rnd(b, C), rnd(b, C)
+        wider[b] = {"graph_ms": graph_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8, xb, yb, s) for s in sets]),
+                    "q8_graph_ms": graph_ms([lambda s=s: DK.fused_proj_mlp_q8(xb, yb, s[0], s[1], s[2], ln_s, ln_b,
+                                                                              *s[3:]) for s in sets])}
+    log("  fused_proj_mlp_q8a8 against #6 (fused_proj_mlp_q8), device (graph replay): " + "; ".join(
+        f"B {b} {r['graph_ms']:.4f} ms against {r['q8_graph_ms']:.4f} ({r['graph_ms'] / r['q8_graph_ms']:.2f}x #6's "
+        f"time)" for b, r in wider.items()) + f"; {card_line()}")
     n_bytes = 2 * B * C * 2 + (C * C + 2 * C * H) + 2 * (2 * C + H) * 2 + 2 * C * 2 + B * C * 2
     b = bound(n_bytes, 2 * B * 2 * C * H, INT8_TENSOR_OPS, more=((2 * B * C * C, BF16_TENSOR_FLOPS),))
-    log(f"  fused_proj_mlp_q8a8 time (B {B}, chunk 1536): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"(F.linear for wo + two torch._int_mm over the whole H, no LN, quantization or epilogues) {lib:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    log(f"  fused_proj_mlp_q8a8 time (B {B}, chunk 1536): device (graph replay) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
+        + f" (the first design {graph['first design'] / graph['kernel']:.2f}x the kernel; #6 "
+        f"{graph['#6'] / graph['kernel']:.2f}x); eager kernel {ms:.4f} ms, plain {plain:.4f} ms; library = F.linear "
+        f"for wo + two torch._int_mm over the whole H, no LN, quantization or epilogues; bound {b['bound_ms']:.4f} ms "
+        f"by {b['bound_by']}; {card_line()}")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"],
+            "q8_graph_ms": graph["#6"], "plain_ms": plain, "library_ms": graph["library"], **b, "phase_us": phases,
+            "b300": wider[300], "b500": wider[500]}
 
 
-DENSE_MLP_PHASES = ("panel", "LN statistics", "normalise", "phase A tiles (w1)", "grid barrier", "phase B (w2)")
+MLP_KERNEL_PHASES = ("panel", "LN statistics", "normalise", "phase A tiles (w1)", "grid barrier", "phase B (w2)")
 
 
 def dense_mlp_stamps(what) -> dict:
@@ -1305,7 +1481,7 @@ def dense_mlp_stamps(what) -> dict:
 
     torch.cuda.synchronize()
     ns = _build.stamps_ns("rq_dense_mlp_phase_ns")
-    us = dict(zip(DENSE_MLP_PHASES, ((ns[i + 1] - ns[i]) / 1e3 for i in range(6))))
+    us = dict(zip(MLP_KERNEL_PHASES, ((ns[i + 1] - ns[i]) / 1e3 for i in range(6))))
     tiles = {"A": [(ns[7 + i] - ns[3]) / 1e3 for i in range(6)], "B": [(ns[13 + i] - ns[5]) / 1e3 for i in range(2)]}
     log(f"  {what} phases of one call (CTA 0, us): " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
         + "; first tiles' K loop end / exchange open (us into the phase): "
@@ -1978,23 +2154,21 @@ def q8_pipeline_phase(QP, counters, dev, card) -> dict:
     show the launches the experiment issues (per timed point: its eager
     chains, a warm-up call, the chain at capture and each replay; one call
     each of #6, #17 and #18 for the numeric checks), #6 the "shipped"
-    chain's, and every other kernel 0. The points that print FAILED must be
-    the ones the shared-memory arithmetic predicts (stages beyond what a
-    block may hold). Returns the launches of #17, #18, #19 and #20."""
+    chain's, and every other kernel 0 (the first designs' too). The points
+    that print FAILED must be the ones #17 / #18's contract refuses (a chunk
+    not a multiple of 64 or not dividing H): none of the sweeps'. Returns
+    the launches of #17, #18, #19 and #20."""
     from rqvae_tpu_torch.tools import exp_q8_pipeline as E
 
     os.environ["EXP_ITERS"] = str(PIPE_ITERS)
     for name in ("EXP_SKIP_SWEEPS", "EXP_SKIP_PROBES"):
         os.environ.pop(name, None)
-    grid, optin = QP._card(dev)
-    C, H, L = 1536, 6144, 16
-    predicted = []
-    for kind, chunks, depths in (("q8 ring", E.RING_CHUNKS, E.RING_NBUF), ("q8 PACKED", E.PACKED_CHUNKS, E.PACKED_NBUF)):
-        for chunk in chunks:
-            for n_buf in depths:
-                if H // chunk >= n_buf and n_buf * QP.stage_bytes(C, chunk, 1, grid) + QP._STATIC_SMEM > optin:
-                    predicted.append(f"{kind} chunk={chunk:5d} n_buf={n_buf}")
-    log(f"  predicted FAILED points ({grid} blocks, {optin} B of shared memory a block): {predicted or 'none'}")
+    H, L = 6144, 16
+    predicted = [f"{kind} chunk={chunk:5d} n_buf={n_buf}"
+                 for kind, chunks, depths in (("q8 ring", E.RING_CHUNKS, E.RING_NBUF),
+                                              ("q8 PACKED", E.PACKED_CHUNKS, E.PACKED_NBUF))
+                 for chunk in chunks for n_buf in depths if H // chunk >= n_buf and (chunk % 64 or H % chunk)]
+    log(f"  predicted FAILED points (#17 / #18's contract: chunk % 64 == 0, dividing H): {predicted or 'none'}")
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2053,7 +2227,8 @@ def w8a8_phase(counters, dev, card) -> int:
         raise AssertionError(f"[exp_w8a8] q8a8 vs q8 mean |d| {mean_d} outside (0, mean |q8| {mean_q8})")
     log(f"  [exp_w8a8] bf16 and q8 chains through #3's and #6's single-launch kernel (csrc/decode_dense.cu): "
         f"{res['ms']['bf16']:.2f} and {res['ms']['q8']:.2f} ms per 16 layers (the split-K designs they replaced: 3.14 "
-        f"and 3.29 ms on an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6); {card}")
+        f"and 3.29 ms on an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6); q8a8 through #16's (csrc/dense_w8a8.cu): "
+        f"{res['ms']['q8a8']:.2f} ms (its first design: 2.11 ms, PERF.md §6); {card}")
     log(f"  [exp_w8a8] launches: fused_proj_mlp {n}, fused_proj_mlp_q8 {n + 1}, fused_proj_mlp_q8a8 {n + 1} "
         f"({E.BEST_OF} eager chains + 1 warm-up + the chain at capture + {E.BEST_OF} replays, chains of "
         f"{W8A8_ITERS} x 16 calls; + 1 each of #6 and #16 for the error line), every other kernel 0; "
@@ -2096,9 +2271,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention' and 'mlp'")
+                         f"'attention', 'mlp' and 'q8'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -2139,8 +2314,12 @@ def main() -> None:
         raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
     log(f"  libw8a8.so: {imma} IMMA (s8 x s8 -> s32 tensor-core) instructions, "
         f"{count_sass(build_dir / 'libw8a8.so', 'HMMA')} HMMA (the bf16 wo product)")
-    for lib, what in (("libdecode_dense.so", "#2 / #3 and #5-#8"), ("libdecode_fused.so", "#13 / #14"),
-                      ("libdense_mlp.so", "#15 / #20")):
+    igmma = count_sass(build_dir / "libdense_w8a8.so", "IGMMA")
+    if igmma == 0:
+        raise AssertionError("libdense_w8a8.so holds no IGMMA instruction: #16's MLP products are not on s8 wgmma")
+    log(f"  libdense_w8a8.so: {igmma} IGMMA (s8 x s8 -> s32 wgmma) instructions")
+    for lib, what in (("libdecode_dense.so", "#2 / #3, #5-#8 and #17 / #18"), ("libdecode_fused.so", "#13 / #14"),
+                      ("libdense_mlp.so", "#15 / #20"), ("libdense_w8a8.so", "#16's wo product")):
         hgmma = count_sass(build_dir / lib, "HGMMA")
         if hgmma == 0:
             raise AssertionError(f"{lib} holds no HGMMA instruction: {what} do not run on wgmma")
@@ -2164,6 +2343,10 @@ def main() -> None:
         check_mlp(MLP, DM, dev, gen)
         check_ablate(QP, quantize_weight, dev, gen)
         return
+    if mode == "q8":
+        check_q8_pipeline(QP, DK, quantize_weight, dev, gen)
+        check_w8a8(W8, DK, quantize_weight, dev, gen)
+        return
     if mode == "attention":
         check_attention(AK, dev, gen)
         check_attention_q8(AK, dev, gen)
@@ -2179,9 +2362,9 @@ def main() -> None:
     nearest = check_nearest_code(RK, dev, gen)
     mega = check_decode_layer_step(MK, DK, AK, dev, gen)
     attn_wo = check_attention_q8_wo(AK, DK, quantize_weight, dev, gen)
-    pipe_ring, pipe_packed, pipe_probe = check_q8_pipeline(QP, quantize_weight, dev, gen)
+    pipe_ring, pipe_packed, pipe_probe = check_q8_pipeline(QP, DK, quantize_weight, dev, gen)
     pipe_ablate = check_ablate(QP, quantize_weight, dev, gen)
-    w8a8 = check_w8a8(W8, quantize_weight, dev, gen)
+    w8a8 = check_w8a8(W8, DK, quantize_weight, dev, gen)
     mlp15 = check_mlp(MLP, DM, dev, gen)
 
     # phase 4: the main path at full width, at each operating point
@@ -2209,22 +2392,24 @@ def main() -> None:
                 QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
                 MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
                 AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
-                MLP.fused_mlp_v1, QP.ablate_ring_v1)
+                MLP.fused_mlp_v1, QP.ablate_ring_v1, QP.fused_proj_mlp_q8_ring_v1, QP.fused_proj_mlp_q8_packed_v1,
+                W8.fused_proj_mlp_q8a8_v1)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
-        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("bf16", False, {}, (A, D, D, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("bf16+mega", False, dict(dense="mega"),
-         (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
-        ("kv_q8", False, dict(kv_q8=True), (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        ("kv_q8", False, dict(kv_q8=True),
+         (0, D, D, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("kv_q8+attn_wo", False, dict(kv_q8=True, attn_wo=True),
-         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, D, D, 0, 0, 0, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         # int8 weights: the body's S == 1 steps run the int8 dense pair too (its
         # QKV half alone under attn_wo, whose MLP stays on the plain _mm)
         ("int8+kv_q8", True, dict(kv_q8=True),
-         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, A, D + A, D + A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
         ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True),
-         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+         (0, 0, 0, 0, D + A, D, 0, 0, A, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ]
     assert all(len(expect) == len(counters) for *_, expect in points)
     launches, results = {}, {}
@@ -2328,15 +2513,15 @@ def main() -> None:
              head_size_104=attn_read104),  # the same kernel on vqgan_large's path
         dict(name="decode_attention_q8", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
              replaces="rqvae_tpu/ops/attention_kernel.py:830", **attn_q8_read),
-        dict(name="fused_proj_mlp_q8_ring", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+        dict(name="fused_proj_mlp_q8_ring", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="tools/exp_q8_pipeline.py:115", **pipe_ring),
-        dict(name="fused_proj_mlp_q8_packed", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
-             replaces="tools/exp_q8_pipeline.py:216 (the same kernel as :115, packed chunk address)", **pipe_packed),
+        dict(name="fused_proj_mlp_q8_packed", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
+             replaces="tools/exp_q8_pipeline.py:216 (the same kernel as :115, packed w2 map)", **pipe_packed),
         dict(name="stream_probe", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
              replaces="tools/exp_q8_pipeline.py:302", **pipe_probe),
         dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/dense_mlp.cu",
              replaces="tools/exp_q8_pipeline.py:379", **pipe_ablate),
-        dict(name="fused_proj_mlp_q8a8", route="cuda", source="rqvae_tpu_torch/csrc/w8a8.cu",
+        dict(name="fused_proj_mlp_q8a8", route="cuda", source="rqvae_tpu_torch/csrc/dense_w8a8.cu",
              replaces="tools/exp_w8a8.py:107", **w8a8),
         dict(name="fused_mlp", route="cuda", source="rqvae_tpu_torch/csrc/dense_mlp.cu",
              replaces="tools/exp_mlp_kernel.py:75", **mlp15),

@@ -12,16 +12,22 @@
 // (:109) and ::fused_proj_mlp (:329), and with int8 weights
 // ::fused_ln_qkv_q8_ring (:246) / ::fused_ln_qkv_q8 (:161) and
 // ::fused_proj_mlp_q8_ring (:451) / ::fused_proj_mlp_q8 (:559) (each pair
-// differs only in TPU DMA depth), at their rounding points (one-pass fp32
-// LayerNorm cast to bf16; fp32 products; QKV's bias on the fp32 sum before
+// differs only in TPU DMA depth), and tools/exp_q8_pipeline.py::
+// fused_proj_mlp_q8_ring (:115) / ::fused_proj_mlp_q8_packed (:216), which
+// compute :451's function over hand-built rings of weight chunks (the
+// packed one on w1 / w2 packed one chunk per block: w2 comes through a
+// tensor map of [nc C, chunk], `chunk`), at their rounding points
+// (one-pass fp32 LayerNorm cast to bf16; fp32 products; QKV's bias on the fp32 sum before
 // its one cast; the bf16 projection cast before + bo and the residual, the
 // int8 one scaled and biased in fp32 before its cast; gelu in fp32, then
 // the cast; + b2 in fp32, the cast, the residual; an int8 weight's scale on
 // the whole fp32 sum of its channel, after the cluster's reduction). The
 // weights come in the nn.Linear [out, in] layout. The split-K kernels
 // these replace stay in csrc/decode_layer.cu (rq_*_splitk) as the A/B
-// baseline. The machinery below (layout, ring, producer, K loop, cluster
-// exchange, epilogues, grid barrier) lives in decode_dense.cuh, which
+// baseline, and the cooperative chunk-ring kernel of the two experiment
+// functions in csrc/q8_pipeline.cu (rq_q8_ring_mlp) as theirs. The
+// machinery below (layout, ring, producer, K loop, cluster exchange,
+// epilogues, grid barrier) lives in decode_dense.cuh, which
 // csrc/decode_fused.cu's layer-step kernels share; each library has its
 // own copy of the barrier's counters.
 //
@@ -257,7 +263,8 @@ int launch(const void* const* maps, const Params& p, int cluster, int clusters, 
   const int k_slice = p.C / cluster;
   if (cluster < 1 || cluster > kMaxCluster || clusters < 1 || p.stages < kMinStages || p.stages > kMaxStages ||
       k_slice % kBK || layout(MT, k_slice, p.stages, kMlp, (int)sizeof(W)).total > smem || smem > kMaxSmem ||
-      (kMlp && (p.N / cluster) % kBK) || p.row_tiles * MT < p.M)
+      (kMlp && (p.N / cluster) % kBK) || p.row_tiles * MT < p.M ||
+      (p.chunk && (!kMlp || p.chunk % kBK || p.N % p.chunk)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem((const void*)dense_kernel<MT, kMlp, W>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -387,7 +394,9 @@ extern "C" int rq_fused_ln_qkv(const void* x, const void* x_map, const void* ln_
 // wo_q^T) * wo_s + bo), t = bf16(gelu((LN2(x2) @ w1_q^T) * w1_s + b1)), out
 // = x2 + bf16((t @ w2_q^T) * w2_s + b2). x, y, out, x2 (scratch): [M, C],
 // and the tensor maps of y and x2 in boxes of mt rows; the tensor maps of
-// wo [C, C], w1 [H, C], w2 [C, H]; biases and LN2 [C] or [H]; t (scratch):
+// wo [C, C], w1 [H, C], w2 [C, H] (chunk 0) or w2 packed [nc, C, chunk] as
+// the matrix [nc C, chunk] (chunk % 64 == 0, dividing H; the packed w1
+// [nc, chunk, C] has w1's bytes); biases and LN2 [C] or [H]; t (scratch):
 // [H / 64, row_tiles * mt, 64]; stats (scratch): fp32 [M, C / 64, 2]; all
 // else bf16. gelu_sigmoid selects t * sigmoid(1.702 t) over the exact erf.
 // One persistent launch, co-resident or refused; the plan as for
@@ -396,7 +405,7 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map
                                  const void* bo, const void* ln_w, const void* ln_b, const void* w1_map,
                                  const void* w1_s, const void* b1, const void* w2_map, const void* w2_s, const void* b2,
                                  void* out, void* x2, const void* x2_map, void* t, void* stats, int M, int C, int H,
-                                 int cluster, int clusters, int mt, int row_tiles, int stages, int smem,
+                                 int chunk, int cluster, int clusters, int mt, int row_tiles, int stages, int smem,
                                  int gelu_sigmoid, float eps, void* stream) {
   if ((wo_s == nullptr) != (w1_s == nullptr) || (wo_s == nullptr) != (w2_s == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -418,6 +427,7 @@ extern "C" int rq_fused_proj_mlp(const void* x, const void* y, const void* y_map
   p.M = M;
   p.C = C;
   p.N = H;
+  p.chunk = chunk;
   p.row_tiles = row_tiles;
   p.stages = stages;
   p.gelu_sigmoid = gelu_sigmoid;

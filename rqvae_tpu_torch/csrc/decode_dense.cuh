@@ -1,4 +1,5 @@
-// The shared machinery of csrc/decode_dense.cu, csrc/decode_fused.cu and csrc/dense_mlp.cu
+// The shared machinery of csrc/decode_dense.cu, csrc/decode_fused.cu, csrc/dense_mlp.cu and
+// csrc/dense_w8a8.cu
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,6 +94,16 @@ struct Params {
   bf16* ks;
   bf16* vs;
   int ld_a, T, n_head, window, n_valid, cur_len;
+  // kProjMlp's w2 product only: w2 packed [nc, C, chunk], read through a
+  // tensor map of [nc C, chunk] (0: w2 [C, H])
+  int chunk;
+  // csrc/dense_w8a8.cu only (t holds the s8 images of the tq tiles there)
+  int8_t* hq;         // [row_tiles * mt, C]: LN2's output quantized per row
+  float* hs;          // [row_tiles * mt]: its row scales
+  float* tf;          // [H / 64, row_tiles * mt, 64]: phase A's t in fp32
+  float* tmax;        // [H / 64, row_tiles * mt]: each row's max |t| over each 64-unit tile
+  float* ts;          // [H / act_chunk, row_tiles * mt]: each row's activation scale of each chunk
+  int act_chunk;      // the hidden units that share a row's activation scale
 };
 
 // The fused kernels' attention: the consumer warps that attend (all 8, or
@@ -740,6 +751,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
+// gelu by form: 0 none, 1 the exact erf, 2 the sigmoid form t * sigmoid(1.702 t)
+__device__ __forceinline__ float gelu_of(float v, int form) {
+  if (form == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (form == 2) return v / (1.f + expf(-1.702f * v));
+  return v;
+}
+
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -880,13 +898,18 @@ struct Exchange {
 // ---- the kernel ------------------------------------------------------------
 
 // What a launch computes: fused_ln_qkv (kLnQkv), fused_proj_mlp
-// (kProjMlp), and the fused kernels of csrc/decode_fused.cu: the whole
-// layer step (kLayer) and the q8 attention with wo (kAttnWo).
-enum Kind { kLnQkv, kProjMlp, kLayer, kAttnWo };
+// (kProjMlp), the fused kernels of csrc/decode_fused.cu: the whole layer
+// step (kLayer) and the q8 attention with wo (kAttnWo), and
+// csrc/dense_w8a8.cu's proj + MLP on int8 activations (kW8A8: kProjMlp's
+// products, its streamed B tiles s8)
+enum Kind { kLnQkv, kProjMlp, kLayer, kAttnWo, kW8A8 };
 
 __host__ __device__ constexpr int n_products(int kind) {
-  return kind == kLnQkv || kind == kAttnWo ? 1 : kind == kProjMlp ? 3 : 4;
+  return kind == kLnQkv || kind == kAttnWo ? 1 : kind == kProjMlp || kind == kW8A8 ? 3 : 4;
 }
+
+// bytes of one activation row of a streamed B tile: 64 bf16, or 64 s8 (kW8A8)
+__host__ __device__ constexpr int b_row_bytes(int kind) { return kind == kW8A8 ? kBK : kRowBytes; }
 
 // The products of one launch, in the order the producer and the consumers
 // walk them: fused_ln_qkv has one (wqkv), fused_proj_mlp three (wo, w1,
@@ -918,23 +941,29 @@ struct Ring {
 
 // The producer: lane 0 of the last warp issues every weight tile (and, in
 // w2's product, t tile) of this CTA in the consumers' order, `stages`
-// ahead; maps[i] is product i's weight.
+// ahead; maps[i] is product i's weight. kProjMlp's w2 may be packed
+// (p.chunk): its tile at (K k0, rows j * 64 ..) lies at column k0 mod chunk,
+// row (k0 div chunk) C + j * 64 of the [nc C, chunk] map. kW8A8 copies a t
+// tile's rows below M alone (the rest of the stage's tile is left as it
+// is: it meets only output rows that are never stored).
 template <int MT, int kKind>
 __device__ __forceinline__ void producer(const CUtensorMap* const* maps, const Params& p, const Ring& ring,
                                          uint32_t gate, int s, int rank, int cid, int G) {
+  constexpr uint32_t kTBytes = MT * b_row_bytes(kKind);  // a streamed t tile
   const int m_pad = p.row_tiles * MT;
   int it = 0;
   int first = -1;       // the first streamed unit
-  bool open = false;    // the gate: the consumers passed the second grid barrier
+  bool open = false;    // the gate: the consumers passed the last grid barrier
   int n_def = 0;        // streamed units whose t copy waits for the gate
   int def_stage[kMaxStages];
-  const bf16* def_src[kMaxStages];
+  const uint8_t* def_src[kMaxStages];
+  uint32_t def_bytes[kMaxStages];  // kW8A8's
   const auto open_gate = [&]() {
     mbar_wait(gate, 0);
     fence_async_global();
     for (int d = 0; d < n_def; ++d)
-      bulk_copy(ring.base + def_stage[d] * ring.stage_bytes + ring.tile_bytes, def_src[d], MT * kRowBytes,
-                ring.full + def_stage[d] * 8);
+      bulk_copy(ring.base + def_stage[d] * ring.stage_bytes + ring.tile_bytes, def_src[d],
+                kKind == kW8A8 ? def_bytes[d] : kTBytes, ring.full + def_stage[d] * 8);
     n_def = 0;
     open = true;
   };
@@ -944,8 +973,10 @@ __device__ __forceinline__ void producer(const CUtensorMap* const* maps, const P
     const int ks = pr.k / s;
     const int k_lo = rank * ks;
     const int chunks = ks / kBK;
-    const uint32_t bytes = ring.tile_bytes + (pr.streamed ? MT * kRowBytes : 0);
+    const bool packed = kKind == kProjMlp && pr.streamed && p.chunk;
     for (int rt = 0; rt < p.row_tiles; ++rt) {
+      const uint32_t t_bytes = kKind == kW8A8 ? (uint32_t)min(MT, p.M - rt * MT) * kBK : kTBytes;
+      const uint32_t bytes = ring.tile_bytes + (pr.streamed ? t_bytes : 0);
       for (int j = cid; j < pr.tiles; j += G) {
         for (int kc = 0; kc < chunks; ++kc, ++it) {
           const int stage = it % ring.stages;
@@ -958,14 +989,20 @@ __device__ __forceinline__ void producer(const CUtensorMap* const* maps, const P
           const uint32_t full = ring.full + stage * 8;
           const uint32_t dst = ring.base + stage * ring.stage_bytes;
           mbar_expect_tx(full, bytes);
-          tma_tile(dst, map, k_lo + kc * kBK, j * kTile, full);
+          const int k0 = k_lo + kc * kBK;
+          if (packed)
+            tma_tile(dst, map, k0 % p.chunk, (k0 / p.chunk) * p.C + j * kTile, full);
+          else
+            tma_tile(dst, map, k0, j * kTile, full);
           if (pr.streamed) {
-            const bf16* src = p.t + ((size_t)(k_lo / kBK + kc) * m_pad + (size_t)rt * MT) * kBK;
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(p.t) +
+                                 ((size_t)(k0 / kBK) * m_pad + (size_t)rt * MT) * b_row_bytes(kKind);
             if (open) {
-              bulk_copy(dst + ring.tile_bytes, src, MT * kRowBytes, full);
+              bulk_copy(dst + ring.tile_bytes, src, t_bytes, full);
             } else {
               def_stage[n_def] = stage;
               def_src[n_def] = src;
+              if constexpr (kKind == kW8A8) def_bytes[n_def] = t_bytes;
               ++n_def;
             }
           }
@@ -1042,13 +1079,16 @@ __device__ __forceinline__ void k_loop(float* acc, int chunks, const Ring& ring,
 // (s, the cluster size, is a power of two)
 __device__ __forceinline__ int pair_lo(int r, int P, int s) { return (r * P) >> (__ffs(s) - 1); }
 
+__device__ __forceinline__ float word_bits(float v) { return v; }
+__device__ __forceinline__ float word_bits(int v) { return __int_as_float(v); }
+
 // Push a warpgroup's partial tile (acc, the wgmma layout, NW rows of it:
-// see k_loop) to the owners of its rows: lane (w, l) of fragment J holds
-// row pair pair0 + 4 J + l % 4, column pair 8 (w % 4) + l / 4, as one
-// 16-byte cell of the owner's slot `rank` (pair0: NW / 2 for the second
-// warpgroup of a split tile, else 0).
-template <int MT, int NW = MT>
-__device__ __forceinline__ void push_partial(const float* acc, uint32_t red_u32, uint32_t full, int s, int rank) {
+// see k_loop; fp32, or s32 sums moved as their 32-bit words) to the owners
+// of its rows: lane (w, l) of fragment J holds row pair pair0 + 4 J + l %
+// 4, column pair 8 (w % 4) + l / 4, as one 16-byte cell of the owner's slot
+// `rank` (pair0: NW / 2 for the second warpgroup of a split tile, else 0).
+template <int MT, int NW = MT, typename Acc>
+__device__ __forceinline__ void push_partial(const Acc* acc, uint32_t red_u32, uint32_t full, int s, int rank) {
   constexpr int P = MT / 2;
   const int lane = threadIdx.x & 31;
   const int pair0 = NW < MT ? (threadIdx.x >> 7) * (NW / 2) : 0;
@@ -1059,7 +1099,8 @@ __device__ __forceinline__ void push_partial(const float* acc, uint32_t red_u32,
     const int mp = pair0 + 4 * J + (lane & 3);
     const int r = ((mp + 1) * s - 1) / P;  // the owner: pair_lo(r) <= mp < pair_lo(r + 1)
     const uint32_t off = (uint32_t)((rank * slot + mp - pair_lo(r, P, s)) * 32 + cp) * 16;
-    st_async4(mapa(red_u32 + off, r), acc[4 * J], acc[4 * J + 1], acc[4 * J + 2], acc[4 * J + 3], mapa(full, r));
+    st_async4(mapa(red_u32 + off, r), word_bits(acc[4 * J]), word_bits(acc[4 * J + 1]), word_bits(acc[4 * J + 2]),
+              word_bits(acc[4 * J + 3]), mapa(full, r));
   }
 }
 
@@ -1179,14 +1220,15 @@ __device__ __forceinline__ void epilogue(const Params& p, const float4* red, int
 // Rows [m0, m0 + MT) of an activation [M, C] (its tensor map: boxes of MT
 // rows x 64 columns, the 128-byte swizzle; rows past M read as zeros),
 // columns [k_lo, k_lo + ks), into the panel by TMA, on `bar`: thread 0
-// issues, every thread waits for phase `parity`.
-template <int MT>
+// issues, every thread waits for phase `parity`. kRow: a panel row's bytes
+// (64 for an s8 activation, its map with the 64-byte swizzle).
+template <int MT, int kRow = kRowBytes>
 __device__ __forceinline__ void load_panel(uint32_t panel, const CUtensorMap* map, int k_lo, int ks, int m0,
                                            uint32_t bar, int parity) {
   if (threadIdx.x == 0) {
     fence_async_global();  // the activation may come from other CTAs' generic stores (x2)
-    mbar_expect_tx(bar, (uint32_t)(ks / kBK * MT * kRowBytes));
-    for (int kb = 0; kb < ks / kBK; ++kb) tma_tile(panel + kb * MT * kRowBytes, map, k_lo + kb * kBK, m0, bar);
+    mbar_expect_tx(bar, (uint32_t)(ks / kBK * MT * kRow));
+    for (int kb = 0; kb < ks / kBK; ++kb) tma_tile(panel + kb * MT * kRow, map, k_lo + kb * kBK, m0, bar);
   }
   mbar_wait(bar, parity);
 }
@@ -1311,23 +1353,23 @@ __device__ __forceinline__ void ln2_stats(const Params& p, int m0, int rows, flo
 }
 
 // The weight tiles j = cid, cid + G, ... of one product for one row tile;
-// epi(j, warp0, nwarps) applies tile j's epilogue on the consumer warps from
-// warp0 on. Unsplit (NW == MT): the first warpgroup runs tile j's K loop
-// while the second applies the epilogue of tile j - G (its round's pushes
-// having landed meanwhile); then the first pushes tile j's partial. Split
-// (see k_loop): both warpgroups run the K loop and push, and tile j - G's
-// epilogue runs on all eight warps in between. The last tile's epilogue runs
-// on all consumer warps. CTA 0 stamps its first n_st tiles from stamp `st`
-// on: K loop done, exchange open (every CTA of the cluster has read the
-// round before).
-template <int MT, bool kQ8, int NW, typename Epi>
-__device__ __forceinline__ void for_tiles(float* acc, int tiles, int cid, int G, int chunks, const Ring& ring,
-                                          const BSource& src, int& it, Exchange& xc, uint32_t red_u32, int s, int rank,
-                                          const Epi& epi, int st = 0, int n_st = 0) {
+// loop() runs a tile's K loop into acc (the wgmma layout, NW rows of the
+// tile), epi(j, warp0, nwarps) applies tile j's epilogue on the consumer
+// warps from warp0 on. Unsplit (NW == MT): the first warpgroup runs tile
+// j's K loop while the second applies the epilogue of tile j - G (its
+// round's pushes having landed meanwhile); then the first pushes tile j's
+// partial. Split (see k_loop): both warpgroups run the K loop and push, and
+// tile j - G's epilogue runs on all eight warps in between. The last tile's
+// epilogue runs on all consumer warps. CTA 0 stamps its first n_st tiles
+// from stamp `st` on: K loop done, exchange open (every CTA of the cluster
+// has read the round before).
+template <int MT, int NW, typename Acc, typename Loop, typename Epi>
+__device__ __forceinline__ void tile_loop(const Acc* acc, int tiles, int cid, int G, const Loop& loop, Exchange& xc,
+                                          uint32_t red_u32, int s, int rank, const Epi& epi, int st, int n_st) {
   int pending = -1;
   if constexpr (NW < MT) {
     for (int j = cid, n = 0; j < tiles; j += G, ++n) {
-      k_loop<MT, kQ8, NW>(acc, chunks, ring, src, it);
+      loop();
       if (n < n_st) stamp(st + 2 * n);
       if (pending >= 0) {
         xc.wait();
@@ -1343,7 +1385,7 @@ __device__ __forceinline__ void for_tiles(float* acc, int tiles, int cid, int G,
     const bool mma = threadIdx.x < 128;
     for (int j = cid, n = 0; j < tiles; j += G, ++n) {
       if (mma) {
-        k_loop<MT, kQ8>(acc, chunks, ring, src, it);
+        loop();
         if (n < n_st) stamp(st + 2 * n);
       } else if (pending >= 0) {
         xc.wait();
@@ -1361,6 +1403,15 @@ __device__ __forceinline__ void for_tiles(float* acc, int tiles, int cid, int G,
     epi(pending, 0, kConsumers / 32);
     xc.end();
   }
+}
+
+// tile_loop with decode_dense.cuh's K loop (k_loop) over `chunks` chunks
+template <int MT, bool kQ8, int NW, typename Epi>
+__device__ __forceinline__ void for_tiles(float* acc, int tiles, int cid, int G, int chunks, const Ring& ring,
+                                          const BSource& src, int& it, Exchange& xc, uint32_t red_u32, int s, int rank,
+                                          const Epi& epi, int st = 0, int n_st = 0) {
+  const auto loop = [&]() { k_loop<MT, kQ8, NW>(acc, chunks, ring, src, it); };
+  tile_loop<MT, NW>(acc, tiles, cid, G, loop, xc, red_u32, s, rank, epi, st, n_st);
 }
 
 // for_tiles over the epilogues of decode_dense.cu and decode_fused.cu, for

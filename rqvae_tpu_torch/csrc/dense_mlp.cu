@@ -179,12 +179,6 @@ __host__ __device__ constexpr int wg_rows() { return halves<MT>() ? MT / 2 : MT;
 // the epilogues: phase A's t (kT), phase B's out (kOutput)
 enum MlpEpilogue { kT, kOutput };
 
-__device__ __forceinline__ float gelu_of(float v, int form) {
-  if (form == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  if (form == 2) return v / (1.f + expf(-1.702f * v));
-  return v;
-}
-
 // decode_dense.cuh's epilogue for these forms: this CTA sums its row pairs
 // over the s slots in rank order; warp w (of nwarps from warp0) takes pairs
 // lo + w, lo + w + nwarps, ...; lane l the column pair (o, o + 8)

@@ -11,11 +11,16 @@
 //   rq_q8_stream_probe (#19): the chunk stream alone ("dma": copy every
 //     chunk, touch one value per row; "dequant": widen and sum every row).
 //
-// Replace tools/exp_q8_pipeline.py::fused_proj_mlp_q8_ring (#17, w2 in the
-// [C, H] layout, its chunk j the strided columns j*chunk..) and
-// ::fused_proj_mlp_q8_packed (#18, w2 packed [nc, C, chunk], one
-// contiguous block per chunk): one kernel, templated on the w2 chunk
-// address (kPacked). w1 is [H, C] in the port's nn.Linear layout, so its
+// The first design of tools/exp_q8_pipeline.py::fused_proj_mlp_q8_ring
+// (#17, w2 in the [C, H] layout, its chunk j the strided columns
+// j*chunk..) and ::fused_proj_mlp_q8_packed (#18, w2 packed [nc, C, chunk],
+// one contiguous block per chunk), and of ::ablate_ring (#20): one kernel,
+// templated on the w2 chunk address (kPacked). #17 / #18 now launch
+// csrc/decode_dense.cu::rq_fused_proj_mlp (#6's kernel, #18 through a
+// tensor map of the packed w2) and #20 csrc/dense_mlp.cu; this kernel stays
+// as their A/B baseline (fused_proj_mlp_q8_ring_v1, _packed_v1,
+// ablate_ring_v1), which only chip_smoke.py runs. It still replaces
+// ::stream_probe (#19). w1 is [H, C] in the port's nn.Linear layout, so its
 // chunk j (rows j*chunk..) is contiguous in both layouts, and packing it
 // [nc, chunk, C] changes no byte. ::stream_probe (#19) and ::ablate_ring
 // (#20) reuse the same stream loop (Ring, shared through csrc/ring.cuh).

@@ -10,7 +10,10 @@
 //   acc  = sum_j s32(tq_j @ w2[:, chunk j]^T) * ts_j   (fp32, in chunk order)
 //   out  = x2 + bf16(acc * s_2 + b2)
 //
-// Replaces tools/exp_w8a8.py::fused_proj_mlp_q8a8 (#16). Weights in the
+// The first design of tools/exp_w8a8.py::fused_proj_mlp_q8a8 (#16): #16
+// now launches csrc/dense_w8a8.cu (s8 wgmma on csrc/decode_dense.cu's
+// machinery, one persistent launch); this kernel stays as its A/B baseline
+// (fused_proj_mlp_q8a8_v1), which only chip_smoke.py runs. Weights in the
 // port's nn.Linear layout: wo [C, C], w1 [H, C], w2 [C, H], int8 with bf16
 // per-output-channel scales. `chunk` is part of the result, not only a
 // tiling: ts_j is taken per row over the chunk's hidden units.

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "rq_fused_ln_qkv": (_P,) * 8 + (_I,) * 9 + (_F, _P),
     "rq_fused_ln_qkv_splitk": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "rq_fused_ln_qkv_q8_splitk": (_P,) * 8 + (_I,) * 4 + (_F, _P),
-    "rq_fused_proj_mlp": (_P,) * 19 + (_I,) * 10 + (_F, _P),
+    "rq_fused_proj_mlp": (_P,) * 19 + (_I,) * 11 + (_F, _P),
     "rq_fused_proj_mlp_splitk": (_P,) * 14 + (_I,) * 7 + (_F, _P),
     "rq_dense_tensor_map": (_P,) + (_I,) * 4 + (_P,),
     "rq_dense_max_clusters": (_I,) * 5 + (_P,),
@@ -76,6 +76,9 @@ _SIGNATURES = {
     "rq_dense_mlp": (_I,) + (_P,) * 11 + (_I,) * 14 + (_F, _P),
     "rq_dense_mlp_max_clusters": (_I,) * 5 + (_P,),
     "rq_dense_mlp_phase_ns": (_P,),
+    "rq_dense_w8a8": (_P,) * 24 + (_I,) * 11 + (_F, _P),
+    "rq_dense_w8a8_max_clusters": (_I,) * 3 + (_P,),
+    "rq_dense_w8a8_phase_ns": (_P,),
 }
 
 _lock = threading.Lock()

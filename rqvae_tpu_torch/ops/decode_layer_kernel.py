@@ -394,10 +394,11 @@ def _ln_qkv(x, ln_scale, ln_bias, w, ws, bqkv):
     return out
 
 
-def _proj_mlp(x, y, wo, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version):
+def _proj_mlp(x, y, wo, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version, chunk=0):
     """One persistent launch of csrc/decode_dense.cu::rq_fused_proj_mlp on
     checked CUDA tensors: bf16 weights (the scales None) or int8 ones with
-    their scales."""
+    their scales; w1 [H, C]; w2 [C, H], or with `chunk` the packed w2 seen
+    as the matrix [nc C, chunk] (chunk % 64 == 0, dividing H)."""
     if gelu_version not in ("v1", "v2"):
         raise ValueError(f"fused_proj_mlp: unknown gelu version {gelu_version!r}")
     M, C = x.shape
@@ -411,8 +412,8 @@ def _proj_mlp(x, y, wo, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2,
             x.data_ptr(), y.data_ptr(), _tensor_map(y, plan.row_tile), _tensor_map(wo), ptr(wo_s), bo.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), _tensor_map(w1), ptr(w1_s), b1.data_ptr(), _tensor_map(w2),
             ptr(w2_s), b2.data_ptr(), out.data_ptr(), x2.data_ptr(), _tensor_map(x2, plan.row_tile), t.data_ptr(),
-            stats.data_ptr(), M, C, H, plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles, plan.stages,
-            plan.smem, int(gelu_version == "v2"), LN_EPS, _stream(x),
+            stats.data_ptr(), M, C, H, chunk, plan.cluster, plan.clusters, plan.row_tile, plan.row_tiles,
+            plan.stages, plan.smem, int(gelu_version == "v2"), LN_EPS, _stream(x),
         )
     _build.check(err, "rq_fused_proj_mlp")
     return out

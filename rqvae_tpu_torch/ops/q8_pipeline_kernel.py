@@ -11,14 +11,18 @@ of tools/exp_q8_pipeline.py.
 - ablate_ring (#20): the MLP alone, Σ_j cast(gelu?(h @ w1_j^T × s1_j?)) @
   w2_j^T in fp32, cast to h's dtype; int8 or bf16 weights.
 
-The CUDA kernels of #17-#19 are csrc/q8_pipeline.cu (its source note says
-what bounds them on the H100 and how the design answers that); #20's is
-the "ring" form of csrc/dense_mlp.cu (one persistent launch on
-csrc/decode_dense.cu's machinery, planned by ops/dense_mlp_kernel.py),
-with its first design, the MLP-only form of csrc/q8_pipeline.cu's ring
-kernel, kept as the A/B baseline `ablate_ring_v1` that only chip_smoke.py
-runs. This module holds their wrappers, the plain PyTorch versions and the
-packed layout.
+#17 and #18 launch #6's kernel, csrc/decode_dense.cu::rq_fused_proj_mlp
+with int8 weights (one persistent launch, planned by decode_layer_kernel.
+dense_plan), #18 with its w2 read through a tensor map of the packed [nc
+C, chunk]; #19's kernel is csrc/q8_pipeline.cu (its source note says what
+bounds it on the H100 and how the design answers that); #20's is the
+"ring" form of csrc/dense_mlp.cu (one persistent launch on
+csrc/decode_dense.cu's machinery, planned by ops/dense_mlp_kernel.py).
+The first design of #17 / #18 / #20 (csrc/q8_pipeline.cu's cooperative
+chunk-ring kernel, rq_q8_ring_mlp) stays as the A/B baselines
+`fused_proj_mlp_q8_ring_v1`, `fused_proj_mlp_q8_packed_v1` and
+`ablate_ring_v1` that only chip_smoke.py runs. This module holds their
+wrappers, the plain PyTorch versions and the packed layout.
 
 Layout. The port keeps weights in the nn.Linear [out, in] layout: w1 [H,
 C], w2 [C, H], int8 with one bf16 scale per output channel (model.
@@ -29,10 +33,12 @@ C] (the same bytes), pack_w2 [nc, C, chunk]. checkpoint/from_jax.py::
 q8_pipeline_weights_from_jax turns the experiment's arrays into these.
 
 `chunk` and `n_buf` keep the JAX meaning (the hidden slice whose w1 rows
-and w2 columns travel together; the stages in flight; #20's kernel plans
-its own depth, and its chunk is only the packed layout's). The result does
-not depend on them. On the card a point whose stages a block cannot hold
-raises ValueError with the arithmetic; nothing drops to a smaller depth.
+and w2 columns travel together; the stages in flight). The result does not
+depend on them. Only #19 and the first designs still run a ring of chunk
+stages: on the card a point whose stages a block cannot hold raises
+ValueError with the arithmetic, and nothing drops to a smaller depth. #17,
+#18 and #20 plan their own depth: chunk is only the packed layout's (a
+multiple of 64 dividing H), n_buf is still checked (1..8) and sets nothing.
 """
 
 from __future__ import annotations
@@ -244,10 +250,10 @@ def _check_tensors(name, tensors, dtypes):
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
 
 
-def _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version,
-              chunk, n_buf, packed):
-    """Launch the full form of csrc/q8_pipeline.cu::rq_q8_ring_mlp (one
-    cooperative launch); w1 [H, C] or [nc, chunk, C], w2 [C, H] or [nc, C, chunk]."""
+def _checked_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version):
+    """The types and shapes of a CUDA call of #17 / #18 or their first
+    design; w1 [H, C] or [nc, chunk, C], w2 [C, H] or [nc, C, chunk] (the
+    packed wrapper checked those shapes). Returns (M, C, H)."""
     if gelu_version not in ("v1", "v2"):
         raise ValueError(f"{name}: unknown gelu version {gelu_version!r}")
     M, C = x.shape
@@ -265,6 +271,39 @@ def _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w
         ("ln_bias", tuple(ln_bias.shape), (C,)), ("w1_q", w1.numel(), H * C), ("b1", tuple(b1.shape), (H,)),
         ("w2_q", w2.numel(), C * H), ("w2_s", tuple(w2_s.shape), (C,)), ("b2", tuple(b2.shape), (C,)),
     ))
+    if w1.dim() == 2:
+        _check_shapes(name, (("w1_q", tuple(w1.shape), (H, C)), ("w2_q", tuple(w2.shape), (C, H))))
+    return M, C, H
+
+
+def dense_point(name, M, C, H, chunk):
+    """The contract of #17 / #18 on the card, that of #6's kernel
+    (decode_layer_kernel.dense_plan: C in WIDTHS, H = 4C, M >= 1) with a
+    chunk that is a multiple of 64 (a 64-wide tile of the packed w2 lies in
+    one chunk); ValueError otherwise, before the library is asked."""
+    if chunk % DK._BK:
+        raise ValueError(f"{name}: on the card chunk must be a multiple of {DK._BK}, got chunk={chunk}")
+    DK._check_shape(M, C, H, True)
+
+
+def _dense_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version, chunk,
+               packed):
+    """One launch of csrc/decode_dense.cu::rq_fused_proj_mlp on int8 weights
+    (#6's kernel and plan): w1 [H, C] or packed [nc, chunk, C] (its bytes),
+    w2 [C, H] or packed [nc, C, chunk] through a tensor map of [nc C, chunk]."""
+    M, C, H = _checked_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version)
+    dense_point(name, M, C, H, chunk)
+    w2m = w2.reshape(-1, chunk) if packed else w2
+    return DK._proj_mlp(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1.reshape(H, C), w1_s, b1, w2m, w2_s, b2,
+                        gelu_version, chunk if packed else 0)
+
+
+def _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version,
+              chunk, n_buf, packed):
+    """Launch the full form of csrc/q8_pipeline.cu::rq_q8_ring_mlp (one
+    cooperative launch; the first design of #17 / #18); w1 [H, C] or [nc,
+    chunk, C], w2 [C, H] or [nc, C, chunk]."""
+    M, C, H = _checked_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w2_s, b2, gelu_version)
     grid = _check_point(name, x.device, M, C, chunk, n_buf, 1)
     out = torch.empty_like(x)
     x2, h = torch.empty_like(x), torch.empty_like(x)
@@ -282,20 +321,31 @@ def _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1, w1_s, b1, w2, w
     return out
 
 
+def _packed_shapes(name, w1p, w2p, chunk):
+    if w1p.dim() != 3 or w1p.shape[1] != chunk or tuple(w2p.shape) != (w1p.shape[0], w1p.shape[2], chunk):
+        raise ValueError(f"{name}: w1p [nc, {chunk}, C] and w2p [nc, C, {chunk}] expected, got "
+                         f"{tuple(w1p.shape)} and {tuple(w2p.shape)}")
+
+
 def fused_proj_mlp_q8_ring(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2,
                            gelu_version="v1", chunk=1536, n_buf=4):
     """Kernel wrapper (#17): the plain version for CPU tensors; for CUDA
-    tensors it launches csrc/q8_pipeline.cu::rq_q8_ring_mlp on w1_q [H, C]
-    and w2_q [C, H] (its chunks strided) or raises. One call on the card
-    adds one to `fused_proj_mlp_q8_ring.launches`."""
+    tensors it launches #6's kernel, csrc/decode_dense.cu::rq_fused_proj_mlp
+    on the int8 w1_q [H, C] and w2_q [C, H] (one persistent launch), or
+    raises: C in decode_layer_kernel.WIDTHS, H = 4C, M >= 1 and chunk % 64
+    == 0 (dense_point), ValueError otherwise before the library is asked.
+    chunk must divide H and n_buf lie in 1..8 on any device; neither sets a
+    depth any more (dense_plan sets the stages), so every point gives the
+    same bits as decode_layer_kernel.fused_proj_mlp_q8. One call on the card
+    adds one to `fused_proj_mlp_q8_ring.launches` (not to #6's count)."""
     name = "fused_proj_mlp_q8_ring"
     kind = _device_kind(name, x)
     _check_chunk(name, w1_q.shape[0], chunk, n_buf)
     if kind == "cpu":
         return fused_proj_mlp_q8_ring_plain(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s,
                                             b2, gelu_version)
-    out = _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2,
-                    gelu_version, chunk, n_buf, packed=False)
+    out = _dense_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, gelu_version,
+                     chunk, packed=False)
     fused_proj_mlp_q8_ring.launches += 1
     return out
 
@@ -306,25 +356,64 @@ fused_proj_mlp_q8_ring.launches = 0
 def fused_proj_mlp_q8_packed(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s, b2,
                              gelu_version="v1", chunk=1536, n_buf=4):
     """Kernel wrapper (#18): fused_proj_mlp_q8_ring on packed w1p [nc, chunk,
-    C] and w2p [nc, C, chunk]; the same CUDA kernel with the packed chunk
-    address. One call on the card adds one to
+    C] and w2p [nc, C, chunk]; the same kernel, its w1 map that of w1p as
+    [H, C] (the same bytes), its w2 map that of w2p as [nc C, chunk] (the
+    tile of K k0 lies at column k0 mod chunk, row (k0 div chunk) C + its
+    first channel). One call on the card adds one to
     `fused_proj_mlp_q8_packed.launches`."""
     name = "fused_proj_mlp_q8_packed"
     kind = _device_kind(name, x)
-    if w1p.dim() != 3 or w1p.shape[1] != chunk or tuple(w2p.shape) != (w1p.shape[0], w1p.shape[2], chunk):
-        raise ValueError(f"{name}: w1p [nc, {chunk}, C] and w2p [nc, C, {chunk}] expected, got "
-                         f"{tuple(w1p.shape)} and {tuple(w2p.shape)}")
+    _packed_shapes(name, w1p, w2p, chunk)
     _check_chunk(name, w1p.shape[0] * chunk, chunk, n_buf)
     if kind == "cpu":
         return fused_proj_mlp_q8_packed_plain(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s,
                                               b2, gelu_version)
-    out = _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s, b2,
-                    gelu_version, chunk, n_buf, packed=True)
+    out = _dense_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s, b2, gelu_version,
+                     chunk, packed=True)
     fused_proj_mlp_q8_packed.launches += 1
     return out
 
 
 fused_proj_mlp_q8_packed.launches = 0
+
+
+def fused_proj_mlp_q8_ring_v1(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                              gelu_version="v1", chunk=1536, n_buf=4):
+    """fused_proj_mlp_q8_ring through its first design (csrc/q8_pipeline.cu::
+    rq_q8_ring_mlp: one cooperative launch, an n_buf-deep cp.async ring of
+    chunk stages, at most 128 rows), CUDA tensors only: the A/B baseline of
+    chip_smoke.py. Adds one to `fused_proj_mlp_q8_ring_v1.launches` per call."""
+    name = "fused_proj_mlp_q8_ring_v1"
+    if _device_kind(name, x) != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    _check_chunk(name, w1_q.shape[0], chunk, n_buf)
+    out = _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                    gelu_version, chunk, n_buf, packed=False)
+    fused_proj_mlp_q8_ring_v1.launches += 1
+    return out
+
+
+fused_proj_mlp_q8_ring_v1.launches = 0
+
+
+def fused_proj_mlp_q8_packed_v1(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s, b2,
+                                gelu_version="v1", chunk=1536, n_buf=4):
+    """fused_proj_mlp_q8_packed through its first design (rq_q8_ring_mlp
+    with the packed chunk address), CUDA tensors only: the A/B baseline of
+    chip_smoke.py. Adds one to `fused_proj_mlp_q8_packed_v1.launches` per
+    call."""
+    name = "fused_proj_mlp_q8_packed_v1"
+    if _device_kind(name, x) != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    _packed_shapes(name, w1p, w2p, chunk)
+    _check_chunk(name, w1p.shape[0] * chunk, chunk, n_buf)
+    out = _ring_mlp(name, x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1_s, b1, w2p, w2_s, b2,
+                    gelu_version, chunk, n_buf, packed=True)
+    fused_proj_mlp_q8_packed_v1.launches += 1
+    return out
+
+
+fused_proj_mlp_q8_packed_v1.launches = 0
 
 
 def stream_probe(w1p, w2p, chunk=1536, n_buf=4, mode="dma"):
@@ -371,9 +460,7 @@ def _ablate_checked(name, h, w1p, w1_scale, w2p, chunk, n_buf):
     """ablate_ring's refusals on any device, then on CUDA the types and
     shapes; returns ("cpu" or "cuda", w1_scale as [H])."""
     kind = _device_kind(name, h)
-    if w1p.dim() != 3 or w1p.shape[1] != chunk or tuple(w2p.shape) != (w1p.shape[0], w1p.shape[2], chunk):
-        raise ValueError(f"{name}: w1p [nc, {chunk}, C] and w2p [nc, C, {chunk}] expected, got "
-                         f"{tuple(w1p.shape)} and {tuple(w2p.shape)}")
+    _packed_shapes(name, w1p, w2p, chunk)
     _check_chunk(name, w1p.shape[0] * chunk, chunk, n_buf)
     s1 = w1_scale.reshape(-1)
     if kind == "cuda":

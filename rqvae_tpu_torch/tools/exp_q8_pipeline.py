@@ -10,7 +10,11 @@ times, in the JAX experiment's order and with its lines:
 - the "shipped" chain through the port's #6 (decode_layer_kernel.
   fused_proj_mlp_q8);
 - the ring kernel (#17) and the packed-layout kernel (#18) against it
-  (mean|d| / max|d|), then their sweeps over (chunk, n_buf);
+  (mean|d| / max|d|), then their sweeps over (chunk, n_buf). Both launch
+  #6's kernel (csrc/decode_dense.cu, one persistent launch planned by
+  decode_layer_kernel.dense_plan; #18 reads its packed w2 through a tensor
+  map of [nc C, chunk]): (chunk, n_buf) sets no depth any more, so the
+  sweeps time one kernel at each point, and its bits equal #6's;
 - the chunk stream alone (#19): "dma", "dequant" and the same bytes viewed
   as int32 ("dma-as-i32": on Hopper the bytes land in shared memory the
   same way whatever their type, so this line is expected to equal "dma";
@@ -22,8 +26,10 @@ GB/s are JAX's byte counts: bytes_q8 = L (C^2 + 2 C H) for the full
 layers, bytes_probe = L 2 C H for the stream alone, twice that for bf16.
 The chunk / n_buf points are the JAX sweep's (RING_CHUNKS and the other
 module constants; a point with fewer chunks than stages is skipped, as in
-JAX). A point the card cannot hold prints FAILED with the wrapper's
-ValueError, and the sweep goes on; any other exception propagates.
+JAX). A point the wrapper refuses (for #19 a ring of stages a block cannot
+hold; for #17 / #18 a chunk outside their contract, none of the sweeps')
+prints FAILED with the wrapper's ValueError, and the sweep goes on; any
+other exception propagates.
 
 Timing (rqvae_tpu_torch/tools/_timing.py): on the card each chain of L x
 ITERS calls is captured once in a torch.cuda.CUDAGraph and replayed, best

@@ -10,7 +10,10 @@ times, in the JAX experiment's order and with its lines:
 - the "bf16" chain through the port's #3 (decode_layer_kernel.
   fused_proj_mlp) on the dequantized weights (q.to(bf16) * scale.to(bf16));
 - the "q8" chain through #6 (decode_layer_kernel.fused_proj_mlp_q8);
-- the "q8a8" chain through #16 (w8a8_kernel.fused_proj_mlp_q8a8);
+- the "q8a8" chain through #16 (w8a8_kernel.fused_proj_mlp_q8a8: one
+  persistent launch of csrc/dense_w8a8.cu, both MLP products on s8 wgmma,
+  planned by w8a8_kernel.w8a8_plan; `chunk` is part of its result, the
+  hidden units of one activation scale, and sets no depth);
 - the q8a8 vs q8 error of one layer (mean|d|, max|d|, mean|q8|).
 
 GB/s are JAX's byte counts: L (C^2 + 2 C H) weights, 2 bytes each for
