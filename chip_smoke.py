@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once; libw8a8.so must hold IMMA (s8
      tensor-core), libdense_w8a8.so IGMMA (s8 wgmma), and
-     libdecode_dense.so, libdecode_fused.so, libdense_mlp.so and
-     libdense_w8a8.so HGMMA (wgmma) instructions;
+     libdecode_dense.so, libdecode_fused.so, libdense_mlp.so,
+     libdense_w8a8.so and libnearest_code.so HGMMA (wgmma) instructions,
+     libnearest_code.so and libstream_probe.so UTMALDG (TMA tile loads),
+     libstream_probe.so SYNCS (mbarrier);
   3. each of the sixteen kernels against its plain PyTorch version on the
      card, at the shapes of its main path (the sampling kernels: bf16
      activations, B=100, C=1536, 24 heads, T=64, H=6144; #2 fused_ln_qkv
@@ -49,14 +51,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      device time in CUDA-graph replays against their cooperative first
      design (*_coop) and the unfused chains (#2 -> #1 -> #3; #4 -> the
      library's wo, residual and LayerNorm), with CTA 0's phase and
-     attention-step stamps; nearest_code: fp32, 6400 rows of 256 against 16384
-     codes, with planted ties; the q8 pipeline kernels of
+     attention-step stamps; nearest_code (csrc/nearest_code.cu, 3xTF32 on
+     wgmma): fp32, 6400 rows of 256 against 16384 codes, with planted ties
+     placed on its geometry, timed as CUDA-graph device time against the
+     library's x @ cb.T and both bounds (3xTF32, fp32 SIMT); the q8 pipeline
+     kernels of
      tools/exp_q8_pipeline.py at its shapes, C 1536, H 6144, int8 weights:
      #17 / #18 (#6's kernel, csrc/decode_dense.cu, one launch a call; #18
      through the packed w2's map) at B 37, 100 and 300, both gelu forms and
      five (chunk, n_buf) points, bit-equal to each other and to #6, timed as
      CUDA-graph device time against their first design (*_v1) and the
-     library; #19 in both modes, bit-equal; #20 (the "ring" form of
+     library; #19 (csrc/stream_probe.cu: #6's TMA ring without its
+     products, on #6's plan) in both modes, bit-equal, timed as CUDA-graph
+     device time and GB/s beside #6's weight-stream rate, with CTA 0's
+     stamps; #20 (the "ring" form of
      csrc/dense_mlp.cu, one launch a call) in the four ablation cases, timed
      as CUDA-graph device time against its first design (ablate_ring_v1) and
      the library, with CTA 0's phases; #16 of tools/exp_w8a8.py
@@ -135,7 +143,8 @@ the attention kernels of csrc/decode_attention_tma.cu alone: the update
 forms #1 / #4, then the read-only forms #10 / #12 and #11; `python3
 chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone; `python3
 chip_smoke.py q8` those of #16-#19 (csrc/dense_w8a8.cu, #6's kernel,
-csrc/q8_pipeline.cu) alone. Run from two source trees in one call, they
+csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
+(csrc/nearest_code.cu) alone. Run from two source trees in one call, they
 compare two designs of those kernels on one card.
 """
 
@@ -160,6 +169,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 INT8_TENSOR_OPS = 1979e12
+TF32_TENSOR_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 # bf16 keeps 8 significant bits (relative step 2**-8 ~ 3.9e-3). A kernel and
@@ -935,12 +945,13 @@ def check_attention_q8_read_only(AK, dev, gen):
             "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, **b}
 
 
-def device_kernels(fn) -> list[str]:
-    """Names of the device kernels one call of fn issues (torch.profiler).
-    Now and then the profiler records no device activity at all for a call
-    (on the card, about one profile in twelve of `chip_smoke.py dense`), so
-    a profile without a single device event is taken again, up to three
-    times; a profile with events is returned as it is."""
+def device_events(fn) -> list[tuple[str, float]]:
+    """(name, device us) of each device kernel one call of fn issues
+    (torch.profiler). Now and then the profiler records no device activity
+    at all for a call (on the card, about one profile in twelve of
+    `chip_smoke.py dense`), so a profile without a single device event is
+    taken again, up to three times; a profile with events is returned as it
+    is."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -948,11 +959,17 @@ def device_kernels(fn) -> list[str]:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
             break
         log("  (the profiler recorded no device event for this call; profiling it again)")
-    return names
+    return events
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the device kernels one call of fn issues (device_events)."""
+    return [name for name, _ in device_events(fn)]
 
 
 DENSE_BATCHES = (37, 100, 300, 500)  # phase 3's rows for #2 / #3 and #5-#8 at C 1536 (C 2560: B 100)
@@ -1133,6 +1150,9 @@ def proj_mlp_bound(B, C, H, weight_bytes):
     return bound(n_bytes, 2 * B * (C * C + 2 * C * H), BF16_TENSOR_FLOPS)
 
 
+# #19 also streams the ring of #6's plan at these batches: 16, 12 and 4
+# stages at C 1536 (6 at its own B 100)
+PROBE_DEPTH_ROWS = (1, 64, 500)
 Q8_POINTS = (("ring", 1536, 4), ("ring", 768, 6), ("ring", 512, 2), ("packed", 1536, 2), ("packed", 3072, 2))
 Q8_BATCHES = (37, 100, 300)
 
@@ -1263,19 +1283,52 @@ def check_q8_pipeline(QP, DK, quantize_weight, dev, gen):
         raise AssertionError(f"stream_probe dma-as-i32: |d| {d:.3e} beyond 1e-6 of |ref| {float(want.abs().max()):.3e}")
     log(f"  stream_probe dma-as-i32 (1536, 4): |d| {d:.3e} <= 1e-6 |ref| ({float(want[0, 0]):.6e}) ok")
     pks = [packs(s, 1536) for s in sets]
+    probe_graph = {}
     for mode in ("dma", "dequant"):
-        probe_ms[mode] = cuda_ms([lambda p=p: QP.stream_probe(*p, chunk=1536, n_buf=4, mode=mode) for p in pks], 30)
+        fns = [lambda p=p, mode=mode: QP.stream_probe(*p, chunk=1536, n_buf=4, mode=mode) for p in pks]
+        probe_ms[mode] = cuda_ms(fns, 30)
+        probe_graph[mode] = graph_ms(fns)
+        QP.stream_probe(*pks[0], chunk=1536, n_buf=4, mode=mode)
+        torch.cuda.synchronize()
+        us = QP._build.phase_us("rq_stream_probe_phase_ns", 4)
+        log(f"  stream_probe {mode}: CTA 0's stamps (us): first stage landed {us[0]:.2f}, then w1 streamed "
+            f"{us[1]:.2f}, then w2 streamed and the sums added {us[2]:.2f}")
     probe_plain = cuda_ms([lambda p=p: QP.stream_probe_plain(*p, "dequant") for p in pks], 30)
     probe_lib = cuda_ms([lambda p=p: (torch.sum(p[0], 2, dtype=torch.float32), torch.sum(p[1], 2, dtype=torch.float32))
                          for p in pks], 30)
     pb = bound(2 * C * H + QP.PROBE_LANES * 4, 0, BF16_TENSOR_FLOPS)
-    log(f"  stream_probe time (1536, 4): dma {probe_ms['dma']:.4f} ms, dequant {probe_ms['dequant']:.4f} ms, plain "
-        f"(dequant) {probe_plain:.4f} ms, library (torch.sum(w, 2, dtype=float32) over w1p and w2p, the row sums "
-        f"of the dequant mode; none computes dma's one-value-per-row touch) {probe_lib:.4f} ms, bound "
-        f"{pb['bound_ms']:.4f} ms by {pb['bound_by']}")
+    plan = QP.probe_plan(C, H)
+    weight_bytes = C * C + 2 * C * H  # #6's int8 weights: wo, w1, w2
+    aims = {"dma": 0.008, "dequant": 0.0094}
+    log(f"  stream_probe plan (#6's at B {QP.PROBE_ROWS}): {plan.clusters} groups of {plan.cluster} CTAs, a ring of "
+        f"{plan.stages} stages of one 4096 B int8 tile (#6's stage stride, {4096 + plan.row_tile * 128} B, with its "
+        f"t tile), {plan.smem} B of shared memory")
+    depth = {}  # the ring of #6's plan at other batches: as many stages as its shared memory leaves
+    for rows in PROBE_DEPTH_ROWS:
+        ring = QP.probe_plan(C, H, rows=rows)
+        for m in ("dma", "dequant"):
+            if not torch.equal(QP.launch_probe(*pks[0], 1536, m, ring), QP.stream_probe_plain(*pks[0], m)):
+                raise AssertionError(f"stream_probe {m} on #6's ring at B {rows}: not bit-equal to the plain version")
+        depth[rows] = (ring.stages, *(graph_ms([lambda w=w, m=m: QP.launch_probe(*w, 1536, m, ring) for w in pks])
+                                      for m in ("dma", "dequant")))
+    log("  stream_probe on #6's ring at other batches (graph replay; B: stages, dma, dequant): " + "; ".join(
+        f"B {r}: {st} stages, {dma:.4f} ms ({2 * C * H / dma * 1e-6:.0f} GB/s), {deq:.4f} ms "
+        f"({2 * C * H / deq * 1e-6:.0f} GB/s)" for r, (st, dma, deq) in depth.items()))
+    log(f"  stream_probe time (1536, 4): device (graph replay) "
+        + ", ".join(f"{m} {probe_graph[m]:.4f} ms ({2 * C * H / probe_graph[m] * 1e-6:.0f} GB/s, "
+                    f"{pb['bound_ms'] / probe_graph[m]:.1%} of the bound; aim <= {aims[m]} ms "
+                    f"{'met' if probe_graph[m] <= aims[m] else 'missed'})" for m in ("dma", "dequant"))
+        + f"; #6 in the same run streams its {weight_bytes / 1e6:.1f} MB of weights at "
+        f"{weight_bytes / graph['#6'] * 1e-6:.0f} GB/s; eager dma {probe_ms['dma']:.4f} ms, dequant "
+        f"{probe_ms['dequant']:.4f} ms, plain (dequant) {probe_plain:.4f} ms, library (torch.sum(w, 2, "
+        f"dtype=float32) over w1p and w2p, the row sums of the dequant mode; none computes dma's "
+        f"one-value-per-row touch) {probe_lib:.4f} ms, bound {pb['bound_ms']:.4f} ms by {pb['bound_by']}; "
+        f"{card_line()}")
     probe_entry = {"max_abs_err": 0.0,  # bit-equal, checked above
-                   "ms": probe_ms["dequant"], "plain_ms": probe_plain, "library_ms": probe_lib, **pb,
-                   "dma_ms": probe_ms["dma"]}
+                   "ms": probe_ms["dequant"], "graph_ms": probe_graph["dequant"], "plain_ms": probe_plain,
+                   "library_ms": probe_lib, **pb, "dma_ms": probe_ms["dma"], "dma_graph_ms": probe_graph["dma"],
+                   "stages": plan.stages,
+                   "by_stages": {st: {"dma_graph_ms": dma, "graph_ms": deq} for st, dma, deq in depth.values()}}
 
     return ring_entry, packed_entry, probe_entry
 
@@ -1943,29 +1996,54 @@ def nearest_vs_fp64(x, cb, got, want) -> tuple[float, float, float]:
     return float((got == want).double().mean()), float(excess.max()), float(share.max())
 
 
+# nearest_code's planted ties (lo, hi), row hi a copy of row lo, placed on
+# the geometry of csrc/nearest_code.cu: units of 128 rows x 256 codes, each
+# consumer warpgroup holding all 256 codes of its 64 rows, lane q of a row
+# codes 8 j + 2 q and 8 j + 2 q + 1; at the encode shape unit u = (row
+# block u mod 50, code tile u div 50), CTA b taking u = b, b + 132, ....
+# The tie rows lie in row block 0: one thread's adjacent codes (100, 101),
+# one thread's codes 24 apart (17, 41), two lanes of one row (3, 40), two
+# lanes of code tile 3 (770, 1000), code tiles 0 and 1 (130, 500; CTAs 0
+# and 50), tiles 0 and 3 (60, 800; tile 3 is unit 150, CTA 18's second),
+# the first and the last tile (5, 16000). x rows 2i and 2i + 1 are row hi
+# and row hi + noise: both must get lo.
+NEAREST_TIES = ((100, 101), (17, 41), (3, 40), (770, 1000), (130, 500), (60, 800), (5, 16000))
+
+
 def check_nearest_code(RK, dev, gen):
+    """nearest_code (csrc/nearest_code.cu, 3xTF32 on wgmma) at one depth of
+    the bs100 encode, x [6400, 256] against 16384 codes: the planted ties
+    give the lower index exactly, >= NEAREST_AGREE of the codes equal the
+    plain version's and no pick lies beyond NEAREST_TIE_TOL of the fp64
+    minimum, there and at ragged shapes; then, L2-cold (5 sets of 117 MB in
+    turn), CUDA-graph device time of the kernel (its three launches), the
+    library's x @ cb.T (the GEMM alone, TF32 off) and the plain version,
+    eager times, and both bounds: 3xTF32 on the tensor cores (the least
+    time for fp32-accurate distances) and fp32 on the SIMT units. Returns
+    its JSON entry (no launches yet)."""
     N, dim, E = BATCH * 64, 256, 16384  # one depth of the bs100 encode: 100 images x 8 x 8 codes
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    plan = RK.nearest_plan(N, E, dim, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"  nearest_code plan: {plan.row_blocks} row blocks of {RK.ROW_TILE} x {plan.code_tiles} code tiles of "
+        f"{RK.CODE_TILE} = {plan.row_blocks * plan.code_tiles} units on {plan.grid} persistent CTAs, a ring of "
+        f"{RK.RING} stages of {(2 * RK.ROW_TILE + 2 * RK.CODE_TILE) * RK.K_STAGE * 4} B, {RK.smem_bytes()} B of "
+        f"shared memory")
     x, cb = rnd(N, dim), rnd(E, dim)  # N(0, 1) codebook, as init_weights makes it
-    # planted ties: (lo, hi) with row hi a copy of row lo, in one thread's
-    # codes, in two threads of one tile, in two tiles of one split, across
-    # splits; x rows 2i and 2i+1 are row hi and row hi + noise: both must get lo
-    pairs = ((100, 101), (3, 40), (130, 500), (5, 16000))
-    for i, (lo, hi) in enumerate(pairs):
+    for i, (lo, hi) in enumerate(NEAREST_TIES):
         cb[hi] = cb[lo]
         x[2 * i] = cb[hi]
         x[2 * i + 1] = cb[hi] + 0.01 * rnd(dim)
     got = RK.nearest_code(x, cb)
     want = RK.nearest_code_plain(x, cb)
     torch.cuda.synchronize()
-    tie_rows = 2 * len(pairs)
-    expect = torch.tensor([lo for lo, _ in pairs for _ in range(2)], device=dev)
+    tie_rows = 2 * len(NEAREST_TIES)
+    expect = torch.tensor([lo for lo, _ in NEAREST_TIES for _ in range(2)], device=dev)
     if not torch.equal(got[:tie_rows], expect):
         raise AssertionError(f"nearest_code planted ties: got {got[:tie_rows].tolist()}, want {expect.tolist()}")
-    log(f"  nearest_code planted ties {pairs}: the lower index, exactly (plain version: "
+    log(f"  nearest_code planted ties {NEAREST_TIES}: the lower index, exactly (plain version: "
         f"{'the same' if torch.equal(want[:tie_rows], expect) else want[:tie_rows].tolist()})")
     agree, excess, share = nearest_vs_fp64(x, cb, got, want)
     ok = agree >= NEAREST_AGREE and share <= 1.0
@@ -1983,13 +2061,30 @@ def check_nearest_code(RK, dev, gen):
             raise AssertionError(f"nearest_code at [{n},{d}] x [{e},{d}]: a pick beyond the fp64 bound")
     # 5 distinct (x, codebook) sets of 23.4 MB: 117 MB, so L2 is cold
     sets = [(rnd(N, dim), rnd(E, dim)) for _ in range(5)]
-    ms = cuda_ms([lambda s=s: RK.nearest_code(*s) for s in sets], 20)
+    kernel = [lambda s=s: RK.nearest_code(*s) for s in sets]
+    library = [lambda s=s: s[0] @ s[1].T for s in sets]
+    kernel[0]()  # the tensor maps are encoded on the host before the profiled call
+    events = device_events(kernel[1])
+    names = [n for n, _ in events]
+    if len(events) != 3 or not all(k in n for k, n in zip(("split", "nearest_kernel", "reduce"), names)):
+        raise AssertionError(f"nearest_code: one call issued device kernels {names}, not the split, main and reduce")
+    log("  nearest_code: one call's three device kernels (torch.profiler): "
+        + ", ".join(f"{re.search(r'(\w+)\(', n).group(1)} {us:.1f} us" for n, us in events))
+    graph = {"kernel": graph_ms(kernel), "library": graph_ms(library)}
+    ms = cuda_ms(kernel, 20)
     plain = cuda_ms([lambda s=s: RK.nearest_code_plain(*s) for s in sets], 20)
-    lib = cuda_ms([lambda s=s: s[0] @ s[1].T for s in sets], 20)
-    b = bound(N * dim * 4 + E * dim * 4 + N * 8, 2 * N * E * dim, FP32_FLOPS)
-    log(f"  nearest_code time: kernel {ms:.4f} ms, plain {plain:.4f} ms, library (the fp32 GEMM x @ cb.T "
-        f"alone, TF32 off) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (N={N}, dim={dim}, E={E})")
-    return {"max_abs_err": excess, "ms": ms, "plain_ms": plain, "library_ms": lib, **b}
+    lib = cuda_ms(library, 20)
+    n_bytes = N * dim * 4 + E * dim * 4 + N * 8
+    b = bound(n_bytes, 3 * 2 * N * E * dim, TF32_TENSOR_FLOPS)
+    b32 = bound(n_bytes, 2 * N * E * dim, FP32_FLOPS)
+    log(f"  nearest_code time (N={N}, dim={dim}, E={E}): device (graph replay) kernel {graph['kernel']:.4f} ms, "
+        f"library (the fp32 GEMM x @ cb.T alone, TF32 off) {graph['library']:.4f} ms "
+        f"({graph['kernel'] / graph['library']:.2f}x); eager kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"{lib:.4f} ms; bound {b['bound_ms']:.4f} ms (3xTF32 on the tensor cores; the kernel at "
+        f"{b['bound_ms'] / graph['kernel']:.1%}), fp32 SIMT bound {b32['bound_ms']:.4f} ms "
+        f"({b32['bound_ms'] / graph['kernel']:.1%}); {card_line()}")
+    return {"max_abs_err": excess, "ms": ms, "graph_ms": graph["kernel"], "plain_ms": plain, "library_ms": lib,
+            "library_graph_ms": graph["library"], **b, "fp32_bound_ms": b32["bound_ms"]}
 
 
 def build_main_path(dev):
@@ -2271,9 +2366,9 @@ def mlp_phase(counters, dev, card) -> int:
 
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp' and 'q8'")
+                         f"'attention', 'mlp', 'q8' and 'nearest'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -2328,6 +2423,12 @@ def main() -> None:
     log(f"  libdecode_attention_tma.so: {count_sass(build_dir / 'libdecode_attention_tma.so', 'UBLKCP')} UBLKCP "
         f"(bulk async copies), {count_sass(build_dir / 'libdecode_attention_tma.so', 'SYNCS')} SYNCS (mbarrier) "
         f"instructions")
+    for lib, ops, what in (("libnearest_code.so", ("HGMMA", "UTMALDG"), "#9's 3xTF32 products and TMA ring"),
+                           ("libstream_probe.so", ("UTMALDG", "SYNCS"), "#19's TMA ring and its mbarriers")):
+        found = {op: count_sass(build_dir / lib, op) for op in ops}
+        if not all(found.values()):
+            raise AssertionError(f"{lib}: {found}: {what} are not in its code")
+        log(f"  {lib}: " + ", ".join(f"{n} {op}" for op, n in found.items()) + f" instructions ({what})")
 
     # phase 3: kernels against their plain versions at main-path shapes
     log("# phase 3: kernels vs plain versions (bf16 activations, B=100, C=1536, nh=24, T=64)")
@@ -2346,6 +2447,9 @@ def main() -> None:
     if mode == "q8":
         check_q8_pipeline(QP, DK, quantize_weight, dev, gen)
         check_w8a8(W8, DK, quantize_weight, dev, gen)
+        return
+    if mode == "nearest":
+        check_nearest_code(RK, dev, gen)
         return
     if mode == "attention":
         check_attention(AK, dev, gen)
@@ -2517,7 +2621,7 @@ def main() -> None:
              replaces="tools/exp_q8_pipeline.py:115", **pipe_ring),
         dict(name="fused_proj_mlp_q8_packed", route="cuda", source="rqvae_tpu_torch/csrc/decode_dense.cu",
              replaces="tools/exp_q8_pipeline.py:216 (the same kernel as :115, packed w2 map)", **pipe_packed),
-        dict(name="stream_probe", route="cuda", source="rqvae_tpu_torch/csrc/q8_pipeline.cu",
+        dict(name="stream_probe", route="cuda", source="rqvae_tpu_torch/csrc/stream_probe.cu",
              replaces="tools/exp_q8_pipeline.py:302", **pipe_probe),
         dict(name="ablate_ring", route="cuda", source="rqvae_tpu_torch/csrc/dense_mlp.cu",
              replaces="tools/exp_q8_pipeline.py:379", **pipe_ablate),

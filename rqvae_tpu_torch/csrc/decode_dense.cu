@@ -325,23 +325,28 @@ int max_clusters_tile(int mt, int cluster, int smem, int* out) {
 
 // Encode the TMA tensor map of a matrix [rows, cols] (row-major, 16-byte
 // aligned) of bf16 (elem_bytes 2) or int8 (1) in boxes of box_rows rows x
-// 64 columns, with the 128-byte (bf16) or 64-byte (int8) swizzle, into out
-// (128 bytes): a weight's (box_rows 64) or an activation's (the row tile).
-// Rows past `rows` read as zeros. Returns 0, or a CUDA error code.
+// 64 columns, with the 128-byte (bf16) or 64-byte (int8) swizzle, or of
+// fp32 (4) in boxes of box_rows x 32 columns with the 128-byte swizzle
+// (csrc/nearest_code.cu's operands), into out (128 bytes): a weight's
+// (box_rows 64) or an activation's (the row tile). Rows past `rows` read
+// as zeros. Returns 0, or a CUDA error code.
 extern "C" int rq_dense_tensor_map(const void* w, int rows, int cols, int box_rows, int elem_bytes, void* out) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  if (elem_bytes != 1 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
+  if (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
   const bool int8 = elem_bytes == 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {kBK, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)(elem_bytes == 4 ? 32 : kBK), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapDataType type = int8              ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap map;  // 64-byte aligned here; out need not be
-  const CUresult r = encode(&map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            const_cast<void*>(w), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out-of-bounds elements read as zeros
+  const CUtensorMapSwizzle swizzle = int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUresult r = encode(&map, type, 2, const_cast<void*>(w), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out-of-bounds elements read as zeros
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   memcpy(out, &map, sizeof(map));
   return 0;

@@ -620,6 +620,43 @@ __device__ __forceinline__ void wgmma<256>(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// wgmma.mma_async m64n256k8, tf32 x tf32 -> fp32, A and B from shared memory
+// (descriptors; both K-major, which tf32 requires: it takes no transpose),
+// D scaled by 1 (accumulate). The operands are fp32 words already rounded
+// to tf32 (csrc/nearest_code.cu), their low 13 mantissa bits zero; a k8
+// step is 32 bytes of a 128-byte swizzled row.
+__device__ __forceinline__ void wgmma_tf32_256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A from registers (the int8
 // weight tile widened to bf16: four 32-bit registers a lane, the
 // mma.m16n8k16 A layout, warp w holding rows 16 w .. 16 w + 15), B from
@@ -901,11 +938,12 @@ struct Exchange {
 // (kProjMlp), the fused kernels of csrc/decode_fused.cu: the whole layer
 // step (kLayer) and the q8 attention with wo (kAttnWo), and
 // csrc/dense_w8a8.cu's proj + MLP on int8 activations (kW8A8: kProjMlp's
-// products, its streamed B tiles s8)
-enum Kind { kLnQkv, kProjMlp, kLayer, kAttnWo, kW8A8 };
+// products, its streamed B tiles s8), and csrc/stream_probe.cu's weight
+// stream alone (kStream: kProjMlp's w1 and packed w2 tiles, no products)
+enum Kind { kLnQkv, kProjMlp, kLayer, kAttnWo, kW8A8, kStream };
 
 __host__ __device__ constexpr int n_products(int kind) {
-  return kind == kLnQkv || kind == kAttnWo ? 1 : kind == kProjMlp || kind == kW8A8 ? 3 : 4;
+  return kind == kLnQkv || kind == kAttnWo ? 1 : kind == kStream ? 2 : kind == kProjMlp || kind == kW8A8 ? 3 : 4;
 }
 
 // bytes of one activation row of a streamed B tile: 64 bf16, or 64 s8 (kW8A8)
@@ -914,7 +952,8 @@ __host__ __device__ constexpr int b_row_bytes(int kind) { return kind == kW8A8 ?
 // The products of one launch, in the order the producer and the consumers
 // walk them: fused_ln_qkv has one (wqkv), fused_proj_mlp three (wo, w1,
 // w2), the layer step four (wqkv, wo, w1, w2), the attention with wo one
-// (wo). For each: row tiles rt, then the cluster's weight tiles j = cid,
+// (wo), the stream probe two (w1, w2; w2 neither streams t nor waits for a
+// gate). For each: row tiles rt, then the cluster's weight tiles j = cid,
 // cid + clusters, ..., then the CTA's K-chunks.
 struct Product {
   int tiles;     // weight rows / 64
@@ -923,6 +962,7 @@ struct Product {
 };
 
 __device__ __forceinline__ Product product(int kind, int i, const Params& p) {
+  if (kind == kStream) return i == 0 ? Product{p.N / kTile, p.C, false} : Product{p.C / kTile, p.N, false};
   if (kind == kLnQkv) return {p.N / kTile, p.C, false};
   if (kind == kAttnWo) return {p.C / kTile, p.C, false};
   if (kind == kLayer) {
@@ -941,7 +981,7 @@ struct Ring {
 
 // The producer: lane 0 of the last warp issues every weight tile (and, in
 // w2's product, t tile) of this CTA in the consumers' order, `stages`
-// ahead; maps[i] is product i's weight. kProjMlp's w2 may be packed
+// ahead; maps[i] is product i's weight. kProjMlp's (and kStream's) w2 may be packed
 // (p.chunk): its tile at (K k0, rows j * 64 ..) lies at column k0 mod chunk,
 // row (k0 div chunk) C + j * 64 of the [nc C, chunk] map. kW8A8 copies a t
 // tile's rows below M alone (the rest of the stage's tile is left as it
@@ -973,7 +1013,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* const* maps, const P
     const int ks = pr.k / s;
     const int k_lo = rank * ks;
     const int chunks = ks / kBK;
-    const bool packed = kKind == kProjMlp && pr.streamed && p.chunk;
+    const bool packed = p.chunk && ((kKind == kProjMlp && pr.streamed) || (kKind == kStream && pi == 1));
     for (int rt = 0; rt < p.row_tiles; ++rt) {
       const uint32_t t_bytes = kKind == kW8A8 ? (uint32_t)min(MT, p.M - rt * MT) * kBK : kTBytes;
       const uint32_t bytes = ring.tile_bytes + (pr.streamed ? t_bytes : 0);

@@ -1,5 +1,6 @@
 // The int8 weight-streaming MLP with an explicit pipeline of weight-chunk
-// copies, and its two isolation probes, on Hopper (sm_90a):
+// copies, on Hopper (sm_90a): the first design of #17, #18 and #20, kept
+// only as the A/B baselines that chip_smoke.py runs:
 //
 //   rq_q8_ring_mlp, full form (#17 / #18):
 //     x2  = x + bf16(acc_o * s_o + bo),        acc_o = y @ wo^T
@@ -8,8 +9,6 @@
 //     out = x2 + bf16(acc_2 * s_2 + b2),       acc_2 = sum_j t_j @ w2[:, chunk j]^T
 //   rq_q8_ring_mlp, MLP-only form (#20, int8 or bf16 weights):
 //     t_j = bf16(gelu?(acc_1j * s_1j?)),  out = bf16(sum_j t_j @ w2[:, chunk j]^T)
-//   rq_q8_stream_probe (#19): the chunk stream alone ("dma": copy every
-//     chunk, touch one value per row; "dequant": widen and sum every row).
 //
 // The first design of tools/exp_q8_pipeline.py::fused_proj_mlp_q8_ring
 // (#17, w2 in the [C, H] layout, its chunk j the strided columns
@@ -19,11 +18,12 @@
 // csrc/decode_dense.cu::rq_fused_proj_mlp (#6's kernel, #18 through a
 // tensor map of the packed w2) and #20 csrc/dense_mlp.cu; this kernel stays
 // as their A/B baseline (fused_proj_mlp_q8_ring_v1, _packed_v1,
-// ablate_ring_v1), which only chip_smoke.py runs. It still replaces
-// ::stream_probe (#19). w1 is [H, C] in the port's nn.Linear layout, so its
-// chunk j (rows j*chunk..) is contiguous in both layouts, and packing it
-// [nc, chunk, C] changes no byte. ::stream_probe (#19) and ::ablate_ring
-// (#20) reuse the same stream loop (Ring, shared through csrc/ring.cuh).
+// ablate_ring_v1), which only chip_smoke.py runs; #19 ::stream_probe, which
+// this file's cp.async ring also served, is csrc/stream_probe.cu on
+// decode_dense.cuh's TMA ring. w1 is [H, C] in the port's nn.Linear
+// layout, so its chunk j (rows j*chunk..) is contiguous in both layouts, and
+// packing it [nc, chunk, C] changes no byte. The stream loop (Ring) is
+// csrc/ring.cuh's.
 //
 // Bound on the H100: weight bytes. At B 100, C 1536, H 6144 a call streams
 // 21.2 MB of int8 weights (2.4 MB wo, 18.9 MB w1 + w2) for ~2 * B = 200
@@ -32,7 +32,7 @@
 // six launches, split-K partials through device memory, and no pipelining.
 //
 // Design. One cooperative persistent launch of G = (number of SMs) blocks,
-// one per SM, 8 warps each (the probe: 4). The unit of the weight stream is the chunk,
+// one per SM, 8 warps each. The unit of the weight stream is the chunk,
 // the hidden slice whose w1 rows and w2 columns travel together, as on the
 // TPU. Each chunk is split across the blocks: block b owns a balanced range
 // of 8-row tiles of the chunk's w1 rows (its hidden units) and a range of
@@ -76,11 +76,6 @@
 namespace {
 
 using namespace ring;
-using fused::kThreads;  // the probe's block
-using fused::kWarps;
-
-constexpr int kProbeLanes = 128;
-
 struct MlpParams {
   const bf16 *x, *y;                // full form: [M, C]
   const int8_t* wo;                 // [C, C]
@@ -172,116 +167,6 @@ __global__ void __launch_bounds__(kMlpThreads, 1) ring_mlp_kernel(MlpParams p) {
   });
 }
 
-struct ProbeParams {
-  const void* w1;  // packed [nc, chunk, C] bytes (int8, or the same bytes viewed as int32)
-  const void* w2;  // packed [nc, C, chunk] bytes
-  double* acc;     // [kProbeLanes] sums, zero at launch
-  unsigned long long* ticket;  // blocks done, zero at launch
-  float* sink;     // [G, kWarps]
-  float* out;      // [kProbeLanes]
-  int C, H, chunk, n_buf;
-};
-
-// the sum of one staged row of n int8 weights, each widened to bf16 (exact;
-// a sum of at most 2^17 values of |v| <= 127 is exact in fp32); one warp
-__device__ __forceinline__ float widened_row_sum(const unsigned char* row, int n) {
-  float s = 0.f;
-  for (int c = 16 * (threadIdx.x & 31); c < n; c += 16 * 32) {
-    const int4 v = *reinterpret_cast<const int4*>(row + c);
-    const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        s += __bfloat162float(__float2bfloat16_rn((float)(int8_t)(w[i] >> (8 * k))));
-  }
-  return fused::warp_sum(s);
-}
-
-// the int32 whose little-endian bytes are column 0 of staged rows r .. r + 3
-__device__ __forceinline__ double i32_of_rows(const unsigned char* stage, int ld, int r) {
-  const unsigned v = (unsigned)stage[(size_t)r * ld] | ((unsigned)stage[(size_t)(r + 1) * ld] << 8) |
-                     ((unsigned)stage[(size_t)(r + 2) * ld] << 16) | ((unsigned)stage[(size_t)(r + 3) * ld] << 24);
-  return (double)(int)v;
-}
-
-// The chunk stream of rq_q8_ring_mlp alone (#19), over packed w1 / w2, with
-// the same shares, stages and ring; what the TPU probe computes, in the
-// port's layout (JAX's w1 chunk [C, chunk] is the port's [chunk, C]
-// transposed, its w2 chunk [chunk, C] the port's [C, chunk] transposed):
-//   dma, int8:   every lane += sum over chunks of column 0 of the first
-//                min(128, chunk) w1 rows and the first min(128, C) w2 rows
-//   dma, int32:  the same over the int32 values whose bytes are column 0
-//                of w1 rows 4l .. 4l + 3 (l < min(128, chunk / 4)), and of
-//                w2 rows (l < min(128, C / 4)): JAX's row 0 viewed as int32
-//   dequant:     lane l += the sums of w1 row l and w2 row l, every staged
-//                row widened to bf16 and summed (rows >= 128 into a sink)
-// Sums run in fp64 (exact for these integers) and are cast to fp32 once,
-// by the last block to finish (no grid barrier).
-template <bool kDequant, bool kI32>
-__global__ void __launch_bounds__(kThreads, 1) stream_probe_kernel(ProbeParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ double lanes[kProbeLanes];
-  __shared__ double scalar;
-  const int G = gridDim.x, b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int C = p.C, chunk = p.chunk, nc = p.H / chunk;
-  const Ring ring = make_ring(p.w1, p.w2, smem, C, p.H, chunk, 1, p.n_buf, true, b, G);
-  const int r1 = ring.lo1 * 8, r2 = ring.lo2 * 8;  // this block's first row of each share
-  const int div = kI32 ? 4 : 1;
-  const int l1 = min(kProbeLanes, chunk / div), l2 = min(kProbeLanes, C / div);
-
-  ring.prologue(nc);
-  for (int l = threadIdx.x; l < kProbeLanes; l += kThreads) lanes[l] = 0.0;
-  if (threadIdx.x == 0) scalar = 0.0;
-  float sink = 0.f;
-  for (int j = 0; j < nc; ++j) {
-    const int slot = j % p.n_buf;
-    ring.wait();
-    const unsigned char* s1 = ring.stage1(slot);
-    const unsigned char* s2 = ring.stage2(slot);
-    if constexpr (kDequant) {
-      for (int r = warp; r < ring.n1 * 8; r += kWarps) {
-        const float s = widened_row_sum(s1 + (size_t)r * ring.g.ld1, C);
-        sink += s;
-        if (lane == 0 && r1 + r < l1) lanes[r1 + r] += s;
-      }
-      __syncthreads();  // a w1 row and a w2 row may feed the same lane
-      for (int r = warp; r < ring.n2 * 8; r += kWarps) {
-        const float s = widened_row_sum(s2 + (size_t)r * ring.g.ld2, chunk);
-        sink += s;
-        if (lane == 0 && r2 + r < l2) lanes[r2 + r] += s;
-      }
-    } else if constexpr (kI32) {
-      const int t = threadIdx.x;  // one group of four rows
-      if (4 * t < ring.n1 * 8 && r1 / 4 + t < l1) atomicAdd(&scalar, i32_of_rows(s1, ring.g.ld1, 4 * t));
-      if (4 * t < ring.n2 * 8 && r2 / 4 + t < l2) atomicAdd(&scalar, i32_of_rows(s2, ring.g.ld2, 4 * t));
-    } else {
-      const int t = threadIdx.x;  // one row
-      if (t < ring.n1 * 8 && r1 + t < l1) atomicAdd(&scalar, (double)(int8_t)s1[(size_t)t * ring.g.ld1]);
-      if (t < ring.n2 * 8 && r2 + t < l2) atomicAdd(&scalar, (double)(int8_t)s2[(size_t)t * ring.g.ld2]);
-    }
-    ring.refill(j, nc);
-  }
-  // fp64 atomics of integers: exact, so the order does not matter
-  __syncthreads();
-  if (kDequant) {
-    for (int l = threadIdx.x; l < kProbeLanes; l += kThreads)
-      if (lanes[l] != 0.0) atomicAdd(p.acc + l, lanes[l]);
-  } else if (threadIdx.x == 0 && scalar != 0.0) {
-    atomicAdd(p.acc, scalar);
-  }
-  if (lane == 0) p.sink[b * kWarps + warp] = sink;  // keeps the widening of rows >= 128 alive
-  __threadfence();
-  __syncthreads();
-  __shared__ bool last;
-  if (threadIdx.x == 0) last = atomicAdd(p.ticket, 1ull) == (unsigned long long)(G - 1);
-  __syncthreads();
-  if (last) {  // every other block has added its sums
-    __threadfence();
-    for (int l = threadIdx.x; l < kProbeLanes; l += kThreads) p.out[l] = (float)__ldcg(p.acc + (kDequant ? l : 0));
-  }
-}
-
 template <typename WT, bool kPacked, bool kFull, int kGelu, bool kScale>
 int launch_mlp(MlpParams& p, int grid, cudaStream_t stream) {
   const size_t smem = (size_t)p.n_buf * stage_geom(p.C, p.chunk, (int)sizeof(WT), grid).bytes;
@@ -357,34 +242,4 @@ extern "C" int rq_q8_ring_mlp(const void* x, const void* y, const void* wo, cons
   if (!packed || gelu > 1) return (int)cudaErrorInvalidValue;
   return bf16_weights ? launch_ablate<bf16>(p, grid, gelu, scale, s)
                       : launch_ablate<int8_t>(p, grid, gelu, scale, s);
-}
-
-// The chunk stream alone over packed w1 [nc, chunk, C] and w2 [nc, C,
-// chunk] int8 bytes (i32 = 1: the same bytes viewed as int32; dma only),
-// `grid` blocks, n_buf stages; out: fp32 [128]; work: 8-byte words, at
-// least 129 + 2 grid of them, the first 129 zero (the sums and a ticket;
-// the last block to finish casts the sums into out). C, chunk: the int8
-// widths. Returns as rq_q8_ring_mlp.
-extern "C" int rq_q8_stream_probe(const void* w1, const void* w2, void* work, void* out, int C, int H,
-                                  int chunk, int n_buf, int grid, int dequant, int i32, void* stream) {
-  if (n_buf < 1 || n_buf > 8 || C % 32 || chunk % 32 || H % chunk || (dequant && i32) ||
-      max_share(chunk / 8, grid) > kNT || max_share(C / 8, grid) > kNT)
-    return (int)cudaErrorInvalidValue;
-  ProbeParams p;
-  p.w1 = w1;
-  p.w2 = w2;
-  p.acc = static_cast<double*>(work);
-  p.ticket = reinterpret_cast<unsigned long long*>(p.acc + kProbeLanes);
-  p.sink = reinterpret_cast<float*>(p.acc + kProbeLanes + 1);
-  p.out = static_cast<float*>(out);
-  p.C = C;
-  p.H = H;
-  p.chunk = chunk;
-  p.n_buf = n_buf;
-  const size_t smem = (size_t)n_buf * stage_geom(C, chunk, 1, grid).bytes;
-  void* args[] = {&p};
-  const void* k = dequant ? (const void*)stream_probe_kernel<true, false>
-                          : (i32 ? (const void*)stream_probe_kernel<false, true>
-                                 : (const void*)stream_probe_kernel<false, false>);
-  return coop_launch(k, grid, kThreads, smem, args, (cudaStream_t)stream);
 }

@@ -64,13 +64,14 @@ _SIGNATURES = {
     "rq_fused_max_clusters": (_I,) * 5 + (_P,),
     "rq_fused_phase_ns": (_P,),
     "rq_fused_proj_mlp_q8_splitk": (_P,) * 17 + (_I,) * 7 + (_F, _P),
-    "rq_nearest_code": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "rq_nearest_code": (_P,) * 10 + (_I,) * 5 + (_P,),
     "rq_decode_layer_step": (_P,) * 17 + (_I,) * 8 + (_F, _P),
     "rq_decode_attention_q8_update_wo": (_P,) * 16 + (_I,) * 7 + (_F, _P),
     "rq_decode_layer_step_phase_ns": (_P,),
     "rq_decode_attention_q8_update_wo_phase_ns": (_P,),
     "rq_q8_ring_mlp": (_P,) * 18 + (_I,) * 11 + (_F, _P),
-    "rq_q8_stream_probe": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "rq_stream_probe": (_P,) * 3 + (_I,) * 9 + (_P,),
+    "rq_stream_probe_phase_ns": (_P,),
     "rq_w8a8_mlp": (_P,) * 20 + (_I,) * 7 + (_F, _P),
     "rq_mlp": (_P,) * 10 + (_I,) * 7 + (_F, _P),
     "rq_dense_mlp": (_I,) + (_P,) * 11 + (_I,) * 14 + (_F, _P),
@@ -177,7 +178,7 @@ def stamps_ns(name: str) -> list[int]:
     """The globaltimer stamps (ns) that a fused kernel's last launch left,
     read through its C entry point `name` (rq_decode_layer_step_phase_ns,
     ..._q8_update_wo_phase_ns, rq_dense_phase_ns, rq_fused_phase_ns,
-    rq_dense_mlp_phase_ns), which
+    rq_dense_mlp_phase_ns, rq_stream_probe_phase_ns), which
     copies at most MAX_STAMPS of them. Synchronous: call it after the
     launch has finished."""
     buf = (ctypes.c_ulonglong * MAX_STAMPS)()

@@ -291,8 +291,9 @@ def _map_key(t, box_rows: int) -> tuple:
 
 def _tensor_map(t, box_rows: int = _TILE) -> int:
     """Address of the TMA tensor map of the bf16 or int8 matrix t [rows,
-    cols] in boxes of box_rows rows x 64 columns: a weight's (64), encoded
-    once per weight tensor, or an activation's (the row tile), encoded once
+    cols] in boxes of box_rows rows x 64 columns (fp32: 32 columns, for
+    csrc/nearest_code.cu): a weight's (64), encoded once per weight tensor,
+    or an activation's or a scratch buffer's (its row tile), encoded once
     per address the allocator hands out; keyed by _map_key, the cache
     emptied when it holds 4096."""
     key = _map_key(t, box_rows)

@@ -14,10 +14,12 @@ of tools/exp_q8_pipeline.py.
 #17 and #18 launch #6's kernel, csrc/decode_dense.cu::rq_fused_proj_mlp
 with int8 weights (one persistent launch, planned by decode_layer_kernel.
 dense_plan), #18 with its w2 read through a tensor map of the packed [nc
-C, chunk]; #19's kernel is csrc/q8_pipeline.cu (its source note says what
-bounds it on the H100 and how the design answers that); #20's is the
-"ring" form of csrc/dense_mlp.cu (one persistent launch on
-csrc/decode_dense.cu's machinery, planned by ops/dense_mlp_kernel.py).
+C, chunk]; #19's kernel is csrc/stream_probe.cu, the TMA ring that #6
+streams its weights through with the products taken out (its source note
+says what bounds it on the H100 and how the design answers that; its plan
+is #6's at B 100, probe_plan); #20's is the "ring" form of
+csrc/dense_mlp.cu (one persistent launch on csrc/decode_dense.cu's
+machinery, planned by ops/dense_mlp_kernel.py).
 The first design of #17 / #18 / #20 (csrc/q8_pipeline.cu's cooperative
 chunk-ring kernel, rq_q8_ring_mlp) stays as the A/B baselines
 `fused_proj_mlp_q8_ring_v1`, `fused_proj_mlp_q8_packed_v1` and
@@ -34,10 +36,10 @@ q8_pipeline_weights_from_jax turns the experiment's arrays into these.
 
 `chunk` and `n_buf` keep the JAX meaning (the hidden slice whose w1 rows
 and w2 columns travel together; the stages in flight). The result does not
-depend on them. Only #19 and the first designs still run a ring of chunk
-stages: on the card a point whose stages a block cannot hold raises
-ValueError with the arithmetic, and nothing drops to a smaller depth. #17,
-#18 and #20 plan their own depth: chunk is only the packed layout's (a
+depend on them. Only the first designs still run a ring of chunk stages:
+on the card a point whose stages a block cannot hold raises ValueError
+with the arithmetic, and nothing drops to a smaller depth. #17, #18, #19
+and #20 plan their own depth: chunk is only the packed layout's (a
 multiple of 64 dividing H), n_buf is still checked (1..8) and sets nothing.
 """
 
@@ -52,11 +54,12 @@ from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 from rqvae_tpu_torch.ops import dense_mlp_kernel as DM
 
 PROBE_LANES = 128
+PROBE_ROWS = 100  # the batch of #6's plan whose ring #19 streams (the experiment's B)
 _ROW_PAD = 16  # bytes after each staged row (csrc/q8_pipeline.cu kRowPad)
 _MAX_TILES = 4  # most 8-row tiles a block owns in one share (kNT)
 _MAX_ROWS = 128  # activation rows: 8 warps x 16
 RING_ROWS = 512  # the row-grouped kernels (csrc/ring.cuh kMaxGroups x kGroupRows)
-_STATIC_SMEM = 1056  # bytes of static shared memory of the probe (the larger)
+_STATIC_SMEM = 1056  # bytes of a block's shared memory held back for the ring kernels' static arrays
 _SMEM_OPTIN = 232448  # a block's shared memory on the H100 when the device does not say
 
 
@@ -416,13 +419,40 @@ def fused_proj_mlp_q8_packed_v1(x, y, wo_q, wo_s, bo, ln_scale, ln_bias, w1p, w1
 fused_proj_mlp_q8_packed_v1.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def probe_plan(C, H, sms=DK.SMS, rows=PROBE_ROWS):
+    """#19's launch on the card: #6's plan (decode_layer_kernel.dense_plan
+    with int8 weights) at B `rows` for width C: its cluster split of K,
+    clusters, row tile (the ring's stage stride), ring stages and shared
+    memory. C in WIDTHS and H = 4C, as for #6; ValueError otherwise."""
+    return DK.dense_plan(rows, C, H, True, sms, wbytes=1)
+
+
+def probe_tiles(plan, chunk, cta):
+    """What CTA `cta` of #19 streams, in its producer's order (decode_dense.
+    cuh's kStream: w1 [H, C] from w1p's bytes, then w2 through the map of
+    the packed [nc C, chunk]): (product, tensor-map column, tensor-map row)
+    of each 64 x 64 tile."""
+    cid, rank = divmod(cta, plan.cluster)
+    C, H = plan.C, plan.N
+    for i, (tiles, k) in enumerate(((H // DK._TILE, C), (C // DK._TILE, H))):
+        ks = k // plan.cluster
+        for j in range(cid, tiles, plan.clusters):
+            for kc in range(ks // DK._BK):
+                k0 = rank * ks + kc * DK._BK
+                yield (i, k0, j * DK._TILE) if i == 0 else (i, *DM.w2_coords(chunk, C, k0, j * DK._TILE))
+
+
 def stream_probe(w1p, w2p, chunk=1536, n_buf=4, mode="dma"):
     """Kernel wrapper (#19): the plain version for CPU tensors; for CUDA
-    tensors it launches csrc/q8_pipeline.cu::rq_q8_stream_probe (every chunk
-    copied into its stage; "dequant" widens and sums every row) or raises.
-    w1p [nc, chunk, C], w2p [nc, C, chunk] int8, or the same bytes viewed as
-    int32 ("dma" only). Returns [1, 128] fp32. One call on the card adds one
-    to `stream_probe.launches`."""
+    tensors it launches csrc/stream_probe.cu::rq_stream_probe (#6's TMA
+    weight ring without its products: every tile lands; "dequant" widens
+    and sums every row) or raises. w1p [nc, chunk, C], w2p [nc, C, chunk]
+    int8, or the same bytes viewed as int32 ("dma" only). On the card C in
+    decode_layer_kernel.WIDTHS, H = nc chunk = 4C and chunk % 64 == 0
+    (ValueError before the library is asked); n_buf is checked (1..8) and
+    sets nothing (probe_plan sets the ring). Returns [1, 128] fp32. One
+    call on the card adds one to `stream_probe.launches`."""
     name = "stream_probe"
     kind = _device_kind(name, w1p)
     if mode not in ("dma", "dequant"):
@@ -437,18 +467,27 @@ def stream_probe(w1p, w2p, chunk=1536, n_buf=4, mode="dma"):
     if w1p.dtype not in (torch.int8, torch.int32) or (div == 4 and mode != "dma"):
         raise ValueError(f"{name}: int8 weights, or int32 in 'dma' mode, got {w1p.dtype} in {mode!r}")
     _check_tensors(name, [("w1p", w1p), ("w2p", w2p)], (w1p.dtype, w1p.dtype))
-    C = w1p.shape[2] * div
-    grid = _check_point(name, w1p.device, 0, C, chunk, n_buf, 1)
+    C, H = w1p.shape[2] * div, w1p.shape[0] * chunk
+    dense_point(name, PROBE_ROWS, C, H, chunk)
+    return launch_probe(w1p, w2p, chunk, mode, probe_plan(C, H, _card(w1p.device)[0]))
+
+
+def launch_probe(w1p, w2p, chunk, mode, plan):
+    """One launch of csrc/stream_probe.cu on a plan of #6's ring
+    (probe_plan at any B; stream_probe's checked arguments): the same sums
+    on every plan. Adds one to `stream_probe.launches`."""
+    div = 4 if w1p.dtype == torch.int32 else 1
+    C, H = w1p.shape[2] * div, w1p.shape[0] * chunk
+    b1, b2 = w1p.view(torch.int8).reshape(H, C), w2p.view(torch.int8).reshape(-1, chunk)
     out = torch.empty((1, PROBE_LANES), dtype=torch.float32, device=w1p.device)
-    # the kernel's fp64 sums and ticket (zero), then a sink of 4 floats per block
-    work = torch.zeros((PROBE_LANES + 1 + 2 * grid,), dtype=torch.float64, device=w1p.device)
     lib = _build.library()
     with torch.cuda.device(w1p.device):
-        err = lib.rq_q8_stream_probe(
-            w1p.data_ptr(), w2p.data_ptr(), work.data_ptr(), out.data_ptr(), C, w1p.shape[0] * chunk, chunk, n_buf,
-            grid, int(mode == "dequant"), int(div == 4), torch.cuda.current_stream().cuda_stream,
+        err = lib.rq_stream_probe(
+            DK._tensor_map(b1), DK._tensor_map(b2), out.data_ptr(), C, H, chunk, plan.cluster, plan.clusters,
+            plan.row_tile, plan.stages, plan.smem, (2 if div == 4 else 0) if mode == "dma" else 1,
+            torch.cuda.current_stream().cuda_stream,
         )
-    _launched(err, "rq_q8_stream_probe", f"chunk {chunk} x n_buf {n_buf}")
+    _launched(err, "rq_stream_probe", f"chunk {chunk}")
     stream_probe.launches += 1
     return out
 

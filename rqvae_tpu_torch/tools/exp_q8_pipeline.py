@@ -15,10 +15,12 @@ times, in the JAX experiment's order and with its lines:
   decode_layer_kernel.dense_plan; #18 reads its packed w2 through a tensor
   map of [nc C, chunk]): (chunk, n_buf) sets no depth any more, so the
   sweeps time one kernel at each point, and its bits equal #6's;
-- the chunk stream alone (#19): "dma", "dequant" and the same bytes viewed
-  as int32 ("dma-as-i32": on Hopper the bytes land in shared memory the
-  same way whatever their type, so this line is expected to equal "dma";
-  JAX viewed them so to isolate TPU tile packing);
+- the chunk stream alone (#19, csrc/stream_probe.cu: #6's TMA ring on #6's
+  plan at B 100, without the products; (chunk, n_buf) sets no depth):
+  "dma", "dequant" and the same bytes viewed as int32 ("dma-as-i32": on
+  Hopper the bytes land in shared memory the same way whatever their type,
+  so this line is expected to equal "dma"; JAX viewed them so to isolate
+  TPU tile packing);
 - the MLP alone (#20): int8 with and without gelu and the scale, and bf16
   weights through the same code.
 
@@ -26,8 +28,8 @@ GB/s are JAX's byte counts: bytes_q8 = L (C^2 + 2 C H) for the full
 layers, bytes_probe = L 2 C H for the stream alone, twice that for bf16.
 The chunk / n_buf points are the JAX sweep's (RING_CHUNKS and the other
 module constants; a point with fewer chunks than stages is skipped, as in
-JAX). A point the wrapper refuses (for #19 a ring of stages a block cannot
-hold; for #17 / #18 a chunk outside their contract, none of the sweeps')
+JAX). A point the wrapper refuses (for #17 / #18 / #19 a chunk outside
+their contract, none of the sweeps')
 prints FAILED with the wrapper's ValueError, and the sweep goes on; any
 other exception propagates.
 

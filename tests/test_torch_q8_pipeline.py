@@ -235,6 +235,99 @@ def test_wrappers_refuse_other_devices_and_ragged_chunks():
         QP.ablate_ring(p["x"], w1p, p["w1_s"], w2p, None, chunk=CHUNK, n_buf=0)
 
 
+PROBE_REFUSED = [  # (C, H, chunk, what the message names): on the card, before the library is asked
+    (512, 2048, 32, "multiple of 64"),   # chunk % 64 (it divides H)
+    (512, 1920, 640, "H = 4C"),          # chunk 640 does not divide 4C: nc chunk = 1920
+    (128, 512, 128, "C in"),             # C outside WIDTHS
+]
+
+
+@pytest.mark.parametrize("C_,H_,chunk,match", PROBE_REFUSED)
+@pytest.mark.parametrize("i32", [False, True], ids=["int8", "int32"])
+def test_stream_probe_refuses_before_the_library(C_, H_, chunk, match, i32, monkeypatch):
+    """On a CUDA device (the device kind stood in for) #19 refuses a chunk
+    that is not a multiple of 64, or that does not divide H = 4C, and a
+    width outside #6's plan, after its type and shape checks and before the
+    library or the device is asked; no launch is counted."""
+    def asked(*args, **kwargs):
+        raise AssertionError("the kernel library or the device was asked")
+
+    monkeypatch.setattr(QP, "_device_kind", lambda name, t: "cuda")
+    monkeypatch.setattr(QP._build, "library", asked)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", asked)
+    r = np.random.RandomState(C_ + chunk)
+    w1p = torch.from_numpy(r.randint(-127, 128, (H_ // chunk, chunk, C_)).astype(np.int8))
+    w2p = torch.from_numpy(r.randint(-127, 128, (H_ // chunk, C_, chunk)).astype(np.int8))
+    if i32:
+        w1p, w2p = w1p.view(torch.int32), w2p.view(torch.int32)
+    n = QP.stream_probe.launches
+    with pytest.raises(ValueError, match=match):
+        QP.stream_probe(w1p, w2p, chunk=chunk, n_buf=4)
+    assert QP.stream_probe.launches == n
+
+
+@pytest.mark.parametrize("C_,chunk", [(1536, 1536), (1536, 768), (1536, 3072), (512, 64), (2560, 640)])
+def test_stream_probe_plan_streams_every_tile_once(C_, chunk):
+    """#19's plan is #6's at B 100 (the stage count the log names: 6 at C
+    1536); its CTAs stream every 64 x 64 tile of w1 [H, C] and of the packed
+    w2 map [nc C, chunk] once, within the map."""
+    H_ = 4 * C_
+    plan = QP.probe_plan(C_, H_)
+    assert plan == DK.dense_plan(100, C_, H_, True, wbytes=1) and plan.smem <= DK.SMEM_LIMIT
+    if C_ == 1536:
+        assert (plan.cluster, plan.clusters, plan.stages) == (4, 33, 6)
+    got = [t for cta in range(plan.cluster * plan.clusters) for t in QP.probe_tiles(plan, chunk, cta)]
+    w1 = [(0, k, r) for r in range(0, H_, 64) for k in range(0, C_, 64)]
+    w2 = [(1, k, r) for r in range(0, H_ // chunk * C_, 64) for k in range(0, chunk, 64)]
+    assert sorted(got) == sorted(w1 + w2)
+
+
+def _probe_restated(w1p, w2p, chunk, mode):
+    """csrc/stream_probe.cu's sums restated over probe_tiles: each CTA's
+    tiles in order, a tile's first row in its chunk (r0), whether it holds
+    the chunk's column 0, the rows that feed the lanes; [1, 128] fp32."""
+    i32 = w1p.dtype == torch.int32
+    b1, b2 = w1p.view(torch.int8).reshape(-1, w1p.shape[2] * (4 if i32 else 1)), w2p.view(torch.int8).reshape(-1, chunk)
+    C_ = b1.shape[1]
+    plan = QP.probe_plan(C_, b1.shape[0])
+    lanes = np.zeros(128, np.int64)
+    one = 0
+    for cta in range(plan.cluster * plan.clusters):
+        for i, col, row in QP.probe_tiles(plan, chunk, cta):
+            tile = (b1 if i == 0 else b2)[row:row + 64, col:col + 64].numpy().astype(np.int64)
+            r0 = row % (chunk if i == 0 else C_)
+            limit = min(512 if i32 else 128, chunk if i == 0 else C_)
+            if mode == "dequant":
+                for r in range(64):
+                    if r0 + r < limit:
+                        lanes[r0 + r] += tile[r].sum()
+            elif col == 0:
+                for t in range(16 if i32 else 64):
+                    if i32 and r0 + 4 * t < limit:
+                        one += int(np.frombuffer(tile[4 * t:4 * t + 4, 0].astype(np.int8).tobytes(), np.int32)[0])
+                    elif not i32 and r0 + t < limit:
+                        one += int(tile[t, 0])
+    out = lanes if mode == "dequant" else np.full(128, one)
+    return torch.from_numpy(out.astype(np.float32))[None]
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 512])
+@pytest.mark.parametrize("mode", ["dma", "dequant", "dma-i32"])
+def test_stream_probe_kernel_sums_restated(chunk, mode):
+    """The kernel's walk and lane arithmetic, restated in numpy at C 512, H
+    2048 (#6's plan: cluster 8 x 16), equal the plain version: every lane
+    of chunks shorter and longer than 128 rows, column 0 only in the tile
+    that holds it, the int32 view's four rows a value."""
+    r = np.random.RandomState(chunk)
+    w1 = torch.from_numpy(r.randint(-128, 128, (2048, 512)).astype(np.int8))
+    w2 = torch.from_numpy(r.randint(-128, 128, (512, 2048)).astype(np.int8))
+    w1p, w2p = QP.pack_w1(w1, chunk), QP.pack_w2(w2, chunk)
+    if mode == "dma-i32":
+        w1p, w2p = w1p.view(torch.int32), w2p.view(torch.int32)
+    want = QP.stream_probe_plain(w1p, w2p, "dequant" if mode == "dequant" else "dma")
+    assert torch.equal(_probe_restated(w1p, w2p, chunk, "dequant" if mode == "dequant" else "dma"), want)
+
+
 def test_stage_bytes_match_the_source_note():
     # csrc/q8_pipeline.cu: at 132 blocks, int8 chunk 1536 needs 49,664 B a
     # stage, 768 24,960, 512 20,864, 3072 86,656; bf16 1536 98,816
