@@ -129,7 +129,20 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. the port of tools/exp_mlp_kernel.py (rqvae_tpu_torch.tools.
      exp_mlp_kernel) at B 100 and 500, 24 layers, chains of MLP_ITERS x 24
      calls: the plain xla_mlp against #15, with #15's exact launch counts
-     and every other counter 0 (fused_mlp_v1's too).
+     and every other counter 0 (fused_mlp_v1's too);
+ 12. the stage-2 trainer (rqvae_tpu_torch.trainers.trainer_stage2; no
+     kernel on its path): (a) at full width and cut depth (embed 1536, 2
+     body and 1 head layer, vocab 16384, 4 images of 256x256, fp32, TF32
+     off, dropout 0, 2 microbatches) one train step on the card and the
+     same step on this machine's CPU from the same weights, the frozen
+     encode and soft codes compared, the losses, grad_norm, gradients and
+     updated weights held to the TRAIN_* tolerances; (b) bench's 1.4B
+     RQ-Transformer, amp bf16, resid_pdrop 0.1, with a frozen bf16 copy of
+     bench's RQ-VAE encoder: 5 steps of 32 images as 2 microbatches on one
+     fixed batch, every kernel count 0, finite losses, loss_total falling,
+     the EMA moved, one eval step; ms/step, peak memory, tokens/s and the
+     share of the bf16 dense peak; (c) the last step again with remat, its
+     losses against the plain step's and its peak memory.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -144,7 +157,8 @@ forms #1 / #4, then the read-only forms #10 / #12 and #11; `python3
 chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone; `python3
 chip_smoke.py q8` those of #16-#19 (csrc/dense_w8a8.cu, #6's kernel,
 csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
-(csrc/nearest_code.cu) alone. Run from two source trees in one call, they
+(csrc/nearest_code.cu) alone; `python3 chip_smoke.py train` phases 1 and
+12 alone (no build: no kernel lies on the training path). Run from two source trees in one call, they
 compare two designs of those kernels on one card.
 """
 
@@ -214,6 +228,29 @@ HPARAMS = dict(  # bench.py:122-128
     embed_dim=256, n_embed=16384, loss_type="mse", latent_shape=[8, 8, 256],
     code_shape=[8, 8, 4], shared_codebook=True, restart_unused_codes=True,
 )
+
+# phase 12: the stage-2 trainer. (a) the card's step against the CPU's at
+# full width and cut depth, fp32; (b) bench's 1.4B at full depth, amp bf16
+TRAIN_CUT_ARCH = dict(ARCH_1P4B, body={"n_layer": 2, "block": {"n_head": 24, "resid_pdrop": 0.0}},
+                      head={"n_layer": 1, "block": {"n_head": 24, "resid_pdrop": 0.0}})
+TRAIN_CUT_BATCH = 4
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, ENCODE_CHUNK = 32, 2, 5, 16
+# adamW with the clip; cosine from the first update (no warmup), so that
+# every update moves the weights
+TRAIN_OPTIM = {"type": "adamW", "betas": [0.9, 0.95], "weight_decay": 1e-4, "max_gn": 1.0}
+TRAIN_WARMUP = {"epoch": 0, "min_lr": 1e-5}
+TRAIN_LR = 3e-4
+# (a): fp32 on both sides, TF32 off, sums in other orders: losses and
+# grad_norm to 1e-5 relative; each gradient to 1e-4 of its tensor's max
+# (plus 1e-6 of the largest, for the key biases, whose gradient is 0 in
+# exact arithmetic and rounding noise here); the updated weights to 1e-6
+# where the CPU's gradient is above 1e-4 of its tensor's max and 1e-6 of
+# the largest, and within two learning rates elsewhere (Adam's step there
+# is +-lr whichever way noise tips the gradient)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-6
+REMAT_LOSS_TOL = 1e-3  # (c): remat against the plain step on the same weights and masks
 
 
 def log(msg: str) -> None:
@@ -2364,11 +2401,236 @@ def mlp_phase(counters, dev, card) -> int:
     return n
 
 
+def stage2_step_flops(config, batch: int) -> float:
+    """Model FLOPs of one stage-2 train step on `batch` samples: three times
+    the forward's products (the backward does two per forward product), the
+    attention's two products at the full square the plain attention
+    computes; the frozen encode, the soft codes and a recompute not counted."""
+    C, D, HW = config.embed_dim, config.depth, config.hw
+
+    def stack(cfg, sequences, T):
+        return cfg.n_layer * sequences * T * (2 * 12 * C * C + 2 * 2 * T * C)
+
+    fwd = stack(config.body, batch, config.block_size_cond + HW - 1) + stack(config.head, batch * HW, D)
+    fwd += 2 * batch * HW * D * C * config.vocab_size_max  # classifier
+    fwd += 2 * 2 * batch * HW * D * config.input_embed_dim * C  # input_mlp, head_mlp
+    return 3.0 * fwd
+
+
+def build_stage2(arch, dev, gen):
+    """(fp32 RQ-Transformer of `arch`, fp32 RQ-VAE of bench's geometry) on
+    `dev`, random weights from `gen`."""
+    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.models.rqvae.model import RQVAE, RQVAEHParams
+    from rqvae_tpu_torch.models.rqvae.modules import DDConfig
+
+    model = RQTransformer(TransformerConfig.create(arch), device=dev)
+    model.init_weights(gen)
+    vqvae = RQVAE(RQVAEHParams.create(HPARAMS), DDConfig.create(DDCONFIG), device=dev)
+    vqvae.init_weights(gen)
+    return model, vqvae
+
+
+def train_schedule():
+    from rqvae_tpu_torch.optim.schedule import create_schedule
+
+    return create_schedule(base_lr=TRAIN_LR, warmup_config=TRAIN_WARMUP, steps_per_epoch=1000, max_epoch=1)
+
+
+def train_vs_cpu(dev, card) -> None:
+    """Phase 12 (a): one fp32 train step at full width and cut depth
+    (TRAIN_CUT_ARCH, vocab 16384, TRAIN_CUT_BATCH 256x256 images as 2
+    microbatches, dropout 0) on the card and on this machine's CPU, from
+    the same weights. The frozen encode and soft codes run on both and are
+    compared; both steps then take the card's codes and soft targets (a
+    near tie of two codes may fall either way between two summation
+    orders, and the steps are compared on equal inputs). Losses,
+    grad_norm, each gradient and the updated weights are held to the
+    TRAIN_* tolerances."""
+    from rqvae_tpu_torch.trainers import trainer_stage2 as T2
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(12)
+    model_cpu, vq_cpu = build_stage2(TRAIN_CUT_ARCH, cpu, gen)
+    res = DDCONFIG["resolution"]
+    images = torch.rand(TRAIN_CUT_BATCH, 3, res, res, generator=gen) * 2 - 1
+    cond = torch.arange(TRAIN_CUT_BATCH) * 97 % model_cpu.config.vocab_size_cond
+    model_dev, vq_dev = copy.deepcopy(model_cpu).to(dev), copy.deepcopy(vq_cpu).to(dev)
+    loss_cfg = T2.Stage2LossConfig(amp_bf16=False)
+    sides = {}
+    for name, model, vq in (("card", model_dev, vq_dev), ("cpu", model_cpu, vq_cpu)):
+        d = model.pos_emb_hw.device
+        t0 = time.perf_counter()
+        z = T2.make_frozen_encode_fn(vq, dtype=None)(images.to(d))
+        soft, codes = T2.make_soft_code_fn(vq.quantizer, loss_cfg)(z, None)
+        sides[name] = dict(z=z.cpu(), soft=soft, codes=codes, model=model, vq=vq, encode_s=time.perf_counter() - t0)
+    on_card, host = sides["card"], sides["cpu"]
+    z_err = float((on_card["z"] - host["z"]).abs().max()) / float(host["z"].abs().max())
+    agree = float((on_card["codes"].cpu() == host["codes"]).double().mean())
+    soft_err = float((on_card["soft"].cpu() - host["soft"]).abs().max())
+    log(f"  (a) frozen fp32 encode + soft codes, {TRAIN_CUT_BATCH} images: z_e max |card - cpu| {z_err:.2e} of "
+        f"max |z_e|, codes equal on {agree:.4f}, soft targets max |card - cpu| {soft_err:.2e}")
+    if z_err > 1e-4 or agree < ENCODE_AGREE:
+        raise AssertionError("the card's frozen encode disagrees with the CPU's")
+    for name in ("card", "cpu"):
+        side = sides[name]
+        d = side["model"].pos_emb_hw.device
+        state = T2.init_state(side["model"], TRAIN_OPTIM, train_schedule())
+        step = T2.make_train_step(loss_cfg, quantizer=side["vq"].quantizer, grad_accum_steps=TRAIN_ACCUM)
+        batch = {"codes": on_card["codes"].to(d), "soft_targets": on_card["soft"].to(d), "cond": cond.to(d)}
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, None)
+        side["metrics"] = {k: v.detach().double().cpu() for k, v in metrics.items()}
+        side["step_s"] = time.perf_counter() - t0
+    bad = []
+    for k, want in host["metrics"].items():
+        got = on_card["metrics"][k]
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        log(f"  (a) {k}: card {got.tolist()}, cpu {want.tolist()}, relative {rel:.2e} (<= {TRAIN_LOSS_RTOL})")
+        if rel > TRAIN_LOSS_RTOL:
+            bad.append(k)
+    cpu_params = dict(model_cpu.named_parameters())
+    gscale = max(float(p.grad.abs().max()) for p in cpu_params.values())
+    worst_p, kept, total, lr = 0.0, 0, 0, train_schedule()(0)
+    rows = []  # (share of the gradient bound, name, max |card - cpu| / max |cpu|, card norm, cpu norm)
+    for k, p in model_dev.named_parameters():
+        ref, g = cpu_params[k], p.grad.detach().cpu()
+        gmax = float(ref.grad.abs().max())
+        err = float((g - ref.grad).abs().max())
+        rows.append((err / (TRAIN_GRAD_TOL * gmax + 1e-6 * gscale), k, err / max(gmax, 1e-30), float(g.norm()),
+                     float(ref.grad.norm())))
+        d = (p.detach().cpu() - ref.detach()).abs()
+        sure = ref.grad.abs() > max(1e-4 * gmax, 1e-6 * gscale)
+        kept, total = kept + int(sure.sum()), total + sure.numel()
+        worst_p = max(worst_p, float(d[sure].max()) if bool(sure.any()) else 0.0)
+        if float(d.max()) > 2 * lr + TRAIN_PARAM_ATOL:
+            bad.append(f"{k} (a weight more than two learning rates from the CPU's)")
+    rows.sort(reverse=True)
+    for share, k, rel, n_card, n_cpu in rows[:6]:
+        log(f"  (a) gradient {k}: max |card - cpu| {rel:.2e} of its max, {share:.3f} of its bound; norm card "
+            f"{n_card:.6e}, cpu {n_cpu:.6e}")
+    worst_g = rows[0][0]
+    log(f"  (a) gradients: max |card - cpu| at {worst_g:.3f} of its bound ({TRAIN_GRAD_TOL} of each tensor's max + "
+        f"1e-6 of the largest); updated weights: max |card - cpu| {worst_p:.2e} (<= {TRAIN_PARAM_ATOL}) on the "
+        f"{kept / total:.4f} of entries whose gradient is above 1e-4 of its tensor's max and 1e-6 of the largest, "
+        f"within 2 lr elsewhere; card step {on_card['step_s']:.2f} s (first call), cpu step {host['step_s']:.2f} s; {card}")
+    if bad or worst_g > 1.0 or worst_p > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"(a) the card's step disagrees with the CPU's: {bad}, gradients at {worst_g:.3f} of "
+                             f"their bound, weights {worst_p:.2e}")
+
+
+def train_phase(counters, dev, card) -> None:
+    """Phase 12: the stage-2 trainer. (a) train_vs_cpu; (b) bench's 1.4B
+    (ARCH_1P4B, resid_pdrop 0.1, amp bf16) with a frozen bf16 copy of
+    bench's RQ-VAE encoder (chunks of ENCODE_CHUNK images) and soft targets
+    at temp 1: TRAIN_STEPS steps of TRAIN_BATCH images (TRAIN_ACCUM
+    microbatches) on one fixed batch of 256x256 images, every kernel count 0
+    over them, finite losses and grad_norm, loss_total falling from the
+    first step to the last, the EMA moved, one eval step (on the EMA);
+    ms/step (median of steps 2-5), peak memory, tokens/s and the share of
+    the bf16 dense peak; (c) the last step again from the same weights and
+    dropout seed with remat=True: losses within REMAT_LOSS_TOL of the plain
+    step's, and its peak memory."""
+    import dataclasses
+
+    from rqvae_tpu_torch.trainers import trainer_stage2 as T2
+
+    log(f"  matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    train_vs_cpu(dev, card)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, vqvae = build_stage2(ARCH_1P4B, dev, gen)
+    config = model.config
+    state = T2.init_state(model, TRAIN_OPTIM, train_schedule(), use_ema=True)
+    loss_cfg = T2.Stage2LossConfig()
+    encode = T2.make_frozen_encode_fn(vqvae, chunk=ENCODE_CHUNK)
+    kw = dict(encode_fn=encode, quantizer=vqvae.quantizer)
+    step = T2.make_train_step(loss_cfg, grad_accum_steps=TRAIN_ACCUM, **kw)
+    res = DDCONFIG["resolution"]
+    batch = {"images": torch.rand(TRAIN_BATCH, 3, res, res, generator=gen, device=dev) * 2 - 1,
+             "cond": torch.arange(TRAIN_BATCH, device=dev) * 31 % config.vocab_size_cond}
+    ema_before = state.ema["classifier.linear.weight"].clone()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"  (b) rq-transformer {n_params / 1e6:.0f}M fp32 parameters with AdamW moments and EMA, rq-vae "
+        f"{sum(p.numel() for p in vqvae.parameters()) / 1e6:.0f}M (encoder in bf16), built in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    def run(step_fn, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step_fn(state, batch, torch.Generator(device=dev).manual_seed(100 + n))
+        m = {k: v.detach().double().cpu() for k, v in m.items()}
+        return m, time.perf_counter() - t
+
+    for fn in counters:
+        fn.launches = 0
+    metrics, times = [], []
+    for n in range(TRAIN_STEPS):
+        if n == 1:
+            torch.cuda.reset_peak_memory_stats()
+        if n == TRAIN_STEPS - 1:
+            weights = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+        m, s = run(step, n)
+        metrics.append(m)
+        times.append(s)
+        log(f"  (b) step {n + 1}: loss_total {float(m['loss_total']):.4f}, loss_img {float(m['loss_img']):.4f}, "
+            f"grad_norm {float(m['grad_norm']):.4f}, codebook_loss {[round(x, 4) for x in m['codebook_loss'].tolist()]}, "
+            f"{s * 1e3:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if any(counts.values()):
+        raise AssertionError(f"(b) the train steps launched kernels: {counts}")
+    if not all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()):
+        raise AssertionError("(b) a loss or grad_norm is not finite")
+    if not float(metrics[-1]["loss_total"]) < float(metrics[0]["loss_total"]):
+        raise AssertionError("(b) loss_total did not fall from the first step to the last")
+    ema_moved = float((state.ema["classifier.linear.weight"] - ema_before).abs().max())
+    if not ema_moved > 0:
+        raise AssertionError("(b) the EMA did not move")
+    ev = T2.make_eval_step(loss_cfg, **kw)(state, {k: v[: TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()})
+    if not all(bool(torch.isfinite(v).all()) for v in ev.values()):
+        raise AssertionError("(b) the eval step's losses are not finite")
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = TRAIN_BATCH * config.hw * config.depth
+    flops = stage2_step_flops(config, TRAIN_BATCH)
+    log(f"  (b) {TRAIN_STEPS} steps, no kernel launched; loss_total {float(metrics[0]['loss_total']):.4f} -> "
+        f"{float(metrics[-1]['loss_total']):.4f}; EMA moved by up to {ema_moved:.2e}; eval (EMA, "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} images): loss_total {float(ev['loss_total']):.4f}")
+    log(f"  [train 1.4B] {ms:.1f} ms/step (median of steps 2-{TRAIN_STEPS}: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times[1:])}; first step {times[0] * 1e3:.1f}), B {TRAIN_BATCH} as "
+        f"{TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, {tokens / (ms / 1e3):.0f} tokens/s ({tokens} codes a step), "
+        f"{flops / 1e12:.2f} model TFLOP a step, {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s = "
+        f"{flops / (ms / 1e3) / BF16_TENSOR_FLOPS:.1%} of the bf16 dense peak; peak memory {peak:.1f} GiB; {card}")
+
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(weights[k])
+    del weights
+    T2.refresh_derived_buffers(model)
+    torch.cuda.reset_peak_memory_stats()
+    remat_step = T2.make_train_step(dataclasses.replace(loss_cfg, remat=True), grad_accum_steps=TRAIN_ACCUM, **kw)
+    m, s = run(remat_step, TRAIN_STEPS - 1)
+    remat_peak = torch.cuda.max_memory_allocated() / 2**30
+    diffs = {k: float((m[k] - metrics[-1][k]).abs().max()) for k in ("loss_total", "loss_img", "codebook_loss")}
+    log(f"  (c) remat step {TRAIN_STEPS} again from the same weights and seed: loss_total "
+        f"{float(m['loss_total']):.4f} (plain {float(metrics[-1]['loss_total']):.4f}), max |remat - plain| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()) + f" (<= {REMAT_LOSS_TOL}); grad_norm "
+        f"{float(m['grad_norm']):.4f} (plain {float(metrics[-1]['grad_norm']):.4f}); {s * 1e3:.1f} ms; peak memory "
+        f"{remat_peak:.1f} GiB (plain {peak:.1f} GiB); {card}")
+    if max(diffs.values()) > REMAT_LOSS_TOL:
+        raise AssertionError("(c) the remat step's losses differ from the plain step's")
+
+
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8' and 'nearest'")
+                         f"'attention', 'mlp', 'q8', 'nearest' and 'train'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -2393,6 +2655,21 @@ def main() -> None:
     from rqvae_tpu_torch.ops import q8_pipeline_kernel as QP
     from rqvae_tpu_torch.ops import rq_kernel as RK
     from rqvae_tpu_torch.ops import w8a8_kernel as W8
+
+    # every kernel wrapper's launch count, in the order of phase 4's tables
+    counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
+                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
+                MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
+                AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
+                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
+                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
+                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
+                MLP.fused_mlp_v1, QP.ablate_ring_v1, QP.fused_proj_mlp_q8_ring_v1, QP.fused_proj_mlp_q8_packed_v1,
+                W8.fused_proj_mlp_q8a8_v1)
+    if mode == "train":
+        log(f"# phase 12: the stage-2 trainer (no kernel on its path, so no build), on {card}")
+        train_phase(counters, dev, card)
+        return
 
     # phase 2: build
     log("# phase 2: build")
@@ -2489,15 +2766,6 @@ def main() -> None:
         if int8 != model.body_transformer.blocks[0].int8:
             model.quantize_int8() if int8 else model.clear_int8()
 
-    counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
-                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
-                MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
-                AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
-                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
-                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
-                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
-                MLP.fused_mlp_v1, QP.ablate_ring_v1, QP.fused_proj_mlp_q8_ring_v1, QP.fused_proj_mlp_q8_packed_v1,
-                W8.fused_proj_mlp_q8a8_v1)
     attn_steps, head_steps = 42 * 64, 6 * 4 * 64  # cond_len 1 included; 4 depths at 64 positions
     A, D = attn_steps, head_steps
     points = [  # (name, int8 weights, sample options, launches each counter must show)
@@ -2590,6 +2858,12 @@ def main() -> None:
     log(f"# phase 11: rqvae_tpu_torch.tools.exp_mlp_kernel, B 100 and 500, {MLP_ITERS} iterations of 24 layers per "
         f"chain, on {card}")
     launches["fused_mlp"] = mlp_phase(counters, dev, card)
+    torch.cuda.empty_cache()
+
+    # phase 12: the stage-2 trainer, after phase 11 has freed its memory
+    log(f"# phase 12: stage-2 training: (a) a full-width, 2 + 1-layer step on the card against the CPU's, fp32; "
+        f"(b) the 1.4B RQ-Transformer, amp bf16, {TRAIN_STEPS} steps of B {TRAIN_BATCH}; (c) remat; on {card}")
+    train_phase(counters, dev, card)
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",

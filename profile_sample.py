@@ -24,7 +24,11 @@ warm-up forward; its wall ms/image is chip_smoke.py's (phase 6). Points
 (measure_throughput.build(16, name, 1, codebook), random bf16 weights from
 a seed, 16x16x1 codes, the stacked-cache sampler; vqgan_large at head size
 104), each built once the model before it is freed; their wall ms/sample
-is chip_smoke.py's (phase 7).
+is chip_smoke.py's (phase 7). Point "train" is one stage-2 train step of
+chip_smoke.py's phase 12 (b) (the 1.4B RQ-Transformer, amp bf16, 32 images
+as 2 microbatches through a frozen bf16 encoder, AdamW, EMA; no kernel
+wrapper on its path), after one warm-up step, reported per step; its
+unprofiled ms/step is chip_smoke.py's (phase 12).
 
 Prints one JSON line per point, then the card's name and power limit; the
 profiler tables go to --out. The points to run are named on the command
@@ -58,7 +62,7 @@ POINTS = (  # (name, int8 weights, sample options), as chip_smoke.py phase 4
     ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True)),
 )
 VQGAN_POINTS = ("vqgan_huge", "vqgan_large")  # measure_throughput's VQ-GAN rows
-POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", *VQGAN_POINTS]
+POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", *VQGAN_POINTS, "train"]
 
 
 def _annotated(fn):
@@ -84,9 +88,10 @@ def host_ops(prof) -> int:
     return sum(1 for e in prof.events() if e.device_type == cpu and counts(e))
 
 
-def report(name: str, prof, prof_s: float, out_dir: str) -> None:
+def report(name: str, prof, prof_s: float, out_dir: str, per=("sample", BATCH)) -> None:
     """One JSON line for a profiled call: host and device operations and ms
-    per sample (or image), the top device operations, per-wrapper device time."""
+    per `per` (a sample, an image or a step, and how many the call made),
+    the top device operations, per-wrapper device time."""
     events = prof.key_averages()
     # a record_function range also shows as a device-side annotation
     # spanning its kernels: it gives the wrapper's device time (the
@@ -102,16 +107,17 @@ def report(name: str, prof, prof_s: float, out_dir: str) -> None:
     }
     with open(os.path.join(out_dir, f"{name.replace('+', '_')}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    unit, n = per
     print(json.dumps({
-        "point": name, "profiled_ms_per_sample": prof_s * 1e3 / BATCH, "host_ops": host_ops(prof),
-        "device_ops": sum(e.count for e in device), "device_ms_per_sample": device_us / 1e3 / BATCH,
+        "point": name, f"profiled_ms_per_{unit}": prof_s * 1e3 / n, "host_ops": host_ops(prof),
+        "device_ops": sum(e.count for e in device), f"device_ms_per_{unit}": device_us / 1e3 / n,
         "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3}
                            for e in top],
         "wrappers": per_wrapper,
     }), flush=True)
 
 
-def profiled(name: str, fn, out_dir: str) -> None:
+def profiled(name: str, fn, out_dir: str, per=("sample", BATCH)) -> None:
     """One warm-up call of fn, then one call under the profiler, reported."""
     fn()
     torch.cuda.synchronize()
@@ -120,7 +126,7 @@ def profiled(name: str, fn, out_dir: str) -> None:
         fn()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    report(name, prof, prof_s, out_dir)
+    report(name, prof, prof_s, out_dir, per)
 
 
 def main() -> None:
@@ -161,7 +167,7 @@ def main() -> None:
     for (m, n), fn in originals.items():
         setattr(m, n, _annotated(fn))
     try:
-        if set(names) - set(VQGAN_POINTS):
+        if set(names) - set(VQGAN_POINTS) - {"train"}:
             model, vqvae, cond = build_main_path(dev)
             for name, int8, options in POINTS:
                 if name in names:
@@ -185,6 +191,22 @@ def main() -> None:
             cond = torch.arange(BATCH, device=dev) % tconf.vocab_size_cond
             profiled(name, sampler(model, vqvae, cond, {}), args.out)
             del model, vqvae
+            torch.cuda.empty_cache()
+        if "train" in names:
+            import chip_smoke as C
+            from rqvae_tpu_torch.trainers import trainer_stage2 as T2
+
+            gen = torch.Generator(device=dev).manual_seed(0)
+            model, vqvae = C.build_stage2(C.ARCH_1P4B, dev, gen)
+            state = T2.init_state(model, C.TRAIN_OPTIM, C.train_schedule(), use_ema=True)
+            step = T2.make_train_step(T2.Stage2LossConfig(), grad_accum_steps=C.TRAIN_ACCUM, quantizer=vqvae.quantizer,
+                                      encode_fn=T2.make_frozen_encode_fn(vqvae, chunk=C.ENCODE_CHUNK))
+            res = C.DDCONFIG["resolution"]
+            batch = {"images": torch.rand(C.TRAIN_BATCH, 3, res, res, generator=gen, device=dev) * 2 - 1,
+                     "cond": torch.arange(C.TRAIN_BATCH, device=dev) * 31 % model.config.vocab_size_cond}
+            profiled("train", lambda: step(state, batch, torch.Generator(device=dev).manual_seed(100)), args.out,
+                     per=("step", 1))
+            del model, vqvae, state
             torch.cuda.empty_cache()
     finally:
         for (m, n), fn in originals.items():

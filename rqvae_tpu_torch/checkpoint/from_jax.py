@@ -12,6 +12,10 @@ QuantizedWeight(q, scale) leaves) maps in two parts: its state_dict holds
 each quantized weight dequantized (q * scale in fp32), and
 rqtransformer_int8_from_jax gives the int8 buffers exactly, for
 RQTransformer.load_int8.
+
+stage2_state_from_jax carries a whole stage-2 training state across (the
+only function here that builds torch objects): the parameters, their EMA,
+the step and optax's moments, each tree mapped as the parameters are.
 """
 
 from __future__ import annotations
@@ -238,3 +242,59 @@ def mlp_weights_from_jax(w1, b1, w2, b2) -> Dict[str, np.ndarray]:
         "w2": np.ascontiguousarray(_np32(w2).T),
         "b2": _np32(b2).reshape(-1),
     }
+
+
+def _optax_states(tree, fields: tuple) -> list:
+    """The optax state nodes (NamedTuples) with exactly `fields` in an
+    optax state tree of nested tuples."""
+    if hasattr(tree, "_fields"):
+        return [tree] if tuple(tree._fields) == fields else []
+    if isinstance(tree, (tuple, list)):
+        return [s for t in tree for s in _optax_states(t, fields)]
+    return []
+
+
+def stage2_state_from_jax(state_np, config, optim_config, schedule, device=None):
+    """A JAX Stage2State (rqvae_tpu/trainers/trainer_stage2.py, leaves as
+    numpy: jax.device_get) -> the port's Stage2State on `device` (CUDA when
+    None): its params in a new RQTransformer(config), the EMA params,
+    `step`, and the optimizer of `optim_config` / `schedule` holding
+    optax's state: adam's mu, nu and count, or sgd's trace and the
+    schedule's count. Every params-shaped tree maps through
+    rqtransformer_state_dict_from_jax."""
+    import torch
+
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.trainers.trainer_stage2 import init_state
+
+    model = RQTransformer(config, device=device)
+    names = [name for name, _ in model.named_parameters()]
+
+    def tensors(tree) -> dict:
+        sd = rqtransformer_state_dict_from_jax(tree, config)
+        return {k: torch.from_numpy(np.array(v, copy=True)).to(model.pos_emb_hw.device) for k, v in sd.items()}
+
+    model.load_state_dict(tensors(_field(state_np, "params")), strict=True)
+    model.fuse_qkv()
+    ema_np = _field(state_np, "ema_params")
+    state = init_state(model, optim_config, schedule, use_ema=ema_np is not None)
+    if ema_np is not None:
+        ema = tensors(ema_np)
+        state.ema = {k: ema[k] for k in names}
+    state.step = int(_field(state_np, "step"))
+
+    opt_state = _field(state_np, "opt_state")
+    group = state.optimizer.param_groups[0]
+    if group["kind"] == "sgd":
+        (trace,), (sched,) = _optax_states(opt_state, ("trace",)), _optax_states(opt_state, ("count",))
+        moments, count = {"trace": tensors(trace.trace)}, int(sched.count)
+    else:
+        (adam,) = _optax_states(opt_state, ("count", "mu", "nu"))
+        (sched,) = _optax_states(opt_state, ("count",))
+        moments, count = {"mu": tensors(adam.mu), "nu": tensors(adam.nu)}, int(adam.count)
+        if int(sched.count) != count:
+            raise ValueError(f"adam's count {count} and the schedule's {int(sched.count)} differ")
+    for name, p in model.named_parameters():
+        state.optimizer.state[p] = {k: v[name] for k, v in moments.items()}
+    group["count"] = count
+    return state

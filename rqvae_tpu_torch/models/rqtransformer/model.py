@@ -48,6 +48,22 @@ int8 cache or int8 weights, attn_wo without an int8 cache), the port
 raises ValueError. `kernels=False` swaps every kernel for its plain version
 (the same path on the same device), which is how the card compares the
 two paths.
+
+The training half is the teacher-forced `forward` (RQTransformer.forward):
+the embeddings (tuple_tok_emb, input_embed, head_embed), `stack_forward`
+over the body and the head with causal attention in fp32 scores and
+softmax, the classifier (classifier_apply) and, with a condition longer
+than one token, the cond classifier; then the losses
+(soft_target_cross_entropy, cross_entropy, compute_loss,
+compute_cond_loss, compute_codebook_loss) with the log-softmax in fp32.
+It reads the separate query / key / value weights, never the derived
+wqkv or int8 buffers, and is plain PyTorch throughout: the JAX training
+path reaches no Pallas kernel. `remat` recomputes each layer's
+activations in the backward pass (torch.utils.checkpoint). Dropout masks
+come from an explicit torch.Generator: the same distribution as JAX's
+jax.random.bernoulli, not the same bits; under `remat` the generator's
+state is saved before each layer and set again for its recompute, so the
+recomputed masks are the forward's.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from rqvae_tpu_torch import resolve_device
@@ -223,6 +240,10 @@ class RQTransformer(nn.Module):
             self.cond_classifier.linear = nn.Linear(C, config.vocab_size_cond, **fk)
         # new float weights make the int8 buffers stale: drop them
         self.register_load_state_dict_post_hook(lambda module, _: module.clear_int8())
+
+    def forward(self, xs, cond=None, xs_emb=None, generator=None, deterministic=True, remat=False):
+        """The teacher-forced forward: the module-level `forward`."""
+        return forward(self, xs, cond, xs_emb, generator, deterministic, remat)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -579,3 +600,206 @@ def classifier_apply(model: RQTransformer, h: torch.Tensor, depth_idx: int | Non
         col = torch.arange(config.vocab_size_max, device=logits.device)
         logits = logits.masked_fill(col >= config.vocab_size[depth_idx], float("-inf"))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward (training)
+# ---------------------------------------------------------------------------
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None, deterministic: bool) -> torch.Tensor:
+    """The JAX _dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The mask is drawn from
+    `generator` (F.dropout takes none); the identity when `deterministic`
+    or rate == 0."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"dropout at rate {rate} needs a torch.Generator (or deterministic=True)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int) -> torch.Tensor:
+    """q, k, v [B, T, C] -> [B, T, C]: causal attention with the scores in
+    fp32 (q and k cast before the product, as JAX's preferred_element_type:
+    a bf16 product is exact in fp32) and the fp32 softmax cast to v's dtype."""
+    B, T, C = q.shape
+    hs = C // n_head
+    q4, k4, v4 = (t.reshape(B, T, n_head, hs).transpose(1, 2) for t in (q, k, v))
+    att = torch.matmul(q4.float(), k4.float().transpose(-1, -2)) * (1.0 / math.sqrt(hs))
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    att = torch.softmax(att.masked_fill(~causal, float("-inf")), dim=-1).to(v.dtype)
+    return torch.matmul(att, v4).transpose(1, 2).reshape(B, T, C)
+
+
+def _block_weights(blk: Block) -> tuple:
+    """The float weights one training layer reads, in _layer_body's order."""
+    a = blk.attn
+    return (blk.ln1.weight, blk.ln1.bias, a.query.weight, a.query.bias, a.key.weight, a.key.bias,
+            a.value.weight, a.value.bias, a.proj.weight, a.proj.bias, blk.ln2.weight, blk.ln2.bias,
+            blk.mlp[0].weight, blk.mlp[0].bias, blk.mlp[2].weight, blk.mlp[2].bias)
+
+
+def _layer_body(x, weights, cfg: StackConfig, generator, deterministic):
+    """One pre-LN layer (the JAX _layer_body), a function of its weights
+    alone so that a recompute reads the tensors the forward read."""
+    ln1w, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2w, ln2b, w1, b1, w2, b2 = weights
+    h = layer_norm(x, ln1w, ln1b)
+    y = causal_attention(F.linear(h, wq, bq), F.linear(h, wk, bk), F.linear(h, wv, bv), cfg.n_head)
+    x = x + dropout(F.linear(y, wo, bo), cfg.resid_pdrop, generator, deterministic)
+    m = F.linear(gelu(F.linear(layer_norm(x, ln2w, ln2b), w1, b1), cfg.gelu), w2, b2)
+    return x + dropout(m, cfg.resid_pdrop, generator, deterministic)
+
+
+def _recomputed_layer(x, weights, cfg: StackConfig, generator, deterministic):
+    """_layer_body under torch.utils.checkpoint: its activations are
+    recomputed in the backward pass. The recompute first sets `generator`
+    to its state before this layer, so it draws the forward's dropout
+    masks, and then puts back the state it found."""
+    saved = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(x, *weights):
+        recompute = bool(calls)
+        calls.append(1)
+        found = None
+        if recompute and saved is not None:
+            found = generator.get_state()
+            generator.set_state(saved)
+        try:
+            return _layer_body(x, weights, cfg, generator, deterministic)
+        finally:
+            if found is not None:
+                generator.set_state(found)
+
+    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False, preserve_rng_state=False)
+
+
+def stack_forward(stack: Stack, x: torch.Tensor, generator=None, deterministic: bool = True,
+                  remat: bool = False) -> torch.Tensor:
+    """The full causal forward of a stack over x [B, T, C] (the JAX
+    stack_forward); `remat` recomputes each layer in the backward pass."""
+    layer = _recomputed_layer if remat else _layer_body
+    for blk in stack.blocks:
+        x = layer(x, _block_weights(blk), stack.cfg, generator, deterministic)
+    return x
+
+
+def tuple_tok_emb(model: RQTransformer, xs: torch.Tensor) -> torch.Tensor:
+    """Token embeddings of per-depth codes xs [..., D] -> [..., D, C]: one
+    shared table, or one table for all depths at per-depth offsets."""
+    if model.config.shared_tok_emb:
+        return F.embedding(xs, model.tok_emb.weight)
+    return F.embedding(xs + model.tok_emb.offsets, model.tok_emb.weight)
+
+
+def input_embed(model: RQTransformer, xs: torch.Tensor, xs_emb: torch.Tensor | None) -> torch.Tensor:
+    """The body's per-depth embeddings [B, T, D, C]: input_mlp of the
+    RQ-VAE's code embeddings xs_emb, or the token embeddings."""
+    if model.config.input_emb_vqvae:
+        return F.linear(xs_emb, model.input_mlp.weight, model.input_mlp.bias)
+    return tuple_tok_emb(model, xs)
+
+
+def head_embed(model: RQTransformer, xs: torch.Tensor, xs_emb: torch.Tensor | None) -> torch.Tensor:
+    """The head's per-depth context [B, T, D, C]: head_mlp of the code
+    embeddings (summed over depth first with cumsum_depth_ctx), or the
+    token embeddings."""
+    config = model.config
+    if config.head_emb_vqvae:
+        e = xs_emb.cumsum(dim=-2) if config.cumsum_depth_ctx else xs_emb
+        return F.linear(e, model.head_mlp.weight, model.head_mlp.bias)
+    return tuple_tok_emb(model, xs)
+
+
+def forward(
+    model: RQTransformer,
+    xs: torch.Tensor,  # [B, H, W, D] codes
+    cond: torch.Tensor | None = None,  # [B] or [B, block_size_cond] ids
+    xs_emb: torch.Tensor | None = None,  # [B, H * W, D, input_embed_dim]
+    generator: torch.Generator | None = None,
+    deterministic: bool = True,
+    remat: bool = False,
+):
+    """The teacher-forced forward (the JAX model.forward): seq_logits
+    [B, H, W, D, Vmax], and (seq_logits, cond_logits [B, cond_len - 1,
+    vocab_size_cond]) when block_size_cond > 1. embd_pdrop and resid_pdrop
+    draw their masks from `generator` unless `deterministic`. Activations
+    take the weights' dtype, so a bf16 copy of the weights
+    (torch.func.functional_call) runs it in bf16. A model holding int8
+    buffers raises: the forward trains the float weights."""
+    config = model.config
+    if model.classifier.weight_q is not None:
+        raise ValueError("forward runs the float weights; call clear_int8() first")
+    B, H, W, D = xs.shape
+    seq_len, cond_len = H * W, config.block_size_cond
+    xs_flat = xs.reshape(B, seq_len, D)
+    if cond is None:
+        cond = torch.zeros(B, cond_len, dtype=torch.long, device=xs.device)
+    cond = cond.reshape(B, cond_len)
+
+    conds_emb = model.cond_emb(cond) + model.pos_emb_cond[:, :cond_len]
+    xs_sum = input_embed(model, xs_flat, xs_emb).sum(dim=-2) + model.pos_emb_hw[:, :seq_len]
+    latents = torch.cat([conds_emb, xs_sum[:, :-1]], dim=1)
+    latents = dropout(latents, config.embd_pdrop, generator, deterministic)
+    h = stack_forward(model.body_transformer, latents, generator, deterministic, remat)
+
+    cond_logits = None
+    if cond_len > 1:
+        cc = model.cond_classifier
+        cond_ctx = layer_norm(h[:, : cond_len - 1], cc.layer_norm.weight, cc.layer_norm.bias)
+        cond_logits = F.linear(cond_ctx, cc.linear.weight, cc.linear.bias)
+
+    depth_ctx = head_embed(model, xs_flat, xs_emb)
+    depth_full = torch.cat([h[:, cond_len - 1 :, None, :], depth_ctx[:, :, :-1, :]], dim=-2)
+    depth_full = depth_full.reshape(B * seq_len, D, -1) + model.pos_emb_d[:, :D]
+    head_out = stack_forward(model.head_transformer, depth_full, generator, deterministic, remat)
+    seq_logits = classifier_apply(model, head_out.reshape(B, H, W, D, -1))
+    return seq_logits if cond_logits is None else (seq_logits, cond_logits)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor, reduction: str = "mean"):
+    """-sum(p * log_softmax(logits)) with the log-softmax in fp32, over the
+    soft targets' vocab (they cover the true vocab only)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -(soft_targets * logp[..., : soft_targets.shape[-1]]).sum(dim=-1)
+    return loss.mean() if reduction == "mean" else loss
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, reduction: str = "mean"):
+    """-log_softmax(logits)[target] with the log-softmax in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return loss.mean() if reduction == "mean" else loss
+
+
+def compute_loss(logits: torch.Tensor, targets: torch.Tensor, use_soft_target: bool = False):
+    """The mean token loss of logits [..., V] against codes or soft targets."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    if use_soft_target:
+        return soft_target_cross_entropy(logits, targets.reshape(-1, targets.shape[-1]))
+    return cross_entropy(logits, targets.reshape(-1))
+
+
+def compute_cond_loss(cond_logits: torch.Tensor, conds: torch.Tensor):
+    """Cross-entropy of the condition's next tokens, conds[:, 1:]."""
+    if cond_logits.shape[1] != conds.shape[1] - 1:
+        raise ValueError(f"cond_logits {tuple(cond_logits.shape)} do not predict conds {tuple(conds.shape)}[:, 1:]")
+    return cross_entropy(cond_logits.reshape(-1, cond_logits.shape[-1]), conds[:, 1:].reshape(-1))
+
+
+def compute_codebook_loss(logits: torch.Tensor, targets: torch.Tensor, use_soft_target: bool = False):
+    """The token loss per depth [D], for logging."""
+    D = logits.shape[-2]
+    logits = logits.reshape(-1, logits.shape[-1])
+    if use_soft_target:
+        tok = soft_target_cross_entropy(logits, targets.reshape(-1, targets.shape[-1]), reduction="none")
+    else:
+        tok = cross_entropy(logits, targets.reshape(-1), reduction="none")
+    return tok.reshape(-1, D).mean(dim=0)

@@ -20,7 +20,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
-    assert "rqvae_tpu_torch.models.rqtransformer.sampling" in names
+    for name in ("models.rqtransformer.sampling", "models.ema", "optim.schedule", "optim.optimizer",
+                 "trainers.trainer_stage2", "trainers.accumulator"):
+        assert f"rqvae_tpu_torch.{name}" in names
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'flax', 'rqvae_tpu', 'yaml'):\n"
