@@ -142,7 +142,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      fixed batch, every kernel count 0, finite losses, loss_total falling,
      the EMA moved, one eval step; ms/step, peak memory, tokens/s and the
      share of the bf16 dense peak; (c) the last step again with remat, its
-     losses against the plain step's and its peak memory.
+     losses against the plain step's and its peak memory;
+ 13. the stage-1 trainer (rqvae_tpu_torch.trainers.trainer_stage1; #9
+     nearest_code on its path, one launch per depth): (a) at the committed
+     synthetic stage-1 geometry (tests/goldens/synth_ckpt/stage1: 64x64
+     images, ch 32, 8x8x2 codes, 64 shared codes), B 4, for 3 seeds, 2
+     fp32 steps with the discriminator and fp32 LPIPS on the card and on
+     this machine's CPU from the same weights and restart draws, the CPU
+     on the card's discriminator branches, the plain argmin on both:
+     metrics, codes, both steps' gradients, the weights after step 2's
+     Adam update, codebooks and running stats held to the S1_* bounds,
+     beside the CPU's second conv path as a witness and a TF32 control
+     that must break a bound; (b) the 8x8x4 RQ-VAE at full width
+     (DDCONFIG / HPARAMS),
+     NLayerDiscriminator(ndf 64, 3 layers), LPIPS on synthetic weights in
+     bf16, Adam (0.5, 0.9) with the fix schedule for both, fp32: 5 steps
+     of 32 random 256x256 images and an eval step, nearest_code launched
+     4 x 5 + 4 times and no other kernel, finite losses and g_weight, the
+     codebook moved; ms/step, images/s, peak memory, model TFLOP a step
+     and its share of the peaks; checkpointing when the activations the
+     step keeps do not fit beside 8 GiB (counted on the meta device); (c)
+     the last step again with use_kernel=False (depth-0 codes on >= 99%,
+     metrics within S1_PLAIN_RTOL), every row at each depth where #9's
+     pick differs from the plain argmin's on #9's own inputs within
+     NEAREST_TIE_TOL of the fp64 minimum, and #9's device us per launch
+     in a profiled step.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -158,8 +182,9 @@ chip_smoke.py mlp` those of #15 and #20 (csrc/dense_mlp.cu) alone; `python3
 chip_smoke.py q8` those of #16-#19 (csrc/dense_w8a8.cu, #6's kernel,
 csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
 (csrc/nearest_code.cu) alone; `python3 chip_smoke.py train` phases 1 and
-12 alone (no build: no kernel lies on the training path). Run from two source trees in one call, they
-compare two designs of those kernels on one card.
+12 alone (no build: no kernel lies on the stage-2 training path). Run from two source trees in one call, they
+compare two designs of those kernels on one card. `python3 chip_smoke.py
+stage1` runs phases 1, 2 and 13 alone.
 """
 
 from __future__ import annotations
@@ -172,6 +197,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import torch
@@ -251,6 +277,51 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-6
 REMAT_LOSS_TOL = 1e-3  # (c): remat against the plain step on the same weights and masks
+
+# phase 13: the stage-1 trainer. (a) the card's fp32 step against the CPU's
+# at the committed synthetic stage-1 geometry
+# (tests/goldens/synth_ckpt/stage1/config.yaml); (b) the 8x8x4 RQ-VAE at
+# full width (DDCONFIG / HPARAMS, tools/train_probe.py:37-46)
+S1_CUT_DD = dict(double_z=False, z_channels=32, resolution=64, in_channels=3, out_ch=3, ch=32, ch_mult=[1, 2, 2, 2],
+                 num_res_blocks=1, attn_resolutions=[8], dropout=0.0)
+S1_CUT_HP = dict(bottleneck_type="rq", embed_dim=16, n_embed=64, latent_shape=[8, 8, 16], code_shape=[8, 8, 2],
+                 shared_codebook=True, decay=0.99, restart_unused_codes=True, loss_type="mse", latent_loss_weight=0.25)
+S1_CUT_BATCH, S1_CUT_STEPS, S1_CUT_SEEDS = 4, 2, (13, 14, 15)
+S1_BATCH, S1_STEPS = 32, 5  # B 32: the reference's per-GPU batch (tools/train_probe.py:77)
+S1_DISC = dict(ndf=64, n_layers=3)
+# both optimizers: the configs' Adam (0.5, 0.9) at 4e-5 with the "fix"
+# warmup from zero over half of a 10-step epoch
+S1_OPTIM = {"type": "adam", "betas": [0.5, 0.9], "weight_decay": 0.0}
+S1_WARMUP = {"epoch": 0.5, "multiplier": 1, "buffer_epoch": 0.0, "min_lr": 4e-5, "mode": "fix", "start_from_zero": True}
+S1_LR = 4e-5
+# (a): fp32 on both sides, TF32 off, the plain argmin on both, the CPU on
+# the card's discriminator branches (stage1_vs_cpu). Without that, a
+# LeakyReLU input within rounding of 0 that takes the other branch moves
+# g_weight by up to 4e-4 and gradients by up to 2.5e-2 of their max (the
+# CPU's oneDNN and native convs, seeds 13-15: every such reading came with
+# such a flip, none without one); an H100 without the replay read 2.3e-4
+# on g_weight at step 2. On the same branches the CPU's second path reads
+# (seeds 13-15) losses to 5.2e-6 relative, g_weight to 1.8e-5, gradients to
+# 2.3e-4 of a tensor's max (a GroupNorm'd conv bias, whose gradient is 0 in
+# exact arithmetic, to 2e-6 of the largest), weights after step 2 to one
+# fp32 ulp of a GroupNorm scale (0.015 lr) where a gradient is sure, and
+# codebooks to 1.9e-6 of their max. On an H100 the card reads (seeds
+# 13-15) 1.4e-5, 1.3e-5, 1.3e-4, 0.015 lr and 2.4e-6, and the control,
+# the card's convs in TF32, 2.3e-2, 1.4e-2, 0.21, 1.9 lr and 4.6e-3: each
+# bound below lies between the two. Step 1 runs at lr 0 (the warmup from
+# zero), step 2 at 8e-6: its Adam update is compared.
+S1_LOSS_RTOL = 1e-4
+S1_G_WEIGHT_RTOL = 1e-4
+S1_GRAD_TOL = 1e-3
+S1_CODEBOOK_TOL = 1e-4
+S1_PARAM_RTOL = 0.1
+# (c): the last step again with use_kernel=False from the same state and
+# draws. Each row where #9 and the plain argmin pick differently is held
+# to NEAREST_TIE_TOL of the fp64 minimum at every depth, on the inputs #9
+# saw; the codes moved so change the losses (2e-4 to 5e-4 relative on
+# g_weight, the largest, on an H100), so each metric within 5e-3
+# relative (+ 1e-5)
+S1_PLAIN_RTOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -982,31 +1053,66 @@ def check_attention_q8_read_only(AK, dev, gen):
             "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, **b}
 
 
-def device_events(fn) -> list[tuple[str, float]]:
+def device_events(fn) -> list[tuple[str, float]] | None:
     """(name, device us) of each device kernel one call of fn issues
-    (torch.profiler). Now and then the profiler records no device activity
-    at all for a call (on the card, about one profile in twelve of
-    `chip_smoke.py dense`), so a profile without a single device event is
-    taken again, up to three times; a profile with events is returned as it
-    is."""
+    (torch.profiler), or None. The profiler keeps only the device activity
+    whose time, converted to the host's clock, lies inside the profile's
+    window, and on the card that conversion appears to drift as a process
+    runs: late in a full run it dropped the kernels launched at the start
+    of a window (the first of nearest_code's three in phase 3; a marker
+    launched first, in phase 13), a margin of 20 ms was often not enough,
+    and the durations it kept read about half the graph-replay times. So
+    fn runs between two marker kernels (torch.cuda._sleep's spin_kernel),
+    the host waits a margin before the first and after the second, and
+    only the events between the markers are returned; a profile that lost a
+    marker is taken again with a longer margin, up to four times, then None.
+    Which kernels a call issues is read from a CUDA graph (device_kernels),
+    not from here."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for margin in (0.5, 2.0, 8.0, 8.0):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            torch.cuda._sleep(1000)
             fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(margin)
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-        log("  (the profiler recorded no device event for this call; profiling it again)")
-    return events
+        marks = [i for i, (name, _) in enumerate(events) if "spin_kernel" in name]
+        if len(marks) == 2:
+            return events[marks[0] + 1:marks[1]]
+        log(f"  (the profiler kept {len(marks)} of the 2 marker kernels around this call with a margin of "
+            f"{margin} s; profiling it again)")
+    return None
 
 
 def device_kernels(fn) -> list[str]:
-    """Names of the device kernels one call of fn issues (device_events)."""
-    return [name for name, _ in device_events(fn)]
+    """Names (mangled) of the device kernels one call of fn issues, in
+    launch order: fn is captured in a CUDA graph, which is never run, and
+    the graph's kernel nodes are read from its DOT dump
+    (cudaGraphDebugDotPrint). This does not depend on the device's
+    timestamps, as torch.profiler does (device_events)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    path = os.path.join(ROOT, "build", "device_kernels.dot")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it was called
+        graph.debug_dump(path)
+    with open(path) as f:
+        dot = f.read()
+    os.remove(path)
+    del graph
+    # a kernel node's label: {KERNEL | {ID | 0 (topoId: 2) | <mangled name>\<\<\<grid,block,smem\>\>\>} | ...
+    nodes = re.findall(r'label="\{KERNEL\s*\| \{ID \| (\d+)[^|]*\| ([^\\}]+)', dot)
+    if not nodes and "KERNEL" in dot:
+        raise AssertionError(f"device_kernels: no kernel name read from the graph's dump: {dot[:400]}")
+    return [name for _, name in sorted(nodes, key=lambda node: int(node[0]))]
 
 
 DENSE_BATCHES = (37, 100, 300, 500)  # phase 3's rows for #2 / #3 and #5-#8 at C 1536 (C 2560: B 100)
@@ -2044,6 +2150,7 @@ def nearest_vs_fp64(x, cb, got, want) -> tuple[float, float, float]:
 # and 50), tiles 0 and 3 (60, 800; tile 3 is unit 150, CTA 18's second),
 # the first and the last tile (5, 16000). x rows 2i and 2i + 1 are row hi
 # and row hi + noise: both must get lo.
+NEAREST_KERNELS = ("split_kernel", "nearest_kernel", "nearest_code_reduce_kernel")  # one call's three, in order
 NEAREST_TIES = ((100, 101), (17, 41), (3, 40), (770, 1000), (130, 500), (60, 800), (5, 16000))
 
 
@@ -2100,13 +2207,17 @@ def check_nearest_code(RK, dev, gen):
     sets = [(rnd(N, dim), rnd(E, dim)) for _ in range(5)]
     kernel = [lambda s=s: RK.nearest_code(*s) for s in sets]
     library = [lambda s=s: s[0] @ s[1].T for s in sets]
-    kernel[0]()  # the tensor maps are encoded on the host before the profiled call
+    kernel[0]()  # the tensor maps are encoded on the host before the graph capture and the profiled call
+    names = device_kernels(kernel[1])
+    if len(names) != 3 or not all(k in n for k, n in zip(NEAREST_KERNELS, names)):
+        raise AssertionError(f"nearest_code: one call issued device kernels {names}, not {NEAREST_KERNELS}")
     events = device_events(kernel[1])
-    names = [n for n, _ in events]
-    if len(events) != 3 or not all(k in n for k, n in zip(("split", "nearest_kernel", "reduce"), names)):
-        raise AssertionError(f"nearest_code: one call issued device kernels {names}, not the split, main and reduce")
-    log("  nearest_code: one call's three device kernels (torch.profiler): "
-        + ", ".join(f"{re.search(r'(\w+)\(', n).group(1)} {us:.1f} us" for n, us in events))
+    if events is not None and len(events) == 3 and all(k in n for k, (n, _) in zip(NEAREST_KERNELS, events)):
+        log(f"  nearest_code: one call issues three device kernels (CUDA graph): {', '.join(NEAREST_KERNELS)}; "
+            f"their device us (torch.profiler): " + ", ".join(f"{us:.1f}" for _, us in events))
+    else:
+        log(f"  nearest_code: one call issues three device kernels (CUDA graph): {', '.join(NEAREST_KERNELS)}; the "
+            f"profile of their durations lost events ({None if events is None else [n for n, _ in events]})")
     graph = {"kernel": graph_ms(kernel), "library": graph_ms(library)}
     ms = cuda_ms(kernel, 20)
     plain = cuda_ms([lambda s=s: RK.nearest_code_plain(*s) for s in sets], 20)
@@ -2626,11 +2737,434 @@ def train_phase(counters, dev, card) -> None:
         raise AssertionError("(c) the remat step's losses differ from the plain step's")
 
 
+def build_stage1(dd, hp, dev, gen, use_kernel=True):
+    """(RQ-VAE, NLayerDiscriminator(S1_DISC), LPIPS) on `dev` with random
+    weights from `gen` (the LPIPS weights synthetic: the VGG16 and linear
+    weights are not in the repository)."""
+    from rqvae_tpu_torch.losses.discriminator import NLayerDiscriminator
+    from rqvae_tpu_torch.losses.lpips import LPIPS
+    from rqvae_tpu_torch.models.rqvae.model import RQVAE, RQVAEHParams
+    from rqvae_tpu_torch.models.rqvae.modules import DDConfig
+
+    model = RQVAE(RQVAEHParams.create(hp), DDConfig.create(dd), device=dev, use_kernel=use_kernel)
+    model.init_weights(gen)
+    disc = NLayerDiscriminator(**S1_DISC, device=dev)
+    disc.init_weights(gen)
+    lpips = LPIPS(device=dev)
+    lpips.init_weights(gen)
+    return model, disc, lpips
+
+
+def host_copy(obj):
+    """A copy of obj on the host: its tensors copied to the CPU, through
+    dicts, lists and tuples (a state_dict, an optimizer's)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+def stage1_schedule():
+    from rqvae_tpu_torch.optim.schedule import create_schedule
+
+    return create_schedule(base_lr=S1_LR, warmup_config=S1_WARMUP, steps_per_epoch=10, max_epoch=10)
+
+
+def seeded_draw(seed: int):
+    """A restart draw that takes its noise and permutation from a CPU
+    generator seeded `seed`, so that the card and the CPU draw the same."""
+    from rqvae_tpu_torch.ops import quantize as Q
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(d, vectors, n_embed):
+        n, dim = vectors.shape
+        uniform = None
+        if n < n_embed:
+            uniform = torch.rand(-(-n_embed // n) * n, dim, generator=gen).to(vectors.device)
+        perm = torch.randperm(n if uniform is None else uniform.shape[0], generator=gen).to(vectors.device)
+        return Q.restart_candidates(vectors, n_embed, perm, uniform)
+
+    return draw
+
+
+def disc_branches(disc, replay=None):
+    """Forward hooks on the discriminator's LeakyReLUs. Without `replay`
+    each call records its branch (input > 0, on the host) in `branches`;
+    with `replay` (a list recorded so) each call takes the recorded branch
+    in order instead of its own and adds to `flips` the entries whose own
+    sign differs. Returns (branches, flips, handles)."""
+    branches, flips, handles = [], [], []
+    queue = iter(replay or ())
+
+    def hook(mod, inputs, out):
+        x = inputs[0]
+        if replay is None:
+            branches.append((x > 0).cpu())
+            return None
+        mask = next(queue).to(x.device)
+        flips.append(int(((x > 0) != mask).sum()))
+        return x * torch.where(mask, 1.0, mod.negative_slope).to(x.dtype)
+
+    for m in disc.main:
+        if isinstance(m, torch.nn.LeakyReLU):
+            handles.append(m.register_forward_hook(hook))
+    return branches, flips, handles
+
+
+def stage1_side(parts, images, dev, replay=None) -> dict:
+    """S1_CUT_STEPS fp32 stage-1 steps with the discriminator (fp32 LPIPS)
+    on copies of `parts` on `dev`, restart draws seeded_draw(100 + step):
+    each step's metrics, codes and gradients (RQ-VAE and discriminator),
+    the state_dicts after the last step, and the discriminator's branches
+    (recorded, or replayed from `replay` with the count of flips)."""
+    from rqvae_tpu_torch.trainers import trainer_stage1 as T1
+
+    model, disc, lpips = (copy.deepcopy(p).to(dev) for p in parts)
+    branches, flips, handles = disc_branches(disc, replay)
+    state = T1.init_state(model, disc, S1_OPTIM, stage1_schedule(), S1_OPTIM, stage1_schedule())
+    step = T1.make_train_step(lpips, T1.GanLossConfig(lpips_bf16=False), use_discriminator=True)
+    out = dict(metrics=[], codes=[], grads=[])
+    t0 = time.perf_counter()
+    for n in range(S1_CUT_STEPS):
+        _, m, codes = step(state, {"images": images.to(dev)}, None, draw=seeded_draw(100 + n))
+        out["metrics"].append({k: v.detach().double().cpu() for k, v in m.items()})
+        out["codes"].append(codes.cpu())
+        out["grads"].append({f"{name}.{k}": p.grad.detach().cpu()
+                             for name, mod in (("vq", model), ("disc", disc)) for k, p in mod.named_parameters()})
+    out["s"] = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    out["state"] = {f"{name}.{k}": v.cpu() for name, mod in (("vq", model), ("disc", disc))
+                    for k, v in mod.state_dict().items()}
+    out["branches"], out["flips"] = branches, sum(flips)
+    return out
+
+
+def stage1_shares(got: dict, ref: dict) -> dict:
+    """Each of (a)'s comparisons of `got` against `ref` as a share of its
+    bound (above 1 fails): losses, g_weight, codes (the least agreement of
+    a depth against ENCODE_AGREE, above 1 when lower), gradients of every
+    step, the weights after the last step where a gradient is sure (and
+    `far`: the largest weight difference in learning rates of the last
+    step), the codebook buffers and the discriminator's running stats."""
+    sh = dict(losses=0.0, g_weight=0.0, codes=0.0, gradients=0.0)
+    for n, want in enumerate(ref["metrics"]):
+        for k, w in want.items():
+            tol = S1_G_WEIGHT_RTOL if k == "g_weight" else S1_LOSS_RTOL
+            rel = float((got["metrics"][n][k] - w).abs() / (w.abs() + 1e-6))
+            key = "g_weight" if k == "g_weight" else "losses"
+            sh[key] = max(sh[key], rel / tol)
+        for d in range(ref["codes"][n].shape[-1]):
+            agree = float((got["codes"][n][..., d] == ref["codes"][n][..., d]).double().mean())
+            sh["codes"] = max(sh["codes"], (1.0 - agree) / (1.0 - ENCODE_AGREE))
+        gscale = max(float(g.abs().max()) for g in ref["grads"][n].values())
+        for k, g in ref["grads"][n].items():
+            err = float((got["grads"][n][k] - g).abs().max())
+            sh["gradients"] = max(sh["gradients"], err / (S1_GRAD_TOL * float(g.abs().max()) + 1e-5 * gscale))
+    lr = stage1_schedule()(S1_CUT_STEPS - 1)
+    sh["weights"], sh["far"] = 0.0, 0.0
+    for k, g in ref["grads"][-1].items():
+        d = (got["state"][k] - ref["state"][k]).abs()
+        sure = torch.zeros_like(d, dtype=torch.bool)
+        for grads in ref["grads"]:
+            gs = max(float(v.abs().max()) for v in grads.values())
+            sure |= grads[k].abs() > max(1e-2 * float(grads[k].abs().max()), 1e-5 * gs)
+        if bool(sure.any()):
+            sh["weights"] = max(sh["weights"], float(d[sure].max()) / (S1_PARAM_RTOL * lr))
+        sh["far"] = max(sh["far"], float(d.max()) / lr)
+    books = [k for k in ref["state"] if k.startswith("vq.quantizer.") or "running_" in k]
+    sh["codebooks"] = max(float((got["state"][k] - ref["state"][k]).abs().max())
+                          / max(float(ref["state"][k].abs().max()), 1e-30) for k in books) / S1_CODEBOOK_TOL
+    return sh
+
+
+def stage1_vs_cpu(dev, card) -> list[str]:
+    """Phase 13 (a): stage1_side at the synthetic stage-1 geometry, B
+    S1_CUT_BATCH, for each of S1_CUT_SEEDS (weights, images): on the card,
+    then on this machine's CPU taking the card's discriminator branches
+    (a LeakyReLU input within rounding of 0 takes either branch, a
+    discrete change like a code's, which the check would otherwise read
+    as error), held to the S1_* bounds (stage1_shares); the witness is
+    the CPU's second fp32 path (oneDNN off: other conv algorithms) on the
+    same branches against the first, the readings a correct fp32 step
+    gives; the control is the first seed's card step with cuDNN's convs
+    in TF32, against the CPU on its branches, which must break a bound.
+    use_kernel=False everywhere. Returns what disagreed (stage1_phase
+    fails on it after (b) and (c))."""
+    cpu = torch.device("cpu")
+    bad = []
+    keys = ("losses", "g_weight", "codes", "gradients", "weights", "codebooks")
+    for i, seed in enumerate(S1_CUT_SEEDS):
+        gen = torch.Generator().manual_seed(seed)
+        parts = build_stage1(S1_CUT_DD, S1_CUT_HP, cpu, gen, use_kernel=False)
+        res = S1_CUT_DD["resolution"]
+        images = torch.rand(S1_CUT_BATCH, res, res, 3, generator=gen) * 2 - 1
+        on_card = stage1_side(parts, images, dev)
+        host = stage1_side(parts, images, cpu, replay=on_card["branches"])
+        with torch.backends.mkldnn.flags(enabled=False):
+            witness = stage1_side(parts, images, cpu, replay=on_card["branches"])
+        got, wit = stage1_shares(on_card, host), stage1_shares(witness, host)
+        g_card = [f"{float(m['g_weight']):.6f}" for m in on_card["metrics"]]
+        log(f"  (a) seed {seed}: share of the bound card / witness: "
+            + ", ".join(f"{k} {got[k]:.3f} / {wit[k]:.3f}" for k in keys)
+            + f"; weights at most {got['far']:.2f} / {wit['far']:.2f} lr from the CPU's; discriminator branches "
+            f"the CPU's own sign would flip {host['flips']} of {sum(int(b.numel()) for b in on_card['branches'])} "
+            f"(witness {witness['flips']}); g_weight card {', '.join(g_card)}; card {on_card['s']:.2f} s, cpu "
+            f"{host['s']:.2f} s, witness {witness['s']:.2f} s")
+        bad += [f"seed {seed} {k} at {got[k]:.3f} of its bound" for k in keys if got[k] > 1.0]
+        if got["far"] > 2.0 + S1_PARAM_RTOL:
+            bad.append(f"seed {seed} a weight {got['far']:.2f} learning rates from the CPU's")
+        if i == 0:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                control = stage1_side(parts, images, dev)
+            ctl = stage1_shares(control, stage1_side(parts, images, cpu, replay=control["branches"]))
+            log(f"  (a) control, seed {seed} with the card's convs in TF32: share of the bound "
+                + ", ".join(f"{k} {ctl[k]:.3f}" for k in keys))
+            if max(ctl[k] for k in ("losses", "g_weight", "gradients")) <= 1.0:
+                bad.append("the TF32 control broke no bound: the bounds cannot tell TF32 from fp32")
+    log(f"  (a) bounds: losses {S1_LOSS_RTOL} relative (+ 1e-6), g_weight {S1_G_WEIGHT_RTOL}, codes >= {ENCODE_AGREE} "
+        f"at each depth, every step's gradients {S1_GRAD_TOL} of each tensor's max + 1e-5 of the largest, weights "
+        f"after step {S1_CUT_STEPS} to {S1_PARAM_RTOL} of its lr ({stage1_schedule()(S1_CUT_STEPS - 1):.1e}) where a "
+        f"step's gradient is above 1e-2 of its tensor's max and 1e-5 of the largest and within 2 lr elsewhere, "
+        f"codebook buffers and running stats {S1_CODEBOOK_TOL} of their max; {card}")
+    return [f"(a) {b}" for b in bad]
+
+
+def stage1_flops(model, disc, lpips, batch: int) -> tuple[float, float]:
+    """(fp32, bf16) model FLOPs of one stage-1 step at `batch` images,
+    counted from the shapes (torch.utils.flop_counter on the meta device,
+    convs and products): 3 x the RQ-VAE's forward (with its tail); the
+    discriminator's forward 3 x in the generator's pass (the forward and
+    the input gradients of g_weight's and the total's backward) and 3 x on
+    each of the fake and real batches in its step; LPIPS (bf16) forward on
+    both images and twice the input gradient of the reconstruction's branch.
+    A recompute (checkpointing) is not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    res = model.ddconfig.resolution
+    meta = [copy.deepcopy(m).to("meta") for m in (model, disc, lpips)]
+    x = torch.empty(batch, res, res, 3, device="meta")
+    counts = []
+    for fn in (lambda: meta[0].decoder.tail(meta[0].decoder(meta[0].post_quant_conv(
+                   meta[0].encode(x).permute(0, 3, 1, 2)), give_pre_end=True)),
+               lambda: meta[1](x.permute(0, 3, 1, 2), train=True, update_stats=False),
+               lambda: meta[2].net(x.permute(0, 3, 1, 2))):
+        with FlopCounterMode(display=False) as fc:
+            with torch.no_grad():
+                fn()
+        counts.append(fc.get_total_flops())
+    vq, d, lp = counts
+    return 3 * vq + 3 * d + 2 * 3 * d, 4 * lp
+
+
+def saved_activation_gib(model, disc, lpips, batch: int, checkpointing: bool) -> float:
+    """GiB of activations the generator's pass keeps for its backward at
+    `batch` images (each saved tensor once, on the meta device): the
+    RQ-VAE's forward with its tail, LPIPS (bf16) on both images, the
+    discriminator on the reconstruction."""
+    from rqvae_tpu_torch.models.rqvae.modules import set_checkpointing
+
+    res = model.ddconfig.resolution
+    vq, dc, lp = (copy.deepcopy(m).to("meta") for m in (model, disc, lpips))
+    set_checkpointing(vq, checkpointing)
+    saved = {}
+
+    def pack(t):
+        if t.dim() >= 3 and t.shape[0] == batch:
+            saved[id(t)] = (t, t.numel() * t.element_size())  # the tensor itself keeps its id unique
+        return t
+
+    x = torch.empty(batch, res, res, 3, device="meta")
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = vq.decoder.tail(vq.decoder(vq.post_quant_conv(vq.encode(x).permute(0, 3, 1, 2)), give_pre_end=True))
+        lp(x.permute(0, 3, 1, 2), out, dtype=torch.bfloat16)
+        dc(out, train=True, update_stats=False)
+    return sum(n for _, n in saved.values()) / 2**30
+
+
+def stage1_checkpointing(model, disc, lpips, dev) -> bool:
+    """Turn the RQ-VAE's checkpointing on when the activations a B S1_BATCH
+    step keeps (saved_activation_gib), its weights, gradients, moments, EMA
+    and a copy (6 x the parameters) and 8 GiB for the backward's
+    transients exceed the card's memory; returns whether it did."""
+    from rqvae_tpu_torch.models.rqvae.modules import set_checkpointing
+
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    state_gib = 6 * sum(p.numel() for p in model.parameters()) * 4 / 2**30
+    plain_gib = saved_activation_gib(model, disc, lpips, S1_BATCH, False)
+    remat_gib = saved_activation_gib(model, disc, lpips, S1_BATCH, True)
+    checkpointing = plain_gib + state_gib + 8.0 > total_gib
+    log(f"  saved activations of a B {S1_BATCH} stage-1 step (meta device): {plain_gib:.1f} GiB plain, {remat_gib:.1f} "
+        f"GiB with checkpointing; weights, gradients, moments, EMA and a copy {state_gib:.1f} GiB; the card "
+        f"{total_gib:.1f} GiB: checkpointing={checkpointing}")
+    set_checkpointing(model, checkpointing)
+    return checkpointing
+
+
+def stage1_phase(counters, dev, card) -> int:
+    """Phase 13: the stage-1 trainer. (a) stage1_vs_cpu; (b) the 8x8x4
+    RQ-VAE at full width (DDCONFIG / HPARAMS), NLayerDiscriminator(ndf 64,
+    3 layers), LPIPS on synthetic weights in bf16, Adam (0.5, 0.9) with
+    the fix schedule for both, use_discriminator, fp32: S1_STEPS steps of
+    S1_BATCH random 256x256 images from a seed, each count set to 0 before
+    them, then one eval step; nearest_code launched 4 x S1_STEPS + 4 times
+    and no other kernel; finite losses and g_weight; the codebook moved;
+    ms/step (median of steps 2-5), images/s, peak memory, model TFLOP a
+    step and its share of the peaks; checkpointing as stage1_checkpointing
+    decides; (c) the last step again from the
+    same state and draws with use_kernel=False: depth-0 codes on >=
+    ENCODE_AGREE of positions and each metric within S1_PLAIN_RTOL; at
+    each depth of the last step, #9's picks against the plain argmin's on
+    the inputs #9 saw, each differing row within NEAREST_TIE_TOL of the
+    fp64 minimum (nearest_vs_fp64); #9's
+    device us per launch in a step (torch.profiler). Returns the
+    nearest_code launches of (b) and its eval step."""
+    from rqvae_tpu_torch.trainers import trainer_stage1 as T1
+
+    log(f"  matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, cudnn allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    failed = stage1_vs_cpu(dev, card)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, disc, lpips = build_stage1(DDCONFIG, HPARAMS, dev, gen)
+    checkpointing = stage1_checkpointing(model, disc, lpips, dev)
+    fp32_flops, bf16_flops = stage1_flops(model, disc, lpips, S1_BATCH)
+    state = T1.init_state(model, disc, S1_OPTIM, stage1_schedule(), S1_OPTIM, stage1_schedule(), use_ema=True)
+    gan = T1.GanLossConfig()
+    step = T1.make_train_step(lpips, gan, use_discriminator=True)
+    res = DDCONFIG["resolution"]
+    batch = {"images": torch.rand(S1_BATCH, res, res, 3, generator=gen, device=dev) * 2 - 1}
+    book = model.quantizer.codebook(0).clone()
+    torch.cuda.synchronize()
+    log(f"  (b) rq-vae {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M fp32 parameters, discriminator "
+        f"{sum(p.numel() for p in disc.parameters()) / 1e6:.2f}M, LPIPS {sum(p.numel() for p in lpips.parameters()) / 1e6:.1f}M "
+        f"(synthetic); built in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    def run(n, use_kernel=True):
+        model.use_kernel = use_kernel
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m, codes = step(state, batch, torch.Generator(device=dev).manual_seed(200 + n))
+        m = {k: v.detach().double().cpu() for k, v in m.items()}
+        torch.cuda.synchronize()
+        model.use_kernel = True
+        return m, codes, time.perf_counter() - t
+
+    from rqvae_tpu_torch.ops import quantize as Q
+    from rqvae_tpu_torch.ops import rq_kernel as RK
+
+    find_nearest = Q.find_nearest
+    picks = []  # (x, codebook, #9's codes) of each depth of the last step
+
+    def keep_picks(x, codebook, use_kernel=True):
+        got = find_nearest(x, codebook, use_kernel=use_kernel)
+        picks.append((x.detach().reshape(-1, x.shape[-1]).clone(), codebook.detach().clone(), got.reshape(-1).clone()))
+        return got
+
+    for fn in counters:
+        fn.launches = 0
+    metrics, times = [], []
+    for n in range(S1_STEPS):
+        if n == 1:
+            torch.cuda.reset_peak_memory_stats()
+        if n == S1_STEPS - 1:
+            saved = host_copy({"model": model.state_dict(), "disc": disc.state_dict(),
+                               "opt": state.optimizer.state_dict(), "disc_opt": state.disc_optimizer.state_dict(),
+                               "ema": state.ema, "steps": (state.step, state.disc_step)})
+            with mock.patch.object(Q, "find_nearest", keep_picks):
+                m, codes, s = run(n)
+        else:
+            m, codes, s = run(n)
+        metrics.append(m)
+        times.append(s)
+        log(f"  (b) step {n + 1}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()) + f"; {s * 1e3:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev, ev_codes = T1.make_eval_step(lpips, gan, use_discriminator=True, use_ema=True)(state, batch)
+    counts = {fn.__name__: fn.launches for fn in counters}
+    want = {fn.__name__: 0 for fn in counters} | {"nearest_code": 4 * S1_STEPS + 4}
+    if counts != want:
+        raise AssertionError(f"(b) the stage-1 steps and the eval step launched {counts}, not {want}")
+    if not all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()):
+        raise AssertionError("(b) a loss or g_weight is not finite")
+    if not all(bool(torch.isfinite(v).all()) for v in ev.values()):
+        raise AssertionError("(b) the eval step's losses are not finite")
+    moved = float((model.quantizer.codebook(0) - book).abs().max())
+    if not moved > 0:
+        raise AssertionError("(b) the codebook did not move")
+    ms = statistics.median(times[1:]) * 1e3
+    floor_ms = (fp32_flops / FP32_FLOPS + bf16_flops / BF16_TENSOR_FLOPS) * 1e3
+    log(f"  (b) {S1_STEPS} steps and an eval step (EMA): nearest_code {counts['nearest_code']} launches "
+        f"(4 a step), every other kernel 0; codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+        f"{len(torch.unique(codes[..., 0]))} distinct at depth 0; the codebook moved by up to {moved:.3e}; eval "
+        f"loss_total {float(ev['loss_total']):.4f}")
+    log(f"  [train stage 1] {ms:.1f} ms/step (median of steps 2-{S1_STEPS}: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])}; "
+        f"first step {times[0] * 1e3:.1f}), B {S1_BATCH}, {S1_BATCH / (ms / 1e3):.1f} images/s, checkpointing="
+        f"{checkpointing}, peak memory {peak:.1f} GiB; model {fp32_flops / 1e12:.2f} TFLOP fp32 (convs with TF32 off, "
+        f"on the fp32 SIMT peak {FP32_FLOPS / 1e12:.0f} TFLOP/s) + {bf16_flops / 1e12:.2f} TFLOP bf16 (LPIPS, dense peak "
+        f"{BF16_TENSOR_FLOPS / 1e12:.0f}) a step: {fp32_flops / (ms / 1e3) / 1e12:.1f} + {bf16_flops / (ms / 1e3) / 1e12:.1f} "
+        f"TFLOP/s; the least time at those peaks {floor_ms:.1f} ms = {floor_ms / ms:.1%} of the step; {card}")
+
+    # (c): the last step again, through the plain argmin
+    model.load_state_dict(saved["model"])
+    disc.load_state_dict(saved["disc"])
+    state.optimizer.load_state_dict(saved["opt"])
+    state.disc_optimizer.load_state_dict(saved["disc_opt"])
+    for k, v in saved["ema"].items():
+        state.ema[k].copy_(v)
+    state.step, state.disc_step = saved["steps"]
+    del saved
+    m_plain, plain_codes, s_plain = run(S1_STEPS - 1, use_kernel=False)
+    agree = [float((plain_codes[..., d] == codes[..., d]).double().mean()) for d in range(codes.shape[-1])]
+    rel = {k: float((m_plain[k] - v).abs() / (v.abs() + 1e-5 / S1_PLAIN_RTOL)) for k, v in metrics[-1].items()}
+    log(f"  (c) step {S1_STEPS} again with use_kernel=False: codes equal to #9's per depth "
+        f"{', '.join(f'{a:.4f}' for a in agree)} (>= {ENCODE_AGREE} at depth 0); relative |plain - kernel| "
+        + ", ".join(f"{k} {r:.1e}" for k, r in rel.items()) + f" (<= {S1_PLAIN_RTOL}); {s_plain * 1e3:.1f} ms")
+    if agree[0] < ENCODE_AGREE or max(rel.values()) > S1_PLAIN_RTOL:
+        failed.append("(c) the plain argmin's step disagrees with #9's")
+    if len(picks) != 4:
+        raise AssertionError(f"(c) step {S1_STEPS} looked up codes {len(picks)} times, not 4")
+    for d, (x, cb, got) in enumerate(picks):
+        want = RK.nearest_code_plain(x, cb)
+        same, excess, share = nearest_vs_fp64(x, cb, got, want)
+        _, plain_excess, plain_share = nearest_vs_fp64(x, cb, want, want)
+        log(f"  (c) depth {d} of step {S1_STEPS}, on #9's own inputs: {int((got != want).sum())} of {got.numel()} rows "
+            f"pick another code than the plain argmin ({same:.4f} equal); #9's pick over the fp64 minimum: max "
+            f"{excess:.3e}, {share:.3e} of the bound (plain argmin's: {plain_excess:.3e}, {plain_share:.3e}); bound "
+            f"{NEAREST_TIE_TOL} (||x||^2 + ||c_pick||^2)")
+        if share > 1.0:
+            failed.append(f"(c) depth {d}: a pick of #9 beyond rounding of the minimum")
+    del picks
+
+    qcfg = model.quantizer.config
+    rows = S1_BATCH * qcfg.code_shape[0] * qcfg.code_shape[1]
+    x = torch.randn(rows, qcfg.embed_dim, generator=gen, device=dev)
+    cb = model.quantizer.codebook(0)
+    launch_us = graph_ms([lambda: RK.nearest_code(x, cb)]) * 1e3
+    events = device_events(lambda: step(state, batch, torch.Generator(device=dev).manual_seed(300)))
+    if events is None:
+        raise AssertionError("(c) every profile of a step lost a marker kernel")
+    ran = [sum(f"::{k}(" in name for name, _ in events) for k in NEAREST_KERNELS]
+    if ran != [4, 4, 4]:
+        raise AssertionError(f"(c) a profiled step ran nearest_code's kernels {NEAREST_KERNELS} {ran} times, not 4 each")
+    log(f"  (c) a profiled step ran each of nearest_code's kernels {NEAREST_KERNELS} 4 times; nearest_code at N "
+        f"{rows} rows x {qcfg.n_embed[0]} codes, dim {qcfg.embed_dim}: {launch_us:.1f} device us per launch (graph "
+        f"replay; split, main, reduce), 4 launches {4 * launch_us / (ms * 1e3):.2%} of the step's {ms:.1f} ms; {card}")
+    if failed:
+        raise AssertionError(f"phase 13: {failed}")
+    return counts["nearest_code"]
+
+
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8', 'nearest' and 'train'")
+                         f"'attention', 'mlp', 'q8', 'nearest', 'train' and 'stage1'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -2727,6 +3261,10 @@ def main() -> None:
         return
     if mode == "nearest":
         check_nearest_code(RK, dev, gen)
+        return
+    if mode == "stage1":
+        log(f"# phase 13: stage-1 training (nearest_code on its path), on {card}")
+        stage1_phase(counters, dev, card)
         return
     if mode == "attention":
         check_attention(AK, dev, gen)
@@ -2864,6 +3402,13 @@ def main() -> None:
     log(f"# phase 12: stage-2 training: (a) a full-width, 2 + 1-layer step on the card against the CPU's, fp32; "
         f"(b) the 1.4B RQ-Transformer, amp bf16, {TRAIN_STEPS} steps of B {TRAIN_BATCH}; (c) remat; on {card}")
     train_phase(counters, dev, card)
+    torch.cuda.empty_cache()
+
+    # phase 13: the stage-1 trainer, #9 on its path
+    log(f"# phase 13: stage-1 training: (a) {S1_CUT_STEPS} steps of the synthetic stage-1 geometry on the card against "
+        f"the CPU's, fp32; (b) the 8x8x4 RQ-VAE at full width, {S1_STEPS} steps of B {S1_BATCH} with the PatchGAN and "
+        f"LPIPS; (c) the last step through the plain argmin; on {card}")
+    launches["nearest_code"] += stage1_phase(counters, dev, card)
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",

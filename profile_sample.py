@@ -28,7 +28,12 @@ is chip_smoke.py's (phase 7). Point "train" is one stage-2 train step of
 chip_smoke.py's phase 12 (b) (the 1.4B RQ-Transformer, amp bf16, 32 images
 as 2 microbatches through a frozen bf16 encoder, AdamW, EMA; no kernel
 wrapper on its path), after one warm-up step, reported per step; its
-unprofiled ms/step is chip_smoke.py's (phase 12).
+unprofiled ms/step is chip_smoke.py's (phase 12). Point "train1" is one
+stage-1 train step of chip_smoke.py's phase 13 (b) (the 8x8x4 RQ-VAE at
+full width, the PatchGAN, LPIPS on synthetic weights in bf16, fp32, 32
+images, Adam for both, EMA; nearest_code once per depth), checkpointing as
+phase 13 (b) decides it, after one warm-up step, reported per step; its
+unprofiled ms/step is chip_smoke.py's (phase 13).
 
 Prints one JSON line per point, then the card's name and power limit; the
 profiler tables go to --out. The points to run are named on the command
@@ -62,7 +67,7 @@ POINTS = (  # (name, int8 weights, sample options), as chip_smoke.py phase 4
     ("int8+kv_q8+attn_wo", True, dict(kv_q8=True, attn_wo=True)),
 )
 VQGAN_POINTS = ("vqgan_huge", "vqgan_large")  # measure_throughput's VQ-GAN rows
-POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", *VQGAN_POINTS, "train"]
+POINT_NAMES = [name for name, _, _ in POINTS] + ["encode", *VQGAN_POINTS, "train", "train1"]
 
 
 def _annotated(fn):
@@ -167,7 +172,7 @@ def main() -> None:
     for (m, n), fn in originals.items():
         setattr(m, n, _annotated(fn))
     try:
-        if set(names) - set(VQGAN_POINTS) - {"train"}:
+        if set(names) - set(VQGAN_POINTS) - {"train", "train1"}:
             model, vqvae, cond = build_main_path(dev)
             for name, int8, options in POINTS:
                 if name in names:
@@ -207,6 +212,24 @@ def main() -> None:
             profiled("train", lambda: step(state, batch, torch.Generator(device=dev).manual_seed(100)), args.out,
                      per=("step", 1))
             del model, vqvae, state
+            torch.cuda.empty_cache()
+        if "train1" in names:
+            import chip_smoke as C
+            from rqvae_tpu_torch.trainers import trainer_stage1 as T1
+
+            torch.backends.cudnn.allow_tf32 = False  # as chip_smoke.py: fp32 convs and products
+            torch.backends.cuda.matmul.allow_tf32 = False
+            gen = torch.Generator(device=dev).manual_seed(0)
+            model, disc, lpips = C.build_stage1(C.DDCONFIG, C.HPARAMS, dev, gen)
+            C.stage1_checkpointing(model, disc, lpips, dev)
+            state = T1.init_state(model, disc, C.S1_OPTIM, C.stage1_schedule(), C.S1_OPTIM, C.stage1_schedule(),
+                                  use_ema=True)
+            step = T1.make_train_step(lpips, T1.GanLossConfig(), use_discriminator=True)
+            res = C.DDCONFIG["resolution"]
+            batch = {"images": torch.rand(C.S1_BATCH, res, res, 3, generator=gen, device=dev) * 2 - 1}
+            profiled("train1", lambda: step(state, batch, torch.Generator(device=dev).manual_seed(200)), args.out,
+                     per=("step", 1))
+            del model, disc, lpips, state
             torch.cuda.empty_cache()
     finally:
         for (m, n), fn in originals.items():

@@ -13,9 +13,13 @@ each quantized weight dequantized (q * scale in fp32), and
 rqtransformer_int8_from_jax gives the int8 buffers exactly, for
 RQTransformer.load_int8.
 
-stage2_state_from_jax carries a whole stage-2 training state across (the
-only function here that builds torch objects): the parameters, their EMA,
-the step and optax's moments, each tree mapped as the parameters are.
+stage2_state_from_jax and stage1_state_from_jax carry a whole training
+state across (the only functions here that build torch objects): the
+parameters, their EMA, the steps and optax's moments, each tree mapped as
+the parameters are; stage 1 also the codebook state and its EMA, and the
+discriminator with its BatchNorm statistics and its own optimizer.
+discriminator_state_dict_from_jax and lpips_state_dict_from_jax map the
+stage-1 losses' trees.
 """
 
 from __future__ import annotations
@@ -104,14 +108,26 @@ def _coder(sd, params: dict, prefix: str, updown: str) -> None:
     _conv(sd, f"{prefix}conv_out", params["conv_out"])
 
 
-def rqvae_state_dict_from_jax(params_np: dict, codebook_np, qcfg) -> Dict[str, np.ndarray]:
-    """(flax RQVAE params, codebook state with embed / cluster_size /
-    embed_ema, quantizer config) -> RQVAE state_dict."""
+def _rqvae_params_from_jax(params_np: dict) -> Dict[str, np.ndarray]:
+    """The parameter part of rqvae_state_dict_from_jax (no codebook)."""
     sd: Dict[str, np.ndarray] = {}
     _coder(sd, params_np["encoder"], "encoder.", "down")
     _coder(sd, params_np["decoder"], "decoder.", "up")
     _conv(sd, "quant_conv", params_np["quant_conv"])
     _conv(sd, "post_quant_conv", params_np["post_quant_conv"])
+    return sd
+
+
+def rqvae_state_dict_from_jax(params_np: dict, codebook_np, qcfg) -> Dict[str, np.ndarray]:
+    """(flax RQVAE params, codebook state with embed / cluster_size /
+    embed_ema, quantizer config) -> RQVAE state_dict."""
+    return {**_rqvae_params_from_jax(params_np), **codebook_state_dict_from_jax(codebook_np, qcfg)}
+
+
+def codebook_state_dict_from_jax(codebook_np, qcfg) -> Dict[str, np.ndarray]:
+    """A CodebookState (embed / cluster_size / embed_ema) -> the RQVAE's
+    quantizer.codebooks.* buffers."""
+    sd: Dict[str, np.ndarray] = {}
     embed = _field(codebook_np, "embed")
     cluster_size = _field(codebook_np, "cluster_size")
     embed_ema = _field(codebook_np, "embed_ema")
@@ -254,6 +270,26 @@ def _optax_states(tree, fields: tuple) -> list:
     return []
 
 
+def _load_optax(optimizer, named_params, opt_state, tensors) -> None:
+    """Put optax's state `opt_state` (adam's mu, nu and count, or sgd's
+    trace and the schedule's count) into `optimizer`, whose parameters are
+    named_params [(name, p)]; tensors(tree) maps a params-shaped tree to
+    {name: tensor}."""
+    group = optimizer.param_groups[0]
+    if group["kind"] == "sgd":
+        (trace,), (sched,) = _optax_states(opt_state, ("trace",)), _optax_states(opt_state, ("count",))
+        moments, count = {"trace": tensors(trace.trace)}, int(sched.count)
+    else:
+        (adam,) = _optax_states(opt_state, ("count", "mu", "nu"))
+        (sched,) = _optax_states(opt_state, ("count",))
+        moments, count = {"mu": tensors(adam.mu), "nu": tensors(adam.nu)}, int(adam.count)
+        if int(sched.count) != count:
+            raise ValueError(f"adam's count {count} and the schedule's {int(sched.count)} differ")
+    for name, p in named_params:
+        optimizer.state[p] = {k: v[name] for k, v in moments.items()}
+    group["count"] = count
+
+
 def stage2_state_from_jax(state_np, config, optim_config, schedule, device=None):
     """A JAX Stage2State (rqvae_tpu/trainers/trainer_stage2.py, leaves as
     numpy: jax.device_get) -> the port's Stage2State on `device` (CUDA when
@@ -282,19 +318,101 @@ def stage2_state_from_jax(state_np, config, optim_config, schedule, device=None)
         ema = tensors(ema_np)
         state.ema = {k: ema[k] for k in names}
     state.step = int(_field(state_np, "step"))
+    _load_optax(state.optimizer, list(model.named_parameters()), _field(state_np, "opt_state"), tensors)
+    return state
 
-    opt_state = _field(state_np, "opt_state")
-    group = state.optimizer.param_groups[0]
-    if group["kind"] == "sgd":
-        (trace,), (sched,) = _optax_states(opt_state, ("trace",)), _optax_states(opt_state, ("count",))
-        moments, count = {"trace": tensors(trace.trace)}, int(sched.count)
-    else:
-        (adam,) = _optax_states(opt_state, ("count", "mu", "nu"))
-        (sched,) = _optax_states(opt_state, ("count",))
-        moments, count = {"mu": tensors(adam.mu), "nu": tensors(adam.nu)}, int(adam.count)
-        if int(sched.count) != count:
-            raise ValueError(f"adam's count {count} and the schedule's {int(sched.count)} differ")
-    for name, p in model.named_parameters():
-        state.optimizer.state[p] = {k: v[name] for k, v in moments.items()}
-    group["count"] = count
+
+def discriminator_state_dict_from_jax(params_np: dict, batch_stats_np=None, n_layers: int = 3) -> Dict[str, np.ndarray]:
+    """flax NLayerDiscriminator params (conv_0, conv_{n}, norm_{n}, conv_out)
+    and batch_stats (norm_{n}: mean, var) -> the port's state_dict in the
+    reference's main.{i} layout: conv_n at main.{3n - 1}, norm_n at
+    main.{3n}, conv_out at main.{3 n_layers + 2}. An ActNorm's loc / scale
+    [1, 1, 1, C] become [1, C, 1, 1], marked initialized (JAX uses them as
+    they are); a BatchNorm's scale / bias become weight / bias and, given
+    batch_stats, its statistics running_mean / running_var
+    (num_batches_tracked 0)."""
+    sd: Dict[str, np.ndarray] = {}
+    convs = [("conv_0", 0)] + [(f"conv_{n}", 3 * n - 1) for n in range(1, n_layers + 1)]
+    for name, i in convs + [("conv_out", 3 * n_layers + 2)]:
+        _conv(sd, f"main.{i}", params_np[name])
+    for n in range(1, n_layers + 1):
+        node, key = params_np[f"norm_{n}"], f"main.{3 * n}"
+        if "loc" in node:
+            sd[f"{key}.loc"] = _np32(node["loc"]).transpose(0, 3, 1, 2)
+            sd[f"{key}.scale"] = _np32(node["scale"]).transpose(0, 3, 1, 2)
+            sd[f"{key}.initialized"] = np.array(1, np.uint8)
+            continue
+        sd[f"{key}.weight"] = _np32(node["scale"])
+        sd[f"{key}.bias"] = _np32(node["bias"])
+        if batch_stats_np is None:  # an optimizer's moments: parameters alone
+            continue
+        stats = batch_stats_np[f"norm_{n}"]
+        sd[f"{key}.running_mean"] = _np32(stats["mean"])
+        sd[f"{key}.running_var"] = _np32(stats["var"])
+        sd[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
+    return sd
+
+
+# flax VGG16Features conv{slice}_{i} -> torchvision features index
+_VGG_INDEX = {"conv0_0": 0, "conv0_1": 2, "conv1_0": 5, "conv1_1": 7, "conv2_0": 10, "conv2_1": 12, "conv2_2": 14,
+              "conv3_0": 17, "conv3_1": 19, "conv3_2": 21, "conv4_0": 24, "conv4_1": 26, "conv4_2": 28}
+
+
+def lpips_state_dict_from_jax(params_np: dict) -> Dict[str, np.ndarray]:
+    """flax LPIPS params (net.conv{s}_{i}, lin{k} [C, 1]) -> the port's
+    LPIPS state_dict (net.features.{idx}, lin{k}.model.1.weight [1, C, 1,
+    1])."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, idx in _VGG_INDEX.items():
+        _conv(sd, f"net.features.{idx}", params_np["net"][name])
+    for k in range(5):
+        sd[f"lin{k}.model.1.weight"] = _np32(params_np[f"lin{k}"]).T[:, :, None, None]
+    return sd
+
+
+def stage1_state_from_jax(state_np, hparams, ddconfig, disc_kwargs: dict, optim_config, schedule, disc_optim_config,
+                          disc_schedule, device=None, use_kernel: bool = True):
+    """A JAX Stage1State (rqvae_tpu/trainers/trainer_stage1.py, leaves as
+    numpy) -> the port's Stage1State on `device` (CUDA when None): the
+    params and codebook state in a new RQVAE(hparams, ddconfig), the
+    discriminator's params and batch_stats in a new
+    NLayerDiscriminator(**disc_kwargs), both optimizers holding optax's
+    states, the EMA of the params and of the codebook, `step` and
+    `disc_step`."""
+    import torch
+
+    from rqvae_tpu_torch.losses.discriminator import NLayerDiscriminator
+    from rqvae_tpu_torch.models.rqvae.model import RQVAE
+    from rqvae_tpu_torch.trainers.trainer_stage1 import init_state
+
+    model = RQVAE(hparams, ddconfig, device=device, use_kernel=use_kernel)
+    disc = NLayerDiscriminator(**disc_kwargs, device=device)
+    dev = model.quant_conv.weight.device
+    qcfg = model.quantizer.config
+
+    def to_dev(sd: dict) -> dict:
+        return {k: torch.from_numpy(np.array(v, copy=True)).to(dev) for k, v in sd.items()}
+
+    def rqvae_tensors(params, codebook) -> dict:
+        return to_dev(rqvae_state_dict_from_jax(params, _field(codebook, "state"), qcfg))
+
+    def disc_tensors(params, batch_stats=None) -> dict:
+        return to_dev(discriminator_state_dict_from_jax(params, batch_stats, disc.n_layers))
+
+    codebook = _field(state_np, "codebook")
+    model.load_state_dict(rqvae_tensors(_field(state_np, "params"), codebook), strict=True)
+    disc.load_state_dict(disc_tensors(_field(state_np, "disc_params"), _field(state_np, "disc_batch_stats")),
+                         strict=True)
+    ema_np = _field(state_np, "ema_params")
+    state = init_state(model, disc, optim_config, schedule, disc_optim_config, disc_schedule,
+                       use_ema=ema_np is not None)
+    if ema_np is not None:
+        ema = rqvae_tensors(ema_np, _field(state_np, "ema_codebook"))
+        state.ema = {k: ema[k] for k in state.ema}
+    state.step = int(_field(state_np, "step"))
+    state.disc_step = int(_field(state_np, "disc_step"))
+    _load_optax(state.optimizer, list(model.named_parameters()), _field(state_np, "opt_state"),
+                lambda tree: to_dev(_rqvae_params_from_jax(tree)))
+    _load_optax(state.disc_optimizer, list(disc.named_parameters()), _field(state_np, "disc_opt_state"),
+                disc_tensors)
     return state

@@ -1,13 +1,14 @@
 """RQ-VAE in PyTorch: conv encoder -> residual quantization -> conv decoder.
 
-Port of rqvae_tpu/models/rqvae/model.py at inference: RQVAEHParams and an
-RQVAE module with `encode`, `forward` (JAX's __call__ with training=False),
-`get_codes`, `get_soft_codes`, `decode`, `decode_code`,
-`get_code_emb_with_depth`, `decode_partial_code`, `forward_partial_code`,
-`get_recon_imgs` and `compute_loss`. Residual quantization finds codes with
-the nearest_code kernel (use_kernel=True, as in JAX) or the argmin of the
-full distance matrix. Training (EMA codebook updates, code restarts,
-forward_pre) is not ported yet. The state_dict has the reference layout
+Port of rqvae_tpu/models/rqvae/model.py: RQVAEHParams and an RQVAE module
+with `encode`, `forward` (JAX's __call__), `forward_pre`, `get_codes`,
+`get_soft_codes`, `decode`, `decode_code`, `get_code_emb_with_depth`,
+`decode_partial_code`, `forward_partial_code`, `get_recon_imgs` and
+`compute_loss`. Residual quantization finds codes with the nearest_code
+kernel (use_kernel=True, as in JAX) or the argmin of the full distance
+matrix. forward(training=True) updates the codebooks' EMA buffers in place
+(ops/quantize.quantize_train), with dropout masks and code-restart draws
+from the given torch.Generator. The state_dict has the reference layout
 (encoder.*, decoder.*, quant_conv, post_quant_conv, quantizer.codebooks.*),
 so a stage-1 checkpoint loads with strict=True. The public boundary keeps
 the JAX package's layout: latents and pixels are NHWC, codes [B, h, w, D].
@@ -71,7 +72,9 @@ class RQVAEHParams:
 
 class RQVAE(nn.Module):
     """Built on `device`, or on CUDA when it is None (resolve_device).
-    `use_kernel` picks how codes are found (rq.find_nearest)."""
+    `use_kernel` picks how codes are found (rq.find_nearest);
+    modules.set_checkpointing makes each ResnetBlock recompute itself in
+    the backward pass."""
 
     def __init__(
         self, hparams: RQVAEHParams, ddconfig: DDConfig, device=None, dtype=None, use_kernel: bool = True
@@ -88,20 +91,38 @@ class RQVAE(nn.Module):
         self.post_quant_conv = nn.Conv2d(hparams.embed_dim, ddconfig.z_channels, 1, **fk)
         self.quantizer = RQCodebooks(hparams.quantizer_config, **fk)
 
-    def encode(self, xs: torch.Tensor) -> torch.Tensor:
+    def encode(self, xs: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """pixels xs [B, res, res, in_channels] (NHWC, about [-1, 1]) -> z_e
-        [B, H, W, embed_dim] in the model's dtype."""
+        [B, H, W, embed_dim] in the model's dtype; dropout when given a
+        generator."""
         x = xs.to(self.quant_conv.weight.dtype).permute(0, 3, 1, 2)
-        return self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)
+        return self.quant_conv(self.encoder(x, generator)).permute(0, 2, 3, 1)
 
-    def forward(self, xs: torch.Tensor, training: bool = False):
+    def forward(
+        self, xs: torch.Tensor, training: bool = False, generator: torch.Generator | None = None,
+        draw: rq.Draw | None = None, give_pre_end: bool = False,
+    ):
         """pixels -> (reconstruction [B, res, res, out_ch], commitment loss,
-        codes [B, h, w, depth]); training=True is not ported yet."""
-        z_e = self.encode(xs)
+        codes [B, h, w, depth]). training=True runs dropout and the EMA
+        codebook update (restart draws from `draw`, else from
+        `generator`); give_pre_end returns the decoder's activations
+        before its tail, [B, ch, res, res] (NCHW), in place of the
+        reconstruction."""
+        gen = generator if training else None
+        z_e = self.encode(xs, gen)
         z_q, quant_loss, codes = rq.rq_bottleneck_forward(
-            z_e, self.quantizer, training=training, use_kernel=self.use_kernel
+            z_e, self.quantizer, training=training, use_kernel=self.use_kernel, generator=generator, draw=draw
         )
-        return self.decode(z_q), quant_loss, codes
+        z = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
+        h = self.decoder(z, gen, give_pre_end=give_pre_end)
+        return (h if give_pre_end else h.permute(0, 2, 3, 1)), quant_loss, codes
+
+    def forward_pre(self, xs: torch.Tensor, training: bool = False, generator: torch.Generator | None = None,
+                    draw: rq.Draw | None = None):
+        """forward up to the decoder's tail (JAX forward_pre, the
+        reference's give_pre_end): (h_pre [B, ch, res, res] NCHW, commitment
+        loss, codes). decoder.tail(h_pre) is the reconstruction (NCHW)."""
+        return self.forward(xs, training, generator, draw, give_pre_end=True)
 
     def get_codes(self, xs: torch.Tensor) -> torch.Tensor:
         """pixels -> codes [B, h, w, depth] (torch.long)."""

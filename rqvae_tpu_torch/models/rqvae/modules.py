@@ -7,8 +7,14 @@ encoder), so reference checkpoints and the JAX export load with
 strict=True. Convolution weights are OIHW: the JAX HWIO kernels transpose
 as in rqvae_tpu/checkpoint/torch_export.py:27-29.
 
-The Encoder and Decoder both run at inference (dropout is skipped): the
-Encoder maps pixels [B, in_channels, res, res] to [B, z, res / 2^(L-1), ...].
+The Encoder maps pixels [B, in_channels, res, res] to [B, z, res /
+2^(L-1), ...], the Decoder back. Given a torch.Generator (training), each
+ResnetBlock applies dropout with masks drawn from it; without one it runs
+as at inference. `set_checkpointing` makes each ResnetBlock recompute
+itself in the backward pass (torch.utils.checkpoint; JAX's nn.remat),
+with the dropout mask drawn once, before the block. `decoder_tail` is the Decoder's last
+norm, swish and conv on given weights, as the stage-1 trainer needs it
+(JAX modules.decoder_tail).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -100,10 +107,13 @@ class Downsample(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """norm-swish-conv twice, with a 1x1 shortcut when the width changes."""
+    """norm-swish-conv twice, with a 1x1 shortcut when the width changes,
+    and dropout before the second conv when a generator is given."""
 
-    def __init__(self, cin: int, cout: int, fk, conv_shortcut: bool = False):
+    def __init__(self, cin: int, cout: int, fk, conv_shortcut: bool = False, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
+        self.checkpointing = False
         self.norm1 = GroupNorm32(cin, **fk)
         self.conv1 = _conv(cin, cout, 3, fk)
         self.norm2 = GroupNorm32(cout, **fk)
@@ -114,14 +124,27 @@ class ResnetBlock(nn.Module):
             else:
                 self.nin_shortcut = _conv(cin, cout, 1, fk)
 
-    def forward(self, x):
+    def _body(self, x, keep):
         h = self.conv1(swish(self.norm1(x)))
-        h = self.conv2(swish(self.norm2(h)))  # dropout: inference only
+        h = swish(self.norm2(h))
+        if keep is not None:  # flax nn.Dropout: kept entries scaled by 1 / keep probability
+            h = torch.where(keep, h / (1.0 - self.dropout), 0.0)
+        h = self.conv2(h)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
+
+    def forward(self, x, generator=None):
+        keep = None
+        if generator is not None and self.dropout > 0.0:
+            B, _, H, W = x.shape
+            shape = (B, self.conv2.in_channels, H, W)
+            keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - self.dropout
+        if self.checkpointing and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(self._body, x, keep, use_reentrant=False)
+        return self._body(x, keep)
 
 
 class AttnBlock(nn.Module):
@@ -158,14 +181,21 @@ class _Level(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int, fk):
+    def __init__(self, channels: int, fk, dropout: float):
         super().__init__()
-        self.block_1 = ResnetBlock(channels, channels, fk)
+        self.block_1 = ResnetBlock(channels, channels, fk, dropout=dropout)
         self.attn_1 = AttnBlock(channels, fk)
-        self.block_2 = ResnetBlock(channels, channels, fk)
+        self.block_2 = ResnetBlock(channels, channels, fk, dropout=dropout)
 
-    def forward(self, x):
-        return self.block_2(self.attn_1(self.block_1(x)))
+    def forward(self, x, generator=None):
+        return self.block_2(self.attn_1(self.block_1(x, generator)), generator)
+
+
+def set_checkpointing(module: nn.Module, on: bool) -> None:
+    """Recompute every ResnetBlock of `module` in the backward pass (or not)."""
+    for m in module.modules():
+        if isinstance(m, ResnetBlock):
+            m.checkpointing = on
 
 
 class Encoder(nn.Module):
@@ -184,7 +214,7 @@ class Encoder(nn.Module):
             block_in = cfg.ch * in_ch_mult[i_level]
             block_out = cfg.ch * mult
             for _ in range(cfg.num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out, fk))
+                level.block.append(ResnetBlock(block_in, block_out, fk, dropout=cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     level.attn.append(AttnBlock(block_in, fk))
@@ -192,26 +222,27 @@ class Encoder(nn.Module):
                 level.downsample = Downsample(block_in, cfg.resamp_with_conv, fk)
                 curr_res //= 2
             self.down.append(level)
-        self.mid = _Mid(block_in, fk)
+        self.mid = _Mid(block_in, fk, cfg.dropout)
         self.norm_out = GroupNorm32(block_in, **fk)
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = _conv(block_in, out_ch, 3, fk)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.conv_in(x)
         for level in self.down:
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, generator)
                 if len(level.attn) > 0:
                     h = level.attn[j](h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
-        h = self.mid(h)
+        h = self.mid(h, generator)
         return self.conv_out(swish(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
-    """Upsampling conv stack. z [B, z_channels, h, w] -> [B, out_ch, H, W]."""
+    """Upsampling conv stack. z [B, z_channels, h, w] -> [B, out_ch, H, W],
+    or with give_pre_end the activations before norm_out [B, ch, H, W]."""
 
     def __init__(self, cfg: DDConfig, device=None, dtype=None):
         super().__init__()
@@ -220,13 +251,13 @@ class Decoder(nn.Module):
         block_in = cfg.ch * cfg.ch_mult[-1]
         curr_res = cfg.resolution // 2 ** (n_levels - 1)
         self.conv_in = _conv(cfg.z_channels, block_in, 3, fk)
-        self.mid = _Mid(block_in, fk)
+        self.mid = _Mid(block_in, fk, cfg.dropout)
         levels = [None] * n_levels
         for i_level in reversed(range(n_levels)):
             level = _Level()
             block_out = cfg.ch * cfg.ch_mult[i_level]
             for _ in range(cfg.num_res_blocks + 1):
-                level.block.append(ResnetBlock(block_in, block_out, fk))
+                level.block.append(ResnetBlock(block_in, block_out, fk, dropout=cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     level.attn.append(AttnBlock(block_in, fk))
@@ -238,17 +269,33 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, **fk)
         self.conv_out = _conv(block_in, cfg.out_ch, 3, fk)
 
-    def forward(self, z):
-        h = self.mid(self.conv_in(z))
+    def forward(self, z, generator=None, give_pre_end: bool = False):
+        h = self.mid(self.conv_in(z), generator)
         for i_level in reversed(range(len(self.up))):
             level = self.up[i_level]
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, generator)
                 if len(level.attn) > 0:
                     h = level.attn[j](h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
+        if give_pre_end:
+            return h
         return self.conv_out(swish(self.norm_out(h)))
+
+    def tail(self, h):
+        """decoder_tail on this decoder's own norm_out and conv_out."""
+        return decoder_tail(h, self.norm_out.weight, self.norm_out.bias, self.conv_out.weight, self.conv_out.bias)
+
+
+def decoder_tail(h, norm_weight, norm_bias, conv_weight, conv_bias):
+    """norm_out -> swish -> conv_out on h [B, C, H, W] (give_pre_end's
+    output) with the given weights, as JAX's decoder_tail: GroupNorm with
+    fp32 statistics and an fp32 affine, swish in fp32, then the conv in
+    h's dtype (weights cast to it)."""
+    x = F.group_norm(h.float(), min(32, h.shape[1]), norm_weight.float(), norm_bias.float(), 1e-6)
+    x = swish(x).to(h.dtype)
+    return F.conv2d(x, conv_weight.to(h.dtype), conv_bias.to(h.dtype), padding=conv_weight.shape[-1] // 2)
 
 
 @torch.no_grad()

@@ -1,12 +1,11 @@
 """Residual quantization: config, codebooks, the encode and decode paths.
 
-Port of the inference half of rqvae_tpu/ops/quantize.py: QuantizerConfig,
-the codebooks, compute_distances, find_nearest (through the nearest_code
-kernel of ops/rq_kernel.py, or JAX's own argmin of the full distances),
-to_code_shape / to_latent_shape, quantize, rq_bottleneck_forward
-(inference), embed_lookup, embed_code, embed_code_with_depth,
-embed_partial_code and get_soft_codes. The training half (quantize_train,
-EMA updates, code restarts) is not ported yet.
+Port of rqvae_tpu/ops/quantize.py: QuantizerConfig, the codebooks,
+compute_distances, find_nearest (through the nearest_code kernel of
+ops/rq_kernel.py, or JAX's own argmin of the full distances),
+to_code_shape / to_latent_shape, quantize, quantize_train (the EMA
+codebook update with code restarts), rq_bottleneck_forward, embed_lookup,
+embed_code, embed_code_with_depth, embed_partial_code and get_soft_codes.
 
 Each codebook is a buffer in the reference layout
 (quantizer.codebooks.{d}.weight [n_embed + 1, dim] with a zero padding row,
@@ -19,6 +18,8 @@ dtype, and never TF32 (ops/rq_kernel.require_fp32_matmul).
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -201,21 +202,136 @@ def quantize(
     return torch.stack(quant_list), torch.stack(code_list, dim=-1)
 
 
+def restart_candidates(
+    vectors: torch.Tensor, n_embed: int, perm: torch.Tensor, uniform: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The vectors that unused codes restart from, given the random draws:
+    vectors [N, dim] (fp32), tiled ceil(n_embed / N) times with
+    uniform [N', dim] in [0, 1) times 0.01 / sqrt(dim) added when N <
+    n_embed, then the rows perm[:n_embed] of that pool (perm a permutation
+    of its rows). JAX _ema_update_one's draw (rqvae_tpu/ops/quantize.py
+    :227-236)."""
+    n, dim = vectors.shape
+    pool = vectors
+    if n < n_embed:
+        if uniform is None:
+            raise ValueError(f"restart_candidates: {n} vectors for {n_embed} codes need the tiling noise")
+        std = 0.01 / math.sqrt(dim)
+        pool = vectors.repeat(-(-n_embed // n), 1) + uniform * std
+    return pool[perm[:n_embed]]
+
+
+def draw_restart(vectors: torch.Tensor, n_embed: int, generator: torch.Generator) -> torch.Tensor:
+    """restart_candidates with the noise and the permutation drawn from
+    `generator`: uniform noise for the tiled pool when there are fewer
+    vectors than codes, then a permutation of the pool's rows."""
+    n = vectors.shape[0]
+    uniform = None
+    if n < n_embed:
+        shape = (-(-n_embed // n) * n, vectors.shape[1])
+        uniform = torch.rand(shape, generator=generator, device=vectors.device, dtype=torch.float32)
+    perm = torch.randperm(n if uniform is None else uniform.shape[0], generator=generator, device=vectors.device)
+    return restart_candidates(vectors, n_embed, perm, uniform)
+
+
+@torch.no_grad()
+def ema_update(
+    book: VQEmbedding,
+    vectors: torch.Tensor,  # [N, dim] fp32
+    idxs: torch.Tensor,  # [N]
+    n_embed: int,
+    decay: float,
+    eps: float,
+    candidates: Optional[torch.Tensor],
+) -> None:
+    """One codebook's EMA step, in place (JAX _ema_update_one, the
+    reference's _update_buffers / _update_embedding): the codes' hit counts
+    and vector sums into cluster_size_ema and embed_ema; with `candidates`
+    [n_embed, dim] (restart_unused_codes), every code whose count fell
+    below 1 restarts from its candidate with a count of 1; then weight =
+    embed_ema over the Laplace-smoothed counts. The counts and sums are
+    fp32 index additions (no product, so no TF32); the padding row is not
+    written."""
+    counts = torch.bincount(idxs, minlength=n_embed).float()
+    sums = torch.zeros(n_embed, vectors.shape[1], dtype=torch.float32, device=vectors.device)
+    sums.index_add_(0, idxs, vectors)
+    cluster_size = book.cluster_size_ema.float() * decay + counts * (1.0 - decay)
+    embed_ema = book.embed_ema.float() * decay + sums * (1.0 - decay)
+    if candidates is not None:
+        usage = (cluster_size >= 1.0).float()[:, None]
+        embed_ema = embed_ema * usage + candidates * (1.0 - usage)
+        cluster_size = cluster_size * usage[:, 0] + (1.0 - usage[:, 0])
+    n = cluster_size.sum()
+    normalized = n * (cluster_size + eps) / (n + n_embed * eps)
+    book.weight[:n_embed] = embed_ema / normalized[:, None]
+    book.cluster_size_ema.copy_(cluster_size)
+    book.embed_ema.copy_(embed_ema)
+
+
+# draw(depth, vectors [N, dim], n_embed) -> restart candidates [n_embed, dim]
+Draw = Callable[[int, torch.Tensor, int], torch.Tensor]
+
+
+def quantize_train(
+    x: torch.Tensor,
+    quantizer: RQCodebooks,
+    generator: Optional[torch.Generator] = None,
+    use_kernel: bool = True,
+    draw: Optional[Draw] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training residual quantization of x [B, h, w, dim] with the EMA
+    codebook update, in place in the quantizer's buffers: returns
+    (quants_cumsum [depth, B, h, w, dim] fp32, codes [B, h, w, depth]).
+    At each depth the codes come from the codebook as it stands, the
+    quantized value uses it before the update, and the update is written
+    before the next depth reads it (a shared codebook is one module at
+    every depth, so depth d + 1 reads depth d's write). With
+    restart_unused_codes, each depth's candidates come from draw(d,
+    vectors, n_embed), by default draw_restart on `generator`."""
+    config = quantizer.config
+    if config.ema and config.restart_unused_codes and draw is None:
+        if generator is None:
+            raise ValueError("quantize_train with restart_unused_codes needs a torch.Generator or a draw")
+        draw = lambda d, vectors, n: draw_restart(vectors, n, generator)  # noqa: E731
+    residual = x.detach().float()
+    aggregated = torch.zeros_like(residual)
+    quant_list, code_list = [], []
+    for d in range(config.depth):
+        n_embed = config.n_embed[d]
+        cb = quantizer.codebook(d)
+        code = find_nearest(residual, cb, use_kernel=use_kernel)
+        quant = embed_lookup(cb, code)  # a copy, before the update below
+        if config.ema:
+            vectors = residual.reshape(-1, residual.shape[-1])
+            candidates = draw(d, vectors, n_embed) if config.restart_unused_codes else None
+            ema_update(quantizer.codebooks[d], vectors, code.reshape(-1), n_embed, config.decay[d], config.eps,
+                       candidates)
+        residual = residual - quant
+        aggregated = aggregated + quant
+        quant_list.append(aggregated)
+        code_list.append(code)
+    return torch.stack(quant_list), torch.stack(code_list, dim=-1)
+
+
 def rq_bottleneck_forward(
-    z_e: torch.Tensor, quantizer: RQCodebooks, training: bool = False, use_kernel: bool = True
+    z_e: torch.Tensor,
+    quantizer: RQCodebooks,
+    training: bool = False,
+    use_kernel: bool = True,
+    generator: Optional[torch.Generator] = None,
+    draw: Optional[Draw] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The bottleneck at inference: space-to-depth, residual quantization,
-    the commitment loss averaged over depths, and the straight-through z_q.
-    z_e [B, H, W, D] -> (z_q [B, H, W, D] in z_e's dtype, commitment loss
-    (fp32 scalar), codes [B, h, w, depth])."""
-    if training:
-        raise NotImplementedError(
-            "rq_bottleneck_forward(training=True) needs quantize_train (EMA codebook updates, "
-            "code restarts), which comes with the stage-1 trainer"
-        )
+    """The bottleneck: space-to-depth, residual quantization (with the EMA
+    update when `training` and the config has ema), the commitment loss
+    averaged over depths, and the straight-through z_q. z_e [B, H, W, D]
+    -> (z_q [B, H, W, D] in z_e's dtype, commitment loss (fp32 scalar),
+    codes [B, h, w, depth]). The loss and z_q carry gradients to z_e."""
     config = quantizer.config
     x = to_code_shape(z_e, config)
-    quants, codes = quantize(x, quantizer, use_kernel=use_kernel)
+    if training and config.ema:
+        quants, codes = quantize_train(x, quantizer, generator, use_kernel=use_kernel, draw=draw)
+    else:
+        quants, codes = quantize(x, quantizer, use_kernel=use_kernel)
     commitment_loss = (x[None].float() - quants.detach()).square().mean()
     quants_trunc = to_latent_shape(quants[-1], config)
     z_q = z_e + (quants_trunc.to(z_e.dtype) - z_e).detach()

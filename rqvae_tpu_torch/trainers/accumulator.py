@@ -1,13 +1,13 @@
-"""Running means of the stage-2 metrics, and codebook-usage entropy.
+"""Running sums of the training metrics, and codebook-usage entropy.
 
-Port of the stage-2 part of rqvae_tpu/trainers/accumulator.py (numpy on
-the host): compute_entropy, Summary and AccmStage2. AccmStage1 comes with
-the stage-1 trainer.
+Port of rqvae_tpu/trainers/accumulator.py (numpy on the host):
+compute_entropy, Summary, AccmStage1 (metric sums and per-depth code
+histograms) and AccmStage2.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +29,53 @@ class Summary(dict):
 
     def print_line(self) -> str:
         return ", ".join(f"{k}: {float(np.asarray(v)):.4f}" for k, v in self.metrics.items())
+
+
+class AccmStage1:
+    """Sums of the named metrics (each update adds the metric as given, not
+    weighted by `count`) and, per hierarchy level, a [n_codebook,
+    codebook_size (+ 1 with use_padding_idx)] histogram of the codes."""
+
+    def __init__(self, metric_names: Sequence[str], n_codebook: int = 1, codebook_size=512, code_hier: int = 1,
+                 use_padding_idx: bool = False):
+        self.metric_names = list(metric_names)
+        self.n_codebook = n_codebook
+        self.max_codebook_size = max(codebook_size) if isinstance(codebook_size, Iterable) else codebook_size
+        self.use_padding_idx = use_padding_idx
+        if use_padding_idx:
+            self.max_codebook_size += 1
+        self.code_hier = code_hier
+        self.init()
+
+    def init(self):
+        self.sums = {k: 0.0 for k in self.metric_names}
+        self.codebooks = [np.zeros((self.n_codebook, self.max_codebook_size), np.int64)
+                          for _ in range(self.code_hier)]
+        self.counter = 0
+
+    def update(self, codes, metrics: dict, count: int = 1):
+        """codes: one [B, h, w, n_codebook] array or tensor per level."""
+        for k in self.metric_names:
+            if k in metrics and metrics[k] is not None:
+                self.sums[k] += float(metrics[k])
+        for level, code in enumerate(codes or []):
+            flat = np.asarray(code.cpu() if hasattr(code, "cpu") else code)
+            flat = flat.reshape(-1, flat.shape[-1])
+            for b in range(self.n_codebook):
+                self.codebooks[level][b] += np.bincount(flat[:, b], minlength=self.max_codebook_size)
+        self.counter += count
+
+    def get_summary(self, n_inst: Optional[int] = None) -> Summary:
+        n = n_inst if n_inst else max(self.counter, 1)
+        out = Summary({k: v / n for k, v in self.sums.items()})
+        entropy = [compute_entropy(cb.astype(np.float64)) for cb in self.codebooks]
+        if self.use_padding_idx:
+            out["ent_codes_w_pad"] = entropy
+            out["ent_codes_wo_pad"] = [compute_entropy(cb[:, :-1].astype(np.float64)) for cb in self.codebooks]
+        else:
+            out["ent_codes_w_pad"] = None
+            out["ent_codes_wo_pad"] = entropy
+        return out
 
 
 class AccmStage2:

@@ -13,6 +13,7 @@ of O(1) values); soft targets relative to p, from the fp32 rounding of
 the distances they exponentiate (see the test); codes equal.
 """
 
+import copy
 import os
 
 import jax
@@ -117,9 +118,19 @@ def test_bottleneck_straight_through_and_loss_match_jax(pair):
 
 
 def test_training_branch_is_not_ported_yet(pair):
+    """The training branch, once refused here, is ported (its tests against
+    JAX: test_torch_quantize_train.py): with restarts on it needs a
+    torch.Generator, and with one it runs, updating the codebooks."""
     _, _, model, xs = pair
-    with pytest.raises(NotImplementedError, match="stage-1"):
+    with pytest.raises(ValueError, match="Generator"):
         model(_t(xs), training=True)
+    before = model.quantizer.codebook(0).clone()
+    trained = copy.deepcopy(model)
+    with torch.no_grad():
+        out, _, codes = trained(_t(xs), training=True, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 32, 32, 3) and codes.shape == (2, 8, 8, 2)
+    assert not torch.equal(trained.quantizer.codebook(0), before)
+    assert torch.equal(model.quantizer.codebook(0), before)
 
 
 @pytest.mark.parametrize("temp", [1.0, 0.5])
