@@ -166,7 +166,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      metrics within S1_PLAIN_RTOL), every row at each depth where #9's
      pick differs from the plain argmin's on #9's own inputs within
      NEAREST_TIE_TOL of the fp64 minimum, and #9's device us per launch
-     in a profiled step.
+     in a profiled step;
+ 14. the evaluation path (rqvae_tpu_torch.metrics, cli.main_sampling_fid):
+     (a) the FID Inception extractor (synthetic weights from a seed,
+     BatchNorm statistics randomised) on 16 seeded 256x256 images under
+     PyTorch's default TF32 flags, the card's pool features and logits
+     against this machine's CPU within EVAL_TOL, a TF32 control (the same
+     forward without the extractor's guard) that must break that bound, the
+     flags as they were afterwards, images/s at batch 100 and peak memory;
+     (b) phase 4's bf16 1.4B RQ-Transformer and RQ-VAE through the CLI's
+     sample-and-score loop (sample_to_files, score_files): 5 batches of 100
+     at S.sample's defaults, each batch's launches those of phase 4's bf16
+     point (2688 / 1536 / 1536 of #1 / #2 / #3, every other kernel 0), the
+     files written, IS within [1, 1008], FID against the statistics of a
+     second seed's decodes finite, self-FID near 0; ms/sample of sampling +
+     decode, extractor ms/image and the seconds of one 2048-d sqrtm; (c) the
+     CLI as a subprocess on the committed synthetic checkpoints (config
+     rewritten to this checkout; --top-k 1, fp32, --no-kernels: no kernel
+     serves its head size 16): exit 0 and its files; (d) compute_rfid with
+     the 8x8x4 RQ-VAE's forward on 200 seeded images in batches of 100: 4
+     nearest_code launches a batch and no other kernel, then the same with
+     use_kernel=False (no launch); both rFIDs finite, depth-0 codes equal on
+     >= 99% of positions.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -184,7 +205,8 @@ csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
 (csrc/nearest_code.cu) alone; `python3 chip_smoke.py train` phases 1 and
 12 alone (no build: no kernel lies on the stage-2 training path). Run from two source trees in one call, they
 compare two designs of those kernels on one card. `python3 chip_smoke.py
-stage1` runs phases 1, 2 and 13 alone.
+stage1` runs phases 1, 2 and 13 alone; `python3 chip_smoke.py eval` phases 1,
+2 and 14.
 """
 
 from __future__ import annotations
@@ -3160,11 +3182,265 @@ def stage1_phase(counters, dev, card) -> int:
     return counts["nearest_code"]
 
 
+# phase 14: the evaluation path. (a) the FID Inception extractor on the card
+# against this machine's CPU, under PyTorch's default TF32 flags; (b) the
+# 1.4B main path through main_sampling_fid's sample-and-score loop; (c) the
+# CLI as a subprocess on the committed synthetic checkpoints; (d) rFID of
+# the 8x8x4 RQ-VAE's forward
+EVAL_IMAGES = 16  # (a)'s images, 256 x 256
+# (a): fp32 on both sides (the extractor's guard turns TF32 off), ~100
+# convolutions summed in other orders: pool features and logits (O(0.1-1))
+# within 1e-4 (1 + |cpu|), the CPU tests' bound against JAX. TF32 rounds
+# each product's inputs to 10 mantissa bits (~5e-4 relative), so the
+# forward without the guard must break it
+EVAL_TOL = 1e-4
+EVAL_BATCHES = 5  # (b): batches of BATCH sampled, decoded and scored
+RFID_IMAGES = 200  # (d)
+SELF_FID_RTOL = 1e-5  # (b): |FID(x, x)| <= this x trace(sigma): sqrtm's rounding at 2048-d
+
+
+def randomise_inception(model, gen) -> None:
+    """Seeded BatchNorm scale, bias and running statistics (as the CPU tests'
+    tree), so that BatchNorm does real work in the comparison."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, (lo, hi) in ((m.weight, (0.8, 1.2)), (m.bias, (-0.1, 0.1)), (m.running_mean, (-0.2, 0.2)),
+                                    (m.running_var, (0.7, 1.4))):
+                    t.copy_(torch.rand(t.shape, generator=gen, device=t.device) * (hi - lo) + lo)
+
+
+def extractor_vs_cpu(FID, dev, card) -> dict:
+    """(a): the extractor on EVAL_IMAGES seeded images, card against CPU,
+    under PyTorch's default TF32 flags; the TF32 control; images/s at
+    batch BATCH and peak memory. Returns the numbers (a) printed."""
+    extractor = FID.InceptionExtractor(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    randomise_inception(extractor.model, gen)
+    images = torch.rand(EVAL_IMAGES, 3, 256, 256, generator=gen, device=dev)
+    cpu_model = copy.deepcopy(extractor.model).cpu()
+    with torch.no_grad():
+        want = cpu_model(images.cpu())
+    default = (True, False)  # torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 at import
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = default
+    try:
+        got = extractor.features(images)
+        restored = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        with torch.no_grad():
+            control = extractor.model(images)  # the same forward without the guard: cuDNN's TF32
+        out = {}
+        for name, g, c, w in zip(("pool", "logits"), got, control, want):
+            w = w.to(dev)
+            share = float(((g - w).abs() / (EVAL_TOL * (1 + w.abs()))).max())
+            control_share = float(((c - w).abs() / (EVAL_TOL * (1 + w.abs()))).max())
+            log(f"  (a) {name} {tuple(g.shape)}: |card - cpu| max {float((g - w).abs().max()):.3e}, "
+                f"{share:.3f} of the bound {EVAL_TOL} (1 + |cpu|); the TF32 control (no guard) "
+                f"{float((c - w).abs().max()):.3e}, {control_share:.1f} of it; |cpu| mean {float(w.abs().mean()):.3f}")
+            if share > 1.0:
+                raise AssertionError(f"(a) the extractor's {name} on the card disagrees with the CPU's")
+            if control_share <= 1.0:
+                raise AssertionError(f"(a) the TF32 control's {name} stays within the bound: it cannot tell TF32 "
+                                     f"from fp32")
+            out[name] = share
+        if restored != default:
+            raise AssertionError(f"(a) the extractor left the TF32 flags at {restored}, not {default}")
+        batch = torch.rand(BATCH, 3, 256, 256, generator=gen, device=dev)
+        extractor.features(batch)  # warm-up: cuDNN's algorithm choice at this shape
+        torch.cuda.reset_peak_memory_stats()
+        times = [wall_s(lambda: extractor.features(batch))[1] for _ in range(ROUNDS)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    s = statistics.median(times)
+    log(f"  (a) TF32 flags left at {restored} (PyTorch's defaults) around the guarded forward; extractor at batch "
+        f"{BATCH}, 256x256 -> 299: {BATCH / s:.1f} images/s ({s * 1e3 / BATCH:.3f} ms/image, median of "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms a batch), fp32, peak memory {peak:.2f} GiB; {card}")
+    return {"images_per_s": BATCH / s, "peak_gib": peak, **{f"{k}_share": v for k, v in out.items()}}
+
+
+def write_synth_stage2(directory: str) -> str:
+    """tests/goldens/synth_ckpt/stage2 copied into `directory`, its config's
+    vqvae.ckpt naming this checkout's stage-1 checkpoint. Returns model.pt's path."""
+    import shutil
+
+    synth = os.path.join(ROOT, "tests", "goldens", "synth_ckpt")
+    d = os.path.join(directory, "stage2")
+    os.makedirs(d)
+    with open(os.path.join(synth, "stage2", "config.yaml")) as f:
+        text = f.read()
+    text = re.sub(r"(?m)^(\s*ckpt:).*$", rf"\1 {os.path.join(synth, 'stage1', 'model.pt')}", text)
+    with open(os.path.join(d, "config.yaml"), "w") as f:
+        f.write(text)
+    shutil.copy(os.path.join(synth, "stage2", "model.pt"), d)
+    return os.path.join(d, "model.pt")
+
+
+def eval_phase(S, counters, dev, card) -> dict:
+    """Phase 14: the evaluation path ((a)-(d), module constants above).
+    Returns the launches of #1-#3 in (b) and of #9 in (d)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from rqvae_tpu_torch.cli import main_sampling_fid as CLI
+    from rqvae_tpu_torch.metrics import fid as FID
+
+    t_phase = time.perf_counter()
+    extractor_vs_cpu(FID, dev, card)
+
+    # (b): the 1.4B sampler and RQ-VAE in memory, through the CLI's loop
+    model, vqvae, _ = build_main_path(dev)
+    attn_steps, head_steps = 42 * 64, 6 * 4 * 64
+    want = {fn.__name__: 0 for fn in counters} | {"decode_attention_update": attn_steps, "fused_ln_qkv": head_steps,
+                                                  "fused_proj_mlp": head_steps}
+    real_sample = S.sample
+    per_batch = []
+
+    def counted_sample(*args, **kwargs):
+        for fn in counters:
+            fn.launches = 0
+        codes = real_sample(*args, **kwargs)
+        per_batch.append({fn.__name__: fn.launches for fn in counters})
+        return codes
+
+    extractor = FID.InceptionExtractor(batch_size=BATCH, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "samples")
+        os.makedirs(out_dir)
+        with mock.patch.object(S, "sample", counted_sample):
+            seconds = CLI.sample_to_files(model, vqvae, out_dir, EVAL_BATCHES * BATCH, BATCH, 1000,
+                                          torch.Generator(device=dev).manual_seed(0))
+        if per_batch != [want] * EVAL_BATCHES:
+            raise AssertionError(f"(b) the sampler's launches per batch {per_batch}, not {want} each")
+        samples = FID.load_samples_from_files(out_dir)
+        if samples.shape != (EVAL_BATCHES * BATCH, 3, 256, 256) or samples.dtype != "float32" or not (
+                0.0 <= samples.min() and samples.max() <= 1.0):
+            raise AssertionError(f"(b) samples {samples.shape} {samples.dtype} in [{samples.min()}, {samples.max()}]")
+        targets = [np.load(os.path.join(out_dir, f"targets_{i}.npz"))["targets"] for i in range(EVAL_BATCHES)]
+        if not np.array_equal(np.concatenate(targets), CLI.label_layout(1000, EVAL_BATCHES * BATCH, EVAL_BATCHES,
+                                                                        BATCH)):
+            raise AssertionError("(b) targets_*.npz do not hold the CLI's label layout")
+        # reference statistics from a second seed: uniform random codes through the same RQ-VAE
+        gen = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            ref_images = torch.cat([
+                (vqvae.decode_code(torch.randint(0, 16384, (BATCH, 8, 8, 4), generator=gen, device=dev)).float()
+                 * 0.5 + 0.5).clamp(0, 1).permute(0, 3, 1, 2) for _ in range(EVAL_BATCHES)])
+        mu_ref, sigma_ref = FID.mean_covar(extractor.activations(ref_images))
+        np.savez(os.path.join(tmp, "ref_stats.npz"), mu=mu_ref, sigma=sigma_ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acts = extractor.activations(samples)
+        extract_s = time.perf_counter() - t0
+        score_s = time.perf_counter()
+        results = CLI.score_files(out_dir, os.path.join(tmp, "ref_stats.npz"), extractor)
+        score_s = time.perf_counter() - score_s
+        written = sorted(os.listdir(out_dir))
+        saved = np.load(os.path.join(out_dir, "acts.npz"))
+        mu, sigma = saved["mu"], saved["sigma"]
+        again = float(np.abs(saved["acts"] - acts).max())
+        if again > 1e-6 * (1 + float(np.abs(acts).max())):
+            raise AssertionError(f"(b) acts.npz differs from a second extraction of the same samples by {again}")
+        t0 = time.perf_counter()
+        self_fid = FID.frechet_distance(mu, sigma, mu, sigma)
+        sqrtm_s = time.perf_counter() - t0
+    want_files = sorted([f"samples_{i}.pkl" for i in range(EVAL_BATCHES)] + [f"targets_{i}.npz" for i in
+                                                                               range(EVAL_BATCHES)] + ["acts.npz"])
+    m_is, s_is = results["IS"]
+    fid = results["FID"]
+    ms = [s * 1e3 / BATCH for s in seconds]
+    log(f"  (b) {EVAL_BATCHES} batches of {BATCH} (bf16 point, S.sample's defaults, labels 0-999 as the CLI lays them "
+        f"out): launches per batch {per_batch[0]['decode_attention_update']} decode_attention_update, "
+        f"{per_batch[0]['fused_ln_qkv']} fused_ln_qkv, {per_batch[0]['fused_proj_mlp']} fused_proj_mlp, every other "
+        f"kernel 0; files {written}")
+    log(f"  (b) acts.npz against a second extraction of the same samples: max |d| {again:.3e}")
+    log(f"  (b) IS {m_is:.4f} +- {s_is:.4f}; FID against the statistics of {EVAL_BATCHES * BATCH} decodes of random "
+        f"codes (seed 1) {fid:.4f}; self-FID {self_fid:.3e} (trace of sigma {np.trace(sigma):.3f})")
+    log(f"  [eval 1.4B] sampling + decode + write: {statistics.median(ms[1:]):.3f} ms/sample (median of batches 2-"
+        f"{EVAL_BATCHES}: {', '.join(f'{t:.3f}' for t in ms[1:])}; batch 1 {ms[0]:.3f}); extractor "
+        f"{extract_s * 1e3 / len(samples):.3f} ms/image ({len(samples)} images from host numpy, batch {BATCH}); "
+        f"score_files (acts, IS, FID) {score_s:.1f} s; sqrtm (one 2048-d frechet_distance) {sqrtm_s:.1f} s; {card}")
+    if written != want_files:
+        raise AssertionError(f"(b) the loop wrote {written}, not {want_files}")
+    if not (np.isfinite(m_is) and 1.0 - 1e-9 <= m_is <= 1008.0 and np.isfinite(fid) and fid > 0):  # IS >= 1 up to rounding
+        raise AssertionError(f"(b) IS {m_is} outside [1, 1008] or FID {fid} not finite and positive")
+    if abs(self_fid) > SELF_FID_RTOL * np.trace(sigma):
+        raise AssertionError(f"(b) self-FID {self_fid} is not near 0")
+    del model, samples, ref_images
+    torch.cuda.empty_cache()
+
+    # (c): the CLI as a subprocess on the synthetic checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_synth_stage2(tmp)
+        out_dir = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "rqvae_tpu_torch.cli.main_sampling_fid", "-m", ckpt, "--top-k", "1", "-bs", "4",
+               "-n", "8", "-o", out_dir, "--dtype", "float32", "--no-kernels"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"(c) the CLI exited {res.returncode}: {res.stderr[-3000:]}")
+        written = sorted(os.listdir(out_dir))
+        with open(os.path.join(out_dir, "samples_1.pkl"), "rb") as f:
+            last = pickle.load(f)
+    want_files = ["acts.npz", "samples_0.pkl", "samples_1.pkl", "seeds.txt", "targets_0.npz", "targets_1.npz"]
+    is_line = [line for line in res.stderr.splitlines() if "IS:" in line]
+    log(f"  (c) python -m rqvae_tpu_torch.cli.main_sampling_fid on tests/goldens/synth_ckpt (embed 64, head size 16: "
+        f"no kernel serves it, so --no-kernels; fp32, --top-k 1, 2 batches of 4): exit 0 in {cli_s:.1f} s, files "
+        f"{written}, samples {last.shape} {last.dtype}; {is_line[-1].strip() if is_line else 'no IS line'}")
+    if written != want_files or last.shape != (4, 3, 64, 64) or not is_line:
+        raise AssertionError(f"(c) the CLI wrote {written} (samples {last.shape}) or logged no IS")
+
+    # (d): rFID of the 8x8x4 RQ-VAE's forward, through #9 and through the plain argmin
+    images = torch.rand(RFID_IMAGES, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+
+    class Seeded:
+        def __len__(self):
+            return RFID_IMAGES
+
+        def __getitem__(self, i):
+            return images[i] * 2 - 1, 0
+
+    rfid, codes = {}, {}
+    for use_kernel in (True, False):
+        vqvae.use_kernel = use_kernel
+        got = []
+
+        def recon(x):
+            out, _, c = vqvae(x.permute(0, 2, 3, 1))
+            got.append(c)
+            return out.permute(0, 3, 1, 2)
+
+        for fn in counters:
+            fn.launches = 0
+        rfid[use_kernel], rfid_s = wall_s(lambda: FID.compute_rfid(Seeded(), recon, batch_size=BATCH,
+                                                                   extractor=extractor))
+        counts = {fn.__name__: fn.launches for fn in counters}
+        n_batches = -(-RFID_IMAGES // BATCH)
+        want = {fn.__name__: 0 for fn in counters} | {"nearest_code": 4 * n_batches if use_kernel else 0}
+        if counts != want:
+            raise AssertionError(f"(d) use_kernel={use_kernel}: launches {counts}, not {want}")
+        codes[use_kernel] = torch.cat(got)
+        log(f"  (d) compute_rfid, {RFID_IMAGES} seeded images in batches of {BATCH}, use_kernel={use_kernel}: nearest_code "
+            f"{counts['nearest_code']} launches ({4 if use_kernel else 0} a batch), every other kernel 0; rFID "
+            f"{rfid[use_kernel]:.4f}; {rfid_s:.1f} s; {card}")
+    vqvae.use_kernel = True
+    agree = [float((codes[True][..., d] == codes[False][..., d]).double().mean()) for d in range(4)]
+    log(f"  (d) codes of #9 and of the plain argmin equal per depth: {', '.join(f'{a:.4f}' for a in agree)} (>= "
+        f"{ENCODE_AGREE} at depth 0)")
+    if not all(np.isfinite(v) and v > 0 for v in rfid.values()) or agree[0] < ENCODE_AGREE:
+        raise AssertionError(f"(d) rFID {rfid} not finite or depth-0 agreement {agree[0]} < {ENCODE_AGREE}")
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"decode_attention_update": EVAL_BATCHES * attn_steps, "fused_ln_qkv": EVAL_BATCHES * head_steps,
+            "fused_proj_mlp": EVAL_BATCHES * head_steps, "nearest_code": 4 * -(-RFID_IMAGES // BATCH)}
+
+
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8', 'nearest', 'train' and 'stage1'")
+                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1' and 'eval'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -3265,6 +3541,11 @@ def main() -> None:
     if mode == "stage1":
         log(f"# phase 13: stage-1 training (nearest_code on its path), on {card}")
         stage1_phase(counters, dev, card)
+        return
+    if mode == "eval":
+        log(f"# phase 14: the evaluation path (the Inception extractor, the 1.4B sample-and-score loop, the CLI, "
+            f"rFID), on {card}")
+        eval_phase(S, counters, dev, card)
         return
     if mode == "attention":
         check_attention(AK, dev, gen)
@@ -3409,6 +3690,14 @@ def main() -> None:
         f"the CPU's, fp32; (b) the 8x8x4 RQ-VAE at full width, {S1_STEPS} steps of B {S1_BATCH} with the PatchGAN and "
         f"LPIPS; (c) the last step through the plain argmin; on {card}")
     launches["nearest_code"] += stage1_phase(counters, dev, card)
+    torch.cuda.empty_cache()
+
+    # phase 14: the evaluation path, #1-#3 through the sampler and #9 through rFID
+    log(f"# phase 14: evaluation: (a) the FID Inception extractor, card against CPU under PyTorch's default TF32 "
+        f"flags; (b) the 1.4B sample-and-score loop, {EVAL_BATCHES} batches of {BATCH}; (c) the CLI on the synthetic "
+        f"checkpoints; (d) rFID of the 8x8x4 RQ-VAE, {RFID_IMAGES} images; on {card}")
+    for name, n in eval_phase(S, counters, dev, card).items():
+        launches[name] += n
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",

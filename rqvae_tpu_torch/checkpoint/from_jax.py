@@ -19,7 +19,10 @@ parameters, their EMA, the steps and optax's moments, each tree mapped as
 the parameters are; stage 1 also the codebook state and its EMA, and the
 discriminator with its BatchNorm statistics and its own optimizer.
 discriminator_state_dict_from_jax and lpips_state_dict_from_jax map the
-stage-1 losses' trees.
+stage-1 losses' trees; inception_state_dict_from_jax and
+clip_state_dict_from_jax the evaluation nets' (metrics/inception.py, whose
+keys are the pytorch-fid checkpoint's, and metrics/clip_model.py, whose
+keys are the OpenAI CLIP checkpoint's).
 """
 
 from __future__ import annotations
@@ -416,3 +419,65 @@ def stage1_state_from_jax(state_np, hparams, ddconfig, disc_kwargs: dict, optim_
     _load_optax(state.disc_optimizer, list(disc.named_parameters()), _field(state_np, "disc_opt_state"),
                 disc_tensors)
     return state
+
+
+def inception_state_dict_from_jax(params_np: dict) -> Dict[str, np.ndarray]:
+    """flax FIDInceptionV3 params (BasicConv: conv.kernel, bn_scale, bn_bias,
+    bn_mean, bn_var; fc) -> the port's FIDInceptionV3 state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        if "bn_scale" in node:
+            _conv(sd, f"{prefix}.conv", node["conv"])
+            for ours, theirs in (("weight", "bn_scale"), ("bias", "bn_bias"), ("running_mean", "bn_mean"),
+                                 ("running_var", "bn_var")):
+                sd[f"{prefix}.bn.{ours}"] = _np32(node[theirs])
+            sd[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+            return
+        for k, v in node.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk({k: v for k, v in params_np.items() if k != "fc"}, "")
+    sd["fc.weight"] = _np32(params_np["fc"]["kernel"]).T
+    sd["fc.bias"] = _np32(params_np["fc"]["bias"])
+    return sd
+
+
+def _clip_block(sd, prefix: str, blocks: dict, i: int) -> None:
+    """Layer i of the JAX CLIP's stacked blocks -> one OpenAI resblock."""
+    def leaf(k):
+        return _np32(blocks[k][i])
+
+    sd[f"{prefix}.ln_1.weight"], sd[f"{prefix}.ln_1.bias"] = leaf("ln1_scale"), leaf("ln1_bias")
+    sd[f"{prefix}.attn.in_proj_weight"], sd[f"{prefix}.attn.in_proj_bias"] = leaf("w_in").T, leaf("b_in")
+    sd[f"{prefix}.attn.out_proj.weight"], sd[f"{prefix}.attn.out_proj.bias"] = leaf("w_out").T, leaf("b_out")
+    sd[f"{prefix}.ln_2.weight"], sd[f"{prefix}.ln_2.bias"] = leaf("ln2_scale"), leaf("ln2_bias")
+    sd[f"{prefix}.mlp.c_fc.weight"], sd[f"{prefix}.mlp.c_fc.bias"] = leaf("w1").T, leaf("b1")
+    sd[f"{prefix}.mlp.c_proj.weight"], sd[f"{prefix}.mlp.c_proj.bias"] = leaf("w2").T, leaf("b2")
+
+
+def clip_state_dict_from_jax(params_np: dict) -> Dict[str, np.ndarray]:
+    """The JAX CLIP's params (rqvae_tpu/metrics/clip_model.py: "visual" and
+    "text" with stacked [L, ...] blocks) -> the port's CLIP state_dict (the
+    OpenAI layout)."""
+    v, t = params_np["visual"], params_np["text"]
+    sd: Dict[str, np.ndarray] = {
+        "visual.conv1.weight": _np32(v["conv"]).transpose(3, 2, 0, 1),
+        "visual.class_embedding": _np32(v["class_emb"]),
+        "visual.positional_embedding": _np32(v["pos_emb"]),
+        "visual.ln_pre.weight": _np32(v["ln_pre_scale"]),
+        "visual.ln_pre.bias": _np32(v["ln_pre_bias"]),
+        "visual.ln_post.weight": _np32(v["ln_post_scale"]),
+        "visual.ln_post.bias": _np32(v["ln_post_bias"]),
+        "visual.proj": _np32(v["proj"]),
+        "token_embedding.weight": _np32(t["token_emb"]),
+        "positional_embedding": _np32(t["pos_emb"]),
+        "ln_final.weight": _np32(t["ln_final_scale"]),
+        "ln_final.bias": _np32(t["ln_final_bias"]),
+        "text_projection": _np32(t["text_proj"]),
+    }
+    for i in range(np.shape(v["blocks"]["w_in"])[0]):
+        _clip_block(sd, f"visual.transformer.resblocks.{i}", v["blocks"], i)
+    for i in range(np.shape(t["blocks"]["w_in"])[0]):
+        _clip_block(sd, f"transformer.resblocks.{i}", t["blocks"], i)
+    return sd

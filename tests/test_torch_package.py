@@ -1,5 +1,6 @@
 """Packaging rules of the port: rqvae_tpu_torch imports without JAX, flax,
-rqvae_tpu or yaml, and chip_smoke.py fails without a CUDA device."""
+rqvae_tpu, yaml, PIL or safetensors, and chip_smoke.py fails without a CUDA
+device."""
 
 import os
 import pkgutil
@@ -21,11 +22,13 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
     for name in ("models.rqtransformer.sampling", "models.ema", "optim.schedule", "optim.optimizer",
-                 "trainers.trainer_stage2", "trainers.accumulator"):
+                 "trainers.trainer_stage2", "trainers.accumulator", "models", "metrics.inception", "metrics.fid",
+                 "metrics.is_score", "metrics.clip_model", "metrics.clip_score", "data.clip_tokenizer",
+                 "utils.config", "cli.common", "cli.main_sampling_fid", "cli.compute_metrics"):
         assert f"rqvae_tpu_torch.{name}" in names
     code = (
         "import sys\n"
-        "for blocked in ('jax', 'jaxlib', 'flax', 'rqvae_tpu', 'yaml'):\n"
+        "for blocked in ('jax', 'jaxlib', 'flax', 'rqvae_tpu', 'yaml', 'PIL', 'safetensors'):\n"
         "    sys.modules[blocked] = None\n"
         "import importlib\n"
         f"for name in {names!r}:\n"
