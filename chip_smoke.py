@@ -187,7 +187,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      the 8x8x4 RQ-VAE's forward on 200 seeded images in batches of 100: 4
      nearest_code launches a batch and no other kernel, then the same with
      use_kernel=False (no launch); both rFIDs finite, depth-0 codes equal on
-     >= 99% of positions.
+     >= 99% of positions;
+ 15. the entry points that read a dataset (rqvae_tpu_torch.cli, each
+     main(argv) in this process, so that the counters see its launches),
+     on a seeded ImageNet-layout folder of 2 classes, 192 train and 32 val
+     smooth, noisy PNGs of 256-384 pixels a side written by
+     rqvae_tpu_torch.data.image_io with libpng's adaptive row filters
+     (mostly Average and Paeth rows):
+     (a) main_stage1 at phase 13 (b)'s configuration (B 32, checkpointing,
+     EMA), one epoch of 6 steps with eval and a save: nearest_code 4
+     launches per step, eval batch and grid encode and no other kernel, the
+     median ms/step, images/s, the grids' seconds, the model.pt read back by
+     cli.common; (b) compute_rfid on the val folder from (a)'s model.pt,
+     through #9; (c) main_stage2 at 1.4B (phase 12 (b)'s setup: batch 16,
+     total 32), 6 steps a run, no kernel, run at the loader's default
+     worker count and at one fewer, alternating, the median ms/step of
+     each, and the trainer's step alone on one batch (synchronized as phase
+     12 (b), and unsynchronized as the loop); then a width-1536, 2 + 1-layer run with a
+     save, whose model.pt main_sampling_fid.sample_to_files samples one batch
+     of 100 from, #1-#3 counted; (d) #1-#3 at C 1280 / 20 heads against
+     their plain versions (TOL), then main_sampling_txt2img at the cc3m 650M
+     geometry (random weights saved with a config.yaml) over 200 captions
+     with a synthetic merges file, its launches per batch, and
+     compute_clip_score with a ViT-B/32-shaped CLIP of synthetic weights,
+     then the same CLI as `python -m` in a process of its own (one batch);
+     (e) the loader's images/s in this process and at its default workers.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -206,12 +230,13 @@ csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
 12 alone (no build: no kernel lies on the stage-2 training path). Run from two source trees in one call, they
 compare two designs of those kernels on one card. `python3 chip_smoke.py
 stage1` runs phases 1, 2 and 13 alone; `python3 chip_smoke.py eval` phases 1,
-2 and 14.
+2 and 14; `python3 chip_smoke.py entry` phases 1, 2 and 15.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import re
@@ -220,6 +245,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import torch
@@ -346,7 +372,13 @@ S1_PARAM_RTOL = 0.1
 S1_PLAIN_RTOL = 5e-3
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header with the seconds since the script started."""
+    if msg.startswith("# phase"):
+        msg += f" [{time.perf_counter() - T0:.0f} s into the run]"
     print(msg, flush=True)
 
 
@@ -1895,14 +1927,23 @@ def check_ablate(QP, quantize_weight, dev, gen):
             "cases_max_abs_err": errs, "cases": rows, "bf16_bound_ms": ab_b16["bound_ms"], "phase_us": phases}
 
 
-def count_sass(lib_path, op) -> int:
-    """Instructions of kind `op` (e.g. IMMA) in a built library's SASS
-    (cuobjdump beside nvcc)."""
+# the libraries whose SASS phase 2 reads (count_sass)
+SASS_LIBS = ("libw8a8.so", "libdense_w8a8.so", "libdecode_dense.so", "libdecode_fused.so", "libdense_mlp.so",
+             "libdecode_attention_tma.so", "libnearest_code.so", "libstream_probe.so")
+
+
+@functools.lru_cache(maxsize=None)
+def sass(lib_path: str) -> str:
+    """A built library's SASS (cuobjdump beside nvcc), disassembled once."""
     from rqvae_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
-    return len(re.findall(rf"\b{op}\b", sass))
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+
+
+def count_sass(lib_path, op) -> int:
+    """Instructions of kind `op` (e.g. IMMA) in a built library's SASS."""
+    return len(re.findall(rf"\b{op}\b", sass(str(lib_path))))
 
 
 # CTA 0's phases of one fused kernel (csrc/decode_fused.cu g_stamps, rq_fused_phase_ns)
@@ -3436,11 +3477,528 @@ def eval_phase(S, counters, dev, card) -> dict:
             "fused_proj_mlp": EVAL_BATCHES * head_steps, "nearest_code": 4 * -(-RFID_IMAGES // BATCH)}
 
 
+# phase 15: the entry points that read a dataset. A seeded ImageNet-layout
+# folder of PNGs (written by rqvae_tpu_torch.data.image_io, not PIL) feeds
+# (a) main_stage1 at the 8x8x4 RQ-VAE's full width, (b) compute_rfid, (c)
+# main_stage2 at 1.4B and a 2 + 1-layer run whose checkpoint
+# main_sampling_fid samples from, (d) main_sampling_txt2img at the cc3m 650M
+# geometry over a caption folder, then compute_clip_score, and (e) the
+# loader alone
+ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 2, 96, 16  # images per class: 192 train (6 steps of 32), 32 val
+ENTRY_CAPTIONS = 200
+ENTRY_LOADER_BATCH, ENTRY_LOADER_REPEAT = 8, 3  # (e): at the default workers 72 batches an epoch, 9 a worker at 8
+ENTRY_STAGE2_RUNS = ("default", "one fewer", "default", "one fewer")  # (c): the loader's worker counts, alternating
+ENTRY_ALONE_STEPS = 6  # (c): the step alone, the median of the last 5
+ARCH_650M = dict(  # cli/measure_throughput.py "650M" at cond_len 32, vocab_cond 16384 (the cc3m geometry)
+    ARCH_1P4B, embed_dim=1280, vocab_size_cond=16384, block_size_cond=32,
+    body={"n_layer": 26, "block": {"n_head": 20}}, head={"n_layer": 4, "block": {"n_head": 20}},
+)
+ARCH_CUT_SAVE = dict(ARCH_1P4B, body={"n_layer": 2, "block": {"n_head": 24}}, head={"n_layer": 1, "block": {"n_head": 24}})
+# (d): #1's (cur_len, window) on a [100, 95, 1280] cache: 95 = cond_len 32 + 63 positions, the txt2img body's rows
+C1280_ATTN_CASES = ((0, 8), (31, 40), (62, 72), (94, 95))
+CAPTION_WORDS = ("a", "photo", "of", "the", "cat", "dog", "sat", "on", "mat", "red", "car", "street", "two", "people",
+                 "walking", "beach", "bowl", "fruit", "table", "at", "night")
+CAPTION_MERGES = [("t", "h"), ("th", "e</w>"), ("a", "t</w>"), ("c", "at</w>"), ("s", "a"), ("sa", "t</w>"),
+                  ("o", "n</w>"), ("h", "e"), ("m", "a"), ("ma", "t</w>"), ("d", "o"), ("do", "g</w>")]
+
+
+def write_image_folder(root: str, rng):
+    """{train,val}/class_{c}/{i}.png: seeded images of 256-384 x 256-384
+    pixels (so the train transform resizes and crops), a smooth field (a
+    coarse random grid resized bilinearly) with +-4 of noise, each row
+    filtered as libpng's adaptive heuristic picks. Returns the number of
+    rows written with each of the five filters."""
+    import zlib
+
+    import numpy as np
+
+    from rqvae_tpu_torch.data.image_io import FILTERS, encode_png
+    from rqvae_tpu_torch.data.transforms import resize_exact
+
+    kinds = np.zeros(len(FILTERS), np.int64)
+    for split, n in (("train", ENTRY_TRAIN), ("val", ENTRY_VAL)):
+        for c in range(ENTRY_CLASSES):
+            d = os.path.join(root, split, f"class_{c}")
+            os.makedirs(d)
+            for i in range(n):
+                h, w = (int(v) for v in rng.integers(256, 385, 2))
+                field = resize_exact(rng.integers(0, 256, (h // 24 + 2, w // 24 + 2, 3), dtype=np.uint8), (h, w))
+                img = (field.astype(np.int64) + rng.integers(-4, 5, (h, w, 3))).clip(0, 255).astype(np.uint8)
+                data = encode_png(img)
+                with open(os.path.join(d, f"{i:04d}.png"), "wb") as f:
+                    f.write(data)
+                rows = np.frombuffer(zlib.decompress(data[41:-16]), np.uint8).reshape(h, -1)  # the one IDAT chunk
+                kinds += np.bincount(rows[:, 0], minlength=len(FILTERS))
+    return dict(zip(FILTERS, kinds.tolist()))
+
+
+def write_config(path: str, config: dict) -> str:
+    from rqvae_tpu_torch.utils.config import Config
+
+    with open(path, "w") as f:
+        f.write(Config(config).to_yaml())
+    return path
+
+
+def stage1_entry_config(data: str) -> dict:
+    """Phase 13 (b)'s configuration as a stage-1 config file: the 8x8x4 RQ-VAE
+    (checkpointing on, EMA), the PatchGAN (ndf 64, 3 layers), LPIPS, Adam
+    (0.5, 0.9) with the fix schedule for both, B 32, one epoch with eval
+    and a save."""
+    optim = dict(S1_OPTIM, init_lr=S1_LR, warmup=S1_WARMUP)
+    return {
+        "dataset": {"type": "imagenet", "root": data, "transforms": {"type": "imagenet256x256"}},
+        "arch": {"type": "rq-vae", "code_hier": 1, "ema": 0.9999, "checkpointing": True, "ddconfig": DDCONFIG,
+                 "hparams": dict(HPARAMS, bottleneck_type="rq", decay=0.99, latent_loss_weight=0.25)},
+        "optimizer": optim,
+        "gan": {"disc": {"arch": {"in_channels": 3, "num_layers": S1_DISC["n_layers"], "use_actnorm": False,
+                                  "ndf": S1_DISC["ndf"]}, "optimizer": optim},
+                "loss": {"disc_loss": "hinge", "gen_loss": "vanilla", "disc_weight": 0.75, "perceptual_weight": 1.0,
+                         "disc_start": 0}},
+        "experiment": {"batch_size": S1_BATCH, "epochs": 1, "test_freq": 1, "save_ckpt_freq": 1},
+    }
+
+
+def stage2_entry_config(data: str, vq_ckpt: str, arch: dict, save: bool) -> dict:
+    """Phase 12 (b)'s training setup as a stage-2 config file: batch 16,
+    total 32 (2 accumulation steps), amp bf16, AdamW with the clip, EMA,
+    soft targets; one epoch, with eval and a save when `save`."""
+    freq = 1 if save else 10
+    return {
+        "dataset": {"type": "imagenet", "root": data, "vocab_size": 16384, "transforms": {"type": "imagenet256x256"}},
+        "arch": dict(arch, ema=0.9999),
+        "vqvae": {"ckpt": vq_ckpt},
+        "optimizer": dict(TRAIN_OPTIM, init_lr=TRAIN_LR, warmup=TRAIN_WARMUP),
+        "loss": {"type": "soft_target_cross_entropy", "temp": 1.0, "stochastic_codes": False},
+        "experiment": {"batch_size": TRAIN_BATCH // TRAIN_ACCUM, "total_batch_size": TRAIN_BATCH, "epochs": 1,
+                       "test_freq": freq, "save_ckpt_freq": freq, "amp_bf16": True},
+    }
+
+
+def check_c1280(AK, DK, dev, gen) -> dict:
+    """#1 (100 rows of 20 heads on a 95-row cache at C1280_ATTN_CASES) and
+    #2 / #3 (B 100, both gelu forms) at C 1280 against their plain versions
+    (phase 3's compare and TOL; #1's written row and the rest of its cache
+    as in check_attention). Returns each one's max abs error."""
+    B, C, nh, T = BATCH, 1280, 20, 95
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    worst = {"decode_attention_update": 0.0, "fused_ln_qkv": 0.0, "fused_proj_mlp": 0.0}
+    for cur, window in C1280_ATTN_CASES:
+        q, kn, vn, kc, vc = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, T, C), rnd(B, T, C)
+        k1, v1, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        y1 = AK.decode_attention_update(q, kn, vn, k1, v1, cur, nh, t_window=window)
+        y0 = AK.decode_attention_update_plain(q, kn, vn, k0, v0, cur, nh, t_window=window)
+        torch.cuda.synchronize()
+        tag = f"decode_attention_update B={B} C={C} {nh} heads T={T} cur_len={cur} window={window}"
+        worst["decode_attention_update"] = max(worst["decode_attention_update"], compare(tag, y1, y0)[0])
+        keep = torch.ones(T, dtype=torch.bool, device=dev)
+        keep[cur] = False
+        if not (torch.equal(k1[:, cur], kn) and torch.equal(v1[:, cur], vn)):
+            raise AssertionError(f"{tag}: cache row {cur} was not set to k_new/v_new")
+        if not (torch.equal(k1[:, keep], kc[:, keep]) and torch.equal(v1[:, keep], vc[:, keep])):
+            raise AssertionError(f"{tag}: cache rows other than {cur} changed")
+    ln = (rnd(C, std=0.1, mean=1.0), rnd(C, std=0.1))
+    wqkv, bqkv = rnd(3 * C, C, std=0.02), rnd(3 * C, std=0.02)
+    mlp = (rnd(C, C, std=0.02), rnd(C, std=0.02), rnd(4 * C, C, std=0.02), rnd(4 * C, std=0.02),
+           rnd(C, 4 * C, std=0.02), rnd(C, std=0.02))
+    x, y = rnd(B, C), rnd(B, C)
+    got = DK.fused_ln_qkv(x, *ln, wqkv, bqkv)
+    torch.cuda.synchronize()
+    worst["fused_ln_qkv"] = compare(f"fused_ln_qkv x[{B},{C}] wqkv[{3 * C},{C}]", got,
+                                    DK.fused_ln_qkv_plain(x, *ln, wqkv, bqkv))[0]
+    for gelu in ("v1", "v2"):
+        got = DK.fused_proj_mlp(x, y, *mlp[:2], *ln, *mlp[2:], gelu_version=gelu)
+        torch.cuda.synchronize()
+        want = DK.fused_proj_mlp_plain(x, y, *mlp[:2], *ln, *mlp[2:], gelu_version=gelu)
+        worst["fused_proj_mlp"] = max(worst["fused_proj_mlp"],
+                                      compare(f"fused_proj_mlp x[{B},{C}] H {4 * C} gelu {gelu}", got, want)[0])
+    return worst
+
+
+def synthetic_clip_dir(directory: str, merges: str, gen) -> str:
+    """A ViT-B/32-shaped CLIP (CLIPConfig's defaults) with seeded N(0, 0.02)
+    weights (LayerNorms at identity) saved as ViT-B-32.pt, the merges file beside it."""
+    import shutil
+
+    from rqvae_tpu_torch.metrics import clip_model as CM
+
+    model = CM.CLIP(CM.CLIPConfig(), device="cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".ln_" in name or name.startswith(("ln_", "visual.ln_")):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    os.makedirs(directory)
+    torch.save(model.state_dict(), os.path.join(directory, "ViT-B-32.pt"))
+    shutil.copy(merges, os.path.join(directory, "bpe_simple_vocab_16e6.txt.gz"))
+    return directory
+
+
+def loader_rate(root: str, workers, dev, repeat: int = 1) -> tuple[float, int]:
+    """(images/s, workers) of one epoch through the loader (PNG decode +
+    imagenet256x256's train transforms + collate, batches of
+    ENTRY_LOADER_BATCH pinned and copied to `dev`) of the train folder
+    read `repeat` times over, after a warm-up epoch; workers None is the
+    loader's default."""
+    from rqvae_tpu_torch.data import ImageFolder, Subset, create_transforms
+    from rqvae_tpu_torch.data.loader import DataLoader
+
+    folder = ImageFolder(os.path.join(root, "train"), create_transforms({"transforms": {"type": "imagenet256x256"}}))
+    dataset = Subset(folder, list(range(len(folder))) * repeat)
+    loader = DataLoader(dataset, ENTRY_LOADER_BATCH, num_workers=workers, device=dev)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = sum(batch["images"].shape[0] for batch in loader)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    return n / s, loader.num_workers
+
+
+def item_costs(root: str) -> tuple[float, float]:
+    """Median ms per train image, in this process, of read_image (the file
+    read, zlib and the unfilter) and of imagenet256x256's train transform."""
+    import numpy as np
+
+    from rqvae_tpu_torch.data import ImageFolder, create_transforms
+    from rqvae_tpu_torch.data.image_io import read_image
+
+    folder = ImageFolder(os.path.join(root, "train"), create_transforms({"transforms": {"type": "imagenet256x256"}}))
+    decode, transform = [], []
+    for i, (path, _) in enumerate(folder.items):
+        t0 = time.perf_counter()
+        img = read_image(path)
+        t1 = time.perf_counter()
+        folder.transform(img, np.random.default_rng(i))
+        decode.append((t1 - t0) * 1e3)
+        transform.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(decode), statistics.median(transform)
+
+
+def entry_phase(S, counters, dev, card) -> dict:
+    """Phase 15 ((a)-(e), module constants above). Returns the launches of
+    #1-#3 ((c)'s sample and (d)) and of #9 ((a) and (b))."""
+    import gc
+    import gzip
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from rqvae_tpu_torch.cli import compute_rfid, main_sampling_txt2img, main_stage1, main_stage2
+    from rqvae_tpu_torch.cli import main_sampling_fid as FIDCLI
+    from rqvae_tpu_torch.cli.common import load_ar_and_vqvae, load_model_from_ckpt
+    from rqvae_tpu_torch.metrics.clip_score import compute_clip_score
+    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.utils.setup import Writer
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def expect(what: str, want: dict) -> dict:
+        got = {fn.__name__: fn.launches for fn in counters}
+        full = {fn.__name__: 0 for fn in counters} | want
+        if got != full:
+            raise AssertionError(f"{what}: launches {got}, not {full}")
+        return want
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    launches = {"decode_attention_update": 0, "fused_ln_qkv": 0, "fused_proj_mlp": 0, "nearest_code": 0}
+    saved_env = {k: os.environ.get(k) for k in ("RQVAE_TPU_TOKENIZER_DIR", "RQVAE_TPU_CLIP_DIR")}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "imagenet")
+        t0 = time.perf_counter()
+        kinds = write_image_folder(data, rng)
+        log(f"  wrote {ENTRY_CLASSES} classes x ({ENTRY_TRAIN} train + {ENTRY_VAL} val) seeded PNGs of 256-384 "
+            f"pixels a side (image_io.encode_png, adaptive row filters: rows {kinds}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if kinds["average"] + kinds["paeth"] < sum(kinds.values()) // 2:
+            raise AssertionError(f"the folder's rows are not mostly Average and Paeth: {kinds}")
+
+        # (a): main_stage1, one epoch at full width, in this process (the counters)
+        free()
+        cfg1 = write_config(os.path.join(tmp, "stage1.yaml"), stage1_entry_config(data))
+        zero()
+        t0 = time.perf_counter()
+        trainer = main_stage1.main(["-m", cfg1, "-r", os.path.join(tmp, "results"), "--seed", "0"])
+        wall = time.perf_counter() - t0
+        n_trn, n_val, depth = len(trainer.loader_trn), len(trainer.loader_val), trainer.n_codebook
+        grids = 3  # train, valid, valid_ema: a reconstruction grid's forward (its codes feed the partial-code grids)
+        want = expect("(a) main_stage1", {"nearest_code": 4 * (n_trn + 2 * n_val + grids)})
+        launches["nearest_code"] += want["nearest_code"]
+        stats, peak = trainer.epoch_stats, torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(stats["step_ms"])
+        step_rate = S1_BATCH / ms * 1e3
+        eval_s = []  # an eval epoch (1 batch), then its logging (a reconstruction and 2 x depth partial-code grids)
+        for writer_dir in (None, os.path.join(tmp, "writer")):  # no writer, then the CLI's kind (closed by now)
+            trainer.writer = Writer(writer_dir)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = trainer.eval_epoch(0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.logging(summary, 0, "valid")
+            torch.cuda.synchronize()
+            eval_s.append((t1 - t0, time.perf_counter() - t1))
+            trainer.writer.close()
+        writer_kind = "tensorboard" if trainer.writer.writers else "scalars.jsonl"
+        del summary
+        zero()
+        w1 = os.path.join(trainer.config.result_path, "weights", "step_0", "model.pt")
+        ckpt1 = os.path.join(trainer.config.result_path, "ckpt", "step_0.pt")
+        log(f"  (a) main_stage1 (8x8x4 RQ-VAE, ddconfig ch 128, PatchGAN ndf 64, LPIPS synthetic, B {S1_BATCH}, "
+            f"checkpointing, EMA), 1 epoch of {n_trn} steps, eval of {n_val} batch (and of the EMA), a save: nearest_code "
+            f"{want['nearest_code']} launches = 4 x ({n_trn} steps + 2 x {n_val} eval batches + {grids} grid forwards), "
+            f"every other kernel 0; {wall:.1f} s in all")
+        log(f"  [entry stage 1] {ms:.1f} ms/step, the median of the {len(stats['step_ms'])} intervals between "
+            f"step ends ({', '.join(f'{t:.1f}' for t in stats['step_ms'])}; first step "
+            f"{stats['first_step_s'] * 1e3:.1f} ms, data included), {step_rate:.1f} images/s, peak memory "
+            f"{peak:.1f} GiB (phase 13 (b) times the step alone); {card}")
+        log(f"  [entry stage 1 eval] after the run, without a writer, then with the CLI's ({writer_kind}): "
+            f"eval_epoch (1 batch of {S1_BATCH}) " + ", ".join(f"{a:.2f}" for a, _ in eval_s) + f" s, then logging "
+            f"(a reconstruction grid and {2 * depth} partial-code grids of 16 images, scalars) "
+            + ", ".join(f"{b:.2f}" for _, b in eval_s) + f" s; {card}")
+        del trainer
+        free()
+        kind, vq, vq_cfg = load_model_from_ckpt(w1, device=dev)
+        with torch.no_grad():
+            x = torch.rand(2, 256, 256, 3, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 2 - 1
+            out, _, codes = vq(x)
+        if kind != "rq-vae" or not bool(torch.isfinite(out).all()) or not os.path.exists(ckpt1):
+            raise AssertionError(f"(a) {w1} read back as {kind}, output finite {bool(torch.isfinite(out).all())}, "
+                                 f"train state written {os.path.exists(ckpt1)}")
+        log(f"  (a) {os.path.relpath(w1, tmp)} ({os.path.getsize(w1) / 2**20:.0f} MiB, state_dict + state_dict_ema) "
+            f"read back by cli.common.load_model_from_ckpt with its config.yaml: a forward finite, codes "
+            f"{tuple(codes.shape)}; {os.path.relpath(ckpt1, tmp)} {os.path.getsize(ckpt1) / 2**20:.0f} MiB")
+        del vq, out, codes
+        free()
+
+        # (b): compute_rfid on the val folder
+        zero()
+        rfid, rfid_s = wall_s(lambda: compute_rfid.main(["-m", w1, "--batch-size", str(S1_BATCH)]))
+        n_rfid = -(-ENTRY_CLASSES * ENTRY_VAL // S1_BATCH)
+        want = expect("(b) compute_rfid", {"nearest_code": 4 * n_rfid})
+        launches["nearest_code"] += want["nearest_code"]
+        if not np.isfinite(rfid):
+            raise AssertionError(f"(b) rFID {rfid}")
+        log(f"  (b) compute_rfid on the {ENTRY_CLASSES * ENTRY_VAL} val images (FID Inception synthetic): rFID {rfid:.4f}, "
+            f"nearest_code {want['nearest_code']} launches (4 a batch of {S1_BATCH}), {rfid_s:.1f} s; {card}")
+        free()
+
+        # (c): main_stage2 at 1.4B, 6 steps a run, no save, at the loader's default worker count and one fewer,
+        # alternating; then the step alone; then a 2 + 1-layer run with a save, sampled from
+        from rqvae_tpu_torch.data import loader as loader_module
+
+        cfg2 = write_config(os.path.join(tmp, "stage2.yaml"), stage2_entry_config(data, w1, ARCH_1P4B, save=False))
+        default_workers = loader_module.default_workers()
+        runs = []
+        for which in ENTRY_STAGE2_RUNS:
+            workers = default_workers if which == "default" else default_workers - 1
+            zero()
+            with mock.patch.object(loader_module, "default_workers", lambda: workers):
+                trainer, wall = wall_s(lambda: main_stage2.main(["-m", cfg2, "-r", os.path.join(tmp, "results"),
+                                                                 "--seed", "0"]))
+            expect("(c) main_stage2 1.4B", {})
+            if trainer.loader_trn.num_workers != workers:
+                raise AssertionError(f"(c) the loader ran {trainer.loader_trn.num_workers} workers, not {workers}")
+            runs.append((workers, trainer.epoch_stats, wall))
+            if len(runs) < len(ENTRY_STAGE2_RUNS):
+                del trainer
+                free()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the step alone on the last run's trainer: one loader batch on the card, as phase 12 (b) times it
+        # (synchronized, the metrics fetched) and as the loop runs it (events after each step, no sync)
+        batch = next(iter(trainer.loader_trn))
+        alone = {"synchronized": [], "unsynchronized": []}
+        for n in range(ENTRY_ALONE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, m = trainer._train_step(trainer.state, batch, trainer.generator)
+            m = {k: v.detach().cpu() for k, v in m.items()}
+            alone["synchronized"].append((time.perf_counter() - t0) * 1e3)
+        ends = []
+        for n in range(ENTRY_ALONE_STEPS):
+            trainer.state, m = trainer._train_step(trainer.state, batch, trainer.generator)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+        torch.cuda.synchronize()
+        alone["unsynchronized"] = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        alone["synchronized"] = alone["synchronized"][1:]
+        expect("(c) the 1.4B step alone", {})
+        del trainer, batch, m
+        free()
+        by_workers = {}
+        for workers, stats, wall in runs:
+            by_workers.setdefault(workers, []).extend(stats["step_ms"])
+            log(f"  (c) main_stage2 (the 1.4B RQ-Transformer, amp bf16, EMA; the frozen encode bf16), {workers} loader "
+                f"workers: {stats['steps']} steps of {TRAIN_BATCH} as {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, no "
+                f"eval, no save, every kernel 0; first step {stats['first_step_s'] * 1e3:.1f} ms (data included), then "
+                f"{', '.join(f'{t:.1f}' for t in stats['step_ms'])} ms between step ends; {wall:.1f} s in all")
+        log(f"  [entry stage 2 1.4B] median ms/step between step ends over the runs at each worker count: "
+            + ", ".join(f"{w} workers {statistics.median(v):.1f} ({len(v)} intervals)" for w, v in by_workers.items())
+            + f"; the step alone on one loader batch: {statistics.median(alone['synchronized']):.1f} synchronized "
+            f"({', '.join(f'{t:.1f}' for t in alone['synchronized'])}), "
+            f"{statistics.median(alone['unsynchronized']):.1f} unsynchronized "
+            f"({', '.join(f'{t:.1f}' for t in alone['unsynchronized'])}); {os.cpu_count()} CPUs; peak memory "
+            f"{peak:.1f} GiB; {card}")
+        cfg3 = write_config(os.path.join(tmp, "stage2_cut.yaml"), stage2_entry_config(data, w1, ARCH_CUT_SAVE, True))
+        trainer = main_stage2.main(["-m", cfg3, "-r", os.path.join(tmp, "results_cut"), "--seed", "0"])
+        w2 = os.path.join(trainer.config.result_path, "weights", "step_0", "model.pt")
+        del trainer
+        free()
+        model, vqvae, _ = load_ar_and_vqvae(w2, device=dev, dtype=torch.bfloat16)
+        out_dir = os.path.join(tmp, "samples_cut")
+        os.makedirs(out_dir)
+        zero()
+        seconds = FIDCLI.sample_to_files(model, vqvae, out_dir, BATCH, BATCH, 1000,
+                                         torch.Generator(device=dev).manual_seed(0))
+        n_body, n_head = ARCH_CUT_SAVE["body"]["n_layer"], ARCH_CUT_SAVE["head"]["n_layer"]
+        want = expect("(c) sample_to_files", {"decode_attention_update": n_body * 64, "fused_ln_qkv": n_head * 4 * 64,
+                                              "fused_proj_mlp": n_head * 4 * 64})
+        for k, v in want.items():
+            launches[k] += v
+        with open(os.path.join(out_dir, "samples_0.pkl"), "rb") as f:
+            pix = pickle.load(f)
+        if pix.shape != (BATCH, 3, 256, 256) or not (0.0 <= pix.min() and pix.max() <= 1.0):
+            raise AssertionError(f"(c) samples {pix.shape} in [{pix.min()}, {pix.max()}]")
+        log(f"  (c) main_stage2 at width 1536, {n_body} + {n_head} layers, 1 epoch with eval and a save; its model.pt "
+            f"(read by cli.common.load_ar_and_vqvae, bf16) sampled by main_sampling_fid.sample_to_files, one batch "
+            f"of {BATCH}: {want}, every other kernel 0, samples {pix.shape}, {seconds[0]:.1f} s")
+        del model, vqvae
+        free()
+
+        # (d): #1-#3 at C 1280, then main_sampling_txt2img at the cc3m 650M geometry, then the CLIP score
+        gen = torch.Generator(device=dev).manual_seed(1280)
+        errs = check_c1280(AK, DK, dev, gen)
+        model = RQTransformer(TransformerConfig.create(ARCH_650M), device=dev, dtype=torch.bfloat16)
+        model.init_weights(gen)
+        d3 = os.path.join(tmp, "txt2img")
+        os.makedirs(d3)
+        w3 = os.path.join(d3, "model.pt")
+        torch.save({"state_dict": model.state_dict()}, w3)
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        free()
+        write_config(os.path.join(d3, "config.yaml"), {
+            "dataset": {"dataset": "cc3m", "txt_tok_name": "simple", "context_length": ARCH_650M["block_size_cond"],
+                        "vocab_size": 16384},
+            "arch": ARCH_650M, "vqvae": {"ckpt": w1}})
+        tok_dir, cc3m = os.path.join(tmp, "tokenizer"), os.path.join(tmp, "cc3m")
+        os.makedirs(tok_dir)
+        os.makedirs(cc3m)
+        merges = os.path.join(tok_dir, "bpe_simple_vocab_16e6.txt.gz")
+        with gzip.open(merges, "wt", encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in CAPTION_MERGES) + "\n")
+        with open(os.path.join(cc3m, "val_list.txt"), "w") as f:
+            for i in range(ENTRY_CAPTIONS):
+                words = rng.choice(CAPTION_WORDS, size=int(rng.integers(3, 40)))
+                f.write(f"images/{i:05d}.jpg\t{' '.join(words)}\n")
+        os.environ["RQVAE_TPU_TOKENIZER_DIR"] = tok_dir
+        os.environ["RQVAE_TPU_CLIP_DIR"] = synthetic_clip_dir(os.path.join(tmp, "clip"), merges,
+                                                              torch.Generator().manual_seed(7))
+        per_batch, sample_s = [], []
+        real_sample = S.sample
+
+        def counted_sample(*args, **kwargs):
+            zero()
+            codes, s = wall_s(lambda: real_sample(*args, **kwargs))
+            per_batch.append({fn.__name__: fn.launches for fn in counters})
+            sample_s.append(s)
+            return codes
+
+        out3 = os.path.join(tmp, "samples_t2i")
+        try:
+            with mock.patch.object(S, "sample", counted_sample):
+                _, t2i_s = wall_s(lambda: main_sampling_txt2img.main(
+                    ["-m", w3, "-o", out3, "-d", "cc3m", "--dataset-root", cc3m, "-bs", str(BATCH)]))
+            zero()
+            score, clip_s = wall_s(lambda: compute_clip_score(out3, "cc3m", cc3m, device=dev))
+            expect("(d) compute_clip_score", {})
+            # the same CLI as `python -m` in a process of its own, one batch (SMOKE_TEST)
+            sub_out = os.path.join(tmp, "samples_t2i_sub")
+            cmd = [sys.executable, "-m", "rqvae_tpu_torch.cli.main_sampling_txt2img", "-m", w3, "-o", sub_out, "-d",
+                   "cc3m", "--dataset-root", cc3m, "-bs", str(BATCH)]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, SMOKE_TEST="1"), capture_output=True, text=True,
+                                 timeout=600)
+            sub_s = time.perf_counter() - t0
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        n_body, n_head = ARCH_650M["body"]["n_layer"], ARCH_650M["head"]["n_layer"]
+        cond_len, n_batches = ARCH_650M["block_size_cond"], -(-ENTRY_CAPTIONS // BATCH)
+        want = {fn.__name__: 0 for fn in counters} | {
+            "decode_attention_update": n_body * (64 - 1 + (cond_len == 1)),  # the prompt's prefill is no S == 1 step
+            "fused_ln_qkv": n_head * 4 * 64, "fused_proj_mlp": n_head * 4 * 64}
+        if per_batch != [want] * n_batches:
+            raise AssertionError(f"(d) txt2img launches per batch {per_batch}, not {want} each")
+        for k in ("decode_attention_update", "fused_ln_qkv", "fused_proj_mlp"):
+            launches[k] += n_batches * want[k]
+        written = sorted(os.listdir(out3))
+        with open(os.path.join(out3, written[-1]), "rb") as f:
+            pix = pickle.load(f)
+        if written != [f"samples_{i:05d}.pkl" for i in range(n_batches)] or pix.shape != (BATCH, 3, 256, 256):
+            raise AssertionError(f"(d) txt2img wrote {written} (last {pix.shape})")
+        if not (np.isfinite(score) and -1.0 <= score <= 1.0):
+            raise AssertionError(f"(d) CLIP score {score}")
+        sub_files = sorted(os.listdir(sub_out)) if os.path.isdir(sub_out) else []
+        if res.returncode != 0 or sub_files != ["samples_00000.pkl"]:
+            raise AssertionError(f"(d) python -m main_sampling_txt2img exited {res.returncode}, wrote {sub_files}: "
+                                 f"{res.stderr[-3000:]}")
+        log(f"  (d) #1-#3 at C 1280 against their plain versions: max abs err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {TOL} (1 + |plain|))")
+        log(f"  (d) main_sampling_txt2img, the cc3m 650M geometry ({n_params / 1e6:.0f}M, embed 1280, {n_body} + "
+            f"{n_head} layers of 20 heads, cond_len {cond_len}, vocab_cond 16384, bf16, random weights), "
+            f"{ENTRY_CAPTIONS} captions (the 'simple' BPE on a synthetic merges file) in {n_batches} batches of {BATCH}: "
+            f"launches per batch {want['decode_attention_update']} / {want['fused_ln_qkv']} / {want['fused_proj_mlp']} "
+            f"of #1 / #2 / #3, every other kernel 0; files {written}")
+        log(f"  [entry txt2img 650M] sampling {statistics.median(sample_s[1:] or sample_s) * 1e3 / BATCH:.3f} ms/sample "
+            f"(batches: {', '.join(f'{s * 1e3 / BATCH:.3f}' for s in sample_s)}); the CLI {t2i_s:.1f} s in all (load, "
+            f"tokenize, sample, decode, write); compute_clip_score (ViT-B/32 shapes, synthetic weights) {score:.4f} in "
+            f"{clip_s:.1f} s; `python -m rqvae_tpu_torch.cli.main_sampling_txt2img` (SMOKE_TEST: one batch) exit 0 "
+            f"in {sub_s:.1f} s; {card}")
+        free()
+
+        # (e): an item's parts, then the loader alone: in this process, then at its default worker processes
+        decode_ms, transform_ms = item_costs(data)
+        rate0, _ = loader_rate(data, 0, dev)
+        rate, workers = loader_rate(data, None, dev, ENTRY_LOADER_REPEAT)
+        need = {"stage 1": step_rate, "stage 2": TRAIN_BATCH / statistics.median(by_workers[default_workers]) * 1e3}
+        log(f"  [entry loader] PNG decode (the folder's adaptive rows) + imagenet256x256 train transforms + collate, "
+            f"batches of {ENTRY_LOADER_BATCH} to the card: {rate0:.1f} images/s in this process, {rate:.1f} images/s "
+            f"at the default {workers} worker processes ({os.cpu_count()} CPUs; the folder {ENTRY_LOADER_REPEAT} times "
+            f"an epoch); an image's read_image {decode_ms:.1f} "
+            f"ms and train transform {transform_ms:.1f} ms (medians, this process); the CLIs' steps took "
+            + ", ".join(f"{k} {v:.1f} images/s" for k, v in need.items())
+            + ", so " + ", ".join(f"{k}: {'the step' if rate > v else 'the loader'}" for k, v in need.items())
+            + f" sets the pace; {card}")
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval"):
+    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval",
+                                     "entry"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1' and 'eval'")
+                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1', 'eval' and 'entry'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -3491,6 +4049,8 @@ def main() -> None:
         if "Used" in line or "spill" in line or "Compiling entry" in line or "wgmma" in line:
             log(f"  ptxas: {line.strip()}")
     _build.library()
+    with ThreadPoolExecutor(len(SASS_LIBS)) as pool:  # one cuobjdump per library, all at once
+        list(pool.map(sass, [str(build_dir / lib) for lib in SASS_LIBS]))
     imma = count_sass(build_dir / "libw8a8.so", "IMMA")
     if imma == 0:
         raise AssertionError("libw8a8.so holds no IMMA instruction: #16's products are not on the int8 tensor cores")
@@ -3541,6 +4101,11 @@ def main() -> None:
     if mode == "stage1":
         log(f"# phase 13: stage-1 training (nearest_code on its path), on {card}")
         stage1_phase(counters, dev, card)
+        return
+    if mode == "entry":
+        log(f"# phase 15: the entry points that read a dataset (main_stage1, compute_rfid, main_stage2, "
+            f"main_sampling_txt2img + compute_clip_score, the loader), on {card}")
+        entry_phase(S, counters, dev, card)
         return
     if mode == "eval":
         log(f"# phase 14: the evaluation path (the Inception extractor, the 1.4B sample-and-score loop, the CLI, "
@@ -3698,6 +4263,14 @@ def main() -> None:
         f"checkpoints; (d) rFID of the 8x8x4 RQ-VAE, {RFID_IMAGES} images; on {card}")
     for name, n in eval_phase(S, counters, dev, card).items():
         launches[name] += n
+    torch.cuda.empty_cache()
+
+    # phase 15: the entry points that read a dataset, #9 through stage 1 and rFID, #1-#3 through sampling
+    log(f"# phase 15: the entry points that read a dataset: (a) main_stage1 at full width; (b) compute_rfid; (c) "
+        f"main_stage2 at 1.4B, then a 2 + 1-layer run sampled from; (d) main_sampling_txt2img at 650M and "
+        f"compute_clip_score; (e) the loader; on {card}")
+    for name, n in entry_phase(S, counters, dev, card).items():
+        launches[name] += n
 
     kernels = [
         dict(name="decode_attention_update", route="cuda", source="rqvae_tpu_torch/csrc/decode_attention_tma.cu",
@@ -3740,6 +4313,7 @@ def main() -> None:
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    log(f"  the run took {time.perf_counter() - T0:.0f} s; {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

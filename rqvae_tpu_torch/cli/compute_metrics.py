@@ -6,8 +6,8 @@ plus device (default: the first CUDA device; device=cpu runs on the CPU):
 
     python -m rqvae_tpu_torch.cli.compute_metrics fake_path=<dir> ref_stat_path=<npz> dataset=imagenet
 
-The CLIP score of cc3m / coco raises NotImplementedError until the port
-has the text-image datasets (metrics/clip_score.compute_clip_score).
+For cc3m / coco the CLIP score of the samples against the split's captions
+(clip_dataset_root=<dir>, split=val; CLIP weights from RQVAE_TPU_CLIP_DIR).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ def main(argv=None):
             dataset_name=dataset,
             dataset_root=kv.get("clip_dataset_root"),
             split=kv.get("split", "val"),
+            device=kv.get("device"),
         )
     for k, v in results.items():
         print(f"{k}: {v:.4f}")

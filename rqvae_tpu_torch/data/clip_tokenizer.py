@@ -33,14 +33,13 @@ except ImportError:  # ASCII approximation
         r"|[a-zA-Z]+|[0-9]|[^\sa-zA-Z0-9]+"
     )
 
-_DEFAULT_DIRS = (
-    os.environ.get("RQVAE_TPU_TOKENIZER_DIR", ""),
-    os.path.join(os.path.dirname(__file__), "tokenizer_assets"),
-)
+_DEFAULT_DIRS = (os.path.join(os.path.dirname(__file__), "tokenizer_assets"),)
 
 
 def _find(name: str, vocab_dir: Optional[str] = None) -> str:
-    dirs = ([vocab_dir] if vocab_dir else []) + [d for d in _DEFAULT_DIRS if d]
+    """The path of a tokenizer asset: in vocab_dir, then RQVAE_TPU_TOKENIZER_DIR
+    (read at the call), then _DEFAULT_DIRS."""
+    dirs = [d for d in (vocab_dir, os.environ.get("RQVAE_TPU_TOKENIZER_DIR")) if d] + list(_DEFAULT_DIRS)
     for d in dirs:
         p = os.path.join(d, name)
         if os.path.exists(p):

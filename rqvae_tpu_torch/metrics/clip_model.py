@@ -13,9 +13,9 @@ strict=True. Attention is the library's scaled_dot_product_attention: no
 Pallas kernel lies on this path.
 
 `preprocess_images` is CLIP's transform without PIL: truncation to uint8,
-a bicubic resize of the short side with PIL's filter (a = -0.5, widened
-where it shrinks), one side at a time with PIL's rounding to uint8 after
-each, a centre crop, then the normalisation.
+a bicubic resize of the short side equal to PIL's (data/transforms.py
+pil_resize: PIL's fixed-point weights, one side at a time, rounded to
+uint8 after each), a centre crop, then the normalisation.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rqvae_tpu_torch import resolve_device
+from rqvae_tpu_torch.data.transforms import pil_resize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,13 +163,6 @@ def clip_scores(model: CLIP, pixels: torch.Tensor, tokens: torch.Tensor) -> torc
     return (img * txt).sum(-1)
 
 
-def _pil_bicubic(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """One resampling pass of PIL's bicubic filter on uint8 values held as
-    float, rounded (half up) and clipped to uint8 after it, as PIL does."""
-    y = F.interpolate(x, size=size, mode="bicubic", align_corners=False, antialias=True)
-    return (y + 0.5).floor().clamp(0.0, 255.0)
-
-
 def preprocess_images(pixels01: torch.Tensor, image_size: int = 224) -> torch.Tensor:
     """[B, 3, H, W] in [0, 1] -> normalised [B, 3, S, S] fp32 (CLIP's
     _transform: bicubic resize of the short side, centre crop, normalise)."""
@@ -176,10 +170,7 @@ def preprocess_images(pixels01: torch.Tensor, image_size: int = 224) -> torch.Te
     h, w = x.shape[-2:]
     s = image_size / min(w, h)
     new_w, new_h = max(image_size, round(w * s)), max(image_size, round(h * s))
-    if new_w != w:  # PIL's horizontal pass first, then the vertical one
-        x = _pil_bicubic(x, (h, new_w))
-    if new_h != h:
-        x = _pil_bicubic(x, (new_h, new_w))
+    x = pil_resize(x, (new_h, new_w), "bicubic")
     top, left = (new_h - image_size) // 2, (new_w - image_size) // 2
     x = x[..., top : top + image_size, left : left + image_size] / 255.0
     mean = torch.tensor(IMAGE_MEAN, device=x.device)[:, None, None]

@@ -7,8 +7,8 @@ from a local directory (RQVAE_TPU_CLIP_DIR) holding the OpenAI ViT-B-32.pt
 checkout (.bin, .pth or .safetensors, read by this module's own reader of
 that format), with bpe_simple_vocab_16e6.txt.gz beside them. Without the
 published weights no score is comparable to published ones.
-`compute_clip_score` needs the text-image datasets, which the port does not
-have yet: it raises NotImplementedError.
+`compute_clip_score` scores a directory of samples against a caption set's
+texts (data/textimg.py).
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from rqvae_tpu_torch.data.clip_tokenizer import SimpleTokenizer
+from rqvae_tpu_torch.data.textimg import Cc3mRawTextOnly, CocoRawTextOnly
 from rqvae_tpu_torch.metrics import clip_model as C
-from rqvae_tpu_torch.metrics.fid import tf32_off, to_nchw
+from rqvae_tpu_torch.metrics.fid import load_samples_from_files, tf32_off, to_nchw
 
 
 class CLIPScorer:
@@ -141,12 +142,23 @@ def compute_clip_score(
     split: str = "val",
     batch_size: int = 100,
     model_dir: Optional[str] = None,
+    device=None,
 ) -> float:
-    """The mean CLIP score of the samples under fake_path against the texts
-    of a cc3m / coco split, in order. Not available yet: it reads the
-    text-image datasets (rqvae_tpu/data/textimg.py), which the port does not
-    have."""
-    raise NotImplementedError(
-        f"compute_clip_score({dataset_name!r}) needs the text-image datasets (data/textimg), which rqvae_tpu_torch "
-        "does not have yet"
-    )
+    """The mean CLIP score of the samples*.pkl under fake_path against the
+    first captions of a cc3m / coco split, in order (samples past the
+    captions, a sampler's padding, are left out); CLIP on `device` (CUDA
+    when None)."""
+    scorer = load_clip(model_dir, device=device)
+    samples = load_samples_from_files(fake_path)
+    if dataset_name == "cc3m":
+        txt_dataset = Cc3mRawTextOnly(dataset_root or "data/cc3m", split=split)
+    elif dataset_name == "coco":
+        txt_dataset = CocoRawTextOnly(dataset_root or "data/coco", split=split)
+    else:
+        raise ValueError(f"Unsupported dataset: {dataset_name}")
+    n = len(txt_dataset)
+    if len(samples) < n:
+        raise ValueError(f"{fake_path}: {len(samples)} samples for {n} captions")
+    scores = [scorer(samples[i : i + batch_size], [txt_dataset[k] for k in range(i, min(i + batch_size, n))])
+              for i in range(0, n, batch_size)]
+    return float(np.concatenate(scores).mean())

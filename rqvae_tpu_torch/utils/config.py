@@ -1,8 +1,9 @@
 """Hierarchical YAML configs without PyYAML.
 
 Port of rqvae_tpu/utils/config.py: `env_flag`, the attribute dict
-`Config`, `merge`, `from_dotlist`, `load_config`, `is_stage1_arch` and the
-layered defaults (`augment_arch_defaults`, `augment_defaults`). The card's
+`Config` (with `to_yaml`), `merge`, `from_dotlist`, `load_config`,
+`is_stage1_arch`, the layered defaults (`augment_arch_defaults`,
+`augment_defaults`, `augment_dist_defaults`) and `config_setup`. The card's
 machine has no PyYAML, so `load_config` reads the YAML subset that the
 repository's configs and `yaml.safe_dump` write, with PyYAML's (YAML 1.1)
 resolution of plain scalars:
@@ -17,15 +18,20 @@ resolution of plain scalars:
     `.nan`;
   - single- and double-quoted and plain strings, and `#` comments.
 
-Anything else (flow mappings, anchors, aliases, tags, block scalars `|` /
-`>`, multi-line scalars, documents, tabs, dates) raises ValueError naming
-the line. `to_yaml`, `config_setup` and `augment_dist_defaults` wait for
-the training CLIs.
+  - `{}`, the empty mapping, as a whole value.
+
+Anything else (other flow mappings, anchors, aliases, tags, block scalars
+`|` / `>`, multi-line scalars, documents, tabs, dates) raises ValueError
+naming the line. `Config.to_yaml` writes only this subset, so that both
+`parse_yaml` and PyYAML's safe_load read back the dict it was given.
+`augment_dist_defaults` and `config_setup` are the training CLIs' (JAX
+rqvae_tpu/utils/config.py:246, :267).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 import re
 from typing import Any, Iterable, Mapping
@@ -89,6 +95,71 @@ class Config(dict):
             return v
 
         return unwrap(self)
+
+    def to_yaml(self) -> str:
+        """The config as YAML of the subset parse_yaml reads."""
+        return "".join(_yaml_lines(self.to_dict(), 0))
+
+
+def _yaml_scalar(v) -> str:
+    """A scalar as parse_yaml and yaml.safe_load both read it back."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        mantissa, e, exponent = text.partition("e")
+        if "." not in mantissa:  # PyYAML reads 4e-05 as a string; 4.0e-05 as a float
+            mantissa += ".0"
+        return mantissa + e + exponent
+    if isinstance(v, str):
+        try:
+            plain = re.fullmatch(r"[A-Za-z0-9_./][A-Za-z0-9_./+\-]*", v) and _resolve_plain(v, 0) == v
+        except ValueError:  # a date or a base-60 number
+            plain = False
+        return v if plain else json.dumps(v)
+    if hasattr(v, "item"):  # a numpy scalar
+        return _yaml_scalar(v.item())
+    raise ValueError(f"to_yaml: {type(v).__name__} {v!r} is outside the YAML subset")
+
+
+def _is_flow(v) -> bool:
+    return isinstance(v, (list, tuple)) and all(not isinstance(x, Mapping) and (not isinstance(x, (list, tuple))
+                                                                               or _is_flow(x)) for x in v)
+
+
+def _yaml_flow(v) -> str:
+    return "[" + ", ".join(_yaml_flow(x) if isinstance(x, (list, tuple)) else _yaml_scalar(x) for x in v) + "]"
+
+
+def _yaml_value(v, indent: int):
+    """(text after `key:` or `-`, the block lines under it)."""
+    if isinstance(v, Mapping):
+        return ("", list(_yaml_lines(v, indent + 2))) if v else (" {}", [])
+    if isinstance(v, (list, tuple)):
+        if _is_flow(v):
+            return " " + _yaml_flow(v), []
+        lines = []
+        for x in v:
+            text, block = _yaml_value(x, indent + 2)
+            lines.append(" " * (indent + 2) + "-" + text + "\n")
+            lines.extend(block)
+        return "", lines
+    return " " + _yaml_scalar(v), []
+
+
+def _yaml_lines(d: Mapping, indent: int):
+    for k, v in d.items():
+        text, block = _yaml_value(v, indent)
+        yield " " * indent + _yaml_scalar(k) + ":" + text + "\n"
+        yield from block
 
 
 def merge(base: Mapping, override: Mapping) -> Config:
@@ -269,6 +340,8 @@ def _value(text: str, line_no: int):
     if not text:
         return None
     c = text[0]
+    if text == "{}":
+        return {}
     if c == "[":
         value, end = _flow(text, 0, line_no)
     elif c in "'\"":
@@ -544,3 +617,45 @@ def augment_defaults(config: Config) -> Config:
             }
 
     return merge(defaults, config)
+
+
+def augment_dist_defaults(config: Config, num_devices: int) -> Config:
+    """Gradient-accumulation math (the reference's config.py:114-129):
+    num_devices processes of experiment.batch_size each make one world
+    batch; total_batch_size (default: the world batch) must be a multiple
+    of it, and optimizer.grad_accm_steps is the quotient."""
+    config = config.copy()
+    world_batch_size = num_devices * config.experiment.batch_size
+    total_batch_size = config.experiment.get("total_batch_size", world_batch_size)
+    if total_batch_size % world_batch_size != 0:
+        raise ValueError("total batch size must be divisible by world batch size")
+    config.optimizer.grad_accm_steps = total_batch_size // world_batch_size
+    config.experiment.total_batch_size = total_batch_size
+    return config
+
+
+def config_setup(args, num_devices: int, config_path: str, extra_args=()) -> Config:
+    """The training CLIs' config (the reference's config.py:132-162): for
+    --eval the file with its defaults (and test_batch_size, seed); for
+    --resume the file as written by the run (its num_devices must equal
+    this run's); else the file merged with the key=value extra_args, the
+    defaults, the accumulation math, the seed and the runtime record."""
+    if getattr(args, "eval", False):
+        config = augment_defaults(load_config(config_path))
+        if getattr(args, "test_batch_size", None):
+            config.experiment.batch_size = args.test_batch_size
+        if "seed" not in config:
+            config.seed = args.seed
+    elif getattr(args, "resume", False):
+        config = load_config(config_path)
+        if num_devices != config.runtime.num_devices:
+            raise ValueError("num_devices not identical to the resuming config")
+        config.runtime = {"args": vars(args), "num_devices": num_devices}
+    else:
+        config = load_config(getattr(args, "model_config", config_path))
+        config = merge(config, from_dotlist(extra_args))
+        config = augment_defaults(config)
+        config = augment_dist_defaults(config, num_devices)
+        config.seed = args.seed
+        config.runtime = {"args": vars(args), "extra_config": from_dotlist(extra_args), "num_devices": num_devices}
+    return config

@@ -319,5 +319,5 @@ def test_load_clip_without_weights_and_compute_clip_score_raise(monkeypatch, tmp
         TS.load_clip(device="cpu")
     with pytest.raises(FileNotFoundError, match="no torch weights"):
         TS._load_state_dict(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="text-image datasets"):
-        TS.compute_clip_score(str(tmp_path), "cc3m")
+    with pytest.raises(FileNotFoundError, match="RQVAE_TPU_CLIP_DIR"):
+        TS.compute_clip_score(str(tmp_path), "cc3m", device="cpu")

@@ -10,7 +10,8 @@ within 1e-5, targets_{i}.npz and seeds.txt equal; the port's acts.npz and
 IS against JAX's metric functions run on JAX's samples (one FID
 checkpoint, RQVAE_TPU_FID_WEIGHTS, for both: tolerances of
 test_torch_metrics_files), its FID finite. Then compute_metrics prints FID
-and IS, and the CLIP branch raises NotImplementedError.
+and IS, and its CLIP branch asks for the CLIP weights (their scoring of
+cc3m samples: tests/test_torch_entry_cli.py).
 """
 
 import os
@@ -119,7 +120,8 @@ def test_compute_metrics_prints_fid_and_is(run, capsys, monkeypatch):
     for a, b in zip(seen[0], (ref["mu"], ref["sigma"], acts["mu"], acts["sigma"])):
         np.testing.assert_array_equal(a, b)
     assert (got["IS"], got["IS_std"]) == pytest.approx(results["IS"], rel=1e-6)
-    with pytest.raises(NotImplementedError, match="text-image datasets"):
+    monkeypatch.delenv("RQVAE_TPU_CLIP_DIR", raising=False)
+    with pytest.raises(FileNotFoundError, match="RQVAE_TPU_CLIP_DIR"):  # the CLIP weights are not in the repository
         compute_metrics.main([f"fake_path={port_out}", "dataset=cc3m", "device=cpu"])
 
 

@@ -1,6 +1,6 @@
 """Packaging rules of the port: rqvae_tpu_torch imports without JAX, flax,
-rqvae_tpu, yaml, PIL or safetensors, and chip_smoke.py fails without a CUDA
-device."""
+rqvae_tpu, yaml, PIL, safetensors or the HuggingFace tokenizers, and
+chip_smoke.py fails without a CUDA device."""
 
 import os
 import pkgutil
@@ -24,11 +24,14 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("models.rqtransformer.sampling", "models.ema", "optim.schedule", "optim.optimizer",
                  "trainers.trainer_stage2", "trainers.accumulator", "models", "metrics.inception", "metrics.fid",
                  "metrics.is_score", "metrics.clip_model", "metrics.clip_score", "data.clip_tokenizer",
-                 "utils.config", "cli.common", "cli.main_sampling_fid", "cli.compute_metrics"):
+                 "utils.config", "cli.common", "cli.main_sampling_fid", "cli.compute_metrics", "data",
+                 "data.image_io", "data.transforms", "data.datasets", "data.tokenizers", "data.textimg",
+                 "data.loader", "utils.setup", "trainers.loops", "cli.main_stage1", "cli.main_stage2",
+                 "cli.compute_rfid", "cli.main_sampling_txt2img"):
         assert f"rqvae_tpu_torch.{name}" in names
     code = (
         "import sys\n"
-        "for blocked in ('jax', 'jaxlib', 'flax', 'rqvae_tpu', 'yaml', 'PIL', 'safetensors'):\n"
+        "for blocked in ('jax', 'jaxlib', 'flax', 'rqvae_tpu', 'yaml', 'PIL', 'safetensors', 'tokenizers'):\n"
         "    sys.modules[blocked] = None\n"
         "import importlib\n"
         f"for name in {names!r}:\n"
