@@ -200,8 +200,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      median ms/step, images/s, the grids' seconds, the model.pt read back by
      cli.common; (b) compute_rfid on the val folder from (a)'s model.pt,
      through #9; (c) main_stage2 at 1.4B (phase 12 (b)'s setup: batch 16,
-     total 32), 6 steps a run, no kernel, run at the loader's default
-     worker count and at one fewer, alternating, the median ms/step of
+     total 32), 6 steps a run, no kernel, one run at the loader's default
+     worker count and one at one fewer, the median ms/step of
      each, and the trainer's step alone on one batch (synchronized as phase
      12 (b), and unsynchronized as the loop); then a width-1536, 2 + 1-layer run with a
      save, whose model.pt main_sampling_fid.sample_to_files samples one batch
@@ -211,7 +211,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      with a synthetic merges file, its launches per batch, and
      compute_clip_score with a ViT-B/32-shaped CLIP of synthetic weights,
      then the same CLI as `python -m` in a process of its own (one batch);
-     (e) the loader's images/s in this process and at its default workers.
+     (e) the loader's images/s in this process and at its default workers;
+ 16. data-parallel training (rqvae_tpu_torch.parallel.dist) and the
+     convergence proof (rqvae_tpu_torch.tools.train_convergence): (a) a
+     process group of world 1 over NCCL in this process: 2 stage-1 steps
+     at phase 13 (b)'s configuration (B 32, fp32 LPIPS, checkpointing)
+     through the DP step against the same steps without a group, under
+     torch's deterministic algorithms, and the ungrouped steps again as the
+     control (the DP run may differ from the first by no more than the
+     control: 0), nearest_code 4 launches a step; a witness run with the
+     pixels scaled by 1 + 2^-19; one 1.4B stage-2 step at phase 12 (b)'s
+     setup the same way; ms/step, world size and backend; (b) 2 ranks of
+     B 16 on this card over gloo (`chip_smoke.py dist-rank`, as
+     subprocesses) against (a)'s ungrouped B 32 run, held to phase 13's
+     S1_* bounds (losses, g_weight, codes, gradients, the weights after
+     step 2's Adam update, codebooks and BatchNorm running stats) or to
+     3 x the witness's reading, whichever is larger, each depth's codes,
+     draw vectors and candidates beside the witness's, the ranks
+     bit-equal, rank 1 drawing nothing; (c) `python -m
+     torch.distributed.run --standalone --nproc_per_node=1 -m
+     rqvae_tpu_torch.cli.main_stage1` at phase 13 (a)'s synthetic
+     geometry on a seeded folder for one epoch of 2 steps (no eval): exit
+     0, world size 1 over NCCL in its log, its model.pt read back; (d) #1-#3 at C 512 / 8 heads against their plain versions, then
+     train_convergence's stage 1, stage 2 and text runs at full geometry
+     and PyTorch's default TF32 flags (as the full run's),
+     shortened to 40 / 100 steps and held to the rules CONV_RATIO* taken
+     from the full run's committed trajectories, #9 in the stage-1 steps
+     and the encodes, #1-#3 in the closing samples.
 The second-to-last line is a JSON table of the kernels, the last line
 {"ok": true, "device": {...}}.
 
@@ -230,7 +256,8 @@ csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
 12 alone (no build: no kernel lies on the stage-2 training path). Run from two source trees in one call, they
 compare two designs of those kernels on one card. `python3 chip_smoke.py
 stage1` runs phases 1, 2 and 13 alone; `python3 chip_smoke.py eval` phases 1,
-2 and 14; `python3 chip_smoke.py entry` phases 1, 2 and 15.
+2 and 14; `python3 chip_smoke.py entry` phases 1, 2 and 15; `python3
+chip_smoke.py dist` phases 1, 2 and 16.
 """
 
 from __future__ import annotations
@@ -2930,11 +2957,11 @@ def stage1_shares(got: dict, ref: dict) -> dict:
             sh["gradients"] = max(sh["gradients"], err / (S1_GRAD_TOL * float(g.abs().max()) + 1e-5 * gscale))
     lr = stage1_schedule()(S1_CUT_STEPS - 1)
     sh["weights"], sh["far"] = 0.0, 0.0
+    gscales = [max(float(v.abs().max()) for v in grads.values()) for grads in ref["grads"]]
     for k, g in ref["grads"][-1].items():
         d = (got["state"][k] - ref["state"][k]).abs()
         sure = torch.zeros_like(d, dtype=torch.bool)
-        for grads in ref["grads"]:
-            gs = max(float(v.abs().max()) for v in grads.values())
+        for grads, gs in zip(ref["grads"], gscales):
             sure |= grads[k].abs() > max(1e-2 * float(grads[k].abs().max()), 1e-5 * gs)
         if bool(sure.any()):
             sh["weights"] = max(sh["weights"], float(d[sure].max()) / (S1_PARAM_RTOL * lr))
@@ -3487,7 +3514,7 @@ def eval_phase(S, counters, dev, card) -> dict:
 ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 2, 96, 16  # images per class: 192 train (6 steps of 32), 32 val
 ENTRY_CAPTIONS = 200
 ENTRY_LOADER_BATCH, ENTRY_LOADER_REPEAT = 8, 3  # (e): at the default workers 72 batches an epoch, 9 a worker at 8
-ENTRY_STAGE2_RUNS = ("default", "one fewer", "default", "one fewer")  # (c): the loader's worker counts, alternating
+ENTRY_STAGE2_RUNS = ("default", "one fewer")  # (c): the loader's worker counts
 ENTRY_ALONE_STEPS = 6  # (c): the step alone, the median of the last 5
 ARCH_650M = dict(  # cli/measure_throughput.py "650M" at cond_len 32, vocab_cond 16384 (the cc3m geometry)
     ARCH_1P4B, embed_dim=1280, vocab_size_cond=16384, block_size_cond=32,
@@ -3502,8 +3529,9 @@ CAPTION_MERGES = [("t", "h"), ("th", "e</w>"), ("a", "t</w>"), ("c", "at</w>"), 
                   ("o", "n</w>"), ("h", "e"), ("m", "a"), ("ma", "t</w>"), ("d", "o"), ("do", "g</w>")]
 
 
-def write_image_folder(root: str, rng):
-    """{train,val}/class_{c}/{i}.png: seeded images of 256-384 x 256-384
+def write_image_folder(root: str, rng, per_class=(ENTRY_TRAIN, ENTRY_VAL)):
+    """{train,val}/class_{c}/{i}.png (per_class images a class in each):
+    seeded images of 256-384 x 256-384
     pixels (so the train transform resizes and crops), a smooth field (a
     coarse random grid resized bilinearly) with +-4 of noise, each row
     filtered as libpng's adaptive heuristic picks. Returns the number of
@@ -3516,7 +3544,7 @@ def write_image_folder(root: str, rng):
     from rqvae_tpu_torch.data.transforms import resize_exact
 
     kinds = np.zeros(len(FILTERS), np.int64)
-    for split, n in (("train", ENTRY_TRAIN), ("val", ENTRY_VAL)):
+    for split, n in zip(("train", "val"), per_class):
         for c in range(ENTRY_CLASSES):
             d = os.path.join(root, split, f"class_{c}")
             os.makedirs(d)
@@ -3575,18 +3603,19 @@ def stage2_entry_config(data: str, vq_ckpt: str, arch: dict, save: bool) -> dict
     }
 
 
-def check_c1280(AK, DK, dev, gen) -> dict:
-    """#1 (100 rows of 20 heads on a 95-row cache at C1280_ATTN_CASES) and
-    #2 / #3 (B 100, both gelu forms) at C 1280 against their plain versions
-    (phase 3's compare and TOL; #1's written row and the rest of its cache
-    as in check_attention). Returns each one's max abs error."""
-    B, C, nh, T = BATCH, 1280, 20, 95
+def check_width(AK, DK, dev, gen, C, nh, T, cases) -> dict:
+    """#1 (100 rows of nh heads on a T-row cache at each (cur_len, window)
+    of `cases`) and #2 / #3 (B 100, both gelu forms) at width C against
+    their plain versions (phase 3's compare and TOL; #1's written row and
+    the rest of its cache as in check_attention). Returns each one's max
+    abs error."""
+    B = BATCH
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
 
     worst = {"decode_attention_update": 0.0, "fused_ln_qkv": 0.0, "fused_proj_mlp": 0.0}
-    for cur, window in C1280_ATTN_CASES:
+    for cur, window in cases:
         q, kn, vn, kc, vc = rnd(B, C), rnd(B, C), rnd(B, C), rnd(B, T, C), rnd(B, T, C)
         k1, v1, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
         y1 = AK.decode_attention_update(q, kn, vn, k1, v1, cur, nh, t_window=window)
@@ -3799,8 +3828,8 @@ def entry_phase(S, counters, dev, card) -> dict:
             f"nearest_code {want['nearest_code']} launches (4 a batch of {S1_BATCH}), {rfid_s:.1f} s; {card}")
         free()
 
-        # (c): main_stage2 at 1.4B, 6 steps a run, no save, at the loader's default worker count and one fewer,
-        # alternating; then the step alone; then a 2 + 1-layer run with a save, sampled from
+        # (c): main_stage2 at 1.4B, 6 steps a run, no save, at the loader's default worker count, then one fewer;
+        # then the step alone; then a 2 + 1-layer run with a save, sampled from
         from rqvae_tpu_torch.data import loader as loader_module
 
         cfg2 = write_config(os.path.join(tmp, "stage2.yaml"), stage2_entry_config(data, w1, ARCH_1P4B, save=False))
@@ -3883,7 +3912,7 @@ def entry_phase(S, counters, dev, card) -> dict:
 
         # (d): #1-#3 at C 1280, then main_sampling_txt2img at the cc3m 650M geometry, then the CLIP score
         gen = torch.Generator(device=dev).manual_seed(1280)
-        errs = check_c1280(AK, DK, dev, gen)
+        errs = check_width(AK, DK, dev, gen, 1280, 20, 95, C1280_ATTN_CASES)
         model = RQTransformer(TransformerConfig.create(ARCH_650M), device=dev, dtype=torch.bfloat16)
         model.init_weights(gen)
         d3 = os.path.join(tmp, "txt2img")
@@ -3993,12 +4022,447 @@ def entry_phase(S, counters, dev, card) -> dict:
     return launches
 
 
+# phase 16: data-parallel training (rqvae_tpu_torch/parallel/dist.py) and the
+# convergence proof (rqvae_tpu_torch/tools/train_convergence.py)
+DP_STEPS = 2  # (a), (b): stage-1 steps a run; step 2 is the first whose Adam update moves the weights
+DP_WORLD = 2  # (b): ranks on the one card, over gloo
+DP_SEED = 16
+# (b): the full-width step restarts nearly every code from candidates that
+# repeat each vector 8 times with noise of 0.01 / 16 (2048 vectors for
+# 16384 codes), so a rounding change in the encoder flips the next depth's
+# codes among near-duplicates (0.5% of depth 1's at step 1 on an H100, the
+# vectors within 2.5e-6 at depth 0) and moves restarted codebook rows by
+# their own size: phase 13's S1_* bounds hold for the well-conditioned
+# readings only. The 2 ranks are held to them, or to DP_WITNESS_FACTOR
+# times the reading of the witness, whichever is larger: one process on the
+# same batch with its pixels scaled by 1 + DP_WITNESS_EPS, a rounding-size
+# change of the encoder's inputs.
+DP_WITNESS_FACTOR = 3.0
+DP_WITNESS_EPS = 2.0**-19
+C512_ATTN_CASES = ((0, 8), (15, 24), (46, 56), (70, 71))  # (d): a [100, 71, 512] cache: caption 8 + 63 positions
+CONV_STEPS1, CONV_STEPS2 = 40, 100  # (d): train_convergence both, shortened
+# (d)'s pass rules at those step counts, each a loss's last reading over
+# its first (the full run's rules: 0.5, 0.3, 0.3 and 0.5 at 400 / 800
+# steps), from the full run's committed trajectories
+# (artifacts/torch_convergence_{stage1,stage2,text}.json, an H100): at
+# step 40 stage 1 read 0.621, and 0.385-0.621 over steps 20-200 (each
+# reading one batch of 16; shortened runs read 0.41-0.75 at step 59); at
+# step 100 stage 2 read 0.431, text 0.404 and its caption loss 0.011
+# (0.184 at step 40, 0.048 at step 60)
+CONV_RATIO1, CONV_RATIO2, CONV_RATIO_TEXT, CONV_RATIO_TXT = 0.85, 0.6, 0.6, 0.1
+
+
+def dp_stage1_parts(dev) -> tuple:
+    """Phase 13 (b)'s models (the 8x8x4 RQ-VAE at full width with
+    checkpointing, PatchGAN ndf 64, LPIPS on synthetic weights) from
+    DP_SEED, the same in every process, and their initial state on the
+    host."""
+    from rqvae_tpu_torch.models.rqvae.modules import set_checkpointing
+
+    model, disc, lpips = build_stage1(DDCONFIG, HPARAMS, dev, torch.Generator(device=dev).manual_seed(DP_SEED))
+    set_checkpointing(model, True)
+    return model, disc, lpips, host_copy({"model": model.state_dict(), "disc": disc.state_dict()})
+
+
+def dp_stage1_steps(dev, parts, env=None, rank: int = 0, world: int = 1, scale: float = 1.0) -> dict:
+    """DP_STEPS fp32 stage-1 steps of dp_stage1_parts' models from their
+    initial state (LPIPS in fp32), each on this rank's share of a global
+    batch of S1_BATCH seeded images (times `scale`), through the step of
+    `env` (None: no group); restart draws seeded_draw(100 + step) on rank
+    0. stage1_side's dict (every tensor on the host) with each step's ms,
+    the nearest_code launches and each draw's vectors and candidates."""
+    from rqvae_tpu_torch.ops import rq_kernel as RK
+    from rqvae_tpu_torch.trainers import trainer_stage1 as T1
+
+    model, disc, lpips, initial = parts
+    model.load_state_dict(initial["model"])
+    disc.load_state_dict(initial["disc"])
+    res = DDCONFIG["resolution"]
+    images = (torch.rand(DP_STEPS, S1_BATCH, res, res, 3, generator=torch.Generator().manual_seed(DP_SEED)) * 2 - 1) * scale
+    share = S1_BATCH // world
+    state = T1.init_state(model, disc, S1_OPTIM, stage1_schedule(), S1_OPTIM, stage1_schedule())
+    step = T1.make_train_step(lpips, T1.GanLossConfig(lpips_bf16=False), use_discriminator=True, dist=env)
+    out = dict(metrics=[], codes=[], grads=[], ms=[], drawn=[])
+    launched = RK.nearest_code.launches
+
+    def recorded(draw):  # each draw's vectors and candidates, on the host (rank 0 and one process alone draw)
+        def record(d, vectors, n_embed):
+            candidates = draw(d, vectors, n_embed)
+            out["drawn"].append((vectors.cpu(), candidates.cpu()))
+            return candidates
+        return record
+
+    for n in range(DP_STEPS):
+        batch = {"images": images[n, rank * share : (rank + 1) * share].to(dev)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m, codes = step(state, batch, None, draw=recorded(seeded_draw(100 + n)))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["metrics"].append({k: v.detach().double().cpu() for k, v in m.items()})
+        out["codes"].append(codes.cpu())
+        out["grads"].append({f"{name}.{k}": p.grad.detach().cpu()
+                             for name, mod in (("vq", model), ("disc", disc)) for k, p in mod.named_parameters()})
+    out["launches"] = RK.nearest_code.launches - launched
+    out["state"] = {f"{name}.{k}": v.cpu() for name, mod in (("vq", model), ("disc", disc))
+                    for k, v in mod.state_dict().items()}
+    return out
+
+
+def dp_diffs(got: dict, ref: dict) -> dict:
+    """The largest |got - ref| over each kind of dp_stage1_steps' output."""
+    def worst(pairs):
+        return max(0.0 if torch.equal(a, b) else float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+    return {"metrics": worst((g[k], r[k]) for g, r in zip(got["metrics"], ref["metrics"]) for k in r),
+            "codes": worst(zip(got["codes"], ref["codes"])),
+            "gradients": worst((g[k], r[k]) for g, r in zip(got["grads"], ref["grads"]) for k in r),
+            "state": worst((got["state"][k], ref["state"][k]) for k in ref["state"])}
+
+
+def checksums(out: dict) -> torch.Tensor:
+    """fp64 sums and absolute sums of every gradient and state tensor: equal
+    on two ranks that hold bit-equal tensors."""
+    ts = [g for grads in out["grads"] for g in grads.values()] + list(out["state"].values())
+    return torch.tensor([[float(t.double().sum()), float(t.double().abs().sum())] for t in ts], dtype=torch.float64)
+
+
+def dp_rank_main(argv) -> None:
+    """`chip_smoke.py dist-rank RANK WORLD PORT OUT`: one rank of phase 16
+    (b) on cuda:0 over gloo; writes OUT/rank{RANK}.pt (rank 0 its whole
+    dp_stage1_steps output, every rank its codes, ms, launches and
+    checksums)."""
+    rank, world, port, out_dir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    from rqvae_tpu_torch.parallel import dist as D
+
+    dev = torch.device("cuda", 0)
+    env = D.initialize(backend="gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world, device=dev)
+    out = dp_stage1_steps(dev, dp_stage1_parts(dev), env, rank, world)
+    out["check"], out["backend"], out["world"] = checksums(out), D.backend_name(env), env.world_size
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank:
+        out = {k: out[k] for k in ("codes", "ms", "launches", "check", "backend", "world", "peak_gib", "drawn")}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    D.shutdown(env)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_phase(counters, dev, card) -> dict:
+    """Phase 16: (a) NCCL at world 1 in this process, torch's deterministic
+    algorithms on: DP_STEPS stage-1 steps of B S1_BATCH through the DP
+    step against the same steps without a group (and the ungrouped run
+    again, the control: the grouped run may differ from the first by no
+    more than the control does), #9 4 launches a step, and the witness
+    (pixels x (1 + DP_WITNESS_EPS)); one 1.4B stage-2 step at phase 12
+    (b)'s setup the same way; (b) DP_WORLD ranks of S1_BATCH / DP_WORLD on
+    this card over gloo, as subprocesses, against (a)'s ungrouped run:
+    phase 13's S1_* bounds (stage1_shares) or DP_WITNESS_FACTOR x the
+    witness's reading, the ranks bit-equal; (c) main_stage1 under
+    torch.distributed.run (one rank, NCCL) at the synthetic stage-1
+    geometry for one epoch of 2 steps on a seeded folder, its model.pt
+    read back; (d) #1-#3 at C 512 / 8 heads
+    against their plain versions, then train_convergence's stage 1, stage
+    2 and text runs at full geometry for CONV_STEPS1 / CONV_STEPS2 steps
+    held to CONV_RATIO*. Returns the launches of #1-#3 and #9."""
+    import gc
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from rqvae_tpu_torch.cli.common import load_model_from_ckpt
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.parallel import dist as D
+    from rqvae_tpu_torch.tools import train_convergence as TC
+    from rqvae_tpu_torch.trainers import trainer_stage2 as T2
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    launches = {"decode_attention_update": 0, "fused_ln_qkv": 0, "fused_proj_mlp": 0, "nearest_code": 0}
+    t_phase = time.perf_counter()
+    failed = []
+
+    # (a): world 1 over NCCL, in this process
+    env = D.initialize(backend="nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device=dev)
+    log(f"  (a) process group: world size {env.world_size}, backend {D.backend_name(env)}, rank {env.world_rank} on "
+        f"{env.device_name}")
+    zero()
+    t0 = time.perf_counter()
+    runs, warned = {}, set()
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    parts = dp_stage1_parts(dev)
+    for name, group, scale in (("ungrouped", None, 1.0), ("DP world 1", env, 1.0), ("ungrouped again", None, 1.0),
+                               ("witness", None, 1.0 + DP_WITNESS_EPS)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs[name] = dp_stage1_steps(dev, parts, group, scale=scale)
+        warned |= {str(w.message).split(".")[0] for w in caught if "determinis" in str(w.message)}
+        if runs[name]["launches"] != 4 * DP_STEPS:
+            raise AssertionError(f"(a) {name}: nearest_code launched {runs[name]['launches']} times, not 4 a step")
+        free()
+    del parts
+    torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[2], flags[3]
+    counts = {fn.__name__: fn.launches for fn in counters}
+    if counts != {fn.__name__: 0 for fn in counters} | {"nearest_code": 4 * 4 * DP_STEPS}:
+        raise AssertionError(f"(a) the stage-1 runs launched {counts}")
+    launches["nearest_code"] += counts["nearest_code"]
+    ref, witness = runs["ungrouped"], runs["witness"]
+    grouped, control = dp_diffs(runs["DP world 1"], ref), dp_diffs(runs["ungrouped again"], ref)
+    log(f"  (a) stage 1, {DP_STEPS} steps of B {S1_BATCH} (phase 13 (b)'s configuration, fp32 LPIPS, checkpointing), "
+        f"torch's deterministic algorithms and cuDNN's deterministic convs: max |DP world 1 - ungrouped| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grouped.items())
+        + "; the control, max |ungrouped again - ungrouped| " + ", ".join(f"{k} {v:.3e}" for k, v in control.items())
+        + f"; nearest_code 4 launches a step in each run; g_weight "
+        + ", ".join(f"{float(m['g_weight']):.6f}" for m in ref["metrics"])
+        + f"; ops without a deterministic form: {sorted(warned) or 'none'}; {time.perf_counter() - t0:.1f} s")
+    log(f"  [dp stage 1] world 1 (nccl): " + ", ".join(f"{v:.1f}" for v in runs["DP world 1"]["ms"])
+        + f" ms/step; ungrouped " + ", ".join(f"{v:.1f}" for v in ref["ms"]) + "; again "
+        + ", ".join(f"{v:.1f}" for v in runs["ungrouped again"]["ms"]) + "; the witness "
+        + ", ".join(f"{v:.1f}" for v in witness["ms"]) + f" ms/step (all deterministic); B {S1_BATCH}; {card}")
+    if any(grouped[k] > control[k] for k in grouped):
+        failed.append(f"(a) the DP world-1 stage-1 steps differ from the ungrouped ones by more than the control: {grouped}")
+    del runs
+    free()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(DP_SEED)
+    model, vqvae = build_stage2(ARCH_1P4B, dev, gen)
+    encode = T2.make_frozen_encode_fn(vqvae, chunk=ENCODE_CHUNK)
+    res = DDCONFIG["resolution"]
+    batch = {"images": torch.rand(TRAIN_BATCH, 3, res, res, generator=gen, device=dev) * 2 - 1,
+             "cond": torch.arange(TRAIN_BATCH, device=dev) * 31 % model.config.vocab_size_cond}
+    params = list(model.parameters())
+    w0 = [p.detach().clone() for p in params]
+    ref2 = {}
+
+    def stage2_step(group):
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.copy_(w)
+        T2.refresh_derived_buffers(model)
+        state = T2.init_state(model, TRAIN_OPTIM, train_schedule(), use_ema=True)
+        step = T2.make_train_step(T2.Stage2LossConfig(), grad_accum_steps=TRAIN_ACCUM, encode_fn=encode,
+                                  quantizer=vqvae.quantizer, dist=group)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step(state, batch, torch.Generator(device=dev).manual_seed(100))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        m = {k: v.detach().double().cpu() for k, v in m.items()}
+        if not ref2:
+            ref2.update(metrics=m, grads=[p.grad.detach().clone() for p in params],
+                        params=[p.detach().clone() for p in params])
+            diffs = None
+        else:
+            diffs = {"metrics": max(float((m[k] - ref2["metrics"][k]).abs().max()) for k in m),
+                     "gradients": max(float((p.grad - g).abs().max()) for p, g in zip(params, ref2["grads"])),
+                     "weights": max(float((p.detach() - w).abs().max()) for p, w in zip(params, ref2["params"]))}
+        del state
+        return diffs, ms, m
+
+    zero()
+    _, ms_first, m2 = stage2_step(None)
+    grouped2, ms_dp, _ = stage2_step(env)
+    control2, ms_plain, _ = stage2_step(None)
+    if any(fn.launches for fn in counters):
+        raise AssertionError(f"(a) the stage-2 steps launched kernels: {({fn.__name__: fn.launches for fn in counters})}")
+    log(f"  (a) stage 2, one 1.4B step of B {TRAIN_BATCH} as {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM} (phase 12 "
+        f"(b)'s setup, amp bf16): loss_total {float(m2['loss_total']):.4f}, grad_norm {float(m2['grad_norm']):.4f}; "
+        f"max |DP world 1 - ungrouped| " + ", ".join(f"{k} {v:.3e}" for k, v in grouped2.items())
+        + "; the control " + ", ".join(f"{k} {v:.3e}" for k, v in control2.items())
+        + f"; {time.perf_counter() - t0:.1f} s with the build")
+    log(f"  [dp stage 2] world 1 (nccl): {ms_dp:.1f} ms/step; ungrouped {ms_plain:.1f} ms/step (the first ungrouped "
+        f"step {ms_first:.1f}, the warm-up); {card}")
+    if any(grouped2[k] > control2[k] for k in grouped2):
+        failed.append(f"(a) the DP world-1 stage-2 step differs from the ungrouped one by more than the control: "
+                      f"{grouped2}")
+    del model, vqvae, encode, batch, params, w0
+    ref2.clear()
+    D.shutdown(env)
+    free()
+
+    # (b): DP_WORLD ranks on this card over gloo, against (a)'s ungrouped run
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "dist-rank", str(r),
+                                   str(DP_WORLD), str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"(b) rank {r} exited with {p.returncode}:\n{out[-6000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    got = dict(ranks[0])
+    got["codes"] = [torch.cat([rk["codes"][n] for rk in ranks]) for n in range(DP_STEPS)]
+    same = all(torch.equal(rk["check"], ranks[0]["check"]) for rk in ranks[1:])
+    sh, wsh = stage1_shares(got, ref), stage1_shares(witness, ref)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    depth = HPARAMS["code_shape"][2]
+    for i, ((v, c), (wv, wc), (rv, rc)) in enumerate(zip(got["drawn"], witness["drawn"], ref["drawn"], strict=True)):
+        n, d = divmod(i, depth)
+        agree = [float((x["codes"][n][..., d] == ref["codes"][n][..., d]).double().mean()) for x in (got, witness)]
+        log(f"  (b) step {n + 1} depth {d}: codes equal to one process's {agree[0]:.4f} (ranks) / {agree[1]:.4f} "
+            f"(witness); the draw's vectors within {rel(v, rv):.2e} / {rel(wv, rv):.2e} of their max, its "
+            f"candidates {rel(c, rc):.2e} / {rel(wc, rc):.2e}")
+    if ranks[1]["drawn"]:
+        failed.append(f"(b) rank 1 drew restart candidates {len(ranks[1]['drawn'])} times")
+    keys = ("losses", "g_weight", "codes", "gradients", "weights", "codebooks")
+    log(f"  (b) {DP_WORLD} ranks ({ranks[0]['backend']}, world size {ranks[0]['world']}) of B {S1_BATCH // DP_WORLD} on "
+        f"this card, {DP_STEPS} steps, against (a)'s ungrouped B {S1_BATCH} run: share of the S1_* bound, ranks / the "
+        f"witness (one process, pixels x (1 + {DP_WITNESS_EPS:.1e})) "
+        + ", ".join(f"{k} {sh[k]:.3f} / {wsh[k]:.3f}" for k in keys)
+        + f"; weights at most {sh['far']:.2f} / {wsh['far']:.2f} lr from it; g_weight "
+        + ", ".join(f"{float(m['g_weight']):.6f}" for m in got["metrics"]) + f" (one process: "
+        + ", ".join(f"{float(m['g_weight']):.6f}" for m in ref["metrics"]) + f"); the ranks' gradients and states "
+        f"bit-equal {same}; nearest_code {[rk['launches'] for rk in ranks]} launches a rank; peak "
+        + ", ".join(f"{rk['peak_gib']:.1f}" for rk in ranks) + f" GiB a rank; {wall:.1f} s with the processes' start")
+    log(f"  [dp stage 1] {DP_WORLD} ranks (gloo) on one card: " + "; ".join(
+        f"rank {r} " + ", ".join(f"{v:.1f}" for v in rk["ms"]) for r, rk in enumerate(ranks))
+        + f" ms/step at B {S1_BATCH // DP_WORLD} a rank (world batch {S1_BATCH}); {card}")
+    failed += [f"(b) {k} at {sh[k]:.3f} of its bound (the witness {wsh[k]:.3f})" for k in keys
+               if sh[k] > max(1.0, DP_WITNESS_FACTOR * wsh[k])]
+    if sh["far"] > max(2.0 + S1_PARAM_RTOL, DP_WITNESS_FACTOR * wsh["far"]):
+        failed.append(f"(b) a weight {sh['far']:.2f} learning rates from one process's (the witness {wsh['far']:.2f})")
+    if not same:
+        failed.append("(b) the ranks' gradients or states differ")
+    if any(rk["launches"] != 4 * DP_STEPS for rk in ranks):
+        failed.append(f"(b) nearest_code launches {[rk['launches'] for rk in ranks]}, not {4 * DP_STEPS} a rank")
+    del ranks, got, ref, witness
+    free()
+
+    # (c): main_stage1 under torch.distributed.run
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "imagenet")
+        write_image_folder(data, np.random.default_rng(DP_SEED), per_class=(S1_CUT_BATCH, 2))
+        # the launcher's path at phase 13 (a)'s synthetic geometry (phase 15 (a) runs the CLI at full width); no eval,
+        # and the train grids alone: the tensorboard grids take ~15 s a mode
+        config = stage1_entry_config(data)
+        config["arch"].update(ddconfig=S1_CUT_DD, hparams=S1_CUT_HP)
+        config["dataset"]["transforms"] = {"type": "ffhq64x64"}
+        config["experiment"].update(batch_size=S1_CUT_BATCH, test_freq=10)
+        cfg = write_config(os.path.join(tmp, "stage1.yaml"), config)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+               "rqvae_tpu_torch.cli.main_stage1", "-m", cfg, "-r", os.path.join(tmp, "results"), "--seed", "0"]
+        env_vars = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env_vars, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"(c) {' '.join(cmd[1:6])} exited with {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        (train_log,) = glob.glob(os.path.join(tmp, "results", "*", "*", "train.log"))
+        lines = open(train_log).read().splitlines()
+        world_line = next(line for line in lines if "world size" in line)
+        step_line = next(line for line in lines if "ms/step" in line)
+        (w1,) = glob.glob(os.path.join(tmp, "results", "*", "*", "weights", "step_0", "model.pt"))
+        kind, vq, _ = load_model_from_ckpt(w1, device=dev)
+        res = S1_CUT_DD["resolution"]
+        with torch.no_grad():
+            out, _, codes = vq(torch.rand(2, res, res, 3, generator=torch.Generator(device=dev).manual_seed(5),
+                                          device=dev) * 2 - 1)
+        if kind != "rq-vae" or not bool(torch.isfinite(out).all()) or "world size 1 (nccl)" not in world_line:
+            raise AssertionError(f"(c) {w1} read back as {kind}, output finite {bool(torch.isfinite(out).all())}; "
+                                 f"{world_line}")
+        log(f"  (c) python -m torch.distributed.run --standalone --nproc_per_node=1 -m rqvae_tpu_torch.cli.main_stage1 "
+            f"(phase 13 (a)'s synthetic geometry, B {S1_CUT_BATCH}, {2 * S1_CUT_BATCH} seeded train images: one epoch of "
+            f"2 steps, no eval, a save): "
+            f"exit 0 in {wall:.1f} s with the launcher's start; the log: '{world_line.split('] ')[-1]}', "
+            f"'{step_line.split('] ')[-1]}'; {os.path.relpath(w1, tmp)} read back, a forward finite, codes "
+            f"{tuple(codes.shape)}; {card}")
+        del vq, out, codes
+    free()
+
+    # (d): #1-#3 at C 512, then the convergence runs, shortened
+    errs = check_width(AK, DK, dev, torch.Generator(device=dev).manual_seed(512), 512, 8, 71, C512_ATTN_CASES)
+    log(f"  (d) #1-#3 at C 512 / 8 heads (train_convergence's RQ-Transformer) against their plain versions: max abs "
+        f"error " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (TOL {TOL} x (1 + |plain|))")
+    zero()
+    t0 = time.perf_counter()
+    # at PyTorch's default TF32 flags, as the full run and the training CLIs: cuDNN's convs in TF32, matmuls in fp32
+    with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                    deterministic=torch.backends.cudnn.deterministic, allow_tf32=True):
+        state, vq, s1, data = TC.run_stage1(steps=CONV_STEPS1, save_artifacts=False, device=dev)
+        n_s1 = next(fn for fn in counters if fn.__name__ == "nearest_code").launches
+        s2 = TC.run_stage2(state, vq, data, steps=CONV_STEPS2, save_artifacts=False)
+        mid = {fn.__name__: fn.launches for fn in counters}
+        st = TC.run_stage2_text(state, vq, data, steps=CONV_STEPS2, save_artifacts=False)
+    got = {fn.__name__: fn.launches for fn in counters}
+    wall = time.perf_counter() - t0
+    n_encode = 4 * -(-TC.N_IMAGES // TC.ENCODE_CHUNK)  # each stage-2 run's frozen encode
+    want_nc = 4 * CONV_STEPS1 + 4 + 2 * n_encode  # the steps, the reconstruction of 8 images, two encodes
+    sample = {k: got[k] for k in ("decode_attention_update", "fused_ln_qkv", "fused_proj_mlp")}
+    others = {k: v for k, v in got.items() if k not in sample and k != "nearest_code" and v}
+    if got["nearest_code"] != want_nc or others or not all(sample.values()) or n_s1 != 4 * CONV_STEPS1 + 4:
+        raise AssertionError(f"(d) the convergence runs launched {got}: nearest_code should be {want_nc}, #1-#3 > 0, "
+                             f"every other kernel 0")
+    for k in launches:
+        launches[k] += got[k]
+    log(f"  (d) train_convergence at full geometry (cuDNN's convs in TF32, as the full run), stage 1 {CONV_STEPS1} steps of B "
+        f"{TC.BS}: loss_recon {s1['first_loss_recon']:.4f} -> {s1['last_loss_recon']:.4f} "
+        f"({s1['last_loss_recon'] / s1['first_loss_recon']:.3f}x, rule < {CONV_RATIO1}), max g_weight "
+        f"{s1['max_g_weight']:.3f}, {s1['ms_per_step']:.1f} ms/step; stage 2 {CONV_STEPS2} steps: loss "
+        f"{s2['first_loss']:.4f} -> {s2['last_loss']:.4f} ({s2['last_loss'] / s2['first_loss']:.3f}x, rule < "
+        f"{CONV_RATIO2}), code match {s2['code_match_rate']:.4f}, sampled MSE {s2['sampled_pixel_mse']:.4f} against "
+        f"the floor {s2['rqvae_recon_mse_floor']:.4f}, {s2['ms_per_step']:.1f} ms/step; text: loss "
+        f"{st['first_loss']:.4f} -> {st['last_loss']:.4f} ({st['last_loss'] / st['first_loss']:.3f}x, rule < "
+        f"{CONV_RATIO_TEXT}), loss_txt {st['first_loss_txt']:.4f} -> {st['last_loss_txt']:.4f} "
+        f"({st['last_loss_txt'] / st['first_loss_txt']:.3f}x, rule < {CONV_RATIO_TXT}), code match "
+        f"{st['code_match_rate']:.4f}; {wall:.1f} s in all; {card}")
+    log(f"  (d) launches: nearest_code {got['nearest_code']} = 4 x ({CONV_STEPS1} steps + the reconstruction of 8 "
+        f"images) + 2 x {n_encode} (each stage-2 run's encode of {TC.N_IMAGES} images); a class sample call of 8 "
+        + ", ".join(f"{k} {mid[k]}" for k in sample) + "; a caption sample call "
+        + ", ".join(f"{k} {got[k] - mid[k]}" for k in sample) + "; every other kernel 0")
+    if not (TC.stage1_ok(s1, CONV_RATIO1) and TC.stage2_ok(s2, CONV_RATIO2)
+            and TC.text_ok(st, CONV_RATIO_TEXT, CONV_RATIO_TXT)):
+        failed.append("(d) a shortened convergence run missed its rule")
+    del state, vq, data
+    free()
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.0f} s; {card}")
+    if failed:
+        raise AssertionError(f"phase 16: {failed}")
+    return launches
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["dist-rank"]:  # one rank of phase 16 (b), started by dist_phase
+        dp_rank_main(sys.argv[2:])
+        return
     mode = sys.argv[1] if len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval",
-                                     "entry"):
+                                     "entry", "dist"):
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1', 'eval' and 'entry'")
+                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1', 'eval', 'entry' and 'dist'")
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
@@ -4106,6 +4570,10 @@ def main() -> None:
         log(f"# phase 15: the entry points that read a dataset (main_stage1, compute_rfid, main_stage2, "
             f"main_sampling_txt2img + compute_clip_score, the loader), on {card}")
         entry_phase(S, counters, dev, card)
+        return
+    if mode == "dist":
+        log(f"# phase 16: data-parallel training and the convergence proof, on {card}")
+        dist_phase(counters, dev, card)
         return
     if mode == "eval":
         log(f"# phase 14: the evaluation path (the Inception extractor, the 1.4B sample-and-score loop, the CLI, "
@@ -4270,6 +4738,15 @@ def main() -> None:
         f"main_stage2 at 1.4B, then a 2 + 1-layer run sampled from; (d) main_sampling_txt2img at 650M and "
         f"compute_clip_score; (e) the loader; on {card}")
     for name, n in entry_phase(S, counters, dev, card).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+
+    # phase 16: data-parallel training (#9 in every stage-1 step) and the convergence proof (#1-#3 at C 512)
+    log(f"# phase 16: (a) the DP steps at world 1 over NCCL against the ungrouped steps (stage 1 at full width, B "
+        f"{S1_BATCH}; one 1.4B stage-2 step); (b) {DP_WORLD} ranks on this card over gloo against one process; (c) "
+        f"main_stage1 under torch.distributed.run; (d) #1-#3 at C 512 and train_convergence at full geometry, "
+        f"{CONV_STEPS1} / {CONV_STEPS2} steps; on {card}")
+    for name, n in dist_phase(counters, dev, card).items():
         launches[name] += n
 
     kernels = [

@@ -10,9 +10,18 @@ optimizer.grad_accm_steps microbatches, then the epoch loop
 (trainers/loops.Stage2Trainer).
 
     python -m rqvae_tpu_torch.cli.main_stage2 -m <stage2.yaml> -r results/ [vqvae.ckpt=<stage-1 model.pt>]
+    torchrun --nproc_per_node=N -m rqvae_tpu_torch.cli.main_stage2 -m <stage2.yaml> ...
 
-The JAX CLI's arguments, plus --device (default: the first CUDA device;
-`--device cpu` runs on the CPU). `--resume -l <result dir>/config.yaml`
+Under torchrun each rank is a process on cuda:LOCAL_RANK (NCCL), or on the
+CPU with `--device cpu` (gloo); experiment.batch_size times
+grad_accm_steps is the global batch, split equally over the ranks, and
+each step is the global batch's (parallel/dist.py). The world size goes
+to config_setup (total_batch_size over world size x batch_size sets
+grad_accm_steps) and to the schedule, as in the JAX CLI. Without a
+launcher: one process, no group.
+
+The JAX CLI's arguments, plus --device (default: the first CUDA device, or
+cuda:LOCAL_RANK under torchrun; `--device cpu` runs on the CPU). `--resume -l <result dir>/config.yaml`
 continues a run. `main(argv)` returns the trainer.
 """
 
@@ -22,11 +31,11 @@ import argparse
 
 import torch
 
-from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.cli.common import set_seed
 from rqvae_tpu_torch.data import create_dataset, create_datasets
 from rqvae_tpu_torch.models import create_rqtransformer, load_rqvae
 from rqvae_tpu_torch.optim.schedule import create_schedule
+from rqvae_tpu_torch.parallel import dist as D
 from rqvae_tpu_torch.trainers import trainer_stage2 as T2
 from rqvae_tpu_torch.trainers.loops import Stage2Trainer
 from rqvae_tpu_torch.utils.config import config_setup
@@ -51,9 +60,11 @@ def main(argv=None) -> Stage2Trainer:
     if args.resume and not args.load_path:
         args.load_path = args.model_config
     seed = set_seed(args.seed)
-    device = resolve_device(args.device)
-    config = config_setup(args, 1, args.model_config, extra)
-    config, logger, writer = setup(args, config, extra)
+    env = D.initialize(device=args.device)
+    device = env.device
+    config = config_setup(args, env.world_size, args.model_config, extra)
+    config, logger, writer = setup(args, config, extra, dist=env)
+    logger.info("world size %d (%s)", env.world_size, D.backend_name(env))
 
     vqvae = load_rqvae(config.vqvae, config.vqvae.ckpt, device=device)
     vqvae.requires_grad_(False)
@@ -76,18 +87,20 @@ def main(argv=None) -> Stage2Trainer:
     grad_accum = config.optimizer.get("grad_accm_steps", 1)
     steps_per_epoch = max(len(dataset_trn) // (exp.batch_size * grad_accum), 1)
     schedule = create_schedule(base_lr=config.optimizer.init_lr, warmup_config=config.optimizer.warmup,
-                               steps_per_epoch=steps_per_epoch, max_epoch=exp.epochs)
+                               steps_per_epoch=steps_per_epoch, max_epoch=exp.epochs, world_size=env.world_size)
 
     trainer = Stage2Trainer(model=model, loss_cfg=loss_cfg, optim_config=config.optimizer, schedule=schedule,
                             encode_fn=encode_fn, quantizer=vqvae.quantizer, config=config, dataset_trn=dataset_trn,
                             dataset_val=dataset_val, logger=logger, writer=writer, grad_accum_steps=grad_accum,
-                            seed=seed)
+                            seed=seed, dist=env)
     epoch_st = trainer.maybe_resume() if args.resume else 0
     if args.eval:
+        trainer.broadcast_state()
         logger.info("valid %s", trainer.eval_epoch(0).print_line())
     else:
         trainer.run_epoch(epoch_st)
     writer.close()
+    D.shutdown(env)
     return trainer
 
 

@@ -17,6 +17,16 @@ writes them (the discriminator's own step, once per forward). The
 buffers keep BatchNorm2d's names (running_mean, running_var,
 num_batches_tracked).
 
+Under data parallelism (`dist`, a parallel.dist.DistEnv) the batch
+statistics are the global batch's, as the JAX package's sharded step
+computes them: each rank's E[x] and E[x^2], weighted by its share of the
+global count, are summed over the ranks (differentiably, so each rank's
+loss sends its gradient through the statistics to every rank's inputs),
+then var = E[x^2] - E[x]^2 as one process would. The running averages
+then move alike on every rank. At a world of one the weight is 1.0 and
+the sum the identity, so the statistics are bit-equal to the ungrouped
+ones.
+
 ActNorm (use_actnorm) is scale * (x + loc) with loc / scale [1, C, 1, 1];
 initialize_actnorm sets them from a batch as the reference's lazy first
 forward does.
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rqvae_tpu_torch import resolve_device
+from rqvae_tpu_torch.parallel import dist as D
 
 
 class BatchNorm(nn.Module):
@@ -43,12 +54,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long, device=device))
 
-    def forward(self, x, train: bool = True, update_stats: bool = True):
+    def forward(self, x, train: bool = True, update_stats: bool = True, dist=None):
         shape = (1, -1, 1, 1)
         if train:
             x32 = x.float()
             mean = x32.mean(dim=(0, 2, 3))
-            var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            mean_sq = x32.square().mean(dim=(0, 2, 3))
+            if D.active(dist):
+                count = x.numel() // x.shape[1]
+                total = D.all_reduce_sum([torch.tensor([float(count)], device=x.device)], dist)[0]
+                moments = D.sum_over_ranks(torch.stack([mean, mean_sq]) * (count / total), dist)
+                mean, mean_sq = moments[0], moments[1]
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             if update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
@@ -70,7 +87,7 @@ class ActNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(1, channels, 1, 1, device=device))
         self.register_buffer("initialized", torch.tensor(0, dtype=torch.uint8, device=device))
 
-    def forward(self, x, train: bool = True, update_stats: bool = True):
+    def forward(self, x, train: bool = True, update_stats: bool = True, dist=None):
         return self.scale * (x + self.loc)
 
 
@@ -80,7 +97,8 @@ def _conv4(cin: int, cout: int, stride: int, bias: bool, device) -> nn.Conv2d:
 
 class NLayerDiscriminator(nn.Module):
     """x [B, input_nc, H, W] -> patch logits [B, 1, H', W'], built on
-    `device` (CUDA when None)."""
+    `device` (CUDA when None); with `dist` in training mode its BatchNorms
+    take the global batch's statistics."""
 
     def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3, use_actnorm: bool = False,
                  device=None):
@@ -98,9 +116,9 @@ class NLayerDiscriminator(nn.Module):
         layers.append(_conv4(width, 1, 1, True, device))
         self.main = nn.Sequential(*layers)
 
-    def forward(self, x, train: bool = True, update_stats: bool = True):
+    def forward(self, x, train: bool = True, update_stats: bool = True, dist=None):
         for layer in self.main:
-            x = layer(x, train, update_stats) if isinstance(layer, (BatchNorm, ActNorm)) else layer(x)
+            x = layer(x, train, update_stats, dist) if isinstance(layer, (BatchNorm, ActNorm)) else layer(x)
         return x
 
     @torch.no_grad()

@@ -100,18 +100,20 @@ class RQVAE(nn.Module):
 
     def forward(
         self, xs: torch.Tensor, training: bool = False, generator: torch.Generator | None = None,
-        draw: rq.Draw | None = None, give_pre_end: bool = False,
+        draw: rq.Draw | None = None, give_pre_end: bool = False, dist=None,
     ):
         """pixels -> (reconstruction [B, res, res, out_ch], commitment loss,
         codes [B, h, w, depth]). training=True runs dropout and the EMA
         codebook update (restart draws from `draw`, else from
-        `generator`); give_pre_end returns the decoder's activations
+        `generator`; over the ranks of a parallel.dist.DistEnv `dist`,
+        whose batch this is a share of); give_pre_end returns the decoder's activations
         before its tail, [B, ch, res, res] (NCHW), in place of the
         reconstruction."""
         gen = generator if training else None
         z_e = self.encode(xs, gen)
         z_q, quant_loss, codes = rq.rq_bottleneck_forward(
-            z_e, self.quantizer, training=training, use_kernel=self.use_kernel, generator=generator, draw=draw
+            z_e, self.quantizer, training=training, use_kernel=self.use_kernel, generator=generator, draw=draw,
+            dist=dist,
         )
         z = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
         h = self.decoder(z, gen, give_pre_end=give_pre_end)

@@ -4,7 +4,8 @@ Port of rqvae_tpu/ops/quantize.py: QuantizerConfig, the codebooks,
 compute_distances, find_nearest (through the nearest_code kernel of
 ops/rq_kernel.py, or JAX's own argmin of the full distances),
 to_code_shape / to_latent_shape, quantize, quantize_train (the EMA
-codebook update with code restarts), rq_bottleneck_forward, embed_lookup,
+codebook update with code restarts, over the global batch under data
+parallelism), rq_bottleneck_forward, embed_lookup,
 embed_code, embed_code_with_depth, embed_partial_code and get_soft_codes.
 
 Each codebook is a buffer in the reference layout
@@ -26,6 +27,7 @@ from torch import nn
 
 from rqvae_tpu_torch import resolve_device
 from rqvae_tpu_torch.ops import rq_kernel
+from rqvae_tpu_torch.parallel import dist as D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +245,7 @@ def ema_update(
     decay: float,
     eps: float,
     candidates: Optional[torch.Tensor],
+    dist: Optional[D.DistEnv] = None,
 ) -> None:
     """One codebook's EMA step, in place (JAX _ema_update_one, the
     reference's _update_buffers / _update_embedding): the codes' hit counts
@@ -251,10 +254,13 @@ def ema_update(
     below 1 restarts from its candidate with a count of 1; then weight =
     embed_ema over the Laplace-smoothed counts. The counts and sums are
     fp32 index additions (no product, so no TF32); the padding row is not
-    written."""
+    written. With `dist`, the counts and sums are summed over the ranks
+    first (JAX's psum over axis_name), so every rank takes the global
+    batch's step; `candidates` must then be the same on every rank."""
     counts = torch.bincount(idxs, minlength=n_embed).float()
     sums = torch.zeros(n_embed, vectors.shape[1], dtype=torch.float32, device=vectors.device)
     sums.index_add_(0, idxs, vectors)
+    D.all_reduce_sum([counts, sums], dist)
     cluster_size = book.cluster_size_ema.float() * decay + counts * (1.0 - decay)
     embed_ema = book.embed_ema.float() * decay + sums * (1.0 - decay)
     if candidates is not None:
@@ -272,12 +278,27 @@ def ema_update(
 Draw = Callable[[int, torch.Tensor, int], torch.Tensor]
 
 
+def _candidates(d: int, vectors: torch.Tensor, n_embed: int, draw: Draw, dist: Optional[D.DistEnv]) -> torch.Tensor:
+    """Depth d's restart candidates: draw(d, vectors, n_embed), or under
+    `dist` rank 0's draw on every rank's vectors in rank order, broadcast
+    to the others."""
+    if not D.active(dist):
+        return draw(d, vectors, n_embed)
+    gathered = D.all_gather_cat(vectors, dist)
+    if dist.master:
+        candidates = draw(d, gathered, n_embed).contiguous()
+    else:
+        candidates = torch.empty(n_embed, vectors.shape[1], dtype=torch.float32, device=vectors.device)
+    return D.broadcast([candidates], dist)[0]
+
+
 def quantize_train(
     x: torch.Tensor,
     quantizer: RQCodebooks,
     generator: Optional[torch.Generator] = None,
     use_kernel: bool = True,
     draw: Optional[Draw] = None,
+    dist: Optional[D.DistEnv] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training residual quantization of x [B, h, w, dim] with the EMA
     codebook update, in place in the quantizer's buffers: returns
@@ -287,9 +308,16 @@ def quantize_train(
     before the next depth reads it (a shared codebook is one module at
     every depth, so depth d + 1 reads depth d's write). With
     restart_unused_codes, each depth's candidates come from draw(d,
-    vectors, n_embed), by default draw_restart on `generator`."""
+    vectors, n_embed), by default draw_restart on `generator`.
+
+    With `dist` (data parallelism; x is this rank's share of the global
+    batch) the step is the global batch's, as the JAX CLI's sharded step:
+    the EMA sums over the ranks, and rank 0 draws the candidates from every
+    rank's vectors gathered in rank order, on its own generator, then
+    broadcasts them; the other ranks neither draw nor consume their
+    generator."""
     config = quantizer.config
-    if config.ema and config.restart_unused_codes and draw is None:
+    if config.ema and config.restart_unused_codes and draw is None and D.is_master(dist):
         if generator is None:
             raise ValueError("quantize_train with restart_unused_codes needs a torch.Generator or a draw")
         draw = lambda d, vectors, n: draw_restart(vectors, n, generator)  # noqa: E731
@@ -303,9 +331,9 @@ def quantize_train(
         quant = embed_lookup(cb, code)  # a copy, before the update below
         if config.ema:
             vectors = residual.reshape(-1, residual.shape[-1])
-            candidates = draw(d, vectors, n_embed) if config.restart_unused_codes else None
+            candidates = _candidates(d, vectors, n_embed, draw, dist) if config.restart_unused_codes else None
             ema_update(quantizer.codebooks[d], vectors, code.reshape(-1), n_embed, config.decay[d], config.eps,
-                       candidates)
+                       candidates, dist)
         residual = residual - quant
         aggregated = aggregated + quant
         quant_list.append(aggregated)
@@ -320,16 +348,18 @@ def rq_bottleneck_forward(
     use_kernel: bool = True,
     generator: Optional[torch.Generator] = None,
     draw: Optional[Draw] = None,
+    dist: Optional[D.DistEnv] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The bottleneck: space-to-depth, residual quantization (with the EMA
-    update when `training` and the config has ema), the commitment loss
+    update when `training` and the config has ema, over the ranks of
+    `dist`), the commitment loss
     averaged over depths, and the straight-through z_q. z_e [B, H, W, D]
     -> (z_q [B, H, W, D] in z_e's dtype, commitment loss (fp32 scalar),
     codes [B, h, w, depth]). The loss and z_q carry gradients to z_e."""
     config = quantizer.config
     x = to_code_shape(z_e, config)
     if training and config.ema:
-        quants, codes = quantize_train(x, quantizer, generator, use_kernel=use_kernel, draw=draw)
+        quants, codes = quantize_train(x, quantizer, generator, use_kernel=use_kernel, draw=draw, dist=dist)
     else:
         quants, codes = quantize(x, quantizer, use_kernel=use_kernel)
     commitment_loss = (x[None].float() - quants.detach()).square().mean()

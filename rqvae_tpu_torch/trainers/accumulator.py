@@ -2,7 +2,9 @@
 
 Port of rqvae_tpu/trainers/accumulator.py (numpy on the host):
 compute_entropy, Summary, AccmStage1 (metric sums and per-depth code
-histograms) and AccmStage2.
+histograms) and AccmStage2. Under data parallelism each rank sums its own
+batches, then `reduce` sums the sums, the histograms and the counters
+over the ranks, so that every rank's summary is the global batch's.
 """
 
 from __future__ import annotations
@@ -10,6 +12,18 @@ from __future__ import annotations
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
+import torch
+
+from rqvae_tpu_torch.parallel import dist as D
+
+
+def _reduce_sums(sums: dict, counter: int, env) -> tuple[dict, int]:
+    """(sums, counter) summed over the ranks, in fp64 on the rank's device."""
+    keys = list(sums)
+    flat = torch.tensor([float(sums[k]) for k in keys] + [float(counter)], dtype=torch.float64, device=env.device)
+    D.all_reduce_sum([flat], env)
+    values = flat.tolist()
+    return dict(zip(keys, values[:-1])), int(round(values[-1]))
 
 
 def compute_entropy(counts: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -65,6 +79,16 @@ class AccmStage1:
                 self.codebooks[level][b] += np.bincount(flat[:, b], minlength=self.max_codebook_size)
         self.counter += count
 
+    def reduce(self, env) -> None:
+        """The metric sums, histograms and counter summed over the ranks of
+        a parallel.dist.DistEnv (nothing without a group)."""
+        if not D.active(env):
+            return
+        self.sums, self.counter = _reduce_sums(self.sums, self.counter, env)
+        books = [torch.from_numpy(cb).to(env.device) for cb in self.codebooks]
+        D.all_reduce_sum(books, env)
+        self.codebooks = [b.cpu().numpy() for b in books]
+
     def get_summary(self, n_inst: Optional[int] = None) -> Summary:
         n = n_inst if n_inst else max(self.counter, 1)
         out = Summary({k: v / n for k, v in self.sums.items()})
@@ -95,6 +119,12 @@ class AccmStage2:
             if k in metrics and metrics[k] is not None:
                 self.sums[k] += float(metrics[k]) * count
         self.counter += count
+
+    def reduce(self, env) -> None:
+        """The sums and counter summed over the ranks of a
+        parallel.dist.DistEnv (nothing without a group)."""
+        if D.active(env):
+            self.sums, self.counter = _reduce_sums(self.sums, self.counter, env)
 
     def get_summary(self, n_inst: Optional[int] = None) -> Summary:
         n = n_inst if n_inst else max(self.counter, 1)

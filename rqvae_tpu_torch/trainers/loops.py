@@ -21,7 +21,19 @@ Checkpoints are torch files:
   - ckpt/step_<epoch>.pt: the whole train state for --resume: the
     models (with the discriminator's BatchNorm statistics), the
     optimizers (moments and update counts, which set the schedules' step),
-    the EMA, the step counters and the trainer's torch.Generator state.
+    the EMA, the step counters and the trainer's torch.Generator state
+    (every rank's, under data parallelism).
+
+Data parallelism (`dist`, a parallel.dist.DistEnv): each rank's loader
+reads its shard of every global batch (shard_indices), the steps take the
+global step (trainers/trainer_stage1.py, trainer_stage2.py), and the
+epoch's and eval's sums are summed over the ranks. At the start of a run
+rank 0's parameters and buffers are broadcast, so that a loaded or
+resumed model cannot diverge. Only rank 0 writes weights, checkpoints,
+grids and scalars, and every rank waits for its checkpoint; every rank
+resumes from it. The steps' random bits (dropout, stochastic codes) come
+from a generator seeded with seed + 1 + rank; the codebook restarts are
+rank 0's draws.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 from rqvae_tpu_torch.data.loader import DataLoader
 from rqvae_tpu_torch.models.ema import averaged_weights
 from rqvae_tpu_torch.models.rqvae.model import RQVAE
+from rqvae_tpu_torch.parallel import dist as D
 from rqvae_tpu_torch.trainers import trainer_stage1 as T1
 from rqvae_tpu_torch.trainers import trainer_stage2 as T2
 from rqvae_tpu_torch.trainers.accumulator import AccmStage1, AccmStage2
@@ -81,19 +94,30 @@ class _Loop:
     """What both trainers share: the loaders, the pending-metric buffer, the
     timing of an epoch, the weights file and the resume file."""
 
-    def _init_loop(self, config, dataset_trn, dataset_val, batch_size: int, device, logger, writer, seed: int):
+    def _init_loop(self, config, dataset_trn, dataset_val, batch_size: int, device, logger, writer, seed: int,
+                   dist: Optional[D.DistEnv]):
         self.config = config
         self.logger = logger
         self.writer = writer or Writer(None)
         self.device = device
+        self.dist = dist
+        self.master = D.is_master(dist)
         workers = 0 if env_flag("SMOKE_TEST") else None  # None: the loader's default
+        shard = dict(process_index=D.rank(dist), process_count=D.world(dist))  # batch_size is the global batch
         self.loader_trn = DataLoader(dataset_trn, batch_size, shuffle=True, seed=seed, num_workers=workers,
-                                     device=device)
+                                     device=device, **shard)
         self.loader_val = DataLoader(dataset_val, batch_size, shuffle=False, drop_last=False, num_workers=workers,
-                                     device=device)
+                                     device=device, **shard)
         # the steps' random bits (dropout, code restarts, stochastic codes), carried across epochs
-        self.generator = torch.Generator(device=device).manual_seed(seed + 1)
+        self.generator = torch.Generator(device=device).manual_seed(seed + 1 + D.rank(dist))
         self.epoch_stats: dict = {}
+
+    def broadcast_state(self):
+        """Rank 0's parameters, buffers and EMA on every rank."""
+        tensors = [t.data for m in self._synced_modules() for t in (*m.parameters(), *m.buffers())]
+        if self.state.ema is not None:
+            tensors += list(self.state.ema.values())
+        D.broadcast(tensors, self.dist)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -169,15 +193,37 @@ class _Loop:
             f.write(self.config.to_yaml())
         return path
 
+    def _generator_states(self) -> list:
+        """Every rank's generator state in rank order (a collective)."""
+        state = self.generator.get_state()
+        if not D.active(self.dist):
+            return [state]
+        return list(D.all_gather_cat(state.to(self.dist.device)[None], self.dist).cpu())
+
+    def _load_generator(self, saved: dict):
+        """This rank's generator state of a saved train state (rank 0's
+        where the file holds one only)."""
+        states = saved.get("generators")
+        state = states[D.rank(self.dist)] if states is not None and len(states) == D.world(self.dist) else \
+            saved["generator"]
+        self.generator.set_state(state.cpu())
+
     def save_ckpt(self, epoch: int):
-        path = self._save_weights(epoch, self.state.model, self.state.ema)
-        ckpt_dir = os.path.join(self.config.result_path, "ckpt")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        state = _host(self.train_state())
-        state["epoch"] = epoch
-        torch.save(state, os.path.join(ckpt_dir, f"step_{epoch}.pt"))
-        self.logger.info("epoch %d: weights at %s, train state at %s", epoch, path,
-                         os.path.join(ckpt_dir, f"step_{epoch}.pt"))
+        """Rank 0 writes the weights and the train state; every rank
+        waits for them."""
+        generators = self._generator_states()
+        if self.master:
+            path = self._save_weights(epoch, self.state.model, self.state.ema)
+            ckpt_dir = os.path.join(self.config.result_path, "ckpt")
+            os.makedirs(ckpt_dir, exist_ok=True)
+            state = _host(self.train_state())
+            state["epoch"] = epoch
+            if len(generators) > 1:
+                state["generators"] = generators
+            torch.save(state, os.path.join(ckpt_dir, f"step_{epoch}.pt"))
+            self.logger.info("epoch %d: weights at %s, train state at %s", epoch, path,
+                             os.path.join(ckpt_dir, f"step_{epoch}.pt"))
+        D.barrier(self.dist)
 
     def maybe_resume(self) -> int:
         """Loads the newest ckpt/step_<epoch>.pt of the result directory;
@@ -197,18 +243,22 @@ class Stage1Trainer(_Loop):
 
     def __init__(self, *, model: RQVAE, disc, lpips, gan_cfg: T1.GanLossConfig, optim_config, schedule,
                  disc_optim_config, disc_schedule, config, dataset_trn, dataset_val, logger,
-                 writer: Optional[Writer] = None, seed: int = 0):
+                 writer: Optional[Writer] = None, seed: int = 0, dist: Optional[D.DistEnv] = None):
         device = model.quant_conv.weight.device
-        self._init_loop(config, dataset_trn, dataset_val, config.experiment.batch_size, device, logger, writer, seed)
+        self._init_loop(config, dataset_trn, dataset_val, config.experiment.batch_size, device, logger, writer, seed,
+                        dist)
         self.model = model
         self.gan_cfg = gan_cfg
         use_ema = config.arch.get("ema") is not None
         self.state = T1.init_state(model, disc, optim_config, schedule, disc_optim_config, disc_schedule,
                                    use_ema=use_ema)
-        self._steps = {ud: T1.make_train_step(lpips, gan_cfg, use_discriminator=ud) for ud in (True, False)}
+        self._steps = {ud: T1.make_train_step(lpips, gan_cfg, use_discriminator=ud, dist=dist) for ud in (True, False)}
         self._eval_steps = {(ud, ema): T1.make_eval_step(lpips, gan_cfg, use_discriminator=ud, use_ema=ema)
                             for ud in (True, False) for ema in ((True, False) if use_ema else (False,))}
         self.n_codebook = config.arch.hparams.code_shape[-1]
+
+    def _synced_modules(self):
+        return self.state.model, self.state.disc
 
     def get_accm(self):
         hp = self.config.arch.hparams
@@ -231,12 +281,13 @@ class Stage1Trainer(_Loop):
                 accm.update([c], dict(zip(names, row)), count=1)
 
         last = self._run_steps(epoch, step, on_flush)
+        accm.reduce(self.dist)
         summary = accm.get_summary()
         summary["xs"] = None if last is None else last["images"].permute(0, 2, 3, 1)
         return summary
 
     def _after_step(self, batch, global_iter: int):
-        if (global_iter + 1) % GRID_EVERY == 0:
+        if self.master and (global_iter + 1) % GRID_EVERY == 0:
             self.log_reconstruction(batch["images"].permute(0, 2, 3, 1), global_iter, tag="reconstruction_step")
 
     def eval_epoch(self, epoch: int, valid: bool = True, ema: bool = False):
@@ -250,7 +301,8 @@ class Stage1Trainer(_Loop):
             accm.update([codes], {k: float(v) for k, v in metrics.items()}, count=xs.shape[0])
             n_inst += xs.shape[0]
             last_xs = xs
-        summary = accm.get_summary(n_inst)
+        accm.reduce(self.dist)
+        summary = accm.get_summary(accm.counter)
         summary["xs"] = last_xs
         return summary
 
@@ -281,7 +333,7 @@ class Stage1Trainer(_Loop):
 
     def logging(self, summary, epoch: int, mode: str):
         test_freq, _ = _freqs(self.config)
-        if (epoch % 10 == 1 or epoch % test_freq == 0) and summary.get("xs") is not None:
+        if self.master and (epoch % 10 == 1 or epoch % test_freq == 0) and summary.get("xs") is not None:
             codes = self.log_reconstruction(summary["xs"], epoch, mode=mode)
             if self.n_codebook > 1:
                 for code_idx in range(self.n_codebook):
@@ -310,10 +362,11 @@ class Stage1Trainer(_Loop):
             for k, v in saved["ema"].items():
                 s.ema[k].copy_(v)
         s.step, s.disc_step = saved["step"], saved["disc_step"]
-        self.generator.set_state(saved["generator"].cpu())
+        self._load_generator(saved)
 
     def run_epoch(self, epoch_st: int = 0):
         test_freq, save_freq = _freqs(self.config)
+        self.broadcast_state()
         for epoch in range(epoch_st, self.config.experiment.epochs):
             t0 = time.time()
             self.logging(self.train_epoch(epoch), epoch, "train")
@@ -333,14 +386,17 @@ class Stage2Trainer(_Loop):
 
     def __init__(self, *, model, loss_cfg: T2.Stage2LossConfig, optim_config, schedule, encode_fn, quantizer, config,
                  dataset_trn, dataset_val, logger, writer: Optional[Writer] = None, grad_accum_steps: int = 1,
-                 seed: int = 0):
+                 seed: int = 0, dist: Optional[D.DistEnv] = None):
         device = model.pos_emb_hw.device
         self._init_loop(config, dataset_trn, dataset_val, config.experiment.batch_size * grad_accum_steps, device,
-                        logger, writer, seed)
+                        logger, writer, seed, dist)
         self.state = T2.init_state(model, optim_config, schedule, use_ema=config.arch.get("ema") is not None)
         kw = dict(encode_fn=encode_fn, quantizer=quantizer)
-        self._train_step = T2.make_train_step(loss_cfg, grad_accum_steps=grad_accum_steps, **kw)
+        self._train_step = T2.make_train_step(loss_cfg, grad_accum_steps=grad_accum_steps, dist=dist, **kw)
         self._eval_step = T2.make_eval_step(loss_cfg, **kw)
+
+    def _synced_modules(self):
+        return (self.state.model,)
 
     def train_epoch(self, epoch: int):
         accm = AccmStage2(self.METRIC_NAMES)
@@ -355,14 +411,17 @@ class Stage2Trainer(_Loop):
                 accm.update(dict(zip(names, row)), count=1)
 
         self._run_steps(epoch, step, on_flush)
+        accm.reduce(self.dist)
         return accm.get_summary()
 
     def eval_epoch(self, epoch: int):
         accm = AccmStage2(["loss_total", "loss_img", "loss_txt"])
-        generator = torch.Generator(device=self.device).manual_seed(1234)  # the same draws every eval
+        # the same draws every eval
+        generator = torch.Generator(device=self.device).manual_seed(1234 + D.rank(self.dist))
         for batch in self.loader_val:
             metrics = self._eval_step(self.state, batch, generator)
             accm.update({k: float(v) for k, v in metrics.items() if v.numel() == 1}, count=1)
+        accm.reduce(self.dist)
         return accm.get_summary()
 
     def train_state(self) -> dict:
@@ -379,10 +438,11 @@ class Stage2Trainer(_Loop):
             for k, v in saved["ema"].items():
                 s.ema[k].copy_(v)
         s.step = saved["step"]
-        self.generator.set_state(saved["generator"].cpu())
+        self._load_generator(saved)
 
     def run_epoch(self, epoch_st: int = 0):
         test_freq, save_freq = _freqs(self.config)
+        self.broadcast_state()
         for epoch in range(epoch_st, self.config.experiment.epochs):
             summary = self.train_epoch(epoch)
             for k, v in summary.metrics.items():

@@ -31,6 +31,16 @@ distributions as JAX's, not the same numbers; `draw` stands in for the
 restart draws (ops/quantize.quantize_train). On CUDA the codes come from
 the nearest_code kernel (one launch per depth) when the model's
 use_kernel is on.
+
+Data parallelism (`dist`, a parallel.dist.DistEnv; the batch is this
+rank's share of the global batch) makes the step the global batch's, as
+the JAX package's sharded step: the codebooks' EMA and restarts
+(quantize_train) and the discriminator's BatchNorm statistics are the
+global batch's; g_nll and g_gen are averaged over the ranks before their
+norms, so g_weight is the global step's (the reference's DDP took it per
+rank); the RQ-VAE's and the discriminator's gradients are averaged over
+the ranks, once each, before their optimizers; the metrics are averaged
+over the ranks. Every rank's models start equal and stay equal.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from rqvae_tpu_torch.models.rqvae.model import RQVAE
 from rqvae_tpu_torch.models.rqvae.modules import decoder_tail
 from rqvae_tpu_torch.ops import quantize as rq
 from rqvae_tpu_torch.optim.optimizer import Optimizer, create_optimizer
+from rqvae_tpu_torch.parallel import dist as D
 
 TAIL = ("decoder.norm_out.weight", "decoder.norm_out.bias", "decoder.conv_out.weight", "decoder.conv_out.bias")
 
@@ -112,14 +123,16 @@ def _set_grads(params: list, grads) -> None:
 
 
 def make_train_step(lpips: Optional[LPIPS], gan_cfg: GanLossConfig, *, use_discriminator: bool,
-                    ema_mu: float = 0.9999):
+                    ema_mu: float = 0.9999, dist: Optional[D.DistEnv] = None):
     """train_step(state, batch, generator, draw=None) -> (state, metrics,
     codes), updating `state` in place. batch: {"images": [B, res, res, 3]}
     NHWC. `use_discriminator` (epoch >= disc_start) adds the GAN term and
     runs the discriminator's step. `lpips` may be None when
     perceptual_weight is 0, which skips the VGG tower. metrics: loss_total
     (without the GAN term), loss_recon, loss_latent, loss_pcpt, loss_gen,
-    loss_disc, g_weight, logits_real, logits_fake."""
+    loss_disc, g_weight, logits_real, logits_fake. With `dist` each rank
+    steps on its share of the global batch and takes the global step
+    (module docstring)."""
     d_loss_fn = gan_losses.D_LOSSES[gan_cfg.disc_loss]
     g_loss_fn = gan_losses.G_LOSSES[gan_cfg.gen_loss]
     p_weight = gan_cfg.perceptual_weight
@@ -134,7 +147,7 @@ def make_train_step(lpips: Optional[LPIPS], gan_cfg: GanLossConfig, *, use_discr
         xs = batch["images"]
         x = xs.permute(0, 3, 1, 2)  # NCHW for the tail, LPIPS and the discriminator
         params = dict(model.named_parameters())
-        kw = dict(training=True, generator=generator, draw=draw, give_pre_end=True)
+        kw = dict(training=True, generator=generator, draw=draw, give_pre_end=True, dist=dist)
         if gan_cfg.amp_bf16:
             cast = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in params.items()}
             h_pre, quant_loss, codes = torch.func.functional_call(model, cast, (xs.to(torch.bfloat16),), kw)
@@ -150,10 +163,11 @@ def make_train_step(lpips: Optional[LPIPS], gan_cfg: GanLossConfig, *, use_discr
         zero = torch.zeros((), device=xs.device)
         if use_discriminator:
             disc_dtype = disc.main[0].weight.dtype
-            loss_gen = g_loss_fn(disc(out.to(disc_dtype), train=True, update_stats=False))
+            loss_gen = g_loss_fn(disc(out.to(disc_dtype), train=True, update_stats=False, dist=dist))
             nll = loss_recon + p_weight * loss_pcpt if p_weight else loss_recon
             (g_nll,) = torch.autograd.grad(nll, last, retain_graph=True)
             (g_gen,) = torch.autograd.grad(loss_gen, last, retain_graph=True)
+            g_nll, g_gen = D.all_reduce_mean([g_nll, g_gen], dist)
             nll_norm = torch.linalg.vector_norm(g_nll.float())
             g_norm = torch.linalg.vector_norm(g_gen.float())
             g_weight = (nll_norm / (g_norm + 1e-4)).clamp(0.0, 1e4).detach()
@@ -163,16 +177,18 @@ def make_train_step(lpips: Optional[LPIPS], gan_cfg: GanLossConfig, *, use_discr
         total = total + g_weight * gan_cfg.disc_weight * loss_gen
         gen_params = list(params.values())
         _set_grads(gen_params, torch.autograd.grad(total, gen_params, allow_unused=True))
+        D.all_reduce_mean([p.grad for p in gen_params], dist)
         state.optimizer.step()
 
         if use_discriminator:
             fake = out.detach().to(disc_dtype)
-            logits_fake = disc(fake, train=True, update_stats=True)
-            logits_real = disc(x.to(disc_dtype), train=True, update_stats=True)
+            logits_fake = disc(fake, train=True, update_stats=True, dist=dist)
+            logits_real = disc(x.to(disc_dtype), train=True, update_stats=True, dist=dist)
             loss_disc = d_loss_fn(logits_real, logits_fake)
             disc_params = list(disc.parameters())
             _set_grads(disc_params, torch.autograd.grad(gan_cfg.disc_weight * loss_disc, disc_params,
                                                         allow_unused=True))
+            D.all_reduce_mean([p.grad for p in disc_params], dist)
             state.disc_optimizer.step()
             state.disc_step += 1
             logits = {"logits_real": logits_real.detach().mean(), "logits_fake": logits_fake.detach().mean()}
@@ -193,7 +209,7 @@ def make_train_step(lpips: Optional[LPIPS], gan_cfg: GanLossConfig, *, use_discr
             "g_weight": g_weight,
             **logits,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}, codes
+        return state, D.mean_metrics({k: v.detach() for k, v in metrics.items()}, dist), codes
 
     return train_step
 

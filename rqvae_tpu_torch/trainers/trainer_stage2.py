@@ -20,6 +20,13 @@ the model's device, drawn in order: the same distributions as JAX's, not
 the same numbers. The step runs where the model lives; RQTransformer
 builds on CUDA unless it is given device="cpu". TF32 is left as the
 caller set it: compute_distances refuses it.
+
+Data parallelism (`dist`, a parallel.dist.DistEnv; the batch is this
+rank's share of the global batch, split into the same number of
+microbatches on every rank) makes the step the global batch's: the
+gradients are averaged over the ranks after the microbatch division and
+before the global norm and the clip, and the metrics are averaged over
+the ranks. Random bits are each rank's own generator's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from rqvae_tpu_torch.models.rqtransformer import model as M
 from rqvae_tpu_torch.models.rqvae.model import RQVAE
 from rqvae_tpu_torch.ops import quantize as rq
 from rqvae_tpu_torch.optim.optimizer import Optimizer, create_optimizer, global_norm
+from rqvae_tpu_torch.parallel import dist as D
 
 
 @dataclasses.dataclass
@@ -184,13 +192,16 @@ def make_train_step(
     quantizer: Optional[rq.RQCodebooks] = None,  # the stage-1 codebooks
     grad_accum_steps: int = 1,
     ema_mu: float = 0.9999,
+    dist: Optional[D.DistEnv] = None,
 ):
     """train_step(state, batch, generator) -> (state, metrics), updating
     `state` in place. batch: {"images": [B, 3, res, res]} (with encode_fn
     and quantizer) or {"codes": [B, H, W, D], "soft_targets": ...}, and an
     optional "cond". B must be divisible by grad_accum_steps. The metrics
     are the microbatches' means and grad_norm, the global norm of the
-    averaged gradients before the clip."""
+    averaged gradients before the clip. With `dist` each rank steps on its
+    share of the global batch and takes the global step (module
+    docstring)."""
     soft_fn = make_soft_code_fn(quantizer, loss_cfg) if quantizer is not None and loss_cfg.use_soft_target else None
 
     def train_step(state: Stage2State, batch: dict, generator: Optional[torch.Generator]):
@@ -216,7 +227,9 @@ def make_train_step(
         grads = [p.grad for p in model.parameters()]
         if grad_accum_steps > 1:
             torch._foreach_div_(grads, grad_accum_steps)
+        D.all_reduce_mean(grads, dist)
         metrics = {k: torch.stack([mm[k] for mm in per_micro]).mean(dim=0) for k in per_micro[0]}
+        metrics = D.mean_metrics(metrics, dist)
         metrics["grad_norm"] = global_norm(grads)
         state.optimizer.step()
         if state.ema is not None:

@@ -5,7 +5,9 @@ and writer.py:6-41): a file + stream logger, a Writer over three
 TensorBoard SummaryWriters (train / valid / valid_ema) that falls back to
 scalars.jsonl where tensorboard is not installed, the resolved config.yaml, and a copy of rqvae_tpu_torch/ (no
 __pycache__; the kernels build outside the package, in build/) in the
-result directory.
+result directory. Under data parallelism rank 0 names the directory and
+writes it; the other ranks read its name, log nothing and write no
+scalars.
 """
 
 from __future__ import annotations
@@ -21,11 +23,19 @@ from typing import Optional
 
 import numpy as np
 
+from rqvae_tpu_torch.parallel import dist as D
 
-def create_logger(result_path: Optional[str], name: str = "rqvae_tpu_torch") -> logging.Logger:
+
+def create_logger(result_path: Optional[str], name: str = "rqvae_tpu_torch", silent: bool = False) -> logging.Logger:
+    """The stream (and, with result_path, train.log) logger; `silent`
+    drops every record."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
+    if silent:
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        return logger
     fmt = logging.Formatter("[%(asctime)s %(levelname)s] %(message)s")
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
@@ -96,11 +106,14 @@ def make_grid(images, nrow: int = 8, padding: int = 2):
     return grid
 
 
-def setup(args, config, extra_args=()) -> tuple:
+def setup(args, config, extra_args=(), dist=None) -> tuple:
     """(config, logger, writer) with the result directory and its
     provenance (the reference's setup.py:39-94). The directory: for --eval
     <load_path's dir>/val/<time>; for --resume the directory of load_path
-    (the run's config.yaml); else <result_path>/<config name>[__postfix]/<time>."""
+    (the run's config.yaml); else <result_path>/<config name>[__postfix]/<time>.
+    With a parallel.dist.DistEnv `dist`, rank 0's directory on every rank;
+    only rank 0 writes there, and the others get a silent logger and a
+    writer of nothing."""
     now = datetime.datetime.now().strftime("%d%m%Y_%H%M%S")
     if getattr(args, "eval", False):
         load_path = getattr(args, "load_path", None)
@@ -114,10 +127,13 @@ def setup(args, config, extra_args=()) -> tuple:
             task_name += f"__{args.postfix}"
         result_path = os.path.join(args.result_path, task_name, now)
 
+    result_path = D.broadcast_object(result_path, dist)
+    config.result_path = result_path
+    if not D.is_master(dist):
+        return config, create_logger(None, silent=True), Writer(None)
     os.makedirs(result_path, exist_ok=True)
     logger = create_logger(result_path)
     writer = Writer(result_path)
-    config.result_path = result_path
 
     with open(os.path.join(result_path, "config.yaml"), "w") as f:
         f.write(config.to_yaml())

@@ -27,7 +27,8 @@ def test_every_module_imports_with_jax_blocked():
                  "utils.config", "cli.common", "cli.main_sampling_fid", "cli.compute_metrics", "data",
                  "data.image_io", "data.transforms", "data.datasets", "data.tokenizers", "data.textimg",
                  "data.loader", "utils.setup", "trainers.loops", "cli.main_stage1", "cli.main_stage2",
-                 "cli.compute_rfid", "cli.main_sampling_txt2img"):
+                 "cli.compute_rfid", "cli.main_sampling_txt2img", "parallel", "parallel.dist",
+                 "tools.train_convergence"):
         assert f"rqvae_tpu_torch.{name}" in names
     code = (
         "import sys\n"
