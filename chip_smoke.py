@@ -79,7 +79,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      time against its first design (fused_mlp_v1) and the library, at B 500
      also on 128-row tiles, with CTA 0's phases), timed against the plain
      version, a library call where one exists, and the card's bound; the
-     fused kernels print where their time went, phase by phase;
+     fused kernels print where their time went, phase by phase. The
+     comparisons with the first designs (*_v1, *_splitk, *_coop, #15's
+     128-row tiles) and the sweeps of launch plans run in the modes below
+     (DESIGN_AB), not in the default run, which holds each kernel to its
+     plain version and times it beside the library and the bound;
   4. the main path at six operating points: bench.py's three (bf16 cache;
      int8 KV cache "kv_q8"; int8 weights + kv_q8, whose body S == 1 steps
      run the int8 dense pair #5 / #6 as the head's do), each also with its
@@ -89,11 +93,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      class-conditional sampling at bs100 (bench.py's geometry, random
      weights from a seed, temperature 1, no top-k/top-p) and the RQ-VAE
      decode to 256x256 pixels, each point with its launch counts (all
-     counts set to 0 just before each of its ROUNDS timed sample calls and
-     checked after it), output checks, ms/sample (the median of those
-     calls) and peak memory;
+     counts set to 0 just before each timed sample call and checked after
+     it: ROUNDS calls after a warm-up at bf16, one call, the first, at the
+     other points), output checks, ms/sample (the median of those calls)
+     and peak memory;
   5. forced_logits at B=8 through the kernels and through the plain
-     versions, compared, at each operating point;
+     versions, compared, at the bf16 and int8+kv_q8 points (#1-#6; phase
+     3 holds the fused #13 / #14 to their plain versions);
   6. the RQ-VAE encode side at full width, bf16, bs100: the forward
      (encode, residual quantization through nearest_code, decode) of the
      bf16 point's decoded images, with its launch counts (4 nearest_code
@@ -103,12 +109,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      vqgan_huge (measure_throughput.build(16, "vqgan_huge", 1, 16384): embed
      1536, 48 body layers, no head layers, 24 heads, 16x16x1 codes, codebook
      16384, the f16 RQ-VAE), bs100, after phase 6 has freed the 1.4B model:
-     launch counts of each of ROUNDS timed sample calls (48 x 257
+     launch counts of one timed sample call, the model's first (48 x 257
      decode_attention_stacked, each also a decode_attention launch, no other
-     kernel), output checks, ms/sample (median), decode ms/sample, peak
-     memory, and forced_logits at B=8 through the kernels against the plain
-     versions; then the same at the zoo's vqgan_large (embed 1664, 24 body
-     layers, 16 heads of 104, codebook 1024): 24 x 257 launches per call;
+     kernel), output checks, ms/sample, decode ms/sample, peak memory; then
+     the same at the zoo's vqgan_large (embed 1664, 24 body layers, 16
+     heads of 104, codebook 1024): 24 x 257 launches per call, and its
+     forced_logits at B=8 through the kernels against the plain versions;
   8. the port of tools/exp_attn_q8cache.py (rqvae_tpu_torch.tools.
      exp_attn_q8cache) at B 100 and 500, T 64, 50 calls per chain:
      decode_attention (#10) against decode_attention_q8 (#11), each chain
@@ -175,7 +181,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward without the extractor's guard) that must break that bound, the
      flags as they were afterwards, images/s at batch 100 and peak memory;
      (b) phase 4's bf16 1.4B RQ-Transformer and RQ-VAE through the CLI's
-     sample-and-score loop (sample_to_files, score_files): 5 batches of 100
+     sample-and-score loop (sample_to_files, score_files): 2 batches of 100
      at S.sample's defaults, each batch's launches those of phase 4's bf16
      point (2688 / 1536 / 1536 of #1 / #2 / #3, every other kernel 0), the
      files written, IS within [1, 1008], FID against the statistics of a
@@ -183,31 +189,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode, extractor ms/image and the seconds of one 2048-d sqrtm; (c) the
      CLI as a subprocess on the committed synthetic checkpoints (config
      rewritten to this checkout; --top-k 1, fp32, --no-kernels: no kernel
-     serves its head size 16): exit 0 and its files; (d) compute_rfid with
-     the 8x8x4 RQ-VAE's forward on 200 seeded images in batches of 100: 4
-     nearest_code launches a batch and no other kernel, then the same with
-     use_kernel=False (no launch); both rFIDs finite, depth-0 codes equal on
-     >= 99% of positions;
+     serves its head size 16), run beside (d): exit 0 and its files; (d)
+     compute_rfid with the 8x8x4 RQ-VAE's forward on 100 seeded images in a
+     batch of 100: 4 nearest_code launches a batch and no other kernel, the
+     rFID finite, then the same batch's codes with use_kernel=False (no
+     launch), depth-0 codes equal on >= 99% of positions;
  15. the entry points that read a dataset (rqvae_tpu_torch.cli, each
      main(argv) in this process, so that the counters see its launches),
-     on a seeded ImageNet-layout folder of 2 classes, 192 train and 32 val
+     on a seeded ImageNet-layout folder of 2 classes, 96 train and 32 val
      smooth, noisy PNGs of 256-384 pixels a side written by
      rqvae_tpu_torch.data.image_io with libpng's adaptive row filters
      (mostly Average and Paeth rows):
      (a) main_stage1 at phase 13 (b)'s configuration (B 32, checkpointing,
-     EMA), one epoch of 6 steps with eval and a save: nearest_code 4
+     EMA), one epoch of 3 steps with eval and a save: nearest_code 4
      launches per step, eval batch and grid encode and no other kernel, the
-     median ms/step, images/s, the grids' seconds, the model.pt read back by
-     cli.common; (b) compute_rfid on the val folder from (a)'s model.pt,
-     through #9; (c) main_stage2 at 1.4B (phase 12 (b)'s setup: batch 16,
-     total 32), 6 steps a run, no kernel, one run at the loader's default
-     worker count and one at one fewer, the median ms/step of
-     each, and the trainer's step alone on one batch (synchronized as phase
+     27 grids the loop hands its writer ([H, W, 3] in [0, 1]; not
+     PNG-encoded), the median ms/step, images/s, the model.pt read back by
+     cli.common; (b)
+     compute_rfid on the val folder from (a)'s model.pt, through #9; (c)
+     main_stage2 at 1.4B (phase 12 (b)'s setup: batch 16, total 32), 3
+     steps, no kernel, at the loader's default worker count, the median
+     ms/step, and the trainer's step alone on one batch (synchronized as phase
      12 (b), and unsynchronized as the loop); then a width-1536, 2 + 1-layer run with a
      save, whose model.pt main_sampling_fid.sample_to_files samples one batch
      of 100 from, #1-#3 counted; (d) #1-#3 at C 1280 / 20 heads against
      their plain versions (TOL), then main_sampling_txt2img at the cc3m 650M
-     geometry (random weights saved with a config.yaml) over 200 captions
+     geometry (random weights saved with a config.yaml) over 100 captions
      with a synthetic merges file, its launches per batch, and
      compute_clip_score with a ViT-B/32-shaped CLIP of synthetic weights,
      then the same CLI as `python -m` in a process of its own (one batch);
@@ -231,15 +238,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-equal, rank 1 drawing nothing; (c) `python -m
      torch.distributed.run --standalone --nproc_per_node=1 -m
      rqvae_tpu_torch.cli.main_stage1` at phase 13 (a)'s synthetic
-     geometry on a seeded folder for one epoch of 2 steps (no eval): exit
-     0, world size 1 over NCCL in its log, its model.pt read back; (d) #1-#3 at C 512 / 8 heads against their plain versions, then
+     geometry on a seeded folder for one epoch of 2 steps (no eval),
+     started first and run beside (a) and (b): exit 0, world size 1 over
+     NCCL in its log, its model.pt read back; (d) #1-#3 at C 512 / 8 heads
+     against their plain versions, then
      train_convergence's stage 1, stage 2 and text runs at full geometry
      and PyTorch's default TF32 flags (as the full run's),
      shortened to 40 / 100 steps and held to the rules CONV_RATIO* taken
      from the full run's committed trajectories, #9 in the stage-1 steps
-     and the encodes, #1-#3 in the closing samples.
+     and the encodes, #1-#3 in the closing samples;
+ 17. tensor-parallel sampling (rqvae_tpu_torch.parallel.mesh and the split
+     model) and ZeRO-1, as gloo ranks sharing this card (NCCL refuses two
+     ranks on one card): #1 / #4 at the shard shapes (C 768 / 12 heads, C
+     1280 / 20 heads) against their plain versions; (a) 2 ranks
+     (`chip_smoke.py tp-rank`, as subprocesses) build the same seeded bf16
+     1.4B weights and keep their shards: one bs100 sample call at bf16 and
+     at kv_q8, 42 x 64 launches of #1 (bf16) or #4 (kv_q8) on each rank and
+     no other kernel (dense runs on the library under TP), the codes
+     bit-equal across the ranks, the call's gathered logits of its first 8
+     rows within LOGIT_TOL / LOGIT_MEAN_TOL of the single process's
+     forced_logits on the codes it drew (rank 0 keeps the whole model for
+     it), ms/sample (two ranks sharing one card: not a TP speed figure);
+     (b) `python -m rqvae_tpu_torch.tools.dryrun_3p8b --tp 2` (the 3.8B
+     geometry, batch 2, zero weights, each rank building only its shard):
+     each rank's peak memory, its #1 launches, the codes equal across
+     ranks;
+     (c) in (a)'s ranks, a stage-2 step of phase 12 (a)'s 2 + 1-layer
+     width-1536 geometry with ZeRO-1 against the replicated step (loss
+     rtol 1e-5, parameters rtol 1e-4 / atol 1e-6: JAX's bounds), each rank
+     holding about half of the moment bytes.
 The second-to-last line is a JSON table of the kernels, the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Every subprocess runs under a time limit
+(its processes killed and the tail of their output printed when it
+passes), and a watchdog ends a hung run with every thread's stack after
+WATCHDOG_S seconds.
 
 Run from the repository root on a machine with one CUDA device:
     python3 chip_smoke.py
@@ -257,12 +289,14 @@ csrc/stream_probe.cu) alone; `python3 chip_smoke.py nearest` that of #9
 compare two designs of those kernels on one card. `python3 chip_smoke.py
 stage1` runs phases 1, 2 and 13 alone; `python3 chip_smoke.py eval` phases 1,
 2 and 14; `python3 chip_smoke.py entry` phases 1, 2 and 15; `python3
-chip_smoke.py dist` phases 1, 2 and 16.
+chip_smoke.py dist` phases 1, 2 and 16; `python3 chip_smoke.py tp` phases
+1, 2 and 17.
 """
 
 from __future__ import annotations
 
 import copy
+import faulthandler
 import functools
 import json
 import os
@@ -312,9 +346,11 @@ NEAREST_AGREE = 0.999  # least share of rows on which kernel and plain codes are
 ENCODE_AGREE = 0.99  # least depth-0 agreement of use_kernel=True and False codes
 
 BATCH = 100
-# timed sample calls per operating point: host-clock times vary by up to
-# 50% between calls, so phase 4 reports their median
+# timed sample calls at phase 4's bf16 point: host-clock times vary by up to
+# 50% between calls, so it reports their median; every other point and
+# phase 7's models take one call each
 ROUNDS = 3
+PHASE5_POINTS = ("bf16", "int8+kv_q8")
 ARCH_1P4B = dict(  # bench.py:83-98
     type="rq-transformer", vocab_size=16384, block_size=[8, 8, 4], embed_dim=1536,
     input_embed_dim=256, shared_tok_emb=True, shared_cls_emb=True, input_emb_vqvae=True,
@@ -400,6 +436,30 @@ S1_PLAIN_RTOL = 5e-3
 
 
 T0 = time.perf_counter()
+MODES = ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval", "entry", "dist", "tp")
+# a run must end within 1200 s: a hang ends it at about 90% of that
+WATCHDOG_S = 1080
+# phase 3's comparisons with the kernels' first designs (the *_v1, *_splitk
+# and *_coop baselines) and its sweeps of launch plans: set in the modes
+# (chip_smoke.py dense / fused / attention / mlp / q8 / nearest); the default
+# run holds each kernel to its plain version and times it, the library and
+# the bound alone
+DESIGN_AB = False
+
+
+def first_designs(calls: dict) -> dict:
+    """`calls` when DESIGN_AB is set, else none: the baselines to time."""
+    return calls if DESIGN_AB else {}
+
+
+def ab_ms(label: str, ms) -> str:
+    """'label X ms, ' for a baseline's time, '' where it was not run."""
+    return "" if ms is None else f"{label} {ms:.4f} ms, "
+
+
+def ab_ratio(graph: dict, key: str, kernel_ms: float, aim: str = "") -> str:
+    """', Nx the first design' when `key` was timed, else ''."""
+    return f", {graph[key] / kernel_ms:.2f}x the first design{aim}" if key in graph else ""
 
 
 def log(msg: str) -> None:
@@ -412,9 +472,61 @@ def log(msg: str) -> None:
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
+        capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def start_cmd(cmd, env=None) -> subprocess.Popen:
+    """cmd started in a session of its own, its stdout and stderr going to
+    files (a command left running beside other work cannot fill a pipe);
+    finish_cmd waits for it."""
+    import tempfile
+
+    outs = [tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=outs[0], stderr=outs[1], text=True, start_new_session=True)
+    proc.outs = outs
+    return proc
+
+
+def kill_cmd(proc: subprocess.Popen) -> None:
+    """End a start_cmd process and every process of its session."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_cmd(proc: subprocess.Popen, timeout: float, what: str) -> subprocess.CompletedProcess:
+    """Wait up to `timeout` seconds for a start_cmd process; then, or on
+    an exception here, every process of its session is killed (torchrun's
+    ranks too). A timeout prints the tail of its output and raises."""
+    timed_out = False
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        kill_cmd(proc)  # whatever it left behind
+    texts = []
+    for f in proc.outs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    out, err = texts
+    if timed_out:
+        print(f"--- {what} (tail):\n{out[-3000:]}\n{err[-3000:]}", flush=True)
+        raise AssertionError(f"{what}: still running after {timeout:.0f} s")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def run_cmd(cmd, timeout: float, what: str, env=None) -> subprocess.CompletedProcess:
+    """subprocess.run(cmd) in a session of its own, stdout and stderr
+    captured, under finish_cmd's time limit."""
+    return finish_cmd(start_cmd(cmd, env), timeout, what)
 
 
 def cuda_ms(fns, n: int, warmup: int = 3) -> float:
@@ -483,15 +595,17 @@ def decode(vqvae, codes):
         return vqvae.decode_code(codes)
 
 
-def timed_samples(name, sample, counters, want):
-    """A warm-up call sample(99), then ROUNDS timed calls sample(1), each
-    with every count set to 0 just before it and the counts `want` required
-    just after; peak memory is reset after the warm-up. Returns (codes,
-    ms/sample of each timed call, warm-up seconds)."""
-    _, warm_s = wall_s(lambda: sample(99))
+def timed_samples(name, sample, counters, want, rounds: int = ROUNDS, warm: bool = True):
+    """A warm-up call sample(99) (none when not `warm`: the first timed call
+    then includes the point's first plans), then `rounds` timed calls
+    sample(1), each with every count set to 0 just before it and the counts
+    `want` required just after; peak memory is reset before the timed
+    calls. Returns (codes, ms/sample of each timed call, warm-up seconds or
+    None)."""
+    warm_s = wall_s(lambda: sample(99))[1] if warm else None
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for fn in counters:
             fn.launches = 0
         codes, sample_s = wall_s(lambda: sample(1))
@@ -654,10 +768,10 @@ def check_attention(AK, dev, gen):
     one_kernel("decode_attention_update", lambda: AK.decode_attention_update(q, kn, vn, *sets[0], n, nh, 64),
                "attention_tma_kernel")
     calls = {"kernel": lambda s: AK.decode_attention_update(q, kn, vn, *s, n, nh, 64),
-             "first design (v1)": lambda s: AK.decode_attention_update_v1(q, kn, vn, *s, n, nh, 64),
-             "library (SDPA over the 64 rows)": lambda s: sdpa_rows(q, *s, nh, 64)}
+             "library (SDPA over the 64 rows)": lambda s: sdpa_rows(q, *s, nh, 64)} | first_designs(
+        {"first design (v1)": lambda s: AK.decode_attention_update_v1(q, kn, vn, *s, n, nh, 64)})
     ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
-    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50) if DESIGN_AB else None
     plain = cuda_ms([lambda s=s: AK.decode_attention_update_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
     lib_ms = cuda_ms([lambda s=s: sdpa_rows(q, *s, nh, 64) for s in sets], 50)
     graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
@@ -668,21 +782,21 @@ def check_attention(AK, dev, gen):
                    FP32_FLOPS)["bound_ms"]
     kernel_ms = max(graph["kernel"], graph["kernel, again"])
     splits = time_attention_splits(AK, "rq_attention_tma_update", False, q,
-                                   [(q, kn, vn, *s) for s in sets], nh)
+                                   [(q, kn, vn, *s) for s in sets], nh) if DESIGN_AB else {}
     plan = AK.attention_plan(B, C, nh, 64, False)
-    log(f"  decode_attention_update time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain {plain:.4f} ms, "
+    log(f"  decode_attention_update time (eager): kernel {ms:.4f} ms, {ab_ms('first design', v1)}plain {plain:.4f} ms, "
         f"library (scaled_dot_product_attention over the 64 rows, no cache write) {lib_ms:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63; {b_mean:.4f} ms at a sample call's "
         f"mean window of {mean} rows)")
     log(f"  decode_attention_update device time ({len(sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
         + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound (aim >= 70%), "
-        f"{graph['library (SDPA over the 64 rows)'] / kernel_ms:.2f}x SDPA's speed (aim >= 1), "
-        f"{graph['first design (v1)'] / kernel_ms:.2f}x the first design; {card_line()}")
+        f"{graph['library (SDPA over the 64 rows)'] / kernel_ms:.2f}x SDPA's speed (aim >= 1)"
+        f"{ab_ratio(graph, 'first design (v1)', kernel_ms)}; {card_line()}")
     log(f"  decode_attention_update plan: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} "
         f"stages, {plan.smem} B")
     return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
-            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": lib_ms,
+            "v1_graph_ms": graph.get("first design (v1)"), "plain_ms": plain, "library_ms": lib_ms,
             "library_graph_ms": graph["library (SDPA over the 64 rows)"],
             "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, "bound_mean_ms": b_mean,
             **b}
@@ -836,8 +950,8 @@ def check_long_reads(AK, rnd, lib, held):
     one_kernel("decode_attention_stacked", lambda: AK.decode_attention_stacked(q, kn, vn, ks, vs, 1, T, nh),
                "attention_tma_kernel")
     calls = {"kernel": lambda l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, T, nh),
-             "first design (v1)": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], T, nh),
-             "SDPA over the same rows": lambda l: sdpa_rows(q, ks[l], vs[l], nh, T)}
+             "SDPA over the same rows": lambda l: sdpa_rows(q, ks[l], vs[l], nh, T)} | first_designs(
+        {"first design (v1)": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], T, nh)})
     graph = {k: graph_ms([lambda l=l, f=f: f(l) for l in range(2)]) for k, f in calls.items()}
     b = read_bound(B, T, C)
     plan = AK.attention_plan(B, C, nh, T, False, write=False)
@@ -848,7 +962,7 @@ def check_long_reads(AK, rnd, lib, held):
         + f", bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {100 * b['bound_ms'] / graph['kernel']:.1f}% of it; "
         f"{card_line()}")
     del q, kn, vn, ks, vs
-    for B, T in LONG_SWEEP:
+    for B, T in LONG_SWEEP if DESIGN_AB else ():
         time_long_plans(AK, rnd, B, C, nh, T)
     return worst
 
@@ -896,8 +1010,8 @@ def time_read_at_64(AK, rnd, B, C, nh):
     sets = [(rnd(B, T, C), rnd(B, T, C)) for _ in range(6)]
     one_kernel("decode_attention", lambda: AK.decode_attention(q, kn, vn, *sets[0], n, nh), "attention_tma_kernel")
     calls = {"kernel": lambda s: AK.decode_attention(q, kn, vn, *s, n, nh),
-             "first design (v1)": lambda s: AK.decode_attention_v1(q, kn, vn, *s, n, nh),
-             "library (SDPA over the 63 rows)": lambda s: sdpa_rows(q, *s, nh, n)}
+             "library (SDPA over the 63 rows)": lambda s: sdpa_rows(q, *s, nh, n)} | first_designs(
+        {"first design (v1)": lambda s: AK.decode_attention_v1(q, kn, vn, *s, n, nh)})
     eager = {k: cuda_ms([lambda s=s, f=f: f(s) for s in sets], 50) for k, f in calls.items()}
     plain = cuda_ms([lambda s=s: AK.decode_attention_plain(q, kn, vn, *s, n, nh) for s in sets], 50)
     graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
@@ -907,8 +1021,8 @@ def time_read_at_64(AK, rnd, B, C, nh):
         f"a CUDA graph, replayed) " + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
         + f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {100 * b['bound_ms'] / graph['kernel']:.1f}% of it; "
         f"{card_line()}")
-    return {"ms": eager["kernel"], "graph_ms": graph["kernel"], "v1_ms": eager["first design (v1)"],
-            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain,
+    return {"ms": eager["kernel"], "graph_ms": graph["kernel"], "v1_ms": eager.get("first design (v1)"),
+            "v1_graph_ms": graph.get("first design (v1)"), "plain_ms": plain,
             "library_ms": eager["library (SDPA over the 63 rows)"],
             "library_graph_ms": graph["library (SDPA over the 63 rows)"], **b}
 
@@ -924,32 +1038,32 @@ def time_stacked(AK, q, kn, vn, ks, vs, nh, n_calls):
     (B, C), L, T, n = q.shape, ks.shape[0], ks.shape[2], 256
     hs = C // nh
     ms = cuda_ms([lambda l=l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, n, nh) for l in range(L)], n_calls)
-    v1 = cuda_ms([lambda l=l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], n, nh) for l in range(L)], n_calls)
+    v1 = cuda_ms([lambda l=l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], n, nh) for l in range(L)],
+                 n_calls) if DESIGN_AB else None
     plain = cuda_ms([lambda l=l: AK.decode_attention_stacked_plain(q, kn, vn, ks, vs, l, n, nh) for l in range(L)],
                     n_calls // 2)
     lib = cuda_ms([lambda l=l: sdpa_rows(q, ks[l], vs[l], nh, n) for l in range(L)], n_calls)
     b = read_bound(B, n, C)
-    log(f"  decode_attention_stacked time (eager), head size {hs}: kernel {ms:.4f} ms, first design {v1:.4f} ms, "
+    log(f"  decode_attention_stacked time (eager), head size {hs}: kernel {ms:.4f} ms, {ab_ms('first design', v1)}"
         f"plain {plain:.4f} ms, library (scaled_dot_product_attention over the {n} rows) {lib:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, C={C}, T={T}, cur_len={n}); "
         f"{2 * B * n * C * 2 / ms / 1e9:.3f} TB/s of cache")
     by_cur = {}
     for cur in STACKED_CURS:
         calls = {"kernel": lambda l: AK.decode_attention_stacked(q, kn, vn, ks, vs, l, cur, nh),
-                 "v1": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], cur, nh),
-                 "sdpa": lambda l: sdpa_rows(q, ks[l], vs[l], nh, cur)}
+                 "sdpa": lambda l: sdpa_rows(q, ks[l], vs[l], nh, cur)} | first_designs(
+            {"v1": lambda l: AK.decode_attention_v1(q, kn, vn, ks[l], vs[l], cur, nh)})
         row = {k: graph_ms([lambda l=l, f=f: f(l) for l in range(L)]) for k, f in calls.items()}
         if cur == n:
             row["kernel"] = max(row["kernel"], graph_ms([lambda l=l: calls["kernel"](l) for l in range(L)]))
         row["bound"] = read_bound(B, cur, C)["bound_ms"]
         by_cur[cur] = row
         log(f"  decode_attention_stacked device time ({L} calls in a CUDA graph, replayed), head size {hs}, "
-            f"cur_len {cur}: kernel {row['kernel']:.4f} ms, first design {row['v1']:.4f} ms, SDPA over the same rows "
-            f"{row['sdpa']:.4f} ms, bound {row['bound']:.4f} ms; {100 * row['bound'] / row['kernel']:.1f}% of the "
-            f"bound, {row['sdpa'] / row['kernel']:.2f}x SDPA's speed, {row['v1'] / row['kernel']:.2f}x the first "
-            f"design; {card_line()}")
+            f"cur_len {cur}: kernel {row['kernel']:.4f} ms, {ab_ms('first design', row.get('v1'))}SDPA over the same "
+            f"rows {row['sdpa']:.4f} ms, bound {row['bound']:.4f} ms; {100 * row['bound'] / row['kernel']:.1f}% of the "
+            f"bound, {row['sdpa'] / row['kernel']:.2f}x SDPA's speed{ab_ratio(row, 'v1', row['kernel'])}; {card_line()}")
     splits = {}
-    for groups, stage in READ_SPLITS:
+    for groups, stage in READ_SPLITS if DESIGN_AB else ():
         try:
             plan = AK.attention_plan(B, C, nh, T, False, groups=groups, stage_bytes=stage, write=False)
         except ValueError:
@@ -958,14 +1072,15 @@ def time_stacked(AK, q, kn, vn, ks, vs, nh, n_calls):
             [lambda l=l: AK._launch_tma("rq_attention_tma_read", plan, q, (q, kn, vn, ks[l], vs[l]), T, n, probe)
              for l in range(L)]) for probe in (False, True))
     plan = AK.attention_plan(B, C, nh, T, False, write=False)
-    log(f"  rq_attention_tma_read plans at cur_len {n}, head size {hs} (groups, stage bytes) -> device ms (copies "
-        f"alone), fastest first: " + ", ".join(
-            f"{k} {v[0]:.4f} ({v[1]:.4f})" for k, v in sorted(splits.items(), key=lambda kv: kv[1][0]))
-        + f"; the plan's own: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, "
-        f"{plan.smem} B")
+    if splits:
+        log(f"  rq_attention_tma_read plans at cur_len {n}, head size {hs} (groups, stage bytes) -> device ms (copies "
+            f"alone), fastest first: " + ", ".join(
+                f"{k} {v[0]:.4f} ({v[1]:.4f})" for k, v in sorted(splits.items(), key=lambda kv: kv[1][0]))
+            + f"; the plan's own: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} stages, "
+            f"{plan.smem} B")
     AK.decode_attention_stacked(q, kn, vn, ks, vs, 0, n, nh)
     log_stamps(AK, f"decode_attention_stacked at cur_len {n}, head size {hs},")
-    return {"ms": ms, "graph_ms": by_cur[n]["kernel"], "v1_ms": v1, "v1_graph_ms": by_cur[n]["v1"], "plain_ms": plain,
+    return {"ms": ms, "graph_ms": by_cur[n]["kernel"], "v1_ms": v1, "v1_graph_ms": by_cur[n].get("v1"), "plain_ms": plain,
             "library_ms": lib, "library_graph_ms": by_cur[n]["sdpa"], **b,
             "bound_mean_ms": read_bound(B, STACKED_MEAN, C)["bound_ms"],
             "by_cur_len_graph_ms": {str(k): v for k, v in by_cur.items()},
@@ -1019,10 +1134,10 @@ def check_attention_q8(AK, dev, gen):
     sets = [q8_cache(AK, rnd, B, T, C, nh) for _ in range(6)]  # 6 x 19.7 MB
     one_kernel("decode_attention_q8_update", lambda: AK.decode_attention_q8_update(q, kn, vn, *sets[0], n, nh, 64),
                "attention_tma_kernel")
-    calls = {"kernel": lambda s: AK.decode_attention_q8_update(q, kn, vn, *s, n, nh, 64),
-             "first design (v1)": lambda s: AK.decode_attention_q8_update_v1(q, kn, vn, *s, n, nh, 64)}
+    calls = {"kernel": lambda s: AK.decode_attention_q8_update(q, kn, vn, *s, n, nh, 64)} | first_designs(
+        {"first design (v1)": lambda s: AK.decode_attention_q8_update_v1(q, kn, vn, *s, n, nh, 64)})
     ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
-    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50) if DESIGN_AB else None
     plain = cuda_ms([lambda s=s: AK.decode_attention_q8_update_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
     graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
     graph["kernel, again"] = graph_ms([lambda s=s: calls["kernel"](s) for s in sets])
@@ -1034,19 +1149,20 @@ def check_attention_q8(AK, dev, gen):
     b_mean = bound(2 * B * mean * (C + 2 * nh) + 3 * B * C * 2 + B * C * 2 + 2 * B * (C + 2 * nh),
                    4 * B * (mean + 1) * C, FP32_FLOPS)["bound_ms"]
     kernel_ms = max(graph["kernel"], graph["kernel, again"])
-    splits = time_attention_splits(AK, "rq_attention_tma_q8_update", True, q, [(q, kn, vn, *s) for s in sets], nh)
+    splits = time_attention_splits(AK, "rq_attention_tma_q8_update", True, q, [(q, kn, vn, *s) for s in sets],
+                                   nh) if DESIGN_AB else {}
     plan = AK.attention_plan(B, C, nh, 64, True)
-    log(f"  decode_attention_q8_update time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain "
+    log(f"  decode_attention_q8_update time (eager): kernel {ms:.4f} ms, {ab_ms('first design', v1)}plain "
         f"{plain:.4f} ms, library: none (no torch call attends an int8 cache), bound {b['bound_ms']:.4f} ms by "
         f"{b['bound_by']} (B={B}, W=64, cur_len=63; {b_mean:.4f} ms at a sample call's mean window of {mean} rows)")
     log(f"  decode_attention_q8_update device time ({len(sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound (aim >= 50%), "
-        f"{graph['first design (v1)'] / kernel_ms:.2f}x the first design (aim >= 2x); {card_line()}")
+        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound (aim >= 50%)"
+        f"{ab_ratio(graph, 'first design (v1)', kernel_ms, ' (aim >= 2x)')}; {card_line()}")
     log(f"  decode_attention_q8_update plan: groups {plan.groups}, {plan.ctas} CTAs, {plan.rows} rows x {plan.stages} "
         f"stages, {plan.smem} B")
     return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
-            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": None,
+            "v1_graph_ms": graph.get("first design (v1)"), "plain_ms": plain, "library_ms": None,
             "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, "bound_mean_ms": b_mean,
             **b}
 
@@ -1107,10 +1223,10 @@ def check_attention_q8_read_only(AK, dev, gen):
     bf16_sets = [(AK.dequantize_cache(s[0], s[1], nh), AK.dequantize_cache(s[2], s[3], nh)) for s in sets]
     one_kernel("decode_attention_q8", lambda: AK.decode_attention_q8(q, kn, vn, *sets[0], n, nh, 64),
                "attention_tma_kernel")
-    calls = {"kernel": lambda s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64),
-             "first design (v1)": lambda s: AK.decode_attention_q8_v1(q, kn, vn, *s, n, nh, 64)}
+    calls = {"kernel": lambda s: AK.decode_attention_q8(q, kn, vn, *s, n, nh, 64)} | first_designs(
+        {"first design (v1)": lambda s: AK.decode_attention_q8_v1(q, kn, vn, *s, n, nh, 64)})
     ms = cuda_ms([lambda s=s: calls["kernel"](s) for s in sets], 50)
-    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50)
+    v1 = cuda_ms([lambda s=s: calls["first design (v1)"](s) for s in sets], 50) if DESIGN_AB else None
     plain = cuda_ms([lambda s=s: AK.decode_attention_q8_plain(q, kn, vn, *s, n, nh, 64) for s in sets], 50)
     bf16_ms = cuda_ms([lambda s=s: AK.decode_attention(q, kn, vn, *s, n, nh, 64) for s in bf16_sets], 50)
     graph = {k: graph_ms([lambda s=s, f=f: f(s) for s in sets]) for k, f in calls.items()}
@@ -1120,17 +1236,17 @@ def check_attention_q8_read_only(AK, dev, gen):
     b = read_bound(B, n, C, nh, q8=True)
     kernel_ms = max(graph["kernel"], graph["kernel, again"])
     splits = time_attention_splits(AK, "rq_attention_tma_q8_read", True, q, [(q, kn, vn, *s) for s in sets], nh,
-                                   write=False)
-    log(f"  decode_attention_q8 time (eager): kernel {ms:.4f} ms, first design {v1:.4f} ms, plain {plain:.4f} ms, "
+                                   write=False) if DESIGN_AB else {}
+    log(f"  decode_attention_q8 time (eager): kernel {ms:.4f} ms, {ab_ms('first design', v1)}plain {plain:.4f} ms, "
         f"decode_attention (#10, bf16) on the same rows {bf16_ms:.4f} ms, library: none (no torch call attends an "
         f"int8 cache), bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len={n}); "
         f"{2 * B * n * (C + 2 * nh) / ms / 1e6:.1f} GB/s of int8 cache and scales")
     log(f"  decode_attention_q8 device time ({len(sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound, {graph['first design (v1)'] / kernel_ms:.2f}x the "
-        f"first design; {card_line()}")
+        + f"; {100 * b['bound_ms'] / kernel_ms:.1f}% of the bound{ab_ratio(graph, 'first design (v1)', kernel_ms)}; "
+        f"{card_line()}")
     return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "v1_ms": v1,
-            "v1_graph_ms": graph["first design (v1)"], "plain_ms": plain, "library_ms": None,
+            "v1_graph_ms": graph.get("first design (v1)"), "plain_ms": plain, "library_ms": None,
             "splits_graph_ms": {"x".join(map(str, k)): v[0] for k, v in splits.items()}, **b}
 
 
@@ -1305,54 +1421,60 @@ def check_dense(DK, dev, gen, quantize_weight=None):
     qkv_lib_w = [dense(s[:nw]) for s in qkv_sets[:8]]
     mlp_lib_w = [mlp_lib_weights(s) for s in mlp_sets[:3]]
     qkv_ms = cuda_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets], 50)
-    qkv_sk = cuda_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets], 50)
+    qkv_sk = cuda_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets], 50) if DESIGN_AB else None
     qkv_plain = cuda_ms([lambda s=s: qkv_plain_fn(x, *ln, *s) for s in qkv_sets], 50)
     qkv_lib = cuda_ms([lambda w=w: F.linear(x, w) for w in qkv_lib_w], 50)
     qkv_ms2 = cuda_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets], 50)
     qkv_b = bound(B * C * 2 + 2 * C * 2 + 3 * C * C * wbytes + 3 * C * 2 * nw + B * 3 * C * 2, 2 * B * 3 * C * C,
                   BF16_TENSOR_FLOPS)
     lib_what = "on the dequantized bf16 weights, " if q8 else ""
-    log(f"  {qkv_name} time: kernel {qkv_ms:.4f} ms (again after the others: {qkv_ms2:.4f}), split-K kernel "
-        f"{qkv_sk:.4f} ms ({qkv_sk / qkv_ms:.2f}x the kernel), plain {qkv_plain:.4f} ms, library (F.linear "
+    log(f"  {qkv_name} time: kernel {qkv_ms:.4f} ms (again after the others: {qkv_ms2:.4f}), "
+        f"{ab_ms('split-K kernel', qkv_sk)}plain {qkv_plain:.4f} ms, library (F.linear "
         f"{lib_what}the GEMM alone without LN or epilogue) {qkv_lib:.4f} ms, bound {qkv_b['bound_ms']:.4f} ms by "
         f"{qkv_b['bound_by']}")
     qkv_graph = {"kernel": graph_ms([lambda s=s: qkv_fn(x, *ln, *s) for s in qkv_sets]),
-                 "split-K": graph_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets]),
                  "library": graph_ms([lambda w=w: F.linear(x, w) for w in qkv_lib_w])}
+    if DESIGN_AB:
+        qkv_graph["split-K"] = graph_ms([lambda s=s: qkv_split(x, *ln, *s) for s in qkv_sets])
     log(f"  {qkv_name} device time ({len(qkv_sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in qkv_graph.items()))
     mlp_ms = cuda_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets], 30)
-    mlp_sk = cuda_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets], 30)
+    mlp_sk = cuda_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets], 30) if DESIGN_AB else None
     mlp_plain = cuda_ms([lambda s=s: proj_mlp(mlp_plain_fn, x, y, ln, s) for s in mlp_sets], 30)
     mlp_lib = cuda_ms([lambda w=w: gemms_alone(x, y, *w) for w in mlp_lib_w], 30)
     mlp_ms2 = cuda_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets], 30)
     mlp_b = proj_mlp_bound(B, C, H, wbytes)
-    log(f"  {mlp_name} time: kernel {mlp_ms:.4f} ms (again after the others: {mlp_ms2:.4f}), split-K kernel "
-        f"{mlp_sk:.4f} ms ({mlp_sk / mlp_ms:.2f}x the kernel), plain {mlp_plain:.4f} ms, library (three "
+    log(f"  {mlp_name} time: kernel {mlp_ms:.4f} ms (again after the others: {mlp_ms2:.4f}), "
+        f"{ab_ms('split-K kernel', mlp_sk)}plain {mlp_plain:.4f} ms, library (three "
         f"F.linear {lib_what}the GEMMs alone without LN, gelu or epilogues) {mlp_lib:.4f} ms, bound "
         f"{mlp_b['bound_ms']:.4f} ms by {mlp_b['bound_by']}")
     mlp_graph = {"kernel": graph_ms([lambda s=s: proj_mlp(mlp_fn, x, y, ln, s) for s in mlp_sets]),
-                 "split-K": graph_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets]),
                  "library": graph_ms([lambda w=w: gemms_alone(x, y, *w) for w in mlp_lib_w])}
+    if DESIGN_AB:
+        mlp_graph["split-K"] = graph_ms([lambda s=s: proj_mlp(mlp_split, x, y, ln, s) for s in mlp_sets])
     log(f"  {mlp_name} device time ({len(mlp_sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in mlp_graph.items()))
     x1, y1 = rnd(1, C), rnd(1, C)  # one row: the kernels' latency floor, with the same weight bytes
     log(f"  device time at B 1 (graph replay): {qkv_name} "
         f"{graph_ms([lambda s=s: qkv_fn(x1, *ln, *s) for s in qkv_sets]):.4f} ms, {mlp_name} "
         f"{graph_ms([lambda s=s: proj_mlp(mlp_fn, x1, y1, ln, s) for s in mlp_sets]):.4f} ms")
-    host = {qkv_name: (host_us(lambda: qkv_fn(x, *ln, *qkv_sets[0])), host_us(lambda: qkv_split(x, *ln, *qkv_sets[0]))),
+    host = {qkv_name: (host_us(lambda: qkv_fn(x, *ln, *qkv_sets[0])),
+                       host_us(lambda: qkv_split(x, *ln, *qkv_sets[0])) if DESIGN_AB else None),
             mlp_name: (host_us(lambda: proj_mlp(mlp_fn, x, y, ln, mlp_sets[0])),
-                       host_us(lambda: proj_mlp(mlp_split, x, y, ln, mlp_sets[0])))}
+                       host_us(lambda: proj_mlp(mlp_split, x, y, ln, mlp_sets[0])) if DESIGN_AB else None)}
     log("  host time of one wrapper call (back to back, no synchronisation): " + "; ".join(
-        f"{name} {new:.1f} us, split-K {old:.1f} us" for name, (new, old) in host.items()) + f"; {card_line()}")
+        f"{name} {new:.1f} us" + (f", split-K {old:.1f} us" if old is not None else "")
+        for name, (new, old) in host.items()) + f"; {card_line()}")
     for name, eager, split, graph in ((qkv_name, max(qkv_ms, qkv_ms2), qkv_sk, qkv_graph),
                                       (mlp_name, max(mlp_ms, mlp_ms2), mlp_sk, mlp_graph)):
+        if split is None:
+            continue
         log(f"  {name}: {graph['split-K'] / graph['kernel']:.2f}x faster than the split-K kernel on the device "
             f"(graph replay), {split / eager:.2f}x back to back from the host (the slower of the kernel's two "
             f"eager times: it includes the wrapper's host dispatch); the redesign's aim: >= 2x; {card_line()}")
     return tuple(
         {"max_abs_err": err, "ms": ms, "splitk_ms": sk, "plain_ms": plain, "library_ms": lib,
-         "graph_ms": graph["kernel"], "splitk_graph_ms": graph["split-K"], "library_graph_ms": graph["library"],
+         "graph_ms": graph["kernel"], "splitk_graph_ms": graph.get("split-K"), "library_graph_ms": graph["library"],
          "host_us": host[name][0], "splitk_host_us": host[name][1], **b}
         for name, err, ms, sk, plain, lib, graph, b in (
             (qkv_name, qkv_err, qkv_ms, qkv_sk, qkv_plain, qkv_lib, qkv_graph, qkv_b),
@@ -1466,23 +1588,25 @@ def check_q8_pipeline(QP, DK, quantize_weight, dev, gen):
     deq = [[(q.to(torch.bfloat16) * sc[:, None]) for q, sc in ((s[0], s[1]), (s[3], s[4]), (s[6], s[7]))]
            for s in sets[:3]]
     graph = {"#17": graph_ms(ring), "#18": graph_ms(packed),
-             "#17 first design": graph_ms([lambda i=i: call(Q8_POINTS[0], i, x, y, v1=True) for i in range(6)]),
-             "#18 first design": graph_ms([lambda i=i: call(Q8_POINTS[3], i, x, y, v1=True) for i in range(6)]),
              "#6": graph_ms([lambda i=i: DK.fused_proj_mlp_q8(*args(i, x, y)) for i in range(6)]),
              "library": graph_ms([lambda w=w: gemms_alone(x, y, *w) for w in deq])}
+    if DESIGN_AB:
+        graph["#17 first design"] = graph_ms([lambda i=i: call(Q8_POINTS[0], i, x, y, v1=True) for i in range(6)])
+        graph["#18 first design"] = graph_ms([lambda i=i: call(Q8_POINTS[3], i, x, y, v1=True) for i in range(6)])
     ms, ms_packed = cuda_ms(ring, 30), cuda_ms(packed, 30)
     plain = cuda_ms([lambda i=i: QP.fused_proj_mlp_q8_ring_plain(*args(i, x, y)) for i in range(6)], 30)
     b = proj_mlp_bound(B, C, H, 1)
     log(f"  fused_proj_mlp_q8_ring (1536, 4) / _packed (1536, 2) time (B {B}): device (graph replay) "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-        + f" (the first designs {graph['#17 first design'] / graph['#17']:.2f}x / "
-        f"{graph['#18 first design'] / graph['#18']:.2f}x the kernel); eager #17 {ms:.4f} ms, #18 {ms_packed:.4f} "
+        + (f" (the first designs {graph['#17 first design'] / graph['#17']:.2f}x / "
+           f"{graph['#18 first design'] / graph['#18']:.2f}x the kernel)" if DESIGN_AB else "")
+        + f"; eager #17 {ms:.4f} ms, #18 {ms_packed:.4f} "
         f"ms, plain {plain:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; {card_line()}")
     del pk
-    ring_entry = {"max_abs_err": err, "ms": ms, "graph_ms": graph["#17"], "v1_graph_ms": graph["#17 first design"],
+    ring_entry = {"max_abs_err": err, "ms": ms, "graph_ms": graph["#17"], "v1_graph_ms": graph.get("#17 first design"),
                   "q8_graph_ms": graph["#6"], "plain_ms": plain, "library_ms": graph["library"], **b}
     packed_entry = {"max_abs_err": err, "ms": ms_packed, "graph_ms": graph["#18"],
-                    "v1_graph_ms": graph["#18 first design"], "q8_graph_ms": graph["#6"], "plain_ms": plain,
+                    "v1_graph_ms": graph.get("#18 first design"), "q8_graph_ms": graph["#6"], "plain_ms": plain,
                     "library_ms": graph["library"], **b}
 
     # #19: the chunk stream alone
@@ -1718,10 +1842,11 @@ def check_w8a8(W8, DK, quantize_weight, dev, gen):
     library = [lambda s=s, w=w: (F.linear(y, w), torch._int_mm(hq, s[3].t()), torch._int_mm(tq, s[6].t()))
                for s, w in zip(sets, wo_bf)]
     graph = {"kernel": graph_ms(kernel),
-             "first design": graph_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_v1, x, y, s) for s in sets]),
              "#6": graph_ms([lambda s=s: DK.fused_proj_mlp_q8(x, y, s[0], s[1], s[2], ln_s, ln_b, *s[3:])
                              for s in sets]),
              "library": graph_ms(library)}
+    if DESIGN_AB:
+        graph["first design"] = graph_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_v1, x, y, s) for s in sets])
     ms = cuda_ms(kernel, 30)
     plain = cuda_ms([lambda s=s: call(W8.fused_proj_mlp_q8a8_plain, x, y, s) for s in sets], 6)
     # where int8 activations pay: #16 against #6 at the larger batches, on the same weights
@@ -1738,11 +1863,11 @@ def check_w8a8(W8, DK, quantize_weight, dev, gen):
     b = bound(n_bytes, 2 * B * 2 * C * H, INT8_TENSOR_OPS, more=((2 * B * C * C, BF16_TENSOR_FLOPS),))
     log(f"  fused_proj_mlp_q8a8 time (B {B}, chunk 1536): device (graph replay) "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-        + f" (the first design {graph['first design'] / graph['kernel']:.2f}x the kernel; #6 "
+        + f" ({ab_ratio(graph, 'first design', graph['kernel'])[2:]}{'; ' if DESIGN_AB else ''}#6 "
         f"{graph['#6'] / graph['kernel']:.2f}x); eager kernel {ms:.4f} ms, plain {plain:.4f} ms; library = F.linear "
         f"for wo + two torch._int_mm over the whole H, no LN, quantization or epilogues; bound {b['bound_ms']:.4f} ms "
         f"by {b['bound_by']}; {card_line()}")
-    return {"max_abs_err": err, "ms": ms, "graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"],
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph["kernel"], "v1_graph_ms": graph.get("first design"),
             "q8_graph_ms": graph["#6"], "plain_ms": plain, "library_ms": graph["library"], **b, "phase_us": phases,
             "b300": wider[300], "b500": wider[500]}
 
@@ -1809,7 +1934,7 @@ def check_mlp(MK, DM, dev, gen):
             err = max(err, compare(f"fused_mlp B={b} gelu {gelu} (cluster {plan.cluster} x {plan.clusters}, row tile "
                                    f"{plan.row_tile} x {plan.row_tiles}, {plan.stages} stages, {plan.t_slots} t slots)",
                                    got, want)[0])
-        if b in (100, 500):
+        if b in (100, 500) and DESIGN_AB:
             compare(f"fused_mlp_v1 B={b} (the first design)", MK.fused_mlp_v1(x, *sets[0]),
                     MK.fused_mlp_plain(x, *sets[0]))
     x = rnd(BATCH, C)
@@ -1827,14 +1952,16 @@ def check_mlp(MK, DM, dev, gen):
         ms = cuda_ms(kernel, 30)
         plain = cuda_ms([lambda s=s: MK.fused_mlp_plain(x, *s) for s in sets], 30)
         lib = cuda_ms(library, 30)
-        graph = {"kernel": graph_ms(kernel), "first design": graph_ms(v1), "library": graph_ms(library)}
+        graph = {"kernel": graph_ms(kernel), "library": graph_ms(library)}
+        if DESIGN_AB:
+            graph["first design"] = graph_ms(v1)
         bb = bound(2 * b * C * 2 + 2 * C * 4 + 2 * C * H * 2 + (H + C) * 2, 2 * b * 2 * C * H, BF16_TENSOR_FLOPS)
         plan = DM.device_plan(x, C, H, "mlp", 2)
         row = {"ms": ms, "plain_ms": plain, "library_ms": graph["library"], "library_eager_ms": lib,
-               "graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"], **bb,
+               "graph_ms": graph["kernel"], "v1_graph_ms": graph.get("first design"), **bb,
                "plan": f"cluster {plan.cluster} x {plan.clusters}, row tile {plan.row_tile} x {plan.row_tiles}",
                "phase_us": phases[b]}
-        if b == 500:  # the candidate plans: 256-row tiles (two weight passes) against 128-row ones (four)
+        if b == 500 and DESIGN_AB:  # the candidate plans: 256-row tiles (two weight passes) against 128-row ones (four)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             with mock.patch.object(DM, "ROW_TILES", tuple(t for t in DM.ROW_TILES if t <= 128)):
                 p128 = DM.mlp_plan(b, C, H, "mlp", 2, 0, sms,
@@ -1850,9 +1977,10 @@ def check_mlp(MK, DM, dev, gen):
             log(f"  fused_mlp B 500 plans (graph replay): {plan.row_tile}-row tiles x {plan.row_tiles} "
                 f"{row['graph_ms']:.4f} / {row['graph_ms_again']:.4f} ms, 128-row tiles x {p128.row_tiles} "
                 f"{row['tiles128_graph_ms']:.4f} ms")
-        log(f"  fused_mlp time (B {b}): device (graph replay) kernel {graph['kernel']:.4f} ms, first design "
-            f"{graph['first design']:.4f} ms ({graph['first design'] / graph['kernel']:.2f}x the kernel), library (two "
-            f"F.linear, the GEMMs alone) {graph['library']:.4f} ms; eager kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        log(f"  fused_mlp time (B {b}): device (graph replay) kernel {graph['kernel']:.4f} ms, "
+            + (f"first design {graph['first design']:.4f} ms ({graph['first design'] / graph['kernel']:.2f}x the "
+               f"kernel), " if DESIGN_AB else "")
+            + f"library (two F.linear, the GEMMs alone) {graph['library']:.4f} ms; eager kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"library {lib:.4f} ms; bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}; {row['plan']}; {card_line()}")
         rows[b] = row
     C, H, b = 2560, 4 * 2560, 500  # the widest of WIDTHS: 192-row tiles, the warpgroups' halves
@@ -1913,7 +2041,7 @@ def check_ablate(QP, quantize_weight, dev, gen):
         # size. TOL therefore holds at that scale: both sides divided by
         # max |want|, |d| <= TOL * (max |want| + |want|)
         scale = float(want.float().abs().max())
-        for fn in (QP.ablate_ring, QP.ablate_ring_v1):
+        for fn in (QP.ablate_ring, QP.ablate_ring_v1) if DESIGN_AB else (QP.ablate_ring,):
             got = call(0, fn)
             torch.cuda.synchronize()
             e, _ = compare(f"{fn.__name__} {name} (1536, {nb}), at the output's scale {scale:.4g}",
@@ -1925,12 +2053,12 @@ def check_ablate(QP, quantize_weight, dev, gen):
             call(0)
             phases = dense_mlp_stamps("ablate_ring q8 full")
         kernel = [lambda i=i: call(i) for i in range(3)]
-        graph = {"kernel": graph_ms(kernel), "first design": graph_ms([lambda i=i: call(i, QP.ablate_ring_v1)
-                                                                      for i in range(3)])}
-        rows[name] = {"graph_ms": graph["kernel"], "v1_graph_ms": graph["first design"], "ms": cuda_ms(kernel, 30)}
-        log(f"  ablate_ring {name}: device (graph replay) kernel {graph['kernel']:.4f} ms, first design "
-            f"{graph['first design']:.4f} ms ({graph['first design'] / graph['kernel']:.2f}x the kernel); eager kernel "
-            f"{rows[name]['ms']:.4f} ms")
+        graph = {"kernel": graph_ms(kernel)}
+        if DESIGN_AB:
+            graph["first design"] = graph_ms([lambda i=i: call(i, QP.ablate_ring_v1) for i in range(3)])
+        rows[name] = {"graph_ms": graph["kernel"], "v1_graph_ms": graph.get("first design"), "ms": cuda_ms(kernel, 30)}
+        log(f"  ablate_ring {name}: device (graph replay) kernel {graph['kernel']:.4f} ms"
+            + ab_ratio(graph, "first design", graph["kernel"]) + f"; eager kernel {rows[name]['ms']:.4f} ms")
     h500 = rnd(500, C)
     want = QP.ablate_ring_plain(h500, *packs[True][0][:1], q1[0][1], packs[True][0][1])
     got = QP.ablate_ring(h500, *packs[True][0][:1], q1[0][1], packs[True][0][1], chunk=1536)
@@ -1965,7 +2093,8 @@ def sass(lib_path: str) -> str:
     from rqvae_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
 
 
 def count_sass(lib_path, op) -> int:
@@ -2092,35 +2221,38 @@ def check_decode_layer_step(MK, DK, AK, dev, gen):
 
     one_kernel("decode_layer_step", lambda: step(MK.decode_layer_step, sets[0]), "fused_kernel")
     ms = cuda_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets], 30)
-    coop = cuda_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets], 30)
+    coop = cuda_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets], 30) if DESIGN_AB else None
     plain = cuda_ms([lambda s=s: step(MK.decode_layer_step_plain, s) for s in sets], 30)
     lib = cuda_ms([lambda s=s: library(*s) for s in sets], 30)
     graph = {"kernel": graph_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets]),
-             "cooperative": graph_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets]),
              "unfused #2 -> #1 -> #3": graph_ms([lambda s=s: unfused(s) for s in sets]),
              "library": graph_ms([lambda s=s: library(*s) for s in sets])}
+    if DESIGN_AB:
+        graph["cooperative"] = graph_ms([lambda s=s: step(MK.decode_layer_step_coop, s) for s in sets])
     graph["kernel, again"] = graph_ms([lambda s=s: step(MK.decode_layer_step, s) for s in sets])
     n = 63
     weights = (3 * C * C + C * C + 2 * C * H) * 2
     vectors = (3 * C + C + H + C + 4 * C) * 2  # biases and LN parameters
     b = bound(weights + vectors + 2 * B * n * C * 2 + B * C * 2 + 2 * B * C * 2 + B * C * 2,
               2 * B * (3 * C * C + C * C + 2 * C * H), BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
-    log(f"  decode_layer_step time: kernel {ms:.4f} ms, cooperative kernel {coop:.4f} ms, plain {plain:.4f} ms, "
+    log(f"  decode_layer_step time: kernel {ms:.4f} ms, {ab_ms('cooperative kernel', coop)}plain {plain:.4f} ms, "
         f"library (four F.linear bf16 GEMMs + scaled_dot_product_attention over the 64 rows, no LN, bias, gelu or "
         f"cache write) {lib:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
     kernel_ms = max(graph["kernel"], graph["kernel, again"])
     log(f"  decode_layer_step device time ({len(sets)} calls in a CUDA graph, replayed): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-        + f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x), "
-        f"{graph['unfused #2 -> #1 -> #3'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); {card_line()}")
+        + (f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x)" if DESIGN_AB
+           else "")
+        + f"; {graph['unfused #2 -> #1 -> #3'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); {card_line()}")
     step(MK.decode_layer_step, sets[0])
     log(f"  decode_layer_step phases of one call (CTA 0, us): {_build_phases('rq_fused_phase_ns', MEGA_PHASES)}; "
         f"its attention, CTA 0's first task (us): {attention_steps(10)}")
-    step(MK.decode_layer_step_coop, sets[0])
-    log(f"  decode_layer_step_coop phases of one call, us: "
-        f"{_build_phases('rq_decode_layer_step_phase_ns', MEGA_COOP_PHASES)}")
+    if DESIGN_AB:
+        step(MK.decode_layer_step_coop, sets[0])
+        log(f"  decode_layer_step_coop phases of one call, us: "
+            f"{_build_phases('rq_decode_layer_step_phase_ns', MEGA_COOP_PHASES)}")
     return {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "coop_ms": coop,
-            "coop_graph_ms": graph["cooperative"], "unfused_graph_ms": graph["unfused #2 -> #1 -> #3"],
+            "coop_graph_ms": graph.get("cooperative"), "unfused_graph_ms": graph["unfused #2 -> #1 -> #3"],
             "plain_ms": plain, "library_ms": lib, "library_graph_ms": graph["library"], **b}
 
 
@@ -2182,36 +2314,40 @@ def check_attention_q8_wo(AK, DK, quantize_weight, dev, gen):
         tag = f"decode_attention_q8_update_wo, {'int8' if int8 else 'bf16'} wo"
         one_kernel(tag, lambda: call(AK.decode_attention_q8_update_wo, 0), "fused_kernel")
         ms = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)], 50)
-        coop = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i) for i in range(6)], 50)
+        coop = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i) for i in range(6)],
+                       50) if DESIGN_AB else None
         plain = cuda_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_plain, i) for i in range(6)], 50)
         lib = cuda_ms([lambda i=i: F.linear(x, deq[i]) for i in range(6)], 50)
         graph = {"kernel": graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)]),
-                 "cooperative": graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i)
-                                          for i in range(6)]),
                  "unfused #4 -> library wo + LN": graph_ms([lambda i=i: unfused(i) for i in range(6)]),
                  "library": graph_ms([lambda i=i: F.linear(x, deq[i]) for i in range(6)])}
+        if DESIGN_AB:
+            graph["cooperative"] = graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo_coop, i)
+                                             for i in range(6)])
         graph["kernel, again"] = graph_ms([lambda i=i: call(AK.decode_attention_q8_update_wo, i) for i in range(6)])
         wo_bytes = C * C + C * 2 if int8 else C * C * 2
         b = bound(2 * B * n * (C + 2 * nh) + 4 * B * C * 2 + wo_bytes + 3 * C * 2 + 2 * B * C * 2
                   + 2 * B * (C + 2 * nh), 2 * B * C * C, BF16_TENSOR_FLOPS, 4 * B * (n + 1) * C)
-        log(f"  {tag} time: kernel {ms:.4f} ms, cooperative kernel {coop:.4f} ms, plain {plain:.4f} ms, library "
+        log(f"  {tag} time: kernel {ms:.4f} ms, {ab_ms('cooperative kernel', coop)}plain {plain:.4f} ms, library "
             f"(F.linear, the wo GEMM alone: no torch call attends an int8 cache) {lib:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_by']} (B={B}, W=64, cur_len=63)")
         kernel_ms = max(graph["kernel"], graph["kernel, again"])
         log(f"  {tag} device time (6 calls in a CUDA graph, replayed): "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in graph.items())
-            + f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x), "
-            f"{graph['unfused #4 -> library wo + LN'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); "
+            + (f"; {graph['cooperative'] / kernel_ms:.2f}x faster than the cooperative kernel (aim >= 2x)"
+               if DESIGN_AB else "")
+            + f"; {graph['unfused #4 -> library wo + LN'] / kernel_ms:.2f}x the unfused chain's speed (aim >= 1); "
             f"{card_line()}")
         call(AK.decode_attention_q8_update_wo, 0)
         log(f"  {tag} phases of one call (CTA 0, us): {_build_phases('rq_fused_phase_ns', WO_PHASES)}; "
             f"its attention, CTA 0's first task (us): {attention_steps(6)}")
-        call(AK.decode_attention_q8_update_wo_coop, 0)
-        log(f"  {tag}, cooperative kernel, phases of one call, us: "
-            f"{_build_phases('rq_decode_attention_q8_update_wo_phase_ns', WO_COOP_PHASES)}")
+        if DESIGN_AB:
+            call(AK.decode_attention_q8_update_wo_coop, 0)
+            log(f"  {tag}, cooperative kernel, phases of one call, us: "
+                f"{_build_phases('rq_decode_attention_q8_update_wo_phase_ns', WO_COOP_PHASES)}")
         if int8:  # the kernels table lists the int8-wo point's numbers
             row = {"max_abs_err": worst, "ms": ms, "graph_ms": graph["kernel"], "coop_ms": coop,
-                   "coop_graph_ms": graph["cooperative"], "unfused_graph_ms": graph["unfused #4 -> library wo + LN"],
+                   "coop_graph_ms": graph.get("cooperative"), "unfused_graph_ms": graph["unfused #4 -> library wo + LN"],
                    "plain_ms": plain, "library_ms": lib, "library_graph_ms": graph["library"], **b}
     return row
 
@@ -2402,13 +2538,14 @@ def encode_phase(vqvae, xs, counters, card) -> int:
     return fwd_launches
 
 
-def vqgan_phase(S, counters, dev, card, name) -> int:
+def vqgan_phase(S, counters, dev, card, name, forced_check: bool = True) -> int:
     """Phase 7: the zoo's `name` (vqgan_huge, vqgan_large) bs100 through the
-    stacked-cache sampler. ROUNDS timed sample calls, each with all counts
-    set to 0 just before it and n_layer x 257 decode_attention_stacked (and
-    decode_attention) launches and no other required just after; output
-    checks; ms/sample; forced_logits at B=8, kernels vs plain. Returns the
-    stacked launches of one call."""
+    stacked-cache sampler. One timed sample call, the model's first, with
+    all counts set to 0 just before it and n_layer x 257
+    decode_attention_stacked (and decode_attention) launches and no other
+    required just after; output checks; ms/sample; with `forced_check`
+    forced_logits at B=8, kernels vs plain. Returns the stacked launches of
+    one call."""
     from rqvae_tpu_torch.cli import measure_throughput as MT
     from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
 
@@ -2432,13 +2569,15 @@ def vqgan_phase(S, counters, dev, card, name) -> int:
                         quantizer=vqvae.quantizer, temperature=1.0, kernels=kernels)
 
     want = {fn.__name__: 0 for fn in counters} | {"decode_attention_stacked": steps, "decode_attention": steps}
-    codes, times, warm_s = timed_samples(name, sample, counters, want)
-    log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each of {ROUNDS} timed sample(bs{BATCH}) calls: "
-        f"decode_attention_stacked {steps}, decode_attention {steps} (the same launches), every other kernel 0")
+    codes, times, _ = timed_samples(name, sample, counters, want, rounds=1, warm=False)
+    log(f"  [{name}] launches in one sample(bs{BATCH}) call, the model's first: decode_attention_stacked {steps}, "
+        f"decode_attention {steps} (the same launches), every other kernel 0")
     pixels, decode_s = decode_checked(vqvae, codes, (BATCH, H, W, D), tconf.vocab_size[0])
     log(f"  [{name}] codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
         f"{len(torch.unique(codes))} distinct; pixels finite, mean {float((0.5 * pixels.float() + 0.5).clamp(0, 1).mean()):.4f}")
     log_times(name, times, decode_s, card)
+    if not forced_check:
+        return steps
     forced, fcond = codes[:8], cond[:8]
     got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True)
     ref = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=False)
@@ -3253,8 +3392,9 @@ def stage1_phase(counters, dev, card) -> int:
 # phase 14: the evaluation path. (a) the FID Inception extractor on the card
 # against this machine's CPU, under PyTorch's default TF32 flags; (b) the
 # 1.4B main path through main_sampling_fid's sample-and-score loop; (c) the
-# CLI as a subprocess on the committed synthetic checkpoints; (d) rFID of
-# the 8x8x4 RQ-VAE's forward
+# CLI as a subprocess on the committed synthetic checkpoints, beside (d);
+# (d) rFID of the 8x8x4 RQ-VAE's forward through #9, and the same codes
+# through the plain argmin
 EVAL_IMAGES = 16  # (a)'s images, 256 x 256
 # (a): fp32 on both sides (the extractor's guard turns TF32 off), ~100
 # convolutions summed in other orders: pool features and logits (O(0.1-1))
@@ -3262,8 +3402,8 @@ EVAL_IMAGES = 16  # (a)'s images, 256 x 256
 # each product's inputs to 10 mantissa bits (~5e-4 relative), so the
 # forward without the guard must break it
 EVAL_TOL = 1e-4
-EVAL_BATCHES = 5  # (b): batches of BATCH sampled, decoded and scored
-RFID_IMAGES = 200  # (d)
+EVAL_BATCHES = 2  # (b): batches of BATCH sampled, decoded and scored
+RFID_IMAGES = 100  # (d)
 SELF_FID_RTOL = 1e-5  # (b): |FID(x, x)| <= this x trace(sigma): sqrtm's rounding at 2048-d
 
 
@@ -3438,15 +3578,20 @@ def eval_phase(S, counters, dev, card) -> dict:
     del model, samples, ref_images
     torch.cuda.empty_cache()
 
-    # (c): the CLI as a subprocess on the synthetic checkpoints
+    # (c): the CLI as a subprocess on the synthetic checkpoints, run beside (d)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_synth_stage2(tmp)
         out_dir = os.path.join(tmp, "out")
-        cmd = [sys.executable, "-m", "rqvae_tpu_torch.cli.main_sampling_fid", "-m", ckpt, "--top-k", "1", "-bs", "4",
-               "-n", "8", "-o", out_dir, "--dtype", "float32", "--no-kernels"]
+        proc = start_cmd([sys.executable, "-m", "rqvae_tpu_torch.cli.main_sampling_fid", "-m", ckpt, "--top-k", "1",
+                          "-bs", "4", "-n", "8", "-o", out_dir, "--dtype", "float32", "--no-kernels"])
+        try:
+            rfid_launches = rfid_vs_plain(vqvae, extractor, counters, card)
+        except BaseException:
+            kill_cmd(proc)
+            raise
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-        cli_s = time.perf_counter() - t0
+        res = finish_cmd(proc, 300, "phase 14 (c) main_sampling_fid")
+        wait = time.perf_counter() - t0
         if res.returncode != 0:
             raise AssertionError(f"(c) the CLI exited {res.returncode}: {res.stderr[-3000:]}")
         written = sorted(os.listdir(out_dir))
@@ -3455,12 +3600,26 @@ def eval_phase(S, counters, dev, card) -> dict:
     want_files = ["acts.npz", "samples_0.pkl", "samples_1.pkl", "seeds.txt", "targets_0.npz", "targets_1.npz"]
     is_line = [line for line in res.stderr.splitlines() if "IS:" in line]
     log(f"  (c) python -m rqvae_tpu_torch.cli.main_sampling_fid on tests/goldens/synth_ckpt (embed 64, head size 16: "
-        f"no kernel serves it, so --no-kernels; fp32, --top-k 1, 2 batches of 4): exit 0 in {cli_s:.1f} s, files "
-        f"{written}, samples {last.shape} {last.dtype}; {is_line[-1].strip() if is_line else 'no IS line'}")
+        f"no kernel serves it, so --no-kernels; fp32, --top-k 1, 2 batches of 4), run beside (d): exit 0 (waited "
+        f"{wait:.1f} s for it after (d)), files {written}, samples {last.shape} {last.dtype}; "
+        f"{is_line[-1].strip() if is_line else 'no IS line'}")
     if written != want_files or last.shape != (4, 3, 64, 64) or not is_line:
         raise AssertionError(f"(c) the CLI wrote {written} (samples {last.shape}) or logged no IS")
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"decode_attention_update": EVAL_BATCHES * attn_steps, "fused_ln_qkv": EVAL_BATCHES * head_steps,
+            "fused_proj_mlp": EVAL_BATCHES * head_steps, "nearest_code": rfid_launches}
 
-    # (d): rFID of the 8x8x4 RQ-VAE's forward, through #9 and through the plain argmin
+
+def rfid_vs_plain(vqvae, extractor, counters, card) -> int:
+    """Phase 14 (d): rFID of the 8x8x4 RQ-VAE's forward through #9 on
+    RFID_IMAGES seeded images, then the same batches' codes through the
+    plain argmin (no second rFID: the codes are what differs), equal at
+    depth 0 on at least ENCODE_AGREE. Returns #9's launches."""
+    import numpy as np
+
+    from rqvae_tpu_torch.metrics import fid as FID
+
+    dev = extractor.device
     images = torch.rand(RFID_IMAGES, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
 
     class Seeded:
@@ -3470,38 +3629,36 @@ def eval_phase(S, counters, dev, card) -> dict:
         def __getitem__(self, i):
             return images[i] * 2 - 1, 0
 
-    rfid, codes = {}, {}
-    for use_kernel in (True, False):
-        vqvae.use_kernel = use_kernel
-        got = []
+    got = []
 
-        def recon(x):
-            out, _, c = vqvae(x.permute(0, 2, 3, 1))
-            got.append(c)
-            return out.permute(0, 3, 1, 2)
+    def recon(x):
+        out, _, c = vqvae(x.permute(0, 2, 3, 1))
+        got.append(c)
+        return out.permute(0, 3, 1, 2)
 
-        for fn in counters:
-            fn.launches = 0
-        rfid[use_kernel], rfid_s = wall_s(lambda: FID.compute_rfid(Seeded(), recon, batch_size=BATCH,
-                                                                   extractor=extractor))
-        counts = {fn.__name__: fn.launches for fn in counters}
-        n_batches = -(-RFID_IMAGES // BATCH)
-        want = {fn.__name__: 0 for fn in counters} | {"nearest_code": 4 * n_batches if use_kernel else 0}
-        if counts != want:
-            raise AssertionError(f"(d) use_kernel={use_kernel}: launches {counts}, not {want}")
-        codes[use_kernel] = torch.cat(got)
-        log(f"  (d) compute_rfid, {RFID_IMAGES} seeded images in batches of {BATCH}, use_kernel={use_kernel}: nearest_code "
-            f"{counts['nearest_code']} launches ({4 if use_kernel else 0} a batch), every other kernel 0; rFID "
-            f"{rfid[use_kernel]:.4f}; {rfid_s:.1f} s; {card}")
+    for fn in counters:
+        fn.launches = 0
+    rfid, rfid_s = wall_s(lambda: FID.compute_rfid(Seeded(), recon, batch_size=BATCH, extractor=extractor))
+    counts = {fn.__name__: fn.launches for fn in counters}
+    want = {fn.__name__: 0 for fn in counters} | {"nearest_code": 4 * -(-RFID_IMAGES // BATCH)}
+    if counts != want:
+        raise AssertionError(f"(d) launches {counts}, not {want}")
+    log(f"  (d) compute_rfid, {RFID_IMAGES} seeded images in batches of {BATCH}: nearest_code "
+        f"{counts['nearest_code']} launches (4 a batch), every other kernel 0; rFID {rfid:.4f}; {rfid_s:.1f} s; {card}")
+    vqvae.use_kernel = False
+    with torch.no_grad():
+        plain = torch.cat([vqvae((images[i : i + BATCH] * 2 - 1).permute(0, 2, 3, 1))[2]
+                           for i in range(0, RFID_IMAGES, BATCH)])
     vqvae.use_kernel = True
-    agree = [float((codes[True][..., d] == codes[False][..., d]).double().mean()) for d in range(4)]
-    log(f"  (d) codes of #9 and of the plain argmin equal per depth: {', '.join(f'{a:.4f}' for a in agree)} (>= "
-        f"{ENCODE_AGREE} at depth 0)")
-    if not all(np.isfinite(v) and v > 0 for v in rfid.values()) or agree[0] < ENCODE_AGREE:
+    if any(fn.launches != counts[fn.__name__] for fn in counters):
+        raise AssertionError("(d) the plain argmin's forward launched a kernel")
+    kernel = torch.cat(got)
+    agree = [float((kernel[..., d] == plain[..., d]).double().mean()) for d in range(4)]
+    log(f"  (d) the same batches through the plain argmin (use_kernel=False, no kernel launched): codes equal to #9's "
+        f"per depth {', '.join(f'{a:.4f}' for a in agree)} (>= {ENCODE_AGREE} at depth 0)")
+    if not (np.isfinite(rfid) and rfid > 0) or agree[0] < ENCODE_AGREE:
         raise AssertionError(f"(d) rFID {rfid} not finite or depth-0 agreement {agree[0]} < {ENCODE_AGREE}")
-    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; {card}")
-    return {"decode_attention_update": EVAL_BATCHES * attn_steps, "fused_ln_qkv": EVAL_BATCHES * head_steps,
-            "fused_proj_mlp": EVAL_BATCHES * head_steps, "nearest_code": 4 * -(-RFID_IMAGES // BATCH)}
+    return want["nearest_code"]
 
 
 # phase 15: the entry points that read a dataset. A seeded ImageNet-layout
@@ -3511,11 +3668,11 @@ def eval_phase(S, counters, dev, card) -> dict:
 # main_sampling_fid samples from, (d) main_sampling_txt2img at the cc3m 650M
 # geometry over a caption folder, then compute_clip_score, and (e) the
 # loader alone
-ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 2, 96, 16  # images per class: 192 train (6 steps of 32), 32 val
-ENTRY_CAPTIONS = 200
-ENTRY_LOADER_BATCH, ENTRY_LOADER_REPEAT = 8, 3  # (e): at the default workers 72 batches an epoch, 9 a worker at 8
-ENTRY_STAGE2_RUNS = ("default", "one fewer")  # (c): the loader's worker counts
-ENTRY_ALONE_STEPS = 6  # (c): the step alone, the median of the last 5
+ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 2, 48, 16  # images per class: 96 train (3 steps of 32), 32 val
+ENTRY_CAPTIONS = 100
+ENTRY_LOADER_BATCH, ENTRY_LOADER_REPEAT = 8, 3  # (e): at the default workers 36 batches an epoch, 4-5 a worker at 8
+ENTRY_STAGE2_RUNS = ("default",)  # (c): the loader's worker counts ("one fewer" adds a run at one worker less)
+ENTRY_ALONE_STEPS = 4  # (c): the step alone, the median of the last 3
 ARCH_650M = dict(  # cli/measure_throughput.py "650M" at cond_len 32, vocab_cond 16384 (the cc3m geometry)
     ARCH_1P4B, embed_dim=1280, vocab_size_cond=16384, block_size_cond=32,
     body={"n_layer": 26, "block": {"n_head": 20}}, head={"n_layer": 4, "block": {"n_head": 20}},
@@ -3758,49 +3915,46 @@ def entry_phase(S, counters, dev, card) -> dict:
         if kinds["average"] + kinds["paeth"] < sum(kinds.values()) // 2:
             raise AssertionError(f"the folder's rows are not mostly Average and Paeth: {kinds}")
 
-        # (a): main_stage1, one epoch at full width, in this process (the counters)
+        # (a): main_stage1, one epoch at full width, in this process (the counters); the grids the loop hands
+        # its writer are checked and not PNG-encoded (tensorboard's zlib took 1.4 s a grid on this card's host)
         free()
         cfg1 = write_config(os.path.join(tmp, "stage1.yaml"), stage1_entry_config(data))
+        images = []
+
+        def add_image(writer, tag, image_hwc, mode="train", step=0):
+            image = np.asarray(image_hwc)
+            images.append((tag, mode, image.shape, bool(np.isfinite(image).all() and 0.0 <= image.min()
+                                                         and image.max() <= 1.0)))
+
         zero()
         t0 = time.perf_counter()
-        trainer = main_stage1.main(["-m", cfg1, "-r", os.path.join(tmp, "results"), "--seed", "0"])
+        with mock.patch.object(Writer, "add_image", add_image):
+            trainer = main_stage1.main(["-m", cfg1, "-r", os.path.join(tmp, "results"), "--seed", "0"])
         wall = time.perf_counter() - t0
-        n_trn, n_val, depth = len(trainer.loader_trn), len(trainer.loader_val), trainer.n_codebook
+        n_trn, n_val = len(trainer.loader_trn), len(trainer.loader_val)
         grids = 3  # train, valid, valid_ema: a reconstruction grid's forward (its codes feed the partial-code grids)
         want = expect("(a) main_stage1", {"nearest_code": 4 * (n_trn + 2 * n_val + grids)})
+        depth = HPARAMS["code_shape"][2]
+        n_grids = grids * (1 + 2 * depth)  # a mode's reconstruction and its partial-code grids, select and add
+        if len(images) != n_grids or not all(ok and shape[2] == 3 for *_, shape, ok in images):
+            raise AssertionError(f"(a) the loop wrote {len(images)} grids, not {n_grids} [H, W, 3] in [0, 1]: "
+                                 f"{images}")
         launches["nearest_code"] += want["nearest_code"]
         stats, peak = trainer.epoch_stats, torch.cuda.max_memory_allocated() / 2**30
         ms = statistics.median(stats["step_ms"])
         step_rate = S1_BATCH / ms * 1e3
-        eval_s = []  # an eval epoch (1 batch), then its logging (a reconstruction and 2 x depth partial-code grids)
-        for writer_dir in (None, os.path.join(tmp, "writer")):  # no writer, then the CLI's kind (closed by now)
-            trainer.writer = Writer(writer_dir)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            summary = trainer.eval_epoch(0)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            trainer.logging(summary, 0, "valid")
-            torch.cuda.synchronize()
-            eval_s.append((t1 - t0, time.perf_counter() - t1))
-            trainer.writer.close()
-        writer_kind = "tensorboard" if trainer.writer.writers else "scalars.jsonl"
-        del summary
         zero()
         w1 = os.path.join(trainer.config.result_path, "weights", "step_0", "model.pt")
         ckpt1 = os.path.join(trainer.config.result_path, "ckpt", "step_0.pt")
         log(f"  (a) main_stage1 (8x8x4 RQ-VAE, ddconfig ch 128, PatchGAN ndf 64, LPIPS synthetic, B {S1_BATCH}, "
             f"checkpointing, EMA), 1 epoch of {n_trn} steps, eval of {n_val} batch (and of the EMA), a save: nearest_code "
             f"{want['nearest_code']} launches = 4 x ({n_trn} steps + 2 x {n_val} eval batches + {grids} grid forwards), "
-            f"every other kernel 0; {wall:.1f} s in all")
+            f"every other kernel 0; {n_grids} grids {images[0][2]} in [0, 1] handed to the writer (not PNG-encoded); "
+            f"{wall:.1f} s in all")
         log(f"  [entry stage 1] {ms:.1f} ms/step, the median of the {len(stats['step_ms'])} intervals between "
             f"step ends ({', '.join(f'{t:.1f}' for t in stats['step_ms'])}; first step "
             f"{stats['first_step_s'] * 1e3:.1f} ms, data included), {step_rate:.1f} images/s, peak memory "
             f"{peak:.1f} GiB (phase 13 (b) times the step alone); {card}")
-        log(f"  [entry stage 1 eval] after the run, without a writer, then with the CLI's ({writer_kind}): "
-            f"eval_epoch (1 batch of {S1_BATCH}) " + ", ".join(f"{a:.2f}" for a, _ in eval_s) + f" s, then logging "
-            f"(a reconstruction grid and {2 * depth} partial-code grids of 16 images, scalars) "
-            + ", ".join(f"{b:.2f}" for _, b in eval_s) + f" s; {card}")
         del trainer
         free()
         kind, vq, vq_cfg = load_model_from_ckpt(w1, device=dev)
@@ -3962,8 +4116,7 @@ def entry_phase(S, counters, dev, card) -> dict:
             cmd = [sys.executable, "-m", "rqvae_tpu_torch.cli.main_sampling_txt2img", "-m", w3, "-o", sub_out, "-d",
                    "cc3m", "--dataset-root", cc3m, "-bs", str(BATCH)]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, SMOKE_TEST="1"), capture_output=True, text=True,
-                                 timeout=600)
+            res = run_cmd(cmd, 300, "phase 15 (d) python -m main_sampling_txt2img", env=dict(os.environ, SMOKE_TEST="1"))
             sub_s = time.perf_counter() - t0
         finally:
             for k, v in saved_env.items():
@@ -4157,49 +4310,35 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dist_phase(counters, dev, card) -> dict:
-    """Phase 16: (a) NCCL at world 1 in this process, torch's deterministic
-    algorithms on: DP_STEPS stage-1 steps of B S1_BATCH through the DP
-    step against the same steps without a group (and the ungrouped run
-    again, the control: the grouped run may differ from the first by no
-    more than the control does), #9 4 launches a step, and the witness
-    (pixels x (1 + DP_WITNESS_EPS)); one 1.4B stage-2 step at phase 12
-    (b)'s setup the same way; (b) DP_WORLD ranks of S1_BATCH / DP_WORLD on
-    this card over gloo, as subprocesses, against (a)'s ungrouped run:
-    phase 13's S1_* bounds (stage1_shares) or DP_WITNESS_FACTOR x the
-    witness's reading, the ranks bit-equal; (c) main_stage1 under
-    torch.distributed.run (one rank, NCCL) at the synthetic stage-1
-    geometry for one epoch of 2 steps on a seeded folder, its model.pt
-    read back; (d) #1-#3 at C 512 / 8 heads
-    against their plain versions, then train_convergence's stage 1, stage
-    2 and text runs at full geometry for CONV_STEPS1 / CONV_STEPS2 steps
-    held to CONV_RATIO*. Returns the launches of #1-#3 and #9."""
-    import gc
-    import glob
-    import tempfile
-
+def start_launcher_run(tmp: str) -> subprocess.Popen:
+    """Phase 16 (c)'s command, started: main_stage1 under
+    torch.distributed.run (one rank, NCCL) at phase 13 (a)'s synthetic
+    geometry on a seeded folder in tmp, one epoch of 2 steps, a save."""
     import numpy as np
 
-    from rqvae_tpu_torch.cli.common import load_model_from_ckpt
-    from rqvae_tpu_torch.ops import attention_kernel as AK
-    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    data = os.path.join(tmp, "imagenet")
+    write_image_folder(data, np.random.default_rng(DP_SEED), per_class=(S1_CUT_BATCH, 2))
+    # the launcher's path at the synthetic geometry (phase 15 (a) runs the CLI at full width); no eval, and the
+    # train grids alone: the tensorboard grids take ~15 s a mode
+    config = stage1_entry_config(data)
+    config["arch"].update(ddconfig=S1_CUT_DD, hparams=S1_CUT_HP)
+    config["dataset"]["transforms"] = {"type": "ffhq64x64"}
+    config["experiment"].update(batch_size=S1_CUT_BATCH, test_freq=10)
+    cfg = write_config(os.path.join(tmp, "stage1.yaml"), config)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+           "rqvae_tpu_torch.cli.main_stage1", "-m", cfg, "-r", os.path.join(tmp, "results"), "--seed", "0"]
+    return start_cmd(cmd, dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")))
+
+
+def dist_phase_ab(counters, dev, card, failed: list, zero, free) -> dict:
+    """Phase 16 (a) and (b) (dist_phase); appends what failed to `failed`
+    and returns the launches of #9."""
+    import tempfile
+
     from rqvae_tpu_torch.parallel import dist as D
-    from rqvae_tpu_torch.tools import train_convergence as TC
     from rqvae_tpu_torch.trainers import trainer_stage2 as T2
 
-    def zero():
-        for fn in counters:
-            fn.launches = 0
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
-    launches = {"decode_attention_update": 0, "fused_ln_qkv": 0, "fused_proj_mlp": 0, "nearest_code": 0}
-    t_phase = time.perf_counter()
-    failed = []
-
+    launches = {"nearest_code": 0}
     # (a): world 1 over NCCL, in this process
     env = D.initialize(backend="nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device=dev)
     log(f"  (a) process group: world size {env.world_size}, backend {D.backend_name(env)}, rank {env.world_rank} on "
@@ -4307,18 +4446,9 @@ def dist_phase(counters, dev, card) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         port = free_port()
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "dist-rank", str(r),
-                                   str(DP_WORLD), str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
+        run_ranks([[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "dist-rank", str(r), str(DP_WORLD), str(port),
+                    tmp] for r in range(DP_WORLD)], 300, "phase 16 (b) ranks")
         wall = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"(b) rank {r} exited with {p.returncode}:\n{out[-6000:]}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
     got = dict(ranks[0])
     got["codes"] = [torch.cat([rk["codes"][n] for rk in ranks]) for n in range(DP_STEPS)]
@@ -4361,26 +4491,67 @@ def dist_phase(counters, dev, card) -> dict:
     del ranks, got, ref, witness
     free()
 
-    # (c): main_stage1 under torch.distributed.run
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "imagenet")
-        write_image_folder(data, np.random.default_rng(DP_SEED), per_class=(S1_CUT_BATCH, 2))
-        # the launcher's path at phase 13 (a)'s synthetic geometry (phase 15 (a) runs the CLI at full width); no eval,
-        # and the train grids alone: the tensorboard grids take ~15 s a mode
-        config = stage1_entry_config(data)
-        config["arch"].update(ddconfig=S1_CUT_DD, hparams=S1_CUT_HP)
-        config["dataset"]["transforms"] = {"type": "ffhq64x64"}
-        config["experiment"].update(batch_size=S1_CUT_BATCH, test_freq=10)
-        cfg = write_config(os.path.join(tmp, "stage1.yaml"), config)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
-               "rqvae_tpu_torch.cli.main_stage1", "-m", cfg, "-r", os.path.join(tmp, "results"), "--seed", "0"]
-        env_vars = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return launches
+
+
+def dist_phase(counters, dev, card) -> dict:
+    """Phase 16: (a) NCCL at world 1 in this process, torch's deterministic
+    algorithms on: DP_STEPS stage-1 steps of B S1_BATCH through the DP
+    step against the same steps without a group (and the ungrouped run
+    again, the control: the grouped run may differ from the first by no
+    more than the control does), #9 4 launches a step, and the witness
+    (pixels x (1 + DP_WITNESS_EPS)); one 1.4B stage-2 step at phase 12
+    (b)'s setup the same way; (b) DP_WORLD ranks of S1_BATCH / DP_WORLD on
+    this card over gloo, as subprocesses, against (a)'s ungrouped run:
+    phase 13's S1_* bounds (stage1_shares) or DP_WITNESS_FACTOR x the
+    witness's reading, the ranks bit-equal; (c) main_stage1 under
+    torch.distributed.run (one rank, NCCL) at the synthetic stage-1
+    geometry for one epoch of 2 steps on a seeded folder, its model.pt
+    read back; (d) #1-#3 at C 512 / 8 heads
+    against their plain versions, then train_convergence's stage 1, stage
+    2 and text runs at full geometry for CONV_STEPS1 / CONV_STEPS2 steps
+    held to CONV_RATIO*. Returns the launches of #1-#3 and #9."""
+    import gc
+    import glob
+    import tempfile
+
+    from rqvae_tpu_torch.cli.common import load_model_from_ckpt
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.tools import train_convergence as TC
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    launches = {"decode_attention_update": 0, "fused_ln_qkv": 0, "fused_proj_mlp": 0, "nearest_code": 0}
+    t_phase = time.perf_counter()
+    failed = []
+
+    # (c) starts first and runs beside (a) and (b): its process start and the launcher's are most of its time
+    tmp_c = tempfile.TemporaryDirectory()
+    try:
+        proc_c = start_launcher_run(tmp_c.name)
+        try:
+            for k, v in dist_phase_ab(counters, dev, card, failed, zero, free).items():
+                launches[k] += v
+        except BaseException:
+            kill_cmd(proc_c)
+            raise
+
+        # (c): main_stage1 under torch.distributed.run, started above
+        tmp = tmp_c.name
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env_vars, capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
+        proc = finish_cmd(proc_c, 300, "phase 16 (c) torch.distributed.run main_stage1")
+        wait = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise AssertionError(f"(c) {' '.join(cmd[1:6])} exited with {proc.returncode}:\n{proc.stdout[-4000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
+            raise AssertionError(f"(c) {' '.join(proc.args[1:6])} exited with {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
         (train_log,) = glob.glob(os.path.join(tmp, "results", "*", "*", "train.log"))
         lines = open(train_log).read().splitlines()
         world_line = next(line for line in lines if "world size" in line)
@@ -4397,10 +4568,13 @@ def dist_phase(counters, dev, card) -> dict:
         log(f"  (c) python -m torch.distributed.run --standalone --nproc_per_node=1 -m rqvae_tpu_torch.cli.main_stage1 "
             f"(phase 13 (a)'s synthetic geometry, B {S1_CUT_BATCH}, {2 * S1_CUT_BATCH} seeded train images: one epoch of "
             f"2 steps, no eval, a save): "
-            f"exit 0 in {wall:.1f} s with the launcher's start; the log: '{world_line.split('] ')[-1]}', "
+            f"exit 0, run beside (a) and (b) (waited {wait:.1f} s for it after them); the log: "
+            f"'{world_line.split('] ')[-1]}', "
             f"'{step_line.split('] ')[-1]}'; {os.path.relpath(w1, tmp)} read back, a forward finite, codes "
             f"{tuple(codes.shape)}; {card}")
         del vq, out, codes
+    finally:
+        tmp_c.cleanup()
     free()
 
     # (d): #1-#3 at C 512, then the convergence runs, shortened
@@ -4454,18 +4628,363 @@ def dist_phase(counters, dev, card) -> dict:
     return launches
 
 
+# phase 17: tensor-parallel sampling (rqvae_tpu_torch/parallel/mesh.py, the
+# split model of models/rqtransformer/model.py) and ZeRO-1, as gloo ranks
+# sharing this card (NCCL refuses two ranks on one card): (a) the 1.4B
+# model at TP 2, #1 / #4 on each rank's 12 heads of 64 (C 768); (b)
+# rqvae_tpu_torch.tools.dryrun_3p8b at TP 2 (20 heads a shard, C 1280),
+# zero weights; (c) a stage-2 step with ZeRO-1 against the replicated step
+TP_WORLD = 2
+TP_SEED = 17
+TP_FORCED_B = 8
+TP_POINTS = (("bf16", {}, "decode_attention_update"), ("kv_q8", {"kv_q8": True}, "decode_attention_q8_update"))
+# #1 / #4 at the shard shapes of (a) and (b): (B, C, n_head, cur_len, window)
+TP_ATTN_CASES = ((BATCH, 768, 12, 0, 32), (BATCH, 768, 12, 63, 64), (TP_FORCED_B, 768, 12, 63, 64),
+                 (2, 1280, 20, 31, 32), (2, 1280, 20, 63, 64))
+# (c): JAX's ZeRO-1 bounds (tests/test_parallel.py:151-189)
+ZERO_LOSS_RTOL, ZERO_PARAM_RTOL, ZERO_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+ZERO_BATCH = 8  # the world batch: 4 a rank
+TP_RANKS_TIMEOUT = 300  # (a) + (c) in one pair of rank processes
+TP_HEADER = (f"(a) the 1.4B model at TP {TP_WORLD}, {TP_WORLD} gloo ranks sharing this card; (b) dryrun_3p8b at "
+             f"TP 2; (c) ZeRO-1 against the replicated stage-2 step")
+TP_TOOL_TIMEOUT = 240  # (b)
+
+
+def kernel_counters() -> tuple:
+    """Every kernel wrapper's launch count, in the order of phase 4's tables."""
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.ops import decode_layer_kernel as DK
+    from rqvae_tpu_torch.ops import decode_megakernel as MK
+    from rqvae_tpu_torch.ops import mlp_kernel as MLP
+    from rqvae_tpu_torch.ops import q8_pipeline_kernel as QP
+    from rqvae_tpu_torch.ops import rq_kernel as RK
+    from rqvae_tpu_torch.ops import w8a8_kernel as W8
+
+    return (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
+            AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
+            MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
+            AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
+            QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
+            MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
+            AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
+            MLP.fused_mlp_v1, QP.ablate_ring_v1, QP.fused_proj_mlp_q8_ring_v1, QP.fused_proj_mlp_q8_packed_v1,
+            W8.fused_proj_mlp_q8a8_v1)
+
+
+def run_ranks(cmds: list, timeout: float, what: str, env=None) -> list[str]:
+    """Run the commands (one a rank) at once, each in a session of its own,
+    and return their outputs. When one fails or `timeout` seconds pass,
+    every process of every session is killed, the tail of each output
+    printed and the run raised."""
+    import signal
+
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for cmd in cmds]
+    deadline = time.monotonic() + timeout
+    logs, failed = [None] * len(procs), None
+    try:
+        for r, p in enumerate(procs):
+            try:
+                logs[r] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+            except subprocess.TimeoutExpired:
+                failed = f"still running after {timeout:.0f} s"
+                break
+            if p.returncode != 0:
+                failed = f"process {r} exited with {p.returncode}"
+                break
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    if failed:
+        for r, p in enumerate(procs):
+            out = logs[r] if logs[r] is not None else (p.communicate()[0] or "")
+            print(f"--- {what}, process {r} (tail):\n{out[-4000:]}", flush=True)
+        raise AssertionError(f"{what}: {failed}")
+    return logs
+
+
+def check_shard_attention(AK, dev, gen) -> dict:
+    """#1 and #4 at the shard shapes of phase 17 (TP_ATTN_CASES) against
+    their plain versions: y within TOL, the caches bit-equal. Returns the
+    max abs error of each."""
+    errs = {"decode_attention_update": 0.0, "decode_attention_q8_update": 0.0}
+    for B, C, nh, cur, window in TP_ATTN_CASES:
+        T = 64
+        q, kn, vn = (torch.randn(B, C, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        k, v = (torch.randn(B, T, C, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        caches = [k.clone(), v.clone()]
+        plain = [k.clone(), v.clone()]
+        got = AK.decode_attention_update(q, kn, vn, *caches, cur, nh, t_window=window)
+        want = AK.decode_attention_update_plain(q, kn, vn, *plain, cur, nh, t_window=window)
+        name = f"decode_attention_update B={B} C={C} {nh} heads (a shard) cur_len={cur} window={window}"
+        errs["decode_attention_update"] = max(errs["decode_attention_update"], compare(name, got, want)[0])
+        if not all(torch.equal(a, b) for a, b in zip(caches, plain)):
+            raise AssertionError(f"{name}: the caches differ from the plain version's")
+        kq, ks = AK.quantize_kv(k.reshape(B * T, C), nh)
+        vq, vs = AK.quantize_kv(v.reshape(B * T, C), nh)
+        q8 = [kq.reshape(B, T, C), ks.reshape(B, T, nh).to(torch.bfloat16), vq.reshape(B, T, C),
+              vs.reshape(B, T, nh).to(torch.bfloat16)]
+        caches, plain = [t.clone() for t in q8], [t.clone() for t in q8]
+        got = AK.decode_attention_q8_update(q, kn, vn, *caches, cur, nh, t_window=window)
+        want = AK.decode_attention_q8_update_plain(q, kn, vn, *plain, cur, nh, t_window=window)
+        name = f"decode_attention_q8_update B={B} C={C} {nh} heads (a shard) cur_len={cur} window={window}"
+        errs["decode_attention_q8_update"] = max(errs["decode_attention_q8_update"], compare(name, got, want)[0])
+        if not all(torch.equal(a, b) for a, b in zip(caches, plain)):
+            raise AssertionError(f"{name}: the int8 caches differ from the plain version's")
+    return errs
+
+
+def tp_rank_main(argv) -> None:
+    """`chip_smoke.py tp-rank RANK WORLD PORT OUT`: one rank of phase 17 (a)
+    and (c) on cuda:0 over gloo; writes OUT/rank{RANK}.pt."""
+    rank, world, port, out_dir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    from rqvae_tpu_torch.models.rqtransformer import sampling as S
+    from rqvae_tpu_torch.models.rqtransformer.config import TransformerConfig
+    from rqvae_tpu_torch.models.rqtransformer.model import RQTransformer
+    from rqvae_tpu_torch.ops.quantize import QuantizerConfig, RQCodebooks
+    from rqvae_tpu_torch.optim.optimizer import moment_bytes
+    from rqvae_tpu_torch.parallel import dist as D
+    from rqvae_tpu_torch.parallel.mesh import create_mesh, shard_state_dict
+    from rqvae_tpu_torch.trainers import trainer_stage2 as T2
+
+    dev = torch.device("cuda", 0)
+    env = D.initialize(backend="gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world, device=dev)
+    mesh = create_mesh(1, world, env)
+    counters = kernel_counters()
+    out = {"backend": D.backend_name(env), "coords": (mesh.data_rank, mesh.model_rank)}
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    # (a): the same seeded 1.4B weights on every rank, each rank's shard (rank 0 keeps the whole model for
+    # the single-process reference); one bs100 sample call a point, the gathered logits of its first
+    # TP_FORCED_B rows taken at each draw
+    t0 = time.perf_counter()
+    config = TransformerConfig.create(ARCH_1P4B)
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    full = RQTransformer(config, device=dev, dtype=torch.bfloat16)
+    full.init_weights(gen)
+    books = RQCodebooks(QuantizerConfig.create(HPARAMS["latent_shape"], HPARAMS["code_shape"], HPARAMS["n_embed"],
+                                               shared_codebook=True), device=dev, dtype=torch.bfloat16)
+    books.init_weights(gen)
+    model = RQTransformer(config, device=dev, dtype=torch.bfloat16, mesh=mesh)
+    model.load_state_dict(shard_state_dict(full.state_dict(), mesh.model_rank, world), strict=True)
+    if rank:
+        del full
+    torch.cuda.empty_cache()
+    out["params_local"] = sum(p.numel() for p in model.parameters())
+    D.barrier(env)
+    out["build_s"] = time.perf_counter() - t0
+    cond = torch.arange(BATCH, device=dev) % config.vocab_size_cond
+    real_draw = S.sample_from_logits_fast
+    for name, options, kernel in TP_POINTS:
+        seen = []  # at each draw (position-major, depth-minor), rows 0 .. TP_FORCED_B - 1 of the gathered logits
+
+        def draw(logits, *args, **kwargs):
+            seen.append(logits[:TP_FORCED_B].float())
+            return real_draw(logits, *args, **kwargs)
+
+        torch.cuda.reset_peak_memory_stats()
+        D.barrier(env)
+        zero()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with mock.patch.object(S, "sample_from_logits_fast", draw):
+            codes = S.sample(model, BATCH, torch.Generator(device=dev).manual_seed(1), cond=cond, quantizer=books,
+                             **options)
+        torch.cuda.synchronize()
+        out[name] = dict(codes=codes.cpu(), launches=counts(), ms=(time.perf_counter() - t1) * 1e3 / BATCH,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        got = torch.stack(seen).view(64, 4, TP_FORCED_B, -1).permute(2, 0, 1, 3).reshape(TP_FORCED_B, 8, 8, 4, -1)
+        del seen
+        out[name]["logits_sum"] = float(got.double().sum())
+        if rank == 0:  # compare()'s bound: |d| <= LOGIT_TOL (1 + |ref|), mean |d| <= LOGIT_MEAN_TOL
+            ref = S.forced_logits(full, codes[:TP_FORCED_B], cond[:TP_FORCED_B], books, **options)
+            diff = (got - ref).abs()
+            out[name]["logits"] = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+                                       share=float((diff / (LOGIT_TOL * (1.0 + ref.abs()))).max()),
+                                       std=float(ref.std()), finite=bool(torch.isfinite(got).all()))
+            del ref, diff
+        del got
+    if rank == 0:
+        del full
+    del model
+    books = books.float()
+    torch.cuda.empty_cache()
+
+    # (c): ZeRO-1 against the replicated step, phase 12 (a)'s 2 + 1-layer full-width geometry in fp32
+    rng = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    codes = torch.randint(0, 16384, (ZERO_BATCH, 8, 8, 4), generator=rng, device=dev)
+    zcond = torch.randint(0, 1000, (ZERO_BATCH,), generator=rng, device=dev)
+    share = slice(rank * ZERO_BATCH // world, (rank + 1) * ZERO_BATCH // world)
+    batch = {"codes": codes[share], "cond": zcond[share]}
+    runs = {}
+    for zero_on in (False, True):
+        m2 = RQTransformer(TransformerConfig.create(TRAIN_CUT_ARCH), device=dev)
+        m2.init_weights(torch.Generator(device=dev).manual_seed(TP_SEED + 2))
+        st = T2.init_state(m2, TRAIN_OPTIM, train_schedule())
+        step = T2.make_train_step(T2.Stage2LossConfig(use_soft_target=False, amp_bf16=False), quantizer=books,
+                                  dist=env, zero=zero_on)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, metrics = step(st, batch, None)
+        torch.cuda.synchronize()
+        runs[zero_on] = dict(loss=float(metrics["loss_total"]), s=time.perf_counter() - t1,
+                             moment_bytes=moment_bytes(st.optimizer),
+                             params={k: p.detach().clone() for k, p in m2.named_parameters()})
+        del st, m2, step
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for k, want in runs[False]["params"].items():
+        got = runs[True]["params"][k]
+        excess = ((got - want).abs() - ZERO_PARAM_RTOL * want.abs()).max()
+        worst = max(worst, float(excess) / ZERO_PARAM_ATOL)
+    out["zero"] = dict(loss=runs[True]["loss"], loss_replicated=runs[False]["loss"], param_share=worst,
+                       moment_bytes=runs[True]["moment_bytes"], moment_bytes_replicated=runs[False]["moment_bytes"],
+                       s=runs[True]["s"], s_replicated=runs[False]["s"],
+                       check=float(sum(p.double().sum() for p in runs[True]["params"].values())))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    D.shutdown(env)
+
+
+def tp_phase(counters, dev, card) -> dict:
+    """Phase 17: #1 / #4 against their plain versions at the shard shapes;
+    (a) TP_WORLD ranks of the 1.4B model (gloo on this card): one bs100
+    sample call at bf16 and at kv_q8, #1 / #4 42 x 64 launches a call on
+    each rank and no other kernel, the codes bit-equal across the ranks,
+    and the call's gathered logits of its first TP_FORCED_B rows against
+    the single process's forced_logits on the codes it drew, within
+    LOGIT_TOL / LOGIT_MEAN_TOL (one TP call a point: each costs ~8,700 gloo
+    collectives of 2-4 ms between two processes on this card, so the
+    logits check rides on the sample call; tests/test_torch_tp.py holds
+    the TP forced_logits itself on the CPU); (b) the 3.8B tool at TP 2,
+    batch 2, zero weights; (c) ZeRO-1 against the replicated step within
+    JAX's bounds, each rank holding about half of the moments. Returns the
+    launches of #1 and #4 in (a)'s and (b)'s sample calls, every rank's."""
+    import tempfile
+
+    from rqvae_tpu_torch.ops import attention_kernel as AK
+    from rqvae_tpu_torch.tools import dryrun_3p8b as DR
+
+    t_phase = time.perf_counter()
+    errs = check_shard_attention(AK, dev, torch.Generator(device=dev).manual_seed(TP_SEED))
+    torch.cuda.empty_cache()
+    attn_steps = ARCH_1P4B["body"]["n_layer"] * 64
+    launches = {"decode_attention_update": 0, "decode_attention_q8_update": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "tp-rank", str(r), str(TP_WORLD), str(port),
+                    tmp] for r in range(TP_WORLD)], TP_RANKS_TIMEOUT, "phase 17 (a) + (c) ranks")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(TP_WORLD)]
+    r0 = ranks[0]
+    failed = []
+    log(f"  (a) {TP_WORLD} ranks ({r0['backend']}, sharing {card.split(',')[0]}): the 1.4B model split in 2 "
+        f"({r0['params_local'] / 1e6:.0f}M parameters a rank, bf16; C 768 and 12 heads of 64 a shard), built from "
+        f"the same seeded weights on each rank in {r0['build_s']:.1f} s; both ranks' processes {wall:.1f} s in all")
+    for name, _, kernel in TP_POINTS:
+        err = r0[name]["logits"]
+        ok = err["finite"] and err["share"] <= 1.0 and err["mean_abs"] <= LOGIT_MEAN_TOL
+        log(f"  (a) [{name}] the TP {TP_WORLD} sample call's logits of its first {TP_FORCED_B} rows against the "
+            f"single process's forced_logits (kernels) on the codes the call drew: max_abs_err {err['max_abs']:.3e} "
+            f"mean_abs_err {err['mean_abs']:.3e}, logits std {err['std']:.3f}; bound |d| <= {LOGIT_TOL}*(1+|ref|) "
+            f"(at {err['share']:.3f} of it), mean |d| <= {LOGIT_MEAN_TOL} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"(a) {name} logits against the single process")
+        if len({rk[name]["logits_sum"] for rk in ranks}) != 1:
+            failed.append(f"(a) {name}: the ranks' gathered logits differ")
+        want = {fn.__name__: 0 for fn in counters} | {kernel: attn_steps}
+        same = all(torch.equal(rk[name]["codes"], r0[name]["codes"]) for rk in ranks[1:])
+        for rk in ranks:
+            if rk[name]["launches"] != want:
+                failed.append(f"(a) {name} rank {rk['coords'][1]}: launches {rk[name]['launches']}, not {want}")
+            launches[kernel] += rk[name]["launches"][kernel]
+        codes = r0[name]["codes"]
+        if not same or codes.shape != (BATCH, 8, 8, 4) or not (0 <= int(codes.min()) and int(codes.max()) < 16384):
+            failed.append(f"(a) {name}: codes {tuple(codes.shape)} in [{int(codes.min())}, {int(codes.max())}], "
+                          f"equal across ranks {same}")
+        log(f"  (a) [{name}] sample(bs{BATCH}), one call: codes {tuple(codes.shape)} in [{int(codes.min())}, "
+            f"{int(codes.max())}], {len(torch.unique(codes))} distinct, bit-equal on the {TP_WORLD} ranks: {same}; "
+            f"{kernel} {attn_steps} launches a call on each rank (42 x 64), every other kernel 0 "
+            f"(dense on library GEMMs under TP); " + ", ".join(
+                f"rank {rk['coords'][1]} {rk[name]['ms']:.3f} ms/sample, peak {rk[name]['peak_gib']:.2f} GiB"
+                for rk in ranks)
+            + f" (two ranks sharing one card over gloo: not a TP speed figure); {card}")
+
+    # (b): the 3.8B tool, its ranks its own processes
+    t0 = time.perf_counter()
+    (tool_out,) = run_ranks([[sys.executable, "-m", "rqvae_tpu_torch.tools.dryrun_3p8b", "--tp", "2",
+                              "--timeout", str(TP_TOOL_TIMEOUT - 20)]], TP_TOOL_TIMEOUT, "phase 17 (b) dryrun_3p8b")
+    tool_s = time.perf_counter() - t0
+    for line in tool_out.splitlines():
+        if line.startswith("# rank"):
+            log("  (b) " + line[2:])
+    summary = json.loads(tool_out.strip().splitlines()[-1])
+    steps_3p8b = DR.ARCH_3P8B["body"]["n_layer"] * 64
+    for rk in summary["ranks"]:
+        launches["decode_attention_update"] += rk["launches"]
+        if rk["launches"] != steps_3p8b or rk["kernel"] != "decode_attention_update":
+            failed.append(f"(b) rank {rk['rank']}: {rk['kernel']} {rk['launches']} launches, not {steps_3p8b}")
+    if not summary["ok"]:
+        failed.append("(b) the 3.8B tool's codes")
+    log(f"  (b) python -m rqvae_tpu_torch.tools.dryrun_3p8b --tp 2 (3.8B geometry: batch 2, embed 2560, 42 + 6 "
+        f"layers of 40 heads, zero weights, top-k 64): codes {tuple(summary['ranks'][0]['codes_shape'])} equal across "
+        f"ranks {summary['codes_equal_across_ranks']}, decode_attention_update {steps_3p8b} launches a rank; "
+        f"{tool_s:.1f} s with the ranks' start; {card}")
+
+    # (c): ZeRO-1
+    z = r0["zero"]
+    loss_ok = abs(z["loss"] - z["loss_replicated"]) <= ZERO_LOSS_RTOL * abs(z["loss_replicated"])
+    half = max(rk["zero"]["moment_bytes"] / rk["zero"]["moment_bytes_replicated"] for rk in ranks)
+    same = len({rk["zero"]["check"] for rk in ranks}) == 1
+    log(f"  (c) ZeRO-1, a stage-2 step of phase 12 (a)'s 2 + 1-layer width-1536 geometry (fp32), world batch "
+        f"{ZERO_BATCH} on {TP_WORLD} ranks: loss {z['loss']:.7f} against the replicated step's "
+        f"{z['loss_replicated']:.7f} (rtol {ZERO_LOSS_RTOL}); parameters at {z['param_share']:.3f} of the bound "
+        f"(rtol {ZERO_PARAM_RTOL}, atol {ZERO_PARAM_ATOL}), bit-equal across ranks {same}; moments a rank "
+        + ", ".join(f"{rk['zero']['moment_bytes'] / 2**20:.1f} MiB" for rk in ranks)
+        + f" against {z['moment_bytes_replicated'] / 2**20:.1f} MiB replicated ({half:.3f}); step {z['s']:.2f} s, "
+        f"replicated {z['s_replicated']:.2f} s; peak " + ", ".join(f"{rk['peak_gib']:.2f}" for rk in ranks)
+        + f" GiB; {card}")
+    if not (loss_ok and z["param_share"] <= 1.0 and same and half <= 0.51):
+        failed.append("(c) ZeRO-1 against the replicated step")
+    log(f"  #1 / #4 at the shard shapes against their plain versions: max abs err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {TOL} (1 + |plain|))")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.0f} s; {card}")
+    if failed:
+        raise AssertionError(f"phase 17: {failed}")
+    return launches
+
+
 def main() -> None:
     if sys.argv[1:2] == ["dist-rank"]:  # one rank of phase 16 (b), started by dist_phase
         dp_rank_main(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["tp-rank"]:  # one rank of phase 17 (a) and (c), started by tp_phase
+        tp_rank_main(sys.argv[2:])
+        return
     mode = sys.argv[1] if len(sys.argv) == 2 else None
-    if sys.argv[1:] and mode not in ("dense", "fused", "attention", "mlp", "q8", "nearest", "train", "stage1", "eval",
-                                     "entry", "dist"):
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are 'dense', 'fused', "
-                         f"'attention', 'mlp', 'q8', 'nearest', 'train', 'stage1', 'eval', 'entry' and 'dist'")
+    global DESIGN_AB
+    DESIGN_AB = mode in ("dense", "fused", "attention", "mlp", "q8", "nearest")
+    if sys.argv[1:] and mode not in MODES:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only ones are "
+                         + ", ".join(f"'{m}'" for m in MODES))
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA device")
+    # a hang prints every thread's stack and ends the run before the limit does
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     card = card_line()
     log(card)
     dev = torch.device("cuda", 0)
@@ -4488,16 +5007,7 @@ def main() -> None:
     from rqvae_tpu_torch.ops import rq_kernel as RK
     from rqvae_tpu_torch.ops import w8a8_kernel as W8
 
-    # every kernel wrapper's launch count, in the order of phase 4's tables
-    counters = (AK.decode_attention_update, DK.fused_ln_qkv, DK.fused_proj_mlp,
-                AK.decode_attention_q8_update, DK.fused_ln_qkv_q8, DK.fused_proj_mlp_q8, RK.nearest_code,
-                MK.decode_layer_step, AK.decode_attention_q8_update_wo, AK.decode_attention,
-                AK.decode_attention_stacked, AK.decode_attention_q8, QP.fused_proj_mlp_q8_ring,
-                QP.fused_proj_mlp_q8_packed, QP.stream_probe, QP.ablate_ring, W8.fused_proj_mlp_q8a8, MLP.fused_mlp,
-                MK.decode_layer_step_coop, AK.decode_attention_q8_update_wo_coop, AK.decode_attention_update_v1,
-                AK.decode_attention_q8_update_v1, AK.decode_attention_v1, AK.decode_attention_q8_v1,
-                MLP.fused_mlp_v1, QP.ablate_ring_v1, QP.fused_proj_mlp_q8_ring_v1, QP.fused_proj_mlp_q8_packed_v1,
-                W8.fused_proj_mlp_q8a8_v1)
+    counters = kernel_counters()
     if mode == "train":
         log(f"# phase 12: the stage-2 trainer (no kernel on its path, so no build), on {card}")
         train_phase(counters, dev, card)
@@ -4575,6 +5085,10 @@ def main() -> None:
         log(f"# phase 16: data-parallel training and the convergence proof, on {card}")
         dist_phase(counters, dev, card)
         return
+    if mode == "tp":
+        log(f"# phase 17: {TP_HEADER}, on {card}")
+        tp_phase(counters, dev, card)
+        return
     if mode == "eval":
         log(f"# phase 14: the evaluation path (the Inception extractor, the 1.4B sample-and-score loop, the CLI, "
             f"rFID), on {card}")
@@ -4640,8 +5154,12 @@ def main() -> None:
     for name, int8, options, expect in points:
         set_int8(int8)
         want = {fn.__name__: n for fn, n in zip(counters, expect)}
-        codes, times, warm_s = timed_samples(name, lambda seed: sample(seed, **options), counters, want)
-        log(f"  [{name}] warm-up sample {warm_s:.2f} s; launches in each sample(bs{BATCH}): {want}")
+        # the bf16 point: a warm-up and ROUNDS timed calls; the others one call each, their first
+        main = name == "bf16"
+        codes, times, warm_s = timed_samples(name, lambda seed: sample(seed, **options), counters, want,
+                                             rounds=ROUNDS if main else 1, warm=main)
+        log(f"  [{name}] " + (f"warm-up sample {warm_s:.2f} s; " if main else "one sample call, the point's first; ")
+            + f"launches in each sample(bs{BATCH}): {want}")
         for k, v in want.items():  # a kernel's most launches at any point (#5 / #6: int8+kv_q8's)
             launches[k] = max(launches.get(k, 0), v)
         pixels, decode_s = decode_checked(vqvae, codes, (BATCH, 8, 8, 4), 16384)
@@ -4664,8 +5182,10 @@ def main() -> None:
     log(f"  [bf16] sampling (plain versions): {plain_s * 1e3 / BATCH:.3f} ms/sample; {card}")
 
     # phase 5: the same path through the kernels and through the plain versions
-    log("# phase 5: forced_logits at B=8, kernels vs plain versions")
+    log("# phase 5: forced_logits at B=8, kernels vs plain versions, at bf16 (#1-#3) and int8+kv_q8 (#4-#6)")
     for name, int8, options, _ in points:
+        if name not in PHASE5_POINTS:  # the fused kernels (#13, #14) are held to their plain versions in phase 3
+            continue
         set_int8(int8)
         forced, fcond = results[name][:8], cond[:8]
         got = S.forced_logits(model, forced, fcond, vqvae.quantizer, kernels=True, **options)
@@ -4684,8 +5204,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"# phase 7: vqgan_huge (f16-d1-c16384), then vqgan_large (f16-d1-c1024, head size 104), "
         f"class-conditional sampling through the stacked-cache sampler + RQ-VAE decode, bs{BATCH}, on {card}")
+    # vqgan_huge's forced_logits check is left out: phase 3 holds #10 / #12 at its [4, 100, 257, 1536]
+    # stack, and vqgan_large's check runs the same sampler end to end
     launches["decode_attention_stacked"] = launches["decode_attention"] = vqgan_phase(S, counters, dev, card,
-                                                                                    "vqgan_huge")
+                                                                                    "vqgan_huge", False)
     torch.cuda.empty_cache()
     attn_read104["launches"] = vqgan_phase(S, counters, dev, card, "vqgan_large")
     torch.cuda.empty_cache()
@@ -4747,6 +5269,12 @@ def main() -> None:
         f"main_stage1 under torch.distributed.run; (d) #1-#3 at C 512 and train_convergence at full geometry, "
         f"{CONV_STEPS1} / {CONV_STEPS2} steps; on {card}")
     for name, n in dist_phase(counters, dev, card).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+
+    # phase 17: tensor-parallel sampling (#1 / #4 on each rank's shard) and ZeRO-1
+    log(f"# phase 17: {TP_HEADER}, on {card}")
+    for name, n in tp_phase(counters, dev, card).items():
         launches[name] += n
 
     kernels = [

@@ -49,6 +49,26 @@ raises ValueError. `kernels=False` swaps every kernel for its plain version
 (the same path on the same device), which is how the card compares the
 two paths.
 
+Tensor parallelism (the JAX package's Megatron split under a mesh, model
+_pallas_attn_sharded / _pallas_attn_q8_sharded and the psum after wo and
+w2): an RQTransformer built with a parallel/mesh.py Mesh of n_model > 1
+holds model rank m's slice of every tensor that mesh.transformer_param_specs
+splits, under the unsharded model's state_dict keys
+(mesh.shard_state_dict makes it from the full one). Each block keeps its
+head group, n_head / n_model heads: query, key, value and the first MLP
+projection split by output features (so the fused wqkv is [3C/tp, C]),
+proj and the second MLP projection by input features, their products
+summed over the model group before the replicated bias and the residual
+(dist.group_sum); the classifiers split by vocabulary, their logit slices
+gathered (dist.group_gather_last) before the mask and the draw. The caches
+are the local [B, T, C/tp] (int8 scales [B, T, n_head/tp]), so a body
+S == 1 step runs the same attention kernels per shard. Dense runs on
+F.linear (_mm for int8 weights) in both stacks, as JAX's sampler pins
+dense to XLA under a mesh (_tp_safe_policy); dense="mega" and attn_wo
+raise ValueError (JAX drops them without a word), and so do the stacked
+cache (stack_step) and the teacher-forced forward, which are not ported
+for a split model.
+
 The training half is the teacher-forced `forward` (RQTransformer.forward):
 the embeddings (tuple_tok_emb, input_embed, head_embed), `stack_forward`
 over the body and the head with causal attention in fp32 scores and
@@ -82,6 +102,8 @@ from rqvae_tpu_torch.models.rqtransformer.config import StackConfig, Transformer
 from rqvae_tpu_torch.ops import attention_kernel as AK
 from rqvae_tpu_torch.ops import decode_layer_kernel as DK
 from rqvae_tpu_torch.ops import decode_megakernel as MK
+from rqvae_tpu_torch.parallel import dist as pdist
+from rqvae_tpu_torch.parallel.mesh import param_spec
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -106,14 +128,19 @@ def tok_emb_offsets(config: TransformerConfig) -> np.ndarray:
     return np.cumsum([0] + list(config.vocab_size[:-1])).astype(np.int64)
 
 
-def quantize_weight(w: torch.Tensor, in_dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, in_dim: int = -1, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 weight-only quantization with one scale per output channel, as
     the JAX _quantize_weight: scale = max(amax over the input dim, 1e-8) /
     127 in fp32, q = clip(round(w / scale), -127, 127) with the fp32 scale
     (half to even). Returns (q int8 of w's shape, scale bf16 without the
-    input dim). `in_dim` is -1 for nn.Linear [out, in], -2 for [.., in, out]."""
+    input dim). `in_dim` is -1 for nn.Linear [out, in], -2 for [.., in, out].
+    For a weight split by input features over the model group `group`, the
+    amax is the group's maximum: the unsharded weight's scale."""
     w32 = w.detach().float()
-    amax = w32.abs().amax(dim=in_dim, keepdim=True).clamp_min(1e-8)
+    amax = w32.abs().amax(dim=in_dim, keepdim=True)
+    if group is not None:
+        torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX, group=group)
+    amax = amax.clamp_min(1e-8)
     scale = amax / torch.full_like(amax, 127.0)
     q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
     return q, scale.squeeze(in_dim).to(torch.bfloat16)
@@ -126,12 +153,15 @@ def _mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, C: int, fk):
+    """The four projections; split over n_model ranks, query / key / value
+    hold C / n_model output features and proj as many input features."""
+
+    def __init__(self, C: int, fk, n_model: int = 1):
         super().__init__()
-        self.query = nn.Linear(C, C, **fk)
-        self.key = nn.Linear(C, C, **fk)
-        self.value = nn.Linear(C, C, **fk)
-        self.proj = nn.Linear(C, C, **fk)
+        self.query = nn.Linear(C, C // n_model, **fk)
+        self.key = nn.Linear(C, C // n_model, **fk)
+        self.value = nn.Linear(C, C // n_model, **fk)
+        self.proj = nn.Linear(C // n_model, C, **fk)
 
 
 INT8_WEIGHTS = ("wqkv", "wo", "w1", "w2")  # a block's int8 buffers: {name}_q, {name}_s
@@ -142,15 +172,16 @@ class Block(nn.Module):
     [3C, C] / [3C] query-key-value projection: derived, non-persistent
     buffers (the state_dict keeps the reference layout), rebuilt by
     `fuse_qkv`. The int8 buffers {wqkv,wo,w1,w2}_{q,s} are None until
-    RQTransformer.quantize_int8 or load_int8 sets them."""
+    RQTransformer.quantize_int8 or load_int8 sets them. Split over n_model
+    ranks (module docstring), the block holds its slice of each."""
 
-    def __init__(self, cfg: StackConfig, fk):
+    def __init__(self, cfg: StackConfig, fk, n_model: int = 1):
         super().__init__()
-        C = cfg.embed_dim
+        C, H = cfg.embed_dim, 4 * cfg.embed_dim // n_model
         self.ln1 = nn.LayerNorm(C, eps=LN_EPS, **fk)
         self.ln2 = nn.LayerNorm(C, eps=LN_EPS, **fk)
-        self.attn = Attention(C, fk)
-        self.mlp = nn.Sequential(nn.Linear(C, 4 * C, **fk), nn.GELU(), nn.Linear(4 * C, C, **fk))
+        self.attn = Attention(C, fk, n_model)
+        self.mlp = nn.Sequential(nn.Linear(C, H, **fk), nn.GELU(), nn.Linear(H, C, **fk))
         self.register_buffer("wqkv", None, persistent=False)
         self.register_buffer("bqkv", None, persistent=False)
         for name in INT8_WEIGHTS:
@@ -174,52 +205,78 @@ class Block(nn.Module):
 
 
 class Stack(nn.Module):
-    """The body or the head stack; `role` selects its kernels (module doc)."""
+    """The body or the head stack; `role` selects its kernels (module doc).
+    `n_head` and `width` are this rank's heads and cache width (the whole
+    stack's without a model group), `group` the model group or None."""
 
-    def __init__(self, cfg: StackConfig, role: str, fk):
+    def __init__(self, cfg: StackConfig, role: str, fk, n_model: int = 1, group=None):
         super().__init__()
         if role not in ("body", "head"):
             raise ValueError(f"unknown stack role {role!r}")
         self.cfg = cfg
         self.role = role
-        self.blocks = nn.ModuleList(Block(cfg, fk) for _ in range(cfg.n_layer))
+        self.n_head = cfg.n_head // n_model
+        self.width = cfg.embed_dim // n_model
+        self.group = group
+        self.blocks = nn.ModuleList(Block(cfg, fk, n_model) for _ in range(cfg.n_layer))
 
 
 class Classifier(nn.Module):
     """LayerNorm + a shared nn.Linear, or per-depth weights [D, C, V]. With
     int8 weights, weight_q has the weight's layout and weight_s [V] or
-    [D, V] holds the per-output scales."""
+    [D, V] holds the per-output scales. Split over n_model ranks, it holds
+    V / n_model of the vocabulary."""
 
-    def __init__(self, config: TransformerConfig, fk):
+    def __init__(self, config: TransformerConfig, fk, n_model: int = 1):
         super().__init__()
         C = config.embed_dim
         self.register_buffer("weight_q", None, persistent=False)
         self.register_buffer("weight_s", None, persistent=False)
         self.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
         if config.shared_cls_emb:
-            self.linear = nn.Linear(C, config.vocab_size[0], **fk)
+            self.linear = nn.Linear(C, config.vocab_size[0] // n_model, **fk)
         else:
             self.linear = nn.Module()
-            D, V = config.depth, config.vocab_size_max
+            D, V = config.depth, config.vocab_size_max // n_model
             self.linear.weight = nn.Parameter(torch.empty(D, C, V, **fk))
             self.linear.bias = nn.Parameter(torch.empty(D, V, **fk))
 
 
-class RQTransformer(nn.Module):
-    """Built on `device`, or on CUDA when it is None (resolve_device)."""
+def check_tensor_parallel(config: TransformerConfig, n_model: int) -> None:
+    """Raise ValueError unless n_model splits the model: the width, each
+    stack's heads, the vocabulary and (with a condition longer than one
+    token) the condition's vocabulary."""
+    sizes = {"embed_dim": config.embed_dim, "body n_head": config.body.n_head, "head n_head": config.head.n_head,
+             "vocab_size": config.vocab_size_max}
+    if config.block_size_cond > 1:
+        sizes["vocab_size_cond"] = config.vocab_size_cond
+    bad = {k: v for k, v in sizes.items() if v % n_model}
+    if bad:
+        raise ValueError(f"tensor parallelism over {n_model} ranks splits each of {sorted(sizes)}: "
+                         f"{n_model} does not divide {bad}")
 
-    def __init__(self, config: TransformerConfig, device=None, dtype=None):
+
+class RQTransformer(nn.Module):
+    """Built on `device`, or on CUDA when it is None (resolve_device). With
+    a parallel/mesh.py Mesh of n_model > 1 it holds this rank's slice of
+    the model (module docstring); `mesh` is kept as the model's."""
+
+    def __init__(self, config: TransformerConfig, device=None, dtype=None, mesh=None):
         super().__init__()
         device = resolve_device(device)
         fk = dict(device=device, dtype=dtype)
         C, D = config.embed_dim, config.depth
+        n_model = 1 if mesh is None else mesh.n_model
+        check_tensor_parallel(config, n_model)
+        group = None if mesh is None else mesh.model_group
         self.config = config
+        self.mesh = mesh
         self.cond_emb = nn.Embedding(config.vocab_size_cond, C, **fk)
         self.pos_emb_cond = nn.Parameter(torch.empty(1, config.block_size_cond, C, **fk))
         self.pos_emb_hw = nn.Parameter(torch.empty(1, config.hw, C, **fk))
         self.pos_emb_d = nn.Parameter(torch.empty(1, D, C, **fk))
-        self.body_transformer = Stack(config.body, "body", fk)
-        self.head_transformer = Stack(config.head, "head", fk)
+        self.body_transformer = Stack(config.body, "body", fk, n_model, group)
+        self.head_transformer = Stack(config.head, "head", fk, n_model, group)
         if config.input_emb_vqvae:
             self.input_mlp = nn.Linear(config.input_embed_dim, C, **fk)
         if config.head_emb_vqvae:
@@ -233,22 +290,30 @@ class RQTransformer(nn.Module):
                 self.tok_emb.register_buffer(
                     "offsets", torch.as_tensor(tok_emb_offsets(config), device=device)
                 )
-        self.classifier = Classifier(config, fk)
+        self.classifier = Classifier(config, fk, n_model)
         if config.block_size_cond > 1:
             self.cond_classifier = nn.Module()
             self.cond_classifier.layer_norm = nn.LayerNorm(C, eps=LN_EPS, **fk)
-            self.cond_classifier.linear = nn.Linear(C, config.vocab_size_cond, **fk)
+            self.cond_classifier.linear = nn.Linear(C, config.vocab_size_cond // n_model, **fk)
         # new float weights make the int8 buffers stale: drop them
         self.register_load_state_dict_post_hook(lambda module, _: module.clear_int8())
+
+    @property
+    def tp_group(self):
+        """The model group this model is split over, or None."""
+        return self.body_transformer.group
 
     def forward(self, xs, cond=None, xs_emb=None, generator=None, deterministic=True, remat=False):
         """The teacher-forced forward: the module-level `forward`."""
         return forward(self, xs, cond, xs_emb, generator, deterministic, remat)
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
+    def init_weights(self, generator: torch.Generator, split_generator: torch.Generator | None = None) -> None:
         """GPT-style init from `generator`: N(0, 0.02) for every weight matrix,
-        embedding and position table; zero biases; unit LayerNorm scales."""
+        embedding and position table; zero biases; unit LayerNorm scales.
+        The tensors that a model group splits draw from `split_generator`
+        when it is given (a generator seeded per rank; the replicated ones
+        then draw alike on every rank from `generator`)."""
         ln_scales = {id(m.weight) for m in self.modules() if isinstance(m, nn.LayerNorm)}
         for name, p in self.named_parameters():
             if id(p) in ln_scales:
@@ -256,7 +321,9 @@ class RQTransformer(nn.Module):
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
+                split = split_generator is not None and param_spec(name, p.dim()) is not None
+                gen = split_generator if split else generator
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
         self.fuse_qkv()
         self.clear_int8()
 
@@ -276,13 +343,17 @@ class RQTransformer(nn.Module):
         fused [3C, C] wqkv equals quantizing wq, wk, wv apart: the scales
         are per output channel. The buffers are a snapshot of the float
         weights, which stay beside them: load_state_dict and init_weights
-        drop them; after changing weights in place, quantize again."""
+        drop them; after changing weights in place, quantize again. A split
+        model quantizes its slices with the unsharded model's scales, as
+        JAX's quantize_transformer_params of sharded parameters does (GSPMD
+        takes the amax of wo and w2 over the whole input dim), so each rank
+        holds its slice of the unsharded model's int8 weights."""
         self.fuse_qkv()
         buffers = {}
         for sname in ("body_transformer", "head_transformer"):
             for i, blk in enumerate(getattr(self, sname).blocks):
                 for name, w in blk.float_weights().items():
-                    q, scale = quantize_weight(w)
+                    q, scale = quantize_weight(w, group=self.tp_group if name in ("wo", "w2") else None)
                     buffers[f"{sname}.blocks.{i}.{name}_q"] = q
                     buffers[f"{sname}.blocks.{i}.{name}_s"] = scale
         q, scale = quantize_weight(self.classifier.linear.weight, -1 if self.config.shared_cls_emb else -2)
@@ -317,20 +388,21 @@ class RQTransformer(nn.Module):
             setattr(mod, attr, None)
 
 
-def init_unrolled_kv_cache(cfg: StackConfig, batch: int, t_max: int, dtype, device):
-    """Per-layer (k, v) caches, each [batch, t_max, C], zeroed."""
-    shape = (batch, t_max, cfg.embed_dim)
+def init_unrolled_kv_cache(cfg: StackConfig, batch: int, t_max: int, dtype, device, n_model: int = 1):
+    """Per-layer (k, v) caches, each [batch, t_max, C / n_model], zeroed."""
+    shape = (batch, t_max, cfg.embed_dim // n_model)
     return [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(cfg.n_layer)
     ]
 
 
-def init_unrolled_kv_cache_q8(cfg: StackConfig, batch: int, t_max: int, device):
+def init_unrolled_kv_cache_q8(cfg: StackConfig, batch: int, t_max: int, device, n_model: int = 1):
     """Per-layer int8 caches (kq, ks, vq, vs), zeroed: values int8
-    [batch, t_max, C], per-(row, head) scales bf16 [batch, t_max, n_head]."""
-    shape = (batch, t_max, cfg.embed_dim)
-    sshape = (batch, t_max, cfg.n_head)
+    [batch, t_max, C / n_model], per-(row, head) scales bf16 [batch, t_max,
+    n_head / n_model]."""
+    shape = (batch, t_max, cfg.embed_dim // n_model)
+    sshape = (batch, t_max, cfg.n_head // n_model)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -379,13 +451,14 @@ def stack_step_unrolled(
     per (row, head) for int8 caches) and returns (out [B, S, C], caches).
     A block with int8 buffers uses them for its four dense products. The
     kernel rule, and what `dense` and `attn_wo` select, is in the module
-    docstring."""
+    docstring; a split stack (its model group) runs the per-shard form
+    there."""
     if len(stack.blocks) == 0:
         return x, caches
-    B, S, C = x.shape
-    n_head = stack.cfg.n_head
+    B, S, _ = x.shape
+    n_head, C, group = stack.n_head, stack.width, stack.group
     q8_cache = len(caches[0]) == 4
-    check_fused_path(dense, attn_wo, q8_cache, stack.blocks[0].int8)
+    check_fused_path(dense, attn_wo, q8_cache, stack.blocks[0].int8, group is not None)
     T = caches[0][0].shape[1]
     t_max = T if window is None else min(window, T)
     body_step = stack.role == "body" and S == 1
@@ -402,8 +475,9 @@ def stack_step_unrolled(
         return xt[:, None], caches
     attn_wo_fn = AK.decode_attention_q8_update_wo if kernels else AK.decode_attention_q8_update_wo_plain
     body_attn = kernels and body_step
-    # the dense kernel pair: a head S == 1 step, and a body one with int8 weights
-    fused_dense = S == 1 and (stack.role == "head" or stack.blocks[0].int8)
+    # the dense kernel pair: a head S == 1 step, and a body one with int8
+    # weights; a split stack runs F.linear / _mm (JAX's _tp_safe_policy)
+    fused_dense = S == 1 and (stack.role == "head" or stack.blocks[0].int8) and group is None
     if q8_cache:
         attn_fn = AK.decode_attention_q8_update if body_attn else AK.decode_attention_q8_update_plain
     else:
@@ -437,7 +511,7 @@ def stack_step_unrolled(
                 y = _attention_prefill(q, k, v, k_l[:, :n_past], v_l[:, :n_past], n_head)
                 k_l[:, cur_len : cur_len + S] = k.to(k_l.dtype)
                 v_l[:, cur_len : cur_len + S] = v.to(v_l.dtype)
-        x = _block_out(blk, x, y, fused_dense, kernels, stack.cfg.gelu)
+        x = _block_out(blk, x, y, fused_dense, kernels, stack.cfg.gelu, group)
     return x, caches
 
 
@@ -459,12 +533,13 @@ def _block_qkv(blk: Block, x: torch.Tensor, fused_dense: bool, kernels: bool) ->
 
 
 def _block_out(blk: Block, x: torch.Tensor, y: torch.Tensor, fused_dense: bool, kernels: bool,
-               gelu_version: str) -> torch.Tensor:
+               gelu_version: str, group=None) -> torch.Tensor:
     """The rest of the block after attention: x2 = x + y @ wo + bo, then
     x2 + MLP(LN2(x2)). An S == 1 step given `fused_dense` runs
     fused_proj_mlp (fused_proj_mlp_q8 for int8 weights), or its plain
     version when not `kernels`; anything else F.linear (_mm for int8
-    weights)."""
+    weights). With a model group the row-parallel products are summed over
+    it before their bias is added."""
     mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
     ln2, bo = (blk.ln2.weight, blk.ln2.bias), blk.attn.proj.bias
     if fused_dense and blk.int8:
@@ -479,6 +554,10 @@ def _block_out(blk: Block, x: torch.Tensor, y: torch.Tensor, fused_dense: bool, 
             x[:, 0], y[:, 0], blk.attn.proj.weight, bo, *ln2, mlp0.weight, mlp0.bias,
             mlp2.weight, mlp2.bias, gelu_version=gelu_version,
         )[:, None]
+    if group is not None:
+        proj = _mm(y, blk.wo_q, blk.wo_s) if blk.int8 else F.linear(y, blk.attn.proj.weight)
+        x2 = x + pdist.group_sum(proj, group) + bo
+        return x2 + pdist.group_sum(_mlp(blk, layer_norm(x2, *ln2), gelu_version, with_b2=False), group) + mlp2.bias
     x2 = x + (_mm(y, blk.wo_q, blk.wo_s) + bo if blk.int8 else F.linear(y, blk.attn.proj.weight, bo))
     return x2 + _mlp(blk, layer_norm(x2, *ln2), gelu_version)
 
@@ -514,6 +593,9 @@ def stack_step(stack: Stack, x: torch.Tensor, cache: KVCache, cur_len: int, kern
     out: every step reads all rows < cur_len. Returns (out [B, S, C], cache)."""
     if len(stack.blocks) == 0:
         return x, cache
+    if stack.group is not None:
+        raise ValueError("stack_step: the stacked cache is not ported for a tensor-parallel model; "
+                         "sample it unrolled (unroll=True)")
     B, S, C = x.shape
     if cur_len + S > cache.k.shape[2]:
         raise ValueError(f"stack_step: rows {cur_len} .. {cur_len + S} outside the cache (T={cache.k.shape[2]})")
@@ -539,21 +621,29 @@ def stack_step(stack: Stack, x: torch.Tensor, cache: KVCache, cur_len: int, kern
     return x, cache
 
 
-def _mlp(blk, h: torch.Tensor, gelu_version: str) -> torch.Tensor:
-    """The block's MLP on h (LN2's output): int8 weights through _mm."""
+def _mlp(blk, h: torch.Tensor, gelu_version: str, with_b2: bool = True) -> torch.Tensor:
+    """The block's MLP on h (LN2's output): int8 weights through _mm;
+    without the second bias when not `with_b2` (a split block adds it
+    after the sum over its model group)."""
     mlp0, mlp2 = blk.mlp[0], blk.mlp[2]
+    b2 = mlp2.bias if with_b2 else None
     if blk.int8:
-        return _mm(gelu(_mm(h, blk.w1_q, blk.w1_s) + mlp0.bias, gelu_version), blk.w2_q, blk.w2_s) + mlp2.bias
-    return F.linear(gelu(F.linear(h, mlp0.weight, mlp0.bias), gelu_version), mlp2.weight, mlp2.bias)
+        out = _mm(gelu(_mm(h, blk.w1_q, blk.w1_s) + mlp0.bias, gelu_version), blk.w2_q, blk.w2_s)
+        return out if b2 is None else out + b2
+    return F.linear(gelu(F.linear(h, mlp0.weight, mlp0.bias), gelu_version), mlp2.weight, b2)
 
 
-def check_fused_path(dense: str, attn_wo: bool, q8_cache: bool, int8_weights: bool) -> None:
+def check_fused_path(dense: str, attn_wo: bool, q8_cache: bool, int8_weights: bool,
+                     tensor_parallel: bool = False) -> None:
     """Raise ValueError for a fused body path that cannot run: dense not in
     ("auto", "mega"); dense="mega" with an int8 cache or int8 weights;
-    attn_wo without an int8 cache. (The JAX package runs its unfused path
-    there without a word.)"""
+    attn_wo without an int8 cache; either fused path on a split model.
+    (The JAX package runs its unfused path there without a word.)"""
     if dense not in ("auto", "mega"):
         raise ValueError(f"dense={dense!r}: the port serves 'auto' and 'mega'")
+    if tensor_parallel and (dense == "mega" or attn_wo):
+        raise ValueError("a tensor-parallel model runs the unfused body layer (its dense products on F.linear, "
+                         "summed over the model group): not dense='mega' or attn_wo")
     if dense == "mega" and (q8_cache or int8_weights):
         raise ValueError("dense='mega' runs bf16 or fp32 (k, v) caches and float weights: "
                          "not with an int8 KV cache (kv_q8) or int8 weights")
@@ -574,15 +664,18 @@ def classifier_apply(model: RQTransformer, h: torch.Tensor, depth_idx: int | Non
     """h [..., D, C] (all depths) or [..., C] with depth_idx (a decode step):
     LayerNorm, then the shared or per-depth projection (int8 through the
     JAX _mm rounding when the classifier holds int8 buffers), then the
-    logit mask."""
+    logit mask. A split classifier's vocabulary slices are gathered over
+    the model group before the mask."""
     config = model.config
     cls = model.classifier
+    group = model.tp_group
     h = layer_norm(h, cls.layer_norm.weight, cls.layer_norm.bias)
     if config.shared_cls_emb:
         if cls.weight_q is not None:
             logits = _mm(h, cls.weight_q, cls.weight_s) + cls.linear.bias
         else:
             logits = F.linear(h, cls.linear.weight, cls.linear.bias)
+        logits = pdist.group_gather_last(logits, group)
         return logits if depth_idx is not None else apply_logit_mask(logits, config)
     w, b = cls.linear.weight, cls.linear.bias
     if cls.weight_q is not None:  # int8 [D, C, V] with scales [D, V]
@@ -591,11 +684,11 @@ def classifier_apply(model: RQTransformer, h: torch.Tensor, depth_idx: int | Non
         logits = torch.einsum("...dc,dcv->...dv", h, w)
         if cls.weight_q is not None:
             logits = logits * cls.weight_s.to(h.dtype)
-        return apply_logit_mask(logits + b, config)
+        return apply_logit_mask(pdist.group_gather_last(logits + b, group), config)
     logits = h @ w[depth_idx]
     if cls.weight_q is not None:
         logits = logits * cls.weight_s[depth_idx].to(h.dtype)
-    logits = logits + b[depth_idx]
+    logits = pdist.group_gather_last(logits + b[depth_idx], group)
     if config.heterogeneous_vocab:
         col = torch.arange(config.vocab_size_max, device=logits.device)
         logits = logits.masked_fill(col >= config.vocab_size[depth_idx], float("-inf"))
@@ -732,6 +825,8 @@ def forward(
     config = model.config
     if model.classifier.weight_q is not None:
         raise ValueError("forward runs the float weights; call clear_int8() first")
+    if model.tp_group is not None:
+        raise ValueError("the teacher-forced forward is not ported for a tensor-parallel model")
     B, H, W, D = xs.shape
     seq_len, cond_len = H * W, config.block_size_cond
     xs_flat = xs.reshape(B, seq_len, D)

@@ -30,6 +30,19 @@ Random draws come from an explicit
 torch.Generator (Gumbel-max on the filtered log-probabilities, the same
 categorical distribution as jax.random.categorical, not the same numbers).
 
+A model split over a mesh (model.py's tensor parallelism) runs the
+unrolled form on its shards: the group comes from the model (JAX finds the
+mesh from the parameters' shardings). Its caches are the local [B, T,
+C/tp]; the dense products run on F.linear, so no dense kernel launches,
+and the body's attention kernels run per shard. The stacked form,
+dense="mega" and attn_wo raise ValueError there. The batch is split over
+the mesh's data axis: data rank d samples rows d*B/n_data onwards and the
+codes (forced_logits' logits) are gathered over the data group, so every
+rank returns the whole batch. Each draw takes the uniforms of the whole
+batch from the generator and keeps its rows, and every rank of a model
+group draws on the same gathered logits: ranks seeded alike return the
+same codes, the single process's for the same logits.
+
 Sampling semantics follow the reference sample_from_logits: fp32 cast,
 temperature, top-k on logits (keeping ties with the k-th value), NaN guard,
 softmax, top-p on probabilities (sorted cumsum shifted right), draw.
@@ -54,6 +67,7 @@ from rqvae_tpu_torch.models.rqtransformer.model import (
     stack_step_unrolled,
 )
 from rqvae_tpu_torch.ops.quantize import RQCodebooks, embed_lookup
+from rqvae_tpu_torch.parallel import dist as pdist
 
 # the position loop runs in 2 phases of growing cache window (the JAX
 # sampler's default); the results do not depend on it
@@ -75,9 +89,16 @@ def top_p_probs(probs: torch.Tensor, p: float) -> torch.Tensor:
     return probs / probs.sum(dim=-1, keepdim=True)
 
 
-def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One draw per row from softmax(logits) by Gumbel-max."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+def _categorical(logits: torch.Tensor, generator: torch.Generator, rows: Optional[tuple] = None) -> torch.Tensor:
+    """One draw per row from softmax(logits) by Gumbel-max. With `rows`
+    (first, total) the logits are rows first .. of a batch of `total`: the
+    uniforms of the whole batch are drawn and these rows' kept."""
+    if rows is None:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    else:
+        first, total = rows
+        u = torch.rand((total, *logits.shape[1:]), generator=generator, device=logits.device)
+        u = u[first : first + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
 
@@ -88,8 +109,10 @@ def sample_from_logits(
     temperature: float = 1.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    rows: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """The reference-exact draw (keeps every logit tied with the k-th)."""
+    """The reference-exact draw (keeps every logit tied with the k-th);
+    `rows` as _categorical's."""
     logits = logits.float() / temperature
     if top_k is not None and top_k < logits.shape[-1]:
         logits = top_k_logits(logits, top_k)
@@ -98,7 +121,7 @@ def sample_from_logits(
     if top_p is not None:
         probs = top_p_probs(probs, top_p)
     log_probs = torch.where(probs > 0, torch.log(probs.clamp_min(1e-38)), float("-inf"))
-    return _categorical(log_probs, generator)
+    return _categorical(log_probs, generator, rows)
 
 
 def fast_candidates(
@@ -129,10 +152,12 @@ def sample_from_logits_fast(
     temperature: float = 1.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    rows: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """The distribution-identical fast draw (draws in top-k space)."""
+    """The distribution-identical fast draw (draws in top-k space); `rows`
+    as _categorical's."""
     vals, idx = fast_candidates(logits, temperature, top_k, top_p)
-    j = _categorical(vals, generator)
+    j = _categorical(vals, generator, rows)
     return j if idx is None else idx.gather(-1, j[..., None])[..., 0]
 
 
@@ -159,7 +184,8 @@ def broadcast_topk_topp(config: TransformerConfig, top_k, top_p):
     return top_k_list, top_p_list
 
 
-# pick(t, d, logits [B, V]) -> codes [B] for position t, depth d
+# pick(t, d, logits [b, V]) -> codes [b] for position t, depth d of this
+# rank's rows (the batch's data shard)
 Pick = Callable[[int, int, torch.Tensor], torch.Tensor]
 
 
@@ -182,15 +208,21 @@ def _decode(
     attn_wo: bool,
     unroll: Optional[bool],
 ) -> torch.Tensor:
-    """The cached decode loop shared by `sample` and `forced_logits`.
-    Returns codes [B, H, W, D] (int64)."""
+    """The cached decode loop shared by `sample` and `forced_logits`, over
+    `batch_size` rows (cond's, this rank's data shard). Returns codes
+    [batch_size, H, W, D] (int64)."""
     config = model.config
     unroll = resolve_unroll(config, unroll)
+    tp = model.tp_group is not None
+    n_model = 1 if model.mesh is None else model.mesh.n_model
+    if tp and not unroll:
+        raise ValueError("a tensor-parallel model samples through the unrolled caches (unroll=True); the stacked "
+                         "cache is not ported for it")
     if not unroll and (kv_q8 or dense == "mega" or attn_wo):
         raise ValueError("the stacked-cache path (unroll=False) runs the bf16/fp32 KV cache and the unfused "
                          "body layer: not kv_q8, dense='mega' or attn_wo")
     body_blocks = model.body_transformer.blocks
-    check_fused_path(dense, attn_wo, kv_q8, len(body_blocks) > 0 and body_blocks[0].int8)
+    check_fused_path(dense, attn_wo, kv_q8, len(body_blocks) > 0 and body_blocks[0].int8, tp)
     fused = dict(dense=dense, attn_wo=attn_wo)
     H, W, D = config.block_size
     HW = H * W
@@ -233,9 +265,9 @@ def _decode(
         t_max = cond_len + HW - 1  # the last position's k/v are never read
         if kv_q8:
             t_alloc = -(-t_max // 32) * 32  # the JAX sampler's int8 row tile; rows >= cur_len are never read
-            body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device)
+            body_caches = init_unrolled_kv_cache_q8(config.body, B, t_alloc, device, n_model)
         else:
-            body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device)
+            body_caches = init_unrolled_kv_cache(config.body, B, t_max, dtype, device, n_model)
 
         def body_step(x, cur_len, window=None):
             return stack_step_unrolled(body, x, body_caches, cur_len, window=window, kernels=kernels, **fused)[0]
@@ -244,7 +276,7 @@ def _decode(
             return stack_step_unrolled(head, row, caches, d, kernels=kernels)[0]
 
         def init_head_caches():
-            return init_unrolled_kv_cache(config.head, B, D, dtype, device)
+            return init_unrolled_kv_cache(config.head, B, D, dtype, device, n_model)
 
         # phased position loop over the first HW - 1 positions: a phase's
         # steps attend only a prefix `window` of each cache (the rows any of
@@ -326,14 +358,31 @@ def sample(
     the body's wo, residual and LN2 into its int8-cache attention (both
     ValueError where they cannot run: model.check_fused_path); `unroll`
     picks the unrolled or the stacked-cache loop (module docstring; None:
-    H*W <= 128)."""
+    H*W <= 128). A model on a mesh samples its data shard of the batch
+    and returns the whole batch (module docstring)."""
     top_k_list, top_p_list = broadcast_topk_topp(model.config, top_k, top_p)
     draw = sample_from_logits if exact_sample else sample_from_logits_fast
+    first, b, data_group = data_shard(model, batch_size)
+    rows = None if data_group is None else (first, batch_size)
 
     def pick(t, d, logits):
-        return draw(logits, generator, temperature, top_k_list[d], top_p_list[d])
+        return draw(logits, generator, temperature, top_k_list[d], top_p_list[d], rows)
 
-    return _decode(model, batch_size, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
+    cond = None if cond is None else cond[first : first + b]
+    codes = _decode(model, b, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
+    return pdist.group_gather_first(codes, data_group)
+
+
+def data_shard(model: RQTransformer, batch_size: int) -> tuple[int, int, object]:
+    """(first row, rows, data group) of this rank's shard of a batch: the
+    whole batch and None without a mesh or with one data rank."""
+    mesh = model.mesh
+    if mesh is None or mesh.n_data == 1:
+        return 0, batch_size, None
+    if batch_size % mesh.n_data:
+        raise ValueError(f"a batch of {batch_size} does not split over {mesh.n_data} data ranks")
+    b = batch_size // mesh.n_data
+    return mesh.data_rank * b, b, mesh.data_group
 
 
 def forced_logits(
@@ -351,12 +400,14 @@ def forced_logits(
     forced to `forced`: the sampler's cached path (`sample`'s options) with
     the draw replaced by the given codes."""
     B, H, W, D = forced.shape
-    forced_flat = forced.reshape(B, H * W, D).to(model.pos_emb_hw.device)
-    out = torch.empty(B, H * W, D, model.config.vocab_size_max, dtype=torch.float32, device=forced_flat.device)
+    first, b, data_group = data_shard(model, B)
+    forced_flat = forced[first : first + b].reshape(b, H * W, D).to(model.pos_emb_hw.device)
+    out = torch.empty(b, H * W, D, model.config.vocab_size_max, dtype=torch.float32, device=forced_flat.device)
 
     def pick(t, d, logits):
         out[:, t, d] = logits.float()
         return forced_flat[:, t, d]
 
-    _decode(model, B, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
-    return out.reshape(B, H, W, D, -1)
+    cond = None if cond is None else cond[first : first + b]
+    _decode(model, b, pick, cond, quantizer, kernels, kv_q8, dense, attn_wo, unroll)
+    return pdist.group_gather_first(out, data_group).reshape(B, H, W, D, -1)

@@ -122,7 +122,7 @@ def _compile(src: Path) -> tuple[str, str, float]:
     tmp = _lib_path(src).with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False, timeout=900)
     seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(

@@ -22,6 +22,14 @@ trainer's fp32 master weights). The arithmetic runs as foreach kernels
 over chunks of at most CHUNK_ELEMENTS elements, so that its temporaries
 stay small beside the moments. After step(), each .grad holds the
 gradient as clipped.
+
+ZeRO-1 (step(zero=env)): each of env's ranks keeps and updates only its
+slice of each moment, split over the ranks on its first dim that the world
+size divides (parallel/mesh.py zero_dim; a tensor without one is kept
+whole on every rank), from the gradient every rank already holds reduced
+and clipped; the updated slices of the parameters are then all-gathered,
+one collective for each run of parameters. Every operation is elementwise,
+so the parameters equal the replicated step's.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
+
+from rqvae_tpu_torch.parallel import dist as D
+from rqvae_tpu_torch.parallel.mesh import shard, zero_dim
 
 OPTIMIZERS = ("adamw", "adam", "sgd")
 ADAM_EPS = 1e-8  # optax.adam's eps (eps_root 0)
@@ -84,51 +96,94 @@ class Optimizer(torch.optim.Optimizer):
         self.schedule = schedule
         self._runs = _chunks(self.param_groups[0]["params"])
 
-    def _moment(self, p: torch.Tensor, name: str) -> torch.Tensor:
+    def _moment(self, p: torch.Tensor, name: str, view: torch.Tensor) -> torch.Tensor:
+        """p's moment `name` for the update of `view` (p itself, or its ZeRO
+        slice), made as zeros at the first step."""
         state = self.state[p]
         if name not in state:
-            state[name] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state[name] = torch.zeros_like(view, memory_format=torch.preserve_format)
+        elif state[name].shape != view.shape:
+            raise ValueError(f"a moment of shape {tuple(state[name].shape)} for {tuple(view.shape)}: the ZeRO-1 "
+                             "split changed between steps")
         return state[name]
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, zero: D.DistEnv | None = None) -> None:
+        """One update of every parameter; with `zero` (a DistEnv over which
+        the gradients are already reduced) the ZeRO-1 update (module
+        docstring)."""
         group = self.param_groups[0]
         params = group["params"]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        kind, wd, n = group["kind"], group["weight_decay"], group["count"]
-        lr = float(self.schedule(n))
+        kind, wd, count = group["kind"], group["weight_decay"], group["count"]
+        lr = float(self.schedule(count))
         if group["max_gn"] is not None:
             g_norm = float(global_norm(grads))
             if g_norm >= group["max_gn"]:
                 torch._foreach_div_(grads, g_norm)
                 torch._foreach_mul_(grads, group["max_gn"])
         b1, b2 = group["betas"]
-        for run in self._runs:
-            ps, gs = [params[i] for i in run], [grads[i] for i in run]
+        n, rank = (zero.world_size, zero.world_rank) if D.world(zero) > 1 else (1, 0)
+        dims = [zero_dim(p.shape, n) if n > 1 else None for p in params]
+        views = [shard(p, d, rank, n) for p, d in zip(params, dims)]
+        grads = [shard(g, d, rank, n) for g, d in zip(grads, dims)]
+        runs = self._runs if n == 1 else _chunks(views)
+        for run in runs:
+            ps, gs = [views[i] for i in run], [grads[i] for i in run]
+
+            def moments(name):
+                return [self._moment(params[i], name, views[i]) for i in run]
+
             if kind != "adamw" and wd:
                 gs = torch._foreach_add(gs, ps, alpha=wd)
             if kind == "sgd":
-                trace = [self._moment(p, "trace") for p in ps]
+                trace = moments("trace")
                 torch._foreach_mul_(trace, group["momentum"])
                 torch._foreach_add_(trace, gs)
                 update = torch._foreach_mul(trace, -lr)
             else:
-                mu, nu = [self._moment(p, "mu") for p in ps], [self._moment(p, "nu") for p in ps]
+                mu, nu = moments("mu"), moments("nu")
                 torch._foreach_mul_(mu, b1)
                 torch._foreach_add_(mu, gs, alpha=1.0 - b1)
                 torch._foreach_mul_(nu, b2)
                 torch._foreach_addcmul_(nu, gs, gs, value=1.0 - b2)
-                denom = torch._foreach_div(nu, 1.0 - b2 ** (n + 1))
+                denom = torch._foreach_div(nu, 1.0 - b2 ** (count + 1))
                 torch._foreach_sqrt_(denom)
                 torch._foreach_add_(denom, ADAM_EPS)
-                update = torch._foreach_div(mu, 1.0 - b1 ** (n + 1))
+                update = torch._foreach_div(mu, 1.0 - b1 ** (count + 1))
                 torch._foreach_div_(update, denom)
                 del denom
                 if kind == "adamw" and wd:
                     torch._foreach_add_(update, ps, alpha=wd)
                 torch._foreach_mul_(update, -lr)
             torch._foreach_add_(ps, update)
-        group["count"] = n + 1
+            if n > 1:
+                _gather_slices([params[i] for i in run if dims[i] is not None],
+                               [dims[i] for i in run if dims[i] is not None], zero)
+        group["count"] = count + 1
+
+
+def _gather_slices(params: list, dims: list, env: D.DistEnv) -> None:
+    """Every rank's updated ZeRO-1 slice of each parameter written into
+    each rank's parameter: one all-gather of the run's slices, flat."""
+    if not params:
+        return
+    n, rank = env.world_size, env.world_rank
+    flat = torch.cat([shard(p, d, rank, n).reshape(-1) for p, d in zip(params, dims)])
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=env.group)
+    for r, part in enumerate(parts):
+        offset = 0
+        for p, d in zip(params, dims):
+            view = shard(p, d, r, n)
+            view.copy_(part[offset : offset + view.numel()].view(view.shape))
+            offset += view.numel()
+
+
+def moment_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """The bytes of every tensor in the optimizer's state on this rank."""
+    return sum(t.numel() * t.element_size() for st in optimizer.state.values() for t in st.values()
+               if isinstance(t, torch.Tensor))
 
 
 def create_optimizer(optim_config, schedule: Callable[[int], float], params: Iterable[torch.Tensor]) -> Optimizer:

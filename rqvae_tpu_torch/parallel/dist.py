@@ -15,7 +15,10 @@ average across ranks where one process on the whole batch would sum or
 average over it (gradients, metrics, the codebooks' EMA counts and sums,
 the discriminator's BatchNorm statistics). The helpers take a DistEnv,
 or None for no group, and reduce a list of tensors in a few flat buckets
-with one collective each, in place.
+with one collective each, in place. The tensor-parallel model's
+collectives (group_sum, group_gather_last, group_gather_first) take a
+process group instead, the model or the data group of a parallel/mesh.py
+Mesh, or None for the identity.
 """
 
 from __future__ import annotations
@@ -184,11 +187,7 @@ def broadcast(tensors: Sequence[torch.Tensor], env: Optional[DistEnv], src: int 
 def all_gather_cat(x: torch.Tensor, env: Optional[DistEnv]) -> torch.Tensor:
     """Every rank's x (one shape on every rank) concatenated along dim 0 in
     rank order (the reference's all_gather_cat, dist.py:94-103)."""
-    if not active(env):
-        return x
-    parts = [torch.empty_like(x) for _ in range(env.world_size)]
-    dist.all_gather(parts, x.contiguous(), group=env.group)
-    return torch.cat(parts)
+    return group_gather_first(x, env.group if active(env) else None)
 
 
 def barrier(env: Optional[DistEnv]) -> None:
@@ -233,6 +232,80 @@ def sum_over_ranks(x: torch.Tensor, env: Optional[DistEnv]) -> torch.Tensor:
     if not active(env):
         return x
     return _SumOverRanks.apply(x, env.group)
+
+
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for bf16 and fp16 (a sum of partial products in bf16 would
+    round once more than the unsharded product does), else x's dtype."""
+    return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+
+
+def _exchange(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's x (one shape on every rank) in the group's rank order,
+    as host tensors: each rank sends its x to every other rank of the group
+    and receives theirs, point to point, in x's dtype. Gloo's
+    point-to-point ops take host tensors only, so a CUDA x and the parts
+    received are staged through pinned host memory (their copies to the
+    card then run asynchronously). Between processes that share one card
+    one exchange costs less than gloo's all-reduce of the CUDA tensor, a
+    ring of two steps with the copies inside it."""
+    ranks = dist.get_process_group_ranks(group)
+    me = dist.get_rank(group)
+    parts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda) for _ in ranks]
+    parts[me].copy_(x)
+    reqs = [dist.isend(parts[me], ranks[i], group=group) for i in range(len(ranks)) if i != me]
+    reqs += [dist.irecv(parts[i], ranks[i], group=group) for i in range(len(ranks)) if i != me]
+    for req in reqs:
+        req.wait()
+    return parts
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the ranks of `group` (a process group, or None for the
+    identity), in x's dtype; bf16 and fp16 are summed in fp32. The
+    tensor-parallel model sums its row-parallel products with it. Every
+    rank adds the parts in the group's rank order, so all hold the same
+    bits. Under gloo (the CPU, or ranks that share one card: NCCL refuses
+    two ranks on one card) the parts travel by _exchange in x's dtype;
+    under NCCL by its all-reduce in the sum's dtype."""
+    if group is None:
+        return x
+    acc = _sum_dtype(x)
+    if dist.get_backend(group) != "gloo":
+        wide = x.to(acc, copy=True)
+        dist.all_reduce(wide, group=group)
+        return wide.to(x.dtype)
+    parts = [p.to(x.device, non_blocking=True) for p in _exchange(x, group)]
+    out = parts[0].to(acc)
+    for p in parts[1:]:
+        out = out + p.to(acc)
+    return out.to(x.dtype)
+
+
+def group_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x (one shape on every rank) concatenated along the last
+    dim in the group's rank order (the identity for group None): the
+    vocabulary slices of the tensor-parallel classifier."""
+    if group is None:
+        return x
+    return torch.cat(_gather(x.contiguous(), group), dim=-1)
+
+
+def group_gather_first(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x concatenated along dim 0 in the group's rank order
+    (the identity for group None): the batch shards of the data axis."""
+    if group is None:
+        return x
+    return torch.cat(_gather(x.contiguous(), group))
+
+
+def _gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's x on x's device, in the group's rank order."""
+    if dist.get_backend(group) != "gloo":
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return parts
+    return [p.to(x.device, non_blocking=True) for p in _exchange(x, group)]
 
 
 def shutdown(env: Optional[DistEnv]) -> None:

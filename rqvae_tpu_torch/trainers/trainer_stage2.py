@@ -193,6 +193,7 @@ def make_train_step(
     grad_accum_steps: int = 1,
     ema_mu: float = 0.9999,
     dist: Optional[D.DistEnv] = None,
+    zero: bool = False,
 ):
     """train_step(state, batch, generator) -> (state, metrics), updating
     `state` in place. batch: {"images": [B, 3, res, res]} (with encode_fn
@@ -201,7 +202,8 @@ def make_train_step(
     are the microbatches' means and grad_norm, the global norm of the
     averaged gradients before the clip. With `dist` each rank steps on its
     share of the global batch and takes the global step (module
-    docstring)."""
+    docstring); with `zero` too, the optimizer's ZeRO-1 step over it (each
+    rank keeps its slice of the moments: optim/optimizer.py)."""
     soft_fn = make_soft_code_fn(quantizer, loss_cfg) if quantizer is not None and loss_cfg.use_soft_target else None
 
     def train_step(state: Stage2State, batch: dict, generator: Optional[torch.Generator]):
@@ -231,7 +233,7 @@ def make_train_step(
         metrics = {k: torch.stack([mm[k] for mm in per_micro]).mean(dim=0) for k in per_micro[0]}
         metrics = D.mean_metrics(metrics, dist)
         metrics["grad_norm"] = global_norm(grads)
-        state.optimizer.step()
+        state.optimizer.step(zero=dist if zero else None)
         if state.ema is not None:
             ema_update(state.ema, model, state.step, ema_mu)
         state.step += 1

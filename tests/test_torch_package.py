@@ -28,7 +28,7 @@ def test_every_module_imports_with_jax_blocked():
                  "data.image_io", "data.transforms", "data.datasets", "data.tokenizers", "data.textimg",
                  "data.loader", "utils.setup", "trainers.loops", "cli.main_stage1", "cli.main_stage2",
                  "cli.compute_rfid", "cli.main_sampling_txt2img", "parallel", "parallel.dist",
-                 "tools.train_convergence"):
+                 "tools.train_convergence", "parallel.mesh", "tools.dryrun_3p8b"):
         assert f"rqvae_tpu_torch.{name}" in names
     code = (
         "import sys\n"
